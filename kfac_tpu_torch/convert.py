@@ -1,0 +1,66 @@
+"""Carry weights and K-FAC state over from the JAX package.
+
+Takes numpy arrays (``numpy.asarray`` of JAX arrays), so this module
+needs neither JAX nor the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from kfac_tpu_torch.preconditioner import KFACPreconditioner, KFACState
+
+
+def _flatten(tree: Mapping[str, Any], prefix: tuple[str, ...] = ()):
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _flatten(value, prefix + (key,))
+        else:
+            yield prefix + (key,), value
+
+
+def from_flax_params(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """A ``state_dict`` for the port's module of the same structure.
+
+    Dense ``kernel`` (d_in, d_out) becomes ``weight`` (d_out, d_in);
+    ``Embed.embedding`` and LayerNorm ``scale`` become ``weight``; ``bias``
+    and raw params (``pos_embed``) keep their names. Paths join with '.'.
+    """
+    out: dict[str, torch.Tensor] = {}
+    for path, value in _flatten(params):
+        *mod, leaf = path
+        arr = np.asarray(value)
+        if leaf == 'kernel':
+            if arr.ndim != 2:
+                raise ValueError(f'only dense kernels convert, got {path} {arr.shape}')
+            leaf, arr = 'weight', arr.T
+        elif leaf in ('embedding', 'scale'):
+            leaf = 'weight'
+        out['.'.join((*mod, leaf))] = torch.from_numpy(np.array(arr, copy=True))
+    return out
+
+
+_STATE_FIELDS = ('a', 'g', 'qa', 'qg', 'da', 'dg', 'dgda', 'a_inv', 'g_inv')
+
+
+def from_jax_kfac_state(jax_state: Any, kfac: KFACPreconditioner) -> KFACState:
+    """The port's :class:`KFACState` holding the JAX state's step, factors
+    and decompositions, on ``kfac.device``.
+
+    ``jax_state`` is a ``kfac_tpu.KFACState`` (or anything with its fields);
+    slots the port's configuration does not use are dropped.
+    """
+    state = kfac.init()
+    updates: dict[str, Any] = {'step': int(np.asarray(jax_state.step))}
+    for field in _STATE_FIELDS:
+        ours = getattr(state, field)
+        theirs = getattr(jax_state, field)
+        updates[field] = {
+            n: torch.from_numpy(np.array(theirs[n], np.float32)).to(kfac.device)
+            for n in ours
+        }
+    return dataclasses.replace(state, **updates)

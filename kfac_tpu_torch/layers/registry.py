@@ -1,0 +1,132 @@
+"""Model analysis: discover the supported layers of a module tree
+(counterpart of ``kfac_tpu/layers/registry.py``; ``nn.Linear`` only in
+this slice).
+
+Layers are named by their module path joined with '/', which for the
+port's models equals the flax module path of the JAX package's
+(``block0/attn/q_proj``), so the two registries pair one to one.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import Iterable
+
+import torch
+import torch.nn as nn
+
+from kfac_tpu_torch.device import resolve_device
+from kfac_tpu_torch.layers import helpers
+
+
+def path_name(path: Iterable[str]) -> str:
+    return '/'.join(path)
+
+
+def any_match(query: str, patterns: list[re.Pattern[str]]) -> bool:
+    """True if any pattern fully matches the query."""
+    return any(p.fullmatch(query) is not None for p in patterns)
+
+
+@dataclasses.dataclass(frozen=True)
+class Registry:
+    """Result of model analysis.
+
+    ``layers`` maps registry name -> DenseHelper; ``modules`` maps it to the
+    registered ``nn.Module``; ``param_paths`` maps it to the module's
+    parameter-name prefix in ``model.named_parameters()`` (``block0.attn.
+    q_proj``). ``model`` is the analysed module tree.
+    """
+
+    model: nn.Module
+    layers: dict[str, helpers.DenseHelper]
+    modules: dict[str, nn.Module]
+    param_paths: dict[str, str]
+
+    def __len__(self) -> int:
+        return len(self.layers)
+
+    def names(self) -> list[str]:
+        return list(self.layers)
+
+
+def make_helper(module: nn.Module, name: str) -> helpers.DenseHelper | None:
+    """A helper for a supported module, else None."""
+    if isinstance(module, nn.Linear):
+        return helpers.DenseHelper(
+            name=name,
+            has_bias=module.bias is not None,
+            in_features=module.in_features,
+            out_features=module.out_features,
+        )
+    return None
+
+
+def register_model(
+    model: nn.Module,
+    skip_layers: list[str] | None = None,
+    device: str | torch.device = 'cuda',
+) -> Registry:
+    """Walk ``model`` and return its K-FAC registry.
+
+    ``skip_layers`` are regexes matched against both the layer's path name
+    and its lower-cased class name. Layers come in module-definition order,
+    which for the port's models is their call order. ``device`` is where
+    the model must lie (``'cuda'`` unless the caller passes another).
+    """
+    device = resolve_device(device)
+    for p in model.parameters():
+        if p.device.type != device.type:
+            raise ValueError(
+                f'model parameters are on {p.device}, not on {device}'
+            )
+    skip_patterns = [re.compile(p) for p in (skip_layers or [])]
+    layers: dict[str, helpers.DenseHelper] = {}
+    modules: dict[str, nn.Module] = {}
+    param_paths: dict[str, str] = {}
+    for prefix, mod in model.named_modules():
+        if not prefix:
+            continue
+        name = path_name(prefix.split('.'))
+        cls_name = type(mod).__name__.lower()
+        if any_match(name, skip_patterns) or any_match(cls_name, skip_patterns):
+            continue
+        helper = make_helper(mod, name)
+        if helper is not None:
+            layers[name] = helper
+            modules[name] = mod
+            param_paths[name] = prefix
+    return Registry(
+        model=model, layers=layers, modules=modules, param_paths=param_paths
+    )
+
+
+def slice_layer_grads(
+    grads: dict[str, torch.Tensor],
+    registry: Registry,
+) -> dict[str, dict[str, torch.Tensor]]:
+    """Each registered layer's grads, keyed by local parameter name, from a
+    ``named_parameters``-keyed dict."""
+    out: dict[str, dict[str, torch.Tensor]] = {}
+    for name, prefix in registry.param_paths.items():
+        out[name] = {
+            local: grads[f'{prefix}.{local}']
+            for local, _ in registry.modules[name].named_parameters()
+        }
+    return out
+
+
+def merge_layer_grads(
+    grads: dict[str, torch.Tensor],
+    layer_grads: dict[str, dict[str, torch.Tensor]],
+    registry: Registry,
+) -> dict[str, torch.Tensor]:
+    """A new grads dict with the layers' grads replaced (``grads`` is left
+    as it was)."""
+    out = dict(grads)
+    for name, value in layer_grads.items():
+        prefix = registry.param_paths[name]
+        for local, g in value.items():
+            out[f'{prefix}.{local}'] = g
+    return out

@@ -1,0 +1,93 @@
+"""Package rules of the PyTorch port.
+
+- ``kfac_tpu_torch`` and ``chip_smoke.py`` import neither JAX (``jax``,
+  ``flax``, ``optax``) nor anything of ``kfac_tpu``, checked on the ASTs.
+- Entry points default to CUDA: without a GPU they raise unless the caller
+  passes ``device='cpu'``.
+- Nothing imports ``triton`` when a module is imported.
+"""
+
+import ast
+import importlib
+import pathlib
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = {'jax', 'jaxlib', 'flax', 'optax', 'kfac_tpu'}
+PORT_FILES = sorted((ROOT / 'kfac_tpu_torch').rglob('*.py')) + [ROOT / 'chip_smoke.py']
+
+
+def imported_roots(path):
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(alias.name.split('.')[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split('.')[0])
+        elif (
+            isinstance(node, ast.Call)
+            and getattr(node.func, 'attr', getattr(node.func, 'id', None))
+            in ('import_module', '__import__')
+            and node.args
+            and isinstance(node.args[0], ast.Constant)
+        ):
+            roots.add(str(node.args[0].value).split('.')[0])
+    return roots
+
+
+@pytest.mark.parametrize('path', PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_file_imports_no_jax_and_no_kfac_tpu(path):
+    assert path.exists()
+    assert not imported_roots(path) & FORBIDDEN
+
+
+def test_ast_check_catches_a_forbidden_import(tmp_path):
+    bad = tmp_path / 'bad.py'
+    bad.write_text('import torch\nfrom kfac_tpu.ops import cov\nimport jax.numpy as jnp\n')
+    assert imported_roots(bad) & FORBIDDEN == {'kfac_tpu', 'jax'}
+
+
+def test_port_modules_import_without_triton():
+    names = [
+        'kfac_tpu_torch.' + '.'.join(p.relative_to(ROOT / 'kfac_tpu_torch').with_suffix('').parts)
+        for p in sorted((ROOT / 'kfac_tpu_torch').rglob('*.py'))
+        if p.name not in ('__init__.py', 'klclip_triton.py')
+    ]
+    had_triton = 'triton' in sys.modules
+    for name in names:
+        importlib.import_module(name)
+    assert ('triton' in sys.modules) == had_triton
+
+
+@pytest.fixture
+def no_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+
+
+def test_entry_points_default_to_cuda_and_raise_without_gpu(no_gpu):
+    from kfac_tpu_torch import KFACPreconditioner, register_model
+    from kfac_tpu_torch.models import TransformerLM
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TransformerLM(vocab_size=16, d_model=8, num_heads=2, num_layers=1, max_len=4)
+    model = TransformerLM(
+        vocab_size=16, d_model=8, num_heads=2, num_layers=1, max_len=4, device='cpu'
+    )
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        register_model(model)
+    reg = register_model(model, device='cpu')
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        KFACPreconditioner(reg)
+    kfac = KFACPreconditioner(reg, device='cpu')
+    assert all(t.device.type == 'cpu' for t in kfac.init().a.values())
+
+
+def test_register_model_rejects_a_model_on_another_device():
+    from kfac_tpu_torch import register_model
+
+    model = torch.nn.Linear(3, 2)
+    with pytest.raises(ValueError, match='cpu'):
+        register_model(model, device='meta')

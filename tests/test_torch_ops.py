@@ -1,0 +1,264 @@
+"""The port's kernel modules and numerics against the JAX package.
+
+Inputs come from numpy with a fixed seed and go through both packages. The
+JAX side runs its Pallas kernels in interpret mode, as its own tests do;
+the port's side runs its wrappers on CPU tensors, which take the plain
+versions. f32 tolerance: rtol 1e-5, atol 1e-6 x max|reference| (the two
+frameworks sum in different orders). The kernels themselves are held
+against their plain versions on the card in ``test_torch_kernels.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kfac_tpu.ops import cov as jcov
+from kfac_tpu.ops import factors as jfactors
+from kfac_tpu.ops import losses as jlosses
+from kfac_tpu.ops import pallas_attention as jpa
+from kfac_tpu.ops import pallas_cov as jpallas_cov
+from kfac_tpu.ops import pallas_ns as jpallas_ns
+from kfac_tpu_torch.ops import cov, factors, flash_attention, klclip, losses
+from kfac_tpu_torch.ops import sym_cov as sym_cov_lib
+
+NEG_INF = -1e30
+
+
+def close(got, want, rtol=1e-5, atol_rel=1e-6):
+    got = np.asarray(got.detach() if isinstance(got, torch.Tensor) else got)
+    want = np.asarray(want)
+    scale = float(np.max(np.abs(want))) if want.size else 0.0
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol_rel * scale)
+
+
+def rand(seed, *shape):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+def t(x):
+    return torch.from_numpy(np.array(x, copy=True))
+
+
+# ------------------------------------------------------------------ sym_cov
+
+
+@pytest.mark.parametrize('shape,scale', [((64, 40), None), ((300, 130), 7.0)])
+def test_sym_cov_plain_matches_pallas_interpret(shape, scale):
+    a = rand(0, *shape)
+    want = jpallas_cov.sym_cov(jnp.asarray(a), scale=scale, interpret=True)
+    got = sym_cov_lib.sym_cov(t(a), scale)
+    close(got, want)
+    # exactly symmetric, as the TPU kernel is
+    assert torch.equal(got, got.T)
+
+
+def test_sym_cov_wrapper_takes_plain_on_cpu_without_launching():
+    a = t(rand(1, 50, 33))
+    before = sym_cov_lib.sym_cov.launches
+    assert torch.equal(sym_cov_lib.sym_cov(a), sym_cov_lib.sym_cov_plain(a))
+    assert sym_cov_lib.sym_cov.launches == before
+
+
+def test_get_cov_matches_jax():
+    a, b = rand(2, 48, 20), rand(3, 48, 20)
+    close(cov.get_cov(t(a)), jcov.get_cov(jnp.asarray(a)))
+    close(cov.get_cov(t(a), t(b), scale=5.0),
+          jcov.get_cov(jnp.asarray(a), jnp.asarray(b), scale=5.0))
+    got = cov.get_cov(t(a))
+    assert torch.equal(got, got.T)
+
+
+@pytest.mark.parametrize('has_bias', [True, False])
+def test_linear_factors_match_jax(has_bias):
+    a, g = rand(4, 2, 16, 24), rand(5, 2, 16, 12) * 1e-4
+    close(cov.linear_a_factor(t(a), has_bias),
+          jcov.linear_a_factor(jnp.asarray(a), has_bias))
+    close(cov.linear_g_factor(t(g)), jcov.linear_g_factor(jnp.asarray(g)))
+    close(cov.append_bias_ones(t(a)), jcov.append_bias_ones(jnp.asarray(a)))
+
+
+# ------------------------------------------------------------------- kl-clip
+
+
+@pytest.mark.parametrize('shape', [(40, 70), (130, 65)])
+def test_klclip_dot_plain_matches_pallas_interpret(shape):
+    p, g = rand(6, *shape), rand(7, *shape)
+    want = jpallas_ns.fused_klclip_dot(jnp.asarray(p), jnp.asarray(g), interpret=True)
+    got = klclip.klclip_dot(t(p), t(g))
+    assert got.shape == () and got.dtype == torch.float32
+    np.testing.assert_allclose(
+        float(got), float(want), rtol=1e-5, atol=1e-6 * float(np.sum(np.abs(p * g)))
+    )
+
+
+@pytest.mark.parametrize('shape', [(40, 70), (130, 65)])
+def test_klclip_scale_plain_matches_pallas_interpret(shape):
+    p = rand(8, *shape)
+    s = np.float32(0.37)
+    want = jpallas_ns.fused_klclip_scale(jnp.asarray(p), jnp.asarray(s), interpret=True)
+    got = klclip.klclip_scale(t(p), torch.tensor(s))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_klclip_wrappers_do_not_launch_on_cpu():
+    p = t(rand(9, 8, 8))
+    before = (klclip.klclip_dot.launches, klclip.klclip_scale.launches)
+    klclip.klclip_dot(p, p)
+    klclip.klclip_scale(p, torch.tensor(2.0))
+    assert (klclip.klclip_dot.launches, klclip.klclip_scale.launches) == before
+
+
+# ----------------------------------------------------------------- attention
+
+
+def close_partials(got, want):
+    acc, m, l = (x.detach().numpy() for x in got)
+    wacc, wm, wl = (np.asarray(x) for x in want)
+    close(acc, wacc)
+    close(l, wl)
+    masked = wm <= NEG_INF / 2
+    np.testing.assert_array_equal(m[masked], wm[masked])
+    close(m[~masked], wm[~masked])
+
+
+@pytest.mark.parametrize(
+    'q_off,k_off,causal',
+    [(0, 0, True), (32, 0, True), (16, 8, True), (0, 32, True), (0, 0, False)],
+    ids=['dense', 'past-chunk', 'offsets', 'fully-masked', 'noncausal'],
+)
+def test_flash_partials_match_pallas_interpret(q_off, k_off, causal):
+    q, k, v = (rand(10 + i, 2, 32, 4, 16) for i in range(3))
+    want = jpa.flash_attention_partials(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), q_offset=q_off,
+        k_offset=k_off, causal=causal, block_q=16, block_k=16, interpret=True,
+    )
+    got = flash_attention.flash_attention_partials(t(q), t(k), t(v), q_off, k_off, causal)
+    close_partials(got, want)
+    close_partials(
+        flash_attention.attend_partials_einsum(t(q), t(k), t(v), q_off, k_off, causal),
+        jpa.attend_partials_einsum(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), q_off, k_off, causal
+        ),
+    )
+
+
+def test_flash_partials_backward_matches_jax_vjp():
+    import jax
+
+    q, k, v = (rand(20 + i, 2, 32, 4, 16) for i in range(3))
+    cts = (rand(23, 2, 32, 4, 16), rand(24, 2, 4, 32), rand(25, 2, 4, 32))
+    _, pull = jax.vjp(
+        lambda a, b, c: jpa.flash_attention_partials(
+            a, b, c, 8, 0, True, block_q=16, block_k=16, interpret=True
+        ),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+    )
+    want = pull(tuple(jnp.asarray(c) for c in cts))
+    tq, tk, tv = (t(x).requires_grad_() for x in (q, k, v))
+    out = flash_attention.flash_attention_partials(tq, tk, tv, 8, 0, True)
+    got = torch.autograd.grad(out, (tq, tk, tv), tuple(t(c) for c in cts))
+    for g, w in zip(got, want):
+        close(g, w)
+
+
+# ------------------------------------------------------------------- factors
+
+
+def spd(seed, n):
+    x = rand(seed, 4 * n, n)
+    return (x.T @ x / (4 * n)).astype(np.float32)
+
+
+def test_ema_update_matches_jax():
+    f, new = spd(30, 12), spd(31, 12)
+    close(factors.ema_update(t(f), t(new), 0.95),
+          jfactors.ema_update(jnp.asarray(f), jnp.asarray(new), 0.95))
+    close(factors.ema_update(None, t(new), 0.9),
+          jfactors.ema_update(None, jnp.asarray(new), 0.9))
+
+
+def test_compute_eigh_matches_jax_through_reconstruction():
+    # eigenvectors are defined only up to sign and rotation: compare
+    # eigenvalues and Q diag(d) Q^T
+    f = spd(32, 20)
+    got = factors.compute_eigh(t(f))
+    want = jfactors.compute_eigh(jnp.asarray(f))
+    close(got.d, want.d, rtol=1e-4, atol_rel=1e-5)
+    rec = got.q @ torch.diag(got.d) @ got.q.T
+    wrec = np.asarray(want.q) @ np.diag(np.asarray(want.d)) @ np.asarray(want.q).T
+    close(rec, wrec, rtol=1e-4, atol_rel=1e-5)
+
+
+def test_compute_inverse_matches_jax():
+    f = spd(33, 16)
+    close(factors.compute_inverse(t(f), 0.003),
+          jfactors.compute_inverse(jnp.asarray(f), 0.003), rtol=1e-4)
+    close(factors.damped_inverse(t(f), 0.01, solver='cholesky'),
+          jfactors.damped_inverse(jnp.asarray(f), 0.01, solver='cholesky'), rtol=1e-4)
+
+
+@pytest.mark.parametrize('solver', ['newton_schulz', 'auto'])
+def test_newton_schulz_solvers_raise_until_ported(solver):
+    with pytest.raises(NotImplementedError):
+        factors.damped_inverse(t(spd(34, 4)), 0.01, solver=solver)
+
+
+def test_preconditioned_grads_match_jax():
+    fa, fg = spd(35, 9), spd(36, 6)
+    grad = rand(37, 6, 9)
+    # one decomposition fed to both, so eigenvector freedom cannot differ
+    ja = jfactors.compute_eigh(jnp.asarray(fa))
+    jg = jfactors.compute_eigh(jnp.asarray(fg))
+    ta = factors.EigenDecomp(t(np.asarray(ja.q)), t(np.asarray(ja.d)))
+    tg = factors.EigenDecomp(t(np.asarray(jg.q)), t(np.asarray(jg.d)))
+    close(factors.eigen_preconditioned_grad(t(grad), ta, tg, 0.003),
+          jfactors.eigen_preconditioned_grad(jnp.asarray(grad), ja, jg, 0.003))
+    close(factors.prediv_eigenvalues(ta, tg, 0.003),
+          jfactors.prediv_eigenvalues(ja, jg, 0.003))
+    ainv, ginv = np.linalg.inv(fa + np.eye(9)), np.linalg.inv(fg + np.eye(6))
+    close(factors.inverse_preconditioned_grad(t(grad), t(ainv.astype(np.float32)),
+                                              t(ginv.astype(np.float32))),
+          jfactors.inverse_preconditioned_grad(jnp.asarray(grad),
+                                               jnp.asarray(ainv, jnp.float32),
+                                               jnp.asarray(ginv, jnp.float32)))
+
+
+@pytest.mark.parametrize('vg', [0.0, 1e-6, 0.5, -3.0])
+def test_kl_clip_scale_matches_jax_including_zero_guard(vg):
+    got = factors.kl_clip_scale(torch.tensor(vg, dtype=torch.float32), 0.001)
+    want = jfactors.kl_clip_scale(jnp.asarray(vg, jnp.float32), 0.001)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+
+
+def test_kl_clip_terms_and_apply_match_jax():
+    p, g = rand(38, 12, 7), rand(39, 12, 7)
+    # a signed sum: its error scales with sum|p*g|, not with the result
+    np.testing.assert_allclose(
+        float(factors.kl_clip_terms(t(p), t(g), 0.1)),
+        float(jfactors.kl_clip_terms(jnp.asarray(p), jnp.asarray(g), 0.1)),
+        rtol=1e-5, atol=1e-6 * 0.01 * float(np.sum(np.abs(p * g))),
+    )
+    s = np.float32(0.25)
+    close(factors.kl_clip_apply(t(p), torch.tensor(s)),
+          jfactors.kl_clip_apply(jnp.asarray(p), jnp.asarray(s)))
+
+
+# -------------------------------------------------------------------- losses
+
+
+def test_vocab_parallel_nll_matches_jax_with_grads():
+    import jax
+
+    logits = rand(40, 2, 8, 32) * 3
+    targets = np.random.default_rng(41).integers(0, 32, (2, 8))
+    want, pull = jax.vjp(
+        lambda x: jlosses.vocab_parallel_nll(x, jnp.asarray(targets)),
+        jnp.asarray(logits),
+    )
+    tl = t(logits).requires_grad_()
+    got = losses.vocab_parallel_nll(tl, torch.from_numpy(targets))
+    close(got, want)
+    ct = rand(42, 2, 8)
+    (gx,) = torch.autograd.grad(got, tl, t(ct))
+    close(gx, pull(jnp.asarray(ct))[0])
