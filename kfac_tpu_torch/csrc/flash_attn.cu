@@ -197,22 +197,15 @@ int launch(const float* q, const float* k, const float* v, float* acc,
 
 extern "C" {
 
-// Head dims 64 and 128 are instantiated. Returns cudaGetLastError()
-// after the launch.
+// Head dim 128 (the flagship's) is instantiated. Returns
+// cudaGetLastError() after the launch.
 int flash_attn_partials_f32(const float* q, const float* k, const float* v,
                             float* acc, float* m, float* l, int b, int h,
                             int s_q, int s_k, int d, int q_off, int k_off,
                             int causal, float scale, cudaStream_t stream) {
-  switch (d) {
-    case 64:
-      return launch<64>(q, k, v, acc, m, l, b, h, s_q, s_k, q_off, k_off,
-                        causal, scale, stream);
-    case 128:
-      return launch<128>(q, k, v, acc, m, l, b, h, s_q, s_k, q_off, k_off,
-                         causal, scale, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (d != 128) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<128>(q, k, v, acc, m, l, b, h, s_q, s_k, q_off, k_off, causal,
+                     scale, stream);
 }
 
 const char* kfac_error_string(int code) {

@@ -20,7 +20,7 @@ import torch
 from kfac_tpu_torch.ops import build
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)
+HEAD_DIM = 128  # the flagship's; the only head dim the kernel is built for
 
 
 def attend_partials_einsum(q, k, v, q_offset, k_offset, causal):
@@ -55,9 +55,9 @@ def _launcher():
     return fn
 
 
-def flash_partials_kernel(q, k, v, q_offset: int, k_offset: int, causal: bool):
+def _flash_partials_kernel(q, k, v, q_offset: int, k_offset: int, causal: bool):
     """Launch the CUDA kernel: the forward of :func:`flash_attention_partials`
-    on the card. Contiguous f32 (B, S, H, D) inputs, D in ``HEAD_DIMS``."""
+    on the card. Contiguous f32 (B, S, H, D) inputs, D == ``HEAD_DIM``."""
     for t in (q, k, v):
         if t.device.type != 'cuda':
             raise ValueError(f'flash attention runs on cuda or cpu, not {t.device}')
@@ -71,8 +71,8 @@ def flash_partials_kernel(q, k, v, q_offset: int, k_offset: int, causal: bool):
     s_k = k.shape[1]
     if k.shape != (b, s_k, h, d) or v.shape != k.shape:
         raise ValueError(f'q, k, v shapes disagree: {q.shape}, {k.shape}, {v.shape}')
-    if d not in HEAD_DIMS:
-        raise ValueError(f'head dim {d} not in the kernel\'s {HEAD_DIMS}')
+    if d != HEAD_DIM:
+        raise ValueError(f'the flash attention kernel takes head dim {HEAD_DIM}, not {d}')
     acc = torch.empty_like(q)
     m = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
@@ -97,7 +97,7 @@ class _FlashPartials(torch.autograd.Function):
         ctx.args = (q_offset, k_offset, causal)
         if q.device.type == 'cpu':
             return attend_partials_einsum(q, k, v, q_offset, k_offset, causal)
-        return flash_partials_kernel(q, k, v, q_offset, k_offset, causal)
+        return _flash_partials_kernel(q, k, v, q_offset, k_offset, causal)
 
     @staticmethod
     def backward(ctx, d_acc, d_m, d_l):
