@@ -9,8 +9,7 @@ names; unregistered parameters pass through unchanged.
 
 Knobs of the JAX engine whose slice comes later (health, metrics, the
 flight recorder, async inverse refresh, offload, stat compression, compile
-watch, the Newton-Schulz solvers and host eigendecompositions) raise
-``NotImplementedError`` when set.
+watch and host eigendecompositions) raise ``NotImplementedError`` when set.
 """
 
 from __future__ import annotations
@@ -77,8 +76,10 @@ class KFACPreconditioner:
     ``factor_decay`` (EMA alpha), ``kl_clip`` (None disables), ``lr`` (for
     the kl-clip scale), ``compute_method`` (None picks
     :func:`default_compute_method` for ``device``), ``inverse_solver``
-    (``'cholesky'``), ``prediv_eigenvalues``. ``device`` is where the state
-    lives, ``'cuda'`` unless the caller passes another.
+    (``'cholesky'``, ``'newton_schulz'`` or ``'auto'``, for INVERSE),
+    ``newton_schulz_iters`` (the iteration cap), ``prediv_eigenvalues``.
+    ``device`` is where the state lives, ``'cuda'`` unless the caller
+    passes another.
     """
 
     registry: registry_lib.Registry
@@ -90,6 +91,7 @@ class KFACPreconditioner:
     lr: ScalarOrSchedule = 0.1
     compute_method: enums.ComputeMethod | str | None = None
     inverse_solver: str | None = None
+    newton_schulz_iters: int = 40
     eigh_impl: str = 'device'
     prediv_eigenvalues: bool = False
     device: str | torch.device = 'cuda'
@@ -128,15 +130,17 @@ class KFACPreconditioner:
             self.compute_method = method
         if self.inverse_solver is None:
             self.inverse_solver = solver
-        if self.inverse_solver in ('newton_schulz', 'auto'):
-            raise NotImplementedError(
-                f'inverse_solver={self.inverse_solver!r} needs the '
-                'Newton-Schulz kernels, which are not ported yet'
-            )
-        if self.inverse_solver != 'cholesky':
+        if self.inverse_solver not in ('cholesky', 'newton_schulz', 'auto'):
             raise ValueError(
                 f'unknown inverse_solver {self.inverse_solver!r}; expected '
                 "'cholesky', 'newton_schulz', or 'auto'"
+            )
+        if self.inverse_solver in ('newton_schulz', 'auto') and self.eigen:
+            warnings.warn(
+                f'inverse_solver={self.inverse_solver!r} has no effect with '
+                'the EIGEN compute method (it replaces the INVERSE-method '
+                "solve); pass compute_method='inverse' to use it",
+                stacklevel=2,
             )
         for name in ('factor_update_steps', 'inv_update_steps'):
             value = getattr(self, name)
@@ -203,18 +207,23 @@ class KFACPreconditioner:
     # -------------------------------------------------------------- inverses
 
     def update_inverses(self, state: KFACState) -> KFACState:
-        """Recompute eigendecompositions (or Cholesky inverses) from the
-        current factors."""
+        """Recompute eigendecompositions (or damped inverses) from the
+        current factors. Newton-Schulz warm-starts each factor from its
+        previous inverse, A then G in registry order, as the JAX engine
+        does; the all-zeros inverses of a fresh state take the cold start."""
         damping = resolve(self.damping, state.step)
         if not self.eigen:
-            def inv(f):
-                return factors_lib.damped_inverse(f, damping, self.inverse_solver)
-
-            return dataclasses.replace(
-                state,
-                a_inv={n: inv(state.a[n]) for n in self.registry.layers},
-                g_inv={n: inv(state.g[n]) for n in self.registry.layers},
-            )
+            a_inv, g_inv = {}, {}
+            for n in self.registry.layers:
+                for new, factor, prev in (
+                    (a_inv, state.a[n], state.a_inv[n]),
+                    (g_inv, state.g[n], state.g_inv[n]),
+                ):
+                    new[n] = factors_lib.damped_inverse(
+                        factor, damping, self.inverse_solver,
+                        self.newton_schulz_iters, x0=prev,
+                    )
+            return dataclasses.replace(state, a_inv=a_inv, g_inv=g_inv)
         qa, qg, da, dg, dgda = {}, {}, {}, {}, {}
         for name in self.registry.layers:
             adec = factors_lib.compute_eigh(state.a[name])

@@ -12,13 +12,16 @@ one rejects the plain version at reduced precision (TF32 or bf16): the
 covariance within 1e-5 x max|C| (8192-row f32 sums in another order) and
 exactly symmetric; the kl-clip dot within 1e-7 x sum|p*g| and identical
 from run to run; the kl-clip scale exact; the attention partials within
-1e-5 x max|x| of each output.
+1e-5 x max|x| of each output; the Newton-Schulz step within 3e-5 x max of
+x_new and of mx_new and 3e-5 of the residual, every output identical from
+run to run.
 """
 
 import pytest
 import torch
 
 from kfac_tpu_torch.ops import flash_attention, klclip
+from kfac_tpu_torch.ops import newton_schulz as ns_lib
 from kfac_tpu_torch.ops import sym_cov as sym_cov_lib
 
 
@@ -66,3 +69,28 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, q_off, k_off, s, d):
     want = flash_attention.attend_partials_einsum(q, k, v, q_off, k_off, True)
     for x, w in zip(got, want):
         assert (x - w).abs().max() <= 1e-5 * w.abs().max().clamp(max=1e6) + 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('d', [513, 512, 130, 2049, 7])
+def test_ns_kernel_matches_plain_on_card(cuda_device, d):
+    # as the solver meets it: a damped factor, the Gershgorin start and two
+    # plain iterations. A square `a` keeps the residual far from the f32
+    # floor, where a relative tolerance on it would compare rounding noise.
+    g = torch.Generator(cuda_device).manual_seed(3)
+    a = torch.randn(d, d, generator=g, device=cuda_device)
+    eye = torch.eye(d, device=cuda_device)
+    m = a.T @ a / d + 0.003 * eye
+    lam_max = m.abs().sum(-1).max()
+    x, mx = eye / lam_max, m / lam_max
+    for _ in range(2):
+        x, mx, _ = ns_lib.fused_ns_step_plain(m, x, mx)
+    before = ns_lib.fused_ns_step.launches
+    got = ns_lib.fused_ns_step(m, x, mx)
+    assert ns_lib.fused_ns_step.launches == before + 1
+    want = ns_lib.fused_ns_step_plain(m, x, mx)
+    for o, w in zip(got[:2], want[:2]):
+        assert (o - w).abs().max() <= 3e-5 * w.abs().max()
+    assert abs(float(got[2]) - float(want[2])) <= 3e-5 * float(want[2])
+    again = ns_lib.fused_ns_step(m, x, mx)  # no atomics: repeatable
+    assert all(torch.equal(o, p) for o, p in zip(got, again))

@@ -20,6 +20,7 @@ from kfac_tpu.ops import pallas_attention as jpa
 from kfac_tpu.ops import pallas_cov as jpallas_cov
 from kfac_tpu.ops import pallas_ns as jpallas_ns
 from kfac_tpu_torch.ops import cov, factors, flash_attention, klclip, losses
+from kfac_tpu_torch.ops import newton_schulz as ns_lib
 from kfac_tpu_torch.ops import sym_cov as sym_cov_lib
 
 NEG_INF = -1e30
@@ -198,10 +199,161 @@ def test_compute_inverse_matches_jax():
           jfactors.damped_inverse(jnp.asarray(f), 0.01, solver='cholesky'), rtol=1e-4)
 
 
-@pytest.mark.parametrize('solver', ['newton_schulz', 'auto'])
-def test_newton_schulz_solvers_raise_until_ported(solver):
+# ------------------------------------------------------------ Newton-Schulz
+
+
+def ns_start(seed, d):
+    """A damped SPD ``m`` and its Gershgorin cold start ``x0``, as
+    ``newton_schulz_inverse_info`` sets them up."""
+    g = rand(seed, d, d)
+    m = (g @ g.T / d + 0.1 * np.eye(d)).astype(np.float32)
+    return m, (np.eye(d) / np.max(np.sum(np.abs(m), axis=1))).astype(np.float32)
+
+
+def close_ns_step(got, want):
+    # x and mx: rtol 1e-5, atol 1e-6 x max (d-long f32 sums in another
+    # order); the residual: rtol 1e-5 (measured at <= 1.1e-6)
+    for g, w in zip(got[:2], want[:2]):
+        close(g, w)
+    assert got[2].shape == () and got[2].dtype == torch.float32
+    np.testing.assert_allclose(float(got[2]), float(want[2]), rtol=1e-5)
+
+
+def test_fused_ns_step_plain_matches_pallas_interpret_over_three_iterations():
+    m, x0 = ns_start(50, 256)
+    jm, jx, tm, tx = jnp.asarray(m), jnp.asarray(x0), t(m), t(x0)
+    jmx, tmx = jm @ jx, tm @ tx
+    for _ in range(3):
+        jx, jmx, jr = jpallas_ns.fused_ns_step(jm, jx, jmx, interpret=True)
+        tx, tmx, tr = ns_lib.fused_ns_step(tm, tx, tmx)
+        close_ns_step((tx, tmx, tr), (jx, jmx, jr))
+
+
+@pytest.mark.parametrize('d', [130, 257])
+def test_fused_ns_step_plain_matches_jax_unfused_body_at_ragged_d(d):
+    # the TPU kernel takes only d % 128 == 0; ragged d ran the unfused body
+    m, x = ns_start(51, d)
+    mx = m @ x
+    eye = jnp.eye(d, dtype=jnp.float32)
+    jx_new = jnp.asarray(x) @ (2.0 * eye - jnp.asarray(mx))
+    jmx_new = jnp.asarray(m) @ jx_new
+    jr = jnp.linalg.norm(eye - jmx_new) / jnp.sqrt(jnp.asarray(d, jnp.float32))
+    close_ns_step(ns_lib.fused_ns_step(t(m), t(x), t(mx)), (jx_new, jmx_new, jr))
+
+
+def test_fused_ns_step_checks_shapes_and_does_not_launch_on_cpu():
+    m, x = ns_start(52, 8)
+    before = ns_lib.fused_ns_step.launches
+    got = ns_lib.fused_ns_step(t(m), t(x), t(m @ x))
+    want = ns_lib.fused_ns_step_plain(t(m), t(x), t(m @ x))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert ns_lib.fused_ns_step.launches == before
+    with pytest.raises(ValueError):
+        ns_lib.fused_ns_step(t(m), t(x)[:4], t(m @ x))
+    with pytest.raises(ValueError):
+        ns_lib.fused_ns_step(t(m)[:4], t(x)[:4], t(m @ x)[:4])
+
+
+def ns_case(case):
+    """(factor, x0) of each solver case."""
+    if case == 'cold':
+        return spd(53, 48), None
+    if case == 'cold-ragged':
+        return spd(54, 130), None
+    if case == 'warm-accepted':
+        # the inverse of a nearby factor: residual well below 0.5
+        f = spd(55, 64)
+        return f, np.asarray(jfactors.compute_inverse(jnp.asarray(1.05 * f), 0.003))
+    if case == 'warm-rejected':
+        # a fresh engine state: residual 1, so the cold start runs
+        return spd(56, 64), np.zeros((64, 64), np.float32)
+    f = spd(57, 16)
+    f[3, 3] = np.nan
+    return f, None
+
+
+@pytest.mark.parametrize(
+    'case', ['cold', 'cold-ragged', 'warm-accepted', 'warm-rejected', 'nan']
+)
+def test_newton_schulz_inverse_info_matches_jax(case):
+    f, x0 = ns_case(case)
+    want = jfactors.newton_schulz_inverse_info(
+        jnp.asarray(f), 0.003, x0=None if x0 is None else jnp.asarray(x0)
+    )
+    got = factors.newton_schulz_inverse_info(
+        t(f), 0.003, x0=None if x0 is None else t(x0)
+    )
+    assert got.inverse.dtype == torch.float32 and got.residual.shape == ()
+    if case == 'nan':
+        # the NaN residual fails the first loop test: no iteration, and the
+        # NaN surfaces in the result
+        assert got.iterations == int(want.iterations) == 0
+        assert np.isnan(float(got.residual)) and np.isnan(float(want.residual))
+        assert torch.isnan(got.inverse).all() and np.isnan(np.asarray(want.inverse)).all()
+        return
+    # every other case stops by tol (the iteration before the stop sits at
+    # >= 2.6e-6, the stop at the f32 floor, <= 6e-7): iterations are equal
+    assert float(want.residual) <= 1e-6 and float(got.residual) <= 1e-6
+    assert got.iterations == int(want.iterations)
+    if case == 'warm-accepted':
+        assert got.iterations < 5  # the cold start takes 8
+    # inverse within rtol 1e-4, atol 1e-5 x max (near the f32 floor the two
+    # iterates differ by O(kappa eps)); both residuals at or below tol
+    close(got.inverse, want.inverse, rtol=1e-4, atol_rel=1e-5)
+
+
+def test_warm_start_outside_the_convergence_region_restarts_cold():
+    # I - M x0 has one eigenvalue at -1.8 and the rest at -0.1: its RMS,
+    # 0.25, passes the 0.5 safeguard, but the -1.8 direction diverges. The
+    # JAX function stops at the first rise and returns that iterate; the
+    # port reruns from the cold start and returns the JAX cold solve
+    f = spd(60, 64).astype(np.float64)
+    m = f + 0.003 * np.eye(64)
+    mu, v = np.linalg.eigh(m)
+    c = np.full(64, 1.1)
+    c[-1] = 2.8
+    x0 = ((v * (c / mu)) @ v.T).astype(np.float32)
+    f = f.astype(np.float32)
+    jwarm = jfactors.newton_schulz_inverse_info(jnp.asarray(f), 0.003, x0=jnp.asarray(x0))
+    jcold = jfactors.newton_schulz_inverse_info(jnp.asarray(f), 0.003)
+    assert float(jwarm.residual) > factors.NS_FALLBACK_RESIDUAL  # the reference's result
+    starts = dict(factors.newton_schulz_inverse_info.starts)
+    got = factors.newton_schulz_inverse_info(t(f), 0.003, x0=t(x0))
+    assert factors.newton_schulz_inverse_info.starts['warm_restarted'] == starts['warm_restarted'] + 1
+    # both runs stop by tol or by the rise on the warm side: counts add up
+    assert float(got.residual) <= 1e-6 and float(jcold.residual) <= 1e-6
+    assert got.iterations == int(jwarm.iterations) + int(jcold.iterations)
+    close(got.inverse, jcold.inverse, rtol=1e-4, atol_rel=1e-5)
+
+
+@pytest.mark.parametrize(
+    'solver,case',
+    [('newton_schulz', 'cold'), ('newton_schulz', 'warm'), ('auto', 'cold'),
+     ('auto', 'to-cholesky')],
+)
+def test_damped_inverse_newton_schulz_and_auto_match_jax(solver, case):
+    x0 = None
+    if case == 'to-cholesky':
+        # eigenvalues 1 .. 1e-14: 40 iterations leave the residual at 0.34,
+        # far above NS_FALLBACK_RESIDUAL, so 'auto' re-solves by Cholesky
+        f, damping = np.diag(np.logspace(0, -14, 32)).astype(np.float32), 0.0
+    else:
+        f, damping = spd(58, 40), 0.01
+        if case == 'warm':
+            x0 = np.asarray(jfactors.compute_inverse(jnp.asarray(0.97 * f), damping))
+    before = factors.damped_inverse.cholesky_fallbacks
+    got = factors.damped_inverse(t(f), damping, solver=solver, x0=None if x0 is None else t(x0))
+    want = jfactors.damped_inverse(
+        jnp.asarray(f), damping, solver=solver, x0=None if x0 is None else jnp.asarray(x0)
+    )
+    fell_back = factors.damped_inverse.cholesky_fallbacks - before
+    assert fell_back == (case == 'to-cholesky')
+    close(got, want, rtol=1e-4, atol_rel=1e-5)
+
+
+def test_newton_schulz_differentiable_is_not_ported():
     with pytest.raises(NotImplementedError):
-        factors.damped_inverse(t(spd(34, 4)), 0.01, solver=solver)
+        factors.newton_schulz_inverse_info(t(spd(59, 4)), 0.01, differentiable=True)
 
 
 def test_preconditioned_grads_match_jax():

@@ -1,7 +1,8 @@
 """The port's K-FAC slice end to end against the JAX package.
 
 Twelve steps of the bench's training loop (capture steps at 0 and 10,
-factor cadence 10, inverse cadence 5 so refreshes land at 0, 5 and 10),
+factor cadence 10, inverse cadence 5 so refreshes land at 0, 5 and 10;
+Newton-Schulz starts cold at 0 and warm from the last inverse at 5 and 10),
 SGD(0.1, momentum 0.9), run by both packages from the same flax weights
 and batch: batch 2, seq 32, d_model 64, 2 layers, 4 heads, vocab 128.
 Tolerances: losses rtol 1e-5; preconditioned grads rtol 1e-4 with atol
@@ -19,10 +20,12 @@ import pytest
 import torch
 
 import kfac_tpu
+from kfac_tpu.models import MLP
 from kfac_tpu.models import TransformerLM as JaxLM
 from kfac_tpu.models import lm_loss as jax_lm_loss
 from kfac_tpu_torch import convert, enums
 from kfac_tpu_torch.layers import capture, registry
+from kfac_tpu_torch.ops import factors as factors_lib
 from kfac_tpu_torch.models import TransformerLM, lm_loss
 from kfac_tpu_torch.preconditioner import (
     KFACPreconditioner,
@@ -38,6 +41,9 @@ CONFIGS = {
     'eigen': dict(compute_method='eigen', prediv_eigenvalues=False),
     'eigen-prediv': dict(compute_method='eigen', prediv_eigenvalues=True),
     'inverse-cholesky': dict(compute_method='inverse', inverse_solver='cholesky'),
+    # refreshes at 0 (cold start) and 5, 10 (warm starts from the last inverse)
+    'inverse-newton-schulz': dict(compute_method='inverse', inverse_solver='newton_schulz'),
+    'inverse-auto': dict(compute_method='inverse', inverse_solver='auto'),
 }
 
 
@@ -144,27 +150,56 @@ def test_twelve_step_slice_matches_jax(config):
                 )
 
 
-def test_from_jax_kfac_state_continues_like_jax():
+# the Newton-Schulz case refreshes on every step and captures on both, so
+# the port's step 1 warm-starts from the carried JAX inverses of step 0
+CARRY = {
+    'eigen': dict(KFAC),
+    'inverse-newton-schulz': dict(
+        KFAC, factor_update_steps=1, inv_update_steps=1,
+        **CONFIGS['inverse-newton-schulz'],
+    ),
+}
+
+
+@pytest.mark.parametrize('config', list(CARRY), ids=list(CARRY))
+def test_from_jax_kfac_state_continues_like_jax(config, monkeypatch):
+    kfac_kw = CARRY[config]
+    capture_both = kfac_kw['factor_update_steps'] == 1
     tokens, targets = data()
     model = JaxLM(**CFG)
     params = model.init(jax.random.PRNGKey(1), jnp.asarray(tokens))['params']
     reg = kfac_tpu.register_model(model, jnp.asarray(tokens), skip_layers=['lm_head'])
-    jkfac = kfac_tpu.KFACPreconditioner(registry=reg, **KFAC)
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore')  # inverse cadence not a multiple
+        jkfac = kfac_tpu.KFACPreconditioner(registry=reg, **kfac_kw)
     (_, _), grads, stats = kfac_tpu.CurvatureCapture(reg).value_stats_and_grad(
         jax_lm_loss(model)
     )(params, (jnp.asarray(tokens), jnp.asarray(targets)))
     jstate0, _ = jkfac.step(jkfac.init(), grads, stats)
-    _, jpg = jkfac.step(jstate0, grads, None)
+    jstate1, jpg = jkfac.step(jstate0, grads, stats if capture_both else None)
 
     tmodel = TransformerLM(**CFG, device='cpu')
     tmodel.load_state_dict(convert.from_flax_params(jax.device_get(params)))
     treg = registry.register_model(tmodel, skip_layers=['lm_head'], device='cpu')
-    tkfac = KFACPreconditioner(treg, **KFAC, device='cpu')
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore')
+        tkfac = KFACPreconditioner(treg, **kfac_kw, device='cpu')
     # the JAX state after step 0, carried over, then step 1 in the port
     tstate = convert.from_jax_kfac_state(jstate0, tkfac)
     assert tstate.step == 1
     tgrads = convert.from_flax_params(jax.device_get(grads))
-    tstate, tpg = tkfac.step(tstate, tgrads, None)
+    tstats = None
+    if capture_both:
+        (_, _), _, tstats = capture.CurvatureCapture(treg).value_stats_and_grad(
+            lm_loss(tmodel)
+        )((torch.from_numpy(tokens).long(), torch.from_numpy(targets).long()))
+    starts = []
+    solve = factors_lib.damped_inverse
+    monkeypatch.setattr(
+        factors_lib, 'damped_inverse',
+        lambda f, dmp, solver, iters, x0: starts.append(x0) or solve(f, dmp, solver, iters, x0),
+    )
+    tstate, tpg = tkfac.step(tstate, tgrads, tstats)
     want = convert.from_flax_params(jax.device_get(jpg))
     scale = max(float(g.abs().max()) for g in want.values())
     for name, w in want.items():
@@ -172,6 +207,24 @@ def test_from_jax_kfac_state_continues_like_jax():
             tpg[name].numpy(), w.numpy(), rtol=1e-5, atol=1e-6 * scale,
             err_msg=name,
         )
+    if tkfac.eigen:
+        assert not starts
+        return
+    # each refresh started from the carried inverse, A then G per layer,
+    # and lands on JAX's warm-started inverse (rtol 1e-4, atol 1e-5 x max)
+    carried = [
+        np.asarray(side[n]) for n in treg.layers for side in (jstate0.a_inv, jstate0.g_inv)
+    ]
+    assert len(starts) == len(carried)
+    for x0, c in zip(starts, carried):
+        assert torch.equal(x0, torch.from_numpy(np.array(c)))
+    for side_t, side_j in ((tstate.a_inv, jstate1.a_inv), (tstate.g_inv, jstate1.g_inv)):
+        for name in treg.layers:
+            want = np.asarray(side_j[name])
+            np.testing.assert_allclose(
+                side_t[name].numpy(), want, rtol=1e-4,
+                atol=1e-5 * float(np.max(np.abs(want))), err_msg=name,
+            )
 
 
 def test_default_compute_method_cuda_branch_equals_jax_off_tpu():
@@ -193,13 +246,31 @@ def small_registry():
         ('health', True), ('metrics', True), ('flight', 8),
         ('async_inverse', 'sliced'), ('offload', True),
         ('stat_compression', 'int8'), ('compile_watch', True),
-        ('inverse_solver', 'newton_schulz'), ('inverse_solver', 'auto'),
         ('eigh_impl', 'host'), ('eigh_impl', 'eig_host'),
     ],
 )
 def test_later_slice_knobs_raise(knob, value):
     with pytest.raises(NotImplementedError):
         KFACPreconditioner(small_registry(), device='cpu', **{knob: value})
+
+
+@pytest.mark.parametrize('solver', ['newton_schulz', 'auto'])
+def test_newton_schulz_solver_with_eigen_warns_as_jax_does(solver):
+    jreg = kfac_tpu.register_model(MLP(features=(), num_classes=3), jnp.zeros((1, 4)))
+    with pytest.warns(UserWarning) as ours:
+        KFACPreconditioner(
+            small_registry(), device='cpu', compute_method='eigen', inverse_solver=solver
+        )
+    with pytest.warns(UserWarning) as theirs:
+        kfac_tpu.KFACPreconditioner(
+            registry=jreg, compute_method='eigen', inverse_solver=solver
+        )
+    assert [str(w.message) for w in ours] == [str(w.message) for w in theirs]
+    with warnings.catch_warnings():
+        warnings.simplefilter('error')
+        KFACPreconditioner(
+            small_registry(), device='cpu', compute_method='inverse', inverse_solver=solver
+        )
 
 
 def test_unknown_options_are_rejected():
