@@ -12,7 +12,7 @@ Phases, one JSON line each:
 2. ``build``: the CUDA kernels built from ``kfac_tpu_torch/csrc`` (one
    ``nvcc`` per source, all at once) and the time it took.
 3. ``kernel``: each hand-written kernel, called through the wrapper the
-   model calls, at the flagship shapes its main path gives it, held
+   model calls, at the shapes its main path gives it, held
    against its plain PyTorch version with the stated tolerance, and timed
    with CUDA events beside the plain version, one PyTorch library call as
    a yardstick, and the least time the H100 could take (bytes over 3.35
@@ -20,18 +20,21 @@ Phases, one JSON line each:
    must also reject a control: the plain version at reduced precision
    (TF32 matmuls, or bf16 products), so a kernel that drops below f32
    fails the check.
-4. ``reference``: a two-layer model trained three steps on the card
-   (kernels) and on the CPU (plain versions) from the same weights, once
-   with EIGEN, once with INVERSE + Newton-Schulz and once with INVERSE +
-   'auto' (cadence 2/2, so the refresh at step 2 warm-starts); losses and
-   preconditioned gradients must agree.
+4. ``reference``: a two-layer model trained three steps through
+   ``Trainer.step`` on the card (kernels) and on the CPU (plain versions)
+   from the same weights, once with EIGEN, once with INVERSE +
+   Newton-Schulz and once with INVERSE + 'auto' (cadence 2/2, so the
+   refresh at step 2 warm-starts); then EIGEN through
+   ``Trainer.scan_steps`` and through ``Trainer.step_accumulate`` over two
+   micro-batches. Losses and preconditioned grads must agree.
 5. ``main_path``: the flagship TransformerLM (batch 16, seq 512, d_model
    512, 6 layers, 4 heads, vocab 8192, f32) through register_model ->
-   CurvatureCapture -> KFACPreconditioner(damping 0.003, lr 0.1, cadence
-   10/100, EIGEN) -> SGD(0.1, momentum 0.9) for 20 steps on one seeded
-   batch, with the kernels' launch counts set to 0 just before and read
-   just after; then one more capture step and one plain step under
-   torch.profiler (``profile``: device time by kernel, idle share).
+   KFACPreconditioner(damping 0.003, lr 0.1, cadence 10/100, EIGEN) ->
+   ``Trainer.step`` (capture on cadence, SGD(0.1, momentum 0.9)) for 20
+   steps on one seeded batch, with the kernels' launch counts set to 0
+   just before and read just after; then one more capture step and one
+   plain step under torch.profiler (``profile``: device time by kernel,
+   idle share).
 6. ``main_path_ns``: the same flagship with INVERSE + Newton-Schulz for
    110 steps, so the inverse refreshes at step 0 (cold start) and step 100
    (warm start from the step-0 inverses), counts set to 0 just before and
@@ -39,6 +42,11 @@ Phases, one JSON line each:
    by an independent residual. Then the step-100 refresh is repeated from
    the same factors and starting inverses, once timed and once under
    torch.profiler (``profile_ns``).
+7. ``bench_lm``: the bench's LM stage (``kfac_tpu_torch.bench_lm``) in
+   process for ``tiny`` and then ``flagship``, counts set to 0 before each
+   and read after: every rate finite and positive, every fused-kernel
+   probe family timed without error, and every kernel launched exactly as
+   often as the configuration says (``sym_cov_ema`` by the probe).
 
 Then the card's name and power limit as nvidia-smi prints them, the
 ``kernels`` line, and ``{"ok": true, "device": ...}`` as the last line.
@@ -139,7 +147,7 @@ def kernel_cases():
     scale)``, an invariant the kernel's result must hold, the relative
     tolerance against that scale, a reduced-precision control the
     tolerance must reject, and the bytes and FLOPs of the bound."""
-    from kfac_tpu_torch.ops import flash_attention, klclip, newton_schulz, sym_cov
+    from kfac_tpu_torch.ops import cov_ema, flash_attention, klclip, newton_schulz, sym_cov
 
     dev = torch.device('cuda')
     gen = torch.Generator(dev).manual_seed(0)
@@ -161,6 +169,33 @@ def kernel_cases():
             control=tf32(lambda a=a: sym_cov.sym_cov_plain(a)),
             control_rule='plain version with TF32 matmuls',
             nbytes=4 * (8192 * d + d * d), flops=8192 * d * (d + 1),
+        ))
+    # the flagship's factor widths, the fused-kernel probe's (512, 256) and a
+    # ragged shape. F is a covariance, so symmetric, as the contract asks.
+    # The blend scales the product's error by coeff, so the tolerance is
+    # relative to max|coeff a^T a|, not to max|out| (which F dominates).
+    for n, d in ((8192, 513), (8192, 2049), (512, 256), (77, 130)):
+        a, f = randn(n, d), sym_cov.sym_cov_plain(randn(n, d))
+        beta, coeff = 0.95, 0.05 / n
+        scale = float((coeff * (a.T @ a)).abs().max())
+
+        def cmp_ema(got, want, scale=scale):
+            return float((got - want).abs().max()), scale
+
+        cases.append(dict(
+            name='sym_cov_ema', shape=[n, d],
+            kernel=lambda a=a, f=f, b=beta, c=coeff: cov_ema.sym_cov_ema(f, a, b, c),
+            plain=lambda a=a, f=f, b=beta, c=coeff: cov_ema.sym_cov_ema_plain(f, a, b, c),
+            library=lambda a=a, f=f, b=beta, c=coeff: torch.addmm(f, a.T, a, beta=b, alpha=c),
+            compare=cmp_ema, invariant=lambda got: torch.equal(got, got.T),
+            rtol=1e-5, tol_rule='1e-5 x max|coeff a^T a|, and exactly symmetric',
+            control=tf32(lambda a=a, f=f, b=beta, c=coeff: cov_ema.sym_cov_ema_plain(f, a, b, c)),
+            control_rule='plain version with TF32 matmuls',
+            # a and the upper triangle of the symmetric F read once, the
+            # output written once; the upper triangle's products and the
+            # blend of each upper element
+            nbytes=4 * (n * d + d * (d + 1) // 2 + d * d),
+            flops=n * d * (d + 1) + 3 * d * (d + 1) // 2,
         ))
     for r, c in ((512, 513), (2048, 513), (512, 2049)):
         p, g = randn(r, c), randn(r, c)
@@ -192,30 +227,34 @@ def kernel_cases():
             control_rule='bf16 product',
             nbytes=4 * (2 * r * c + 1), flops=r * c,
         ))
-    b, s_, h, dh = FLAGSHIP['batch'], FLAGSHIP['seq'], FLAGSHIP['heads'], 128
-    q, k, v = randn(b, s_, h, dh), randn(b, s_, h, dh), randn(b, s_, h, dh)
-
     def cmp_flash(got, want):
         # the worst of acc, m and l relative to its own max
         return max(map(max_err, got, want), key=lambda p: p[0] / p[1])
 
-    def sdpa():
-        return torch.nn.functional.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True
-        )
+    # the flagship's (head dim 128) and the bench's tiny LM's (head dim 32)
+    for b, s_, h, dh in ((FLAGSHIP['batch'], FLAGSHIP['seq'], FLAGSHIP['heads'], 128),
+                         (4, 128, 4, 32)):
+        q, k, v = randn(b, s_, h, dh), randn(b, s_, h, dh), randn(b, s_, h, dh)
 
-    pairs = s_ * (s_ + 1) // 2  # visible (query, key) pairs of a causal row set
-    cases.append(dict(
-        name='flash_attention_partials', shape=[b, s_, h, dh],
-        kernel=lambda: flash_attention.flash_attention_partials(q, k, v, 0, 0, True),
-        plain=lambda: flash_attention.attend_partials_einsum(q, k, v, 0, 0, True),
-        library=sdpa, compare=cmp_flash, rtol=1e-5,
-        tol_rule='1e-5 x max|x| for each of acc, m, l',
-        control=tf32(lambda: flash_attention.attend_partials_einsum(q, k, v, 0, 0, True)),
-        control_rule='plain version with TF32 matmuls',
-        nbytes=4 * (4 * b * s_ * h * dh + 2 * b * h * s_),
-        flops=4 * dh * pairs * b * h,
-    ))
+        def sdpa(q=q, k=k, v=v):
+            return torch.nn.functional.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True
+            )
+
+        pairs = s_ * (s_ + 1) // 2  # visible (query, key) pairs of a causal row set
+        cases.append(dict(
+            name='flash_attention_partials', shape=[b, s_, h, dh],
+            kernel=lambda q=q, k=k, v=v: flash_attention.flash_attention_partials(q, k, v, 0, 0, True),
+            plain=lambda q=q, k=k, v=v: flash_attention.attend_partials_einsum(q, k, v, 0, 0, True),
+            library=sdpa, compare=cmp_flash, rtol=1e-5,
+            tol_rule='1e-5 x max|x| for each of acc, m, l',
+            control=tf32(
+                lambda q=q, k=k, v=v: flash_attention.attend_partials_einsum(q, k, v, 0, 0, True)
+            ),
+            control_rule='plain version with TF32 matmuls',
+            nbytes=4 * (4 * b * s_ * h * dh + 2 * b * h * s_),
+            flops=4 * dh * pairs * b * h,
+        ))
     def ns_errors(got, want):
         # x_new and mx_new relative to their own max, the residual relative
         # to itself
@@ -307,57 +346,72 @@ def run_kernels(results) -> bool:
 # --------------------------------------------------------------- main path
 
 
-class LMTrainer:
-    """The bench's K-FAC LM loop on one seeded batch, weights from seed 1:
-    a capture step every ``capture_every`` steps, a plain step otherwise."""
+class LMRun:
+    """The bench's K-FAC LM loop through ``Trainer.step`` on one seeded
+    batch, weights from seed 1: a capture step every ``capture_every``
+    steps, a plain step otherwise."""
 
     def __init__(self, cfg, device, capture_every, inv_every, **kfac_kw):
         import kfac_tpu_torch as kt
-        from kfac_tpu_torch.layers.capture import value_and_grad
         from kfac_tpu_torch.models import TransformerLM, lm_loss
+        from kfac_tpu_torch.training import Trainer
 
-        self.kt, self.device = kt, device
+        self.device = device
         self.capture_every = capture_every
-        self.model = TransformerLM(
+        model = TransformerLM(
             vocab_size=cfg['vocab'], d_model=cfg['d_model'], num_heads=cfg['heads'],
             num_layers=cfg['layers'], max_len=cfg['seq'], seed=1, device=device,
         )
         gen = torch.Generator().manual_seed(0)
         tokens = torch.randint(0, cfg['vocab'], (cfg['batch'], cfg['seq']), generator=gen)
         self.batch = (tokens.to(device), torch.roll(tokens, -1, dims=1).to(device))
-        self.registry = kt.register_model(self.model, skip_layers=['lm_head'], device=device)
+        self.registry = kt.register_model(model, skip_layers=['lm_head'], device=device)
         self.kfac = kt.KFACPreconditioner(
             self.registry, damping=0.003, lr=0.1, factor_update_steps=capture_every,
             inv_update_steps=inv_every, device=device, **kfac_kw,
         )
-        loss_fn = lm_loss(self.model)
-        self.capture = kt.CurvatureCapture(self.registry).value_stats_and_grad(loss_fn)
-        self.plain = value_and_grad(self.model, loss_fn)
-        self.opt = torch.optim.SGD(self.model.parameters(), lr=0.1, momentum=0.9)
-        self.state = self.kfac.init()
+        loss = lm_loss(model)
+        self.trainer = Trainer(
+            model, torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
+            lambda ms, batch: (loss(batch), ms), kfac=self.kfac, device=device,
+        )
+        self.state = self.trainer.init()
 
-    def step(self, i):
-        """Step ``i``; returns (loss, preconditioned grads, seconds)."""
+    @property
+    def kstate(self):
+        return self.state.kfac_state
+
+    def grads(self) -> dict:
+        """The last step's preconditioned grads, as the optimizer read them
+        from ``.grad``."""
+        return {
+            n: p.grad.detach().clone()
+            for n, p in self.trainer.model.named_parameters() if p.grad is not None
+        }
+
+    def step(self):
+        """One ``Trainer.step``; returns (loss, seconds)."""
         if self.device.type == 'cuda':
             torch.cuda.synchronize()
         t0 = time.perf_counter()
-        if i % self.capture_every == 0:
-            (loss, _), grads, stats = self.capture(self.batch)
-        else:
-            (loss, grads), stats = self.plain(self.batch), None
-        self.state, pg = self.kfac.step(self.state, grads, stats)
-        self.kt.set_grads(self.model, pg)
-        self.opt.step()
+        self.state, loss = self.trainer.step(self.state, self.batch)
         loss = float(loss)  # waits for the step's work
         if self.device.type == 'cuda':
             torch.cuda.synchronize()
-        return loss, pg, time.perf_counter() - t0
+        return loss, time.perf_counter() - t0
 
 
-def train(trainer, steps):
-    """(losses, preconditioned grads, step seconds) of ``steps`` steps."""
-    out = [trainer.step(i) for i in range(steps)]
-    return [o[0] for o in out], [o[1] for o in out], [o[2] for o in out]
+def train(run, steps, grads=False):
+    """(losses, preconditioned grads if ``grads``, step seconds) of
+    ``steps`` steps."""
+    losses, pgrads, seconds = [], [], []
+    for _ in range(steps):
+        loss, sec = run.step()
+        losses.append(loss)
+        seconds.append(sec)
+        if grads:
+            pgrads.append(run.grads())
+    return losses, pgrads, seconds
 
 
 def device_profile(fn) -> dict:
@@ -371,11 +425,15 @@ def device_profile(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    # a record_function scope (the Trainer's) also shows on the device as
+    # an annotation spanning its kernels: not a kernel, not counted
+    scopes = {evt.name for evt in prof.events() if str(evt.device_type).endswith('CPU')}
     kernels = sorted(
         (
             (evt.key, evt.self_device_time_total / 1e3, evt.count)
             for evt in prof.key_averages()
             if str(evt.device_type).endswith('CUDA') and evt.self_device_time_total > 0
+            and evt.key not in scopes
         ),
         key=lambda k: -k[1],
     )
@@ -387,11 +445,12 @@ def device_profile(fn) -> dict:
     )
 
 
-def profile_step(trainer, i) -> dict:
-    """Device time by kernel over step ``i``, from torch.profiler."""
+def profile_step(run, i) -> dict:
+    """Device time by kernel over the run's next step, ``i``, from
+    torch.profiler."""
     return dict(
-        step=i, kind='capture' if i % trainer.capture_every == 0 else 'plain',
-        **device_profile(lambda: trainer.step(i)),
+        step=i, kind='capture' if i % run.capture_every == 0 else 'plain',
+        **device_profile(run.step),
     )
 
 
@@ -399,47 +458,90 @@ INVERSE_NS = dict(compute_method='inverse', inverse_solver='newton_schulz')
 REFERENCE_CONFIGS = ({}, INVERSE_NS, dict(compute_method='inverse', inverse_solver='auto'))
 
 
+REFERENCE_CFG = dict(batch=4, seq=128, d_model=256, layers=2, heads=2, vocab=512)
+
+
+def reference_errors(card, cpu) -> tuple[float, float]:
+    """(max relative loss error, max preconditioned-grad error relative to
+    the step's max |grad|) of the card's (losses, grads) against the CPU's."""
+    (gl, gp), (cl, cp) = card, cpu
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(gl, cl))
+    grad_err = 0.0
+    for g_step, c_step in zip(gp, cp):
+        scale = max(float(v.abs().max()) for v in c_step.values())
+        for n, c in c_step.items():
+            grad_err = max(grad_err, float((g_step[n].cpu() - c).abs().max()) / scale)
+    return loss_err, grad_err
+
+
 def run_reference() -> bool:
     """Kernels on the card vs plain versions on the CPU, small model, for
-    each solver configuration."""
+    each solver configuration through ``Trainer.step``, then EIGEN through
+    ``Trainer.scan_steps`` and ``Trainer.step_accumulate``."""
     from kfac_tpu_torch.ops import factors, newton_schulz
 
-    cfg = dict(batch=4, seq=128, d_model=256, layers=2, heads=2, vocab=512)
+    cfg = REFERENCE_CFG
     cuda, cpu = torch.device('cuda'), torch.device('cpu')
     ok = True
     for kfac_kw in REFERENCE_CONFIGS:
         ns0, fb0 = newton_schulz.fused_ns_step.launches, factors.damped_inverse.cholesky_fallbacks
-        gl, gp, _ = train(LMTrainer(cfg, cuda, 2, 2, **kfac_kw), 3)
+        gl, gp, _ = train(LMRun(cfg, cuda, 2, 2, **kfac_kw), 3, grads=True)
         ns_launches = newton_schulz.fused_ns_step.launches - ns0
         fallbacks_cuda = factors.damped_inverse.cholesky_fallbacks - fb0
-        cl, cp, _ = train(LMTrainer(cfg, cpu, 2, 2, **kfac_kw), 3)
-        loss_err = max(abs(a - b) / abs(b) for a, b in zip(gl, cl))
-        grad_err = 0.0
-        for g_step, c_step in zip(gp, cp):
-            scale = max(float(v.abs().max()) for v in c_step.values())
-            for n, c in c_step.items():
-                grad_err = max(grad_err, float((g_step[n].cpu() - c).abs().max()) / scale)
+        cl, cp, _ = train(LMRun(cfg, cpu, 2, 2, **kfac_kw), 3, grads=True)
+        loss_err, grad_err = reference_errors((gl, gp), (cl, cp))
         # the NS configurations must have run the kernel on the card
         ns_ran = ns_launches > 0 if kfac_kw else ns_launches == 0
         passed = loss_err <= 1e-4 and grad_err <= 1e-3 and ns_ran
         emit(dict(
             phase='reference', config=cfg, kfac=kfac_kw or 'default (EIGEN)', steps=3,
-            losses_cuda=gl, losses_cpu=cl, loss_rel_err=loss_err, loss_tol=1e-4,
-            pgrad_err_rel_to_max=grad_err, pgrad_tol=1e-3,
+            entry='Trainer.step', losses_cuda=gl, losses_cpu=cl, loss_rel_err=loss_err,
+            loss_tol=1e-4, pgrad_err_rel_to_max=grad_err, pgrad_tol=1e-3,
             fused_ns_step_launches_cuda=ns_launches,
             cholesky_fallbacks_cuda=fallbacks_cuda,
             cholesky_fallbacks_cpu=factors.damped_inverse.cholesky_fallbacks - fb0 - fallbacks_cuda,
             passed=passed,
         ))
         ok &= passed
+    for entry in ('scan_steps', 'step_accumulate'):
+        out = [loop_run(entry, dev) for dev in (cuda, cpu)]
+        loss_err, grad_err = reference_errors(*out)
+        passed = loss_err <= 1e-4 and grad_err <= 1e-3
+        emit(dict(
+            phase='reference', config=cfg, kfac='default (EIGEN)', steps=3,
+            entry=f'Trainer.{entry}', losses_cuda=out[0][0], losses_cpu=out[1][0],
+            loss_rel_err=loss_err, loss_tol=1e-4, pgrad_err_rel_to_max=grad_err,
+            pgrad_tol=1e-3, passed=passed,
+        ))
+        ok &= passed
     return ok
 
 
+def loop_run(entry, device) -> tuple[list, list]:
+    """(losses, preconditioned grads) of three steps at cadence 2/2 through
+    ``Trainer.scan_steps`` (one call; the grads of its last step) or
+    ``Trainer.step_accumulate`` (each step over the batch's two halves)."""
+    run = LMRun(REFERENCE_CFG, device, 2, 2)
+    if entry == 'scan_steps':
+        batches = tuple(x.expand(3, *x.shape) for x in run.batch)
+        run.state, losses = run.trainer.scan_steps(run.state, batches)
+        return losses.tolist(), [run.grads()]
+    half = REFERENCE_CFG['batch'] // 2
+    micro = [tuple(x[:half] for x in run.batch), tuple(x[half:] for x in run.batch)]
+    losses, grads = [], []
+    for _ in range(3):
+        run.state, loss = run.trainer.step_accumulate(run.state, micro)
+        losses.append(float(loss))
+        grads.append(run.grads())
+    return losses, grads
+
+
 def main_path_wrappers() -> dict:
-    from kfac_tpu_torch.ops import flash_attention, klclip, newton_schulz, sym_cov
+    from kfac_tpu_torch.ops import cov_ema, flash_attention, klclip, newton_schulz, sym_cov
 
     return {
         'sym_cov': sym_cov.sym_cov,
+        'sym_cov_ema': cov_ema.sym_cov_ema,
         'klclip_dot': klclip.klclip_dot,
         'klclip_scale': klclip.klclip_scale,
         'flash_attention_partials': flash_attention.flash_attention_partials,
@@ -449,9 +551,11 @@ def main_path_wrappers() -> dict:
 
 def expected_launches(steps: int, captures: int) -> dict:
     """Launches of every kernel but the NS step over ``steps`` steps with
-    ``captures`` capture steps, from the configuration."""
+    ``captures`` capture steps, from the configuration (no path of the
+    engine blends the covariance into the factor: ``sym_cov_ema`` 0)."""
     return {
         'sym_cov': 2 * KFAC_LAYERS * captures,
+        'sym_cov_ema': 0,
         'klclip_dot': KFAC_LAYERS * steps,
         'klclip_scale': KFAC_LAYERS * steps,
         'flash_attention_partials': FLAGSHIP['layers'] * steps,
@@ -471,10 +575,10 @@ def run_main_path(launches, summary) -> bool:
     torch.cuda.reset_peak_memory_stats()
     for w in wrappers.values():
         w.launches = 0
-    trainer = LMTrainer(FLAGSHIP, torch.device('cuda'), 10, 100)
-    losses, _, seconds = train(trainer, STEPS)
+    run = LMRun(FLAGSHIP, torch.device('cuda'), 10, 100)
+    losses, _, seconds = train(run, STEPS)
     launches.update({n: w.launches for n, w in wrappers.items()})
-    layers = len(trainer.registry)
+    layers = len(run.registry)
     expected = dict(expected_launches(STEPS, len(range(0, STEPS, 10))), fused_ns_step=0)
     finite = all(math.isfinite(x) for x in losses)
     falling = losses[-1] < losses[0]
@@ -491,16 +595,16 @@ def run_main_path(launches, summary) -> bool:
     ))
     # after the counted run: one more capture step and one plain step
     emit(dict(phase='profile', steps=[
-        profile_step(trainer, STEPS), profile_step(trainer, STEPS + 1),
+        profile_step(run, STEPS), profile_step(run, STEPS + 1),
     ]))
     return passed
 
 
-def inverse_residuals(trainer) -> list[float]:
+def inverse_residuals(run) -> list[float]:
     """``||I - (F + damping I) F_inv||_F / sqrt(d)`` of every factor's
-    inverse in the trainer's state, by torch.matmul (f32)."""
-    st, damping, out = trainer.state, trainer.kfac.damping, []
-    for n in trainer.registry.layers:
+    inverse in the run's K-FAC state, by torch.matmul (f32)."""
+    st, damping, out = run.kstate, run.kfac.damping, []
+    for n in run.registry.layers:
         for f, f_inv in ((st.a[n], st.a_inv[n]), (st.g[n], st.g_inv[n])):
             eye = torch.eye(f.shape[0], device=f.device)
             r = torch.linalg.norm(eye - (f + damping * eye) @ f_inv) / math.sqrt(f.shape[0])
@@ -515,19 +619,19 @@ def run_main_path_ns(launches, eigen_summary) -> bool:
     torch.cuda.reset_peak_memory_stats()
     for w in wrappers.values():
         w.launches = 0
-    trainer = LMTrainer(FLAGSHIP, torch.device('cuda'), 10, 100, **INVERSE_NS)
+    run = LMRun(FLAGSHIP, torch.device('cuda'), 10, 100, **INVERSE_NS)
     losses, seconds, refreshes = [], [], []
     starts = factors.newton_schulz_inverse_info.starts
     for i in range(NS_STEPS):
         ns_before = newton_schulz.fused_ns_step.launches
         starts_before = dict(starts)
         if i == 100:
-            before_refresh = trainer.state
-        loss, _, sec = trainer.step(i)
+            before_refresh = run.kstate
+        loss, sec = run.step()
         losses.append(loss)
         seconds.append(sec)
         if i % 100 == 0:
-            resid = inverse_residuals(trainer)
+            resid = inverse_residuals(run)
             refreshes.append(dict(
                 step=i, start='cold' if i == 0 else 'warm', step_ms=sec * 1e3,
                 fused_ns_step_launches=newton_schulz.fused_ns_step.launches - ns_before,
@@ -540,7 +644,7 @@ def run_main_path_ns(launches, eigen_summary) -> bool:
             ))
     launches.update({n: w.launches for n, w in wrappers.items()})
     peak = torch.cuda.max_memory_allocated() / 2**30
-    layers = len(trainer.registry)
+    layers = len(run.registry)
     expected = expected_launches(NS_STEPS, len(range(0, NS_STEPS, 10)))
     n_factors = 2 * KFAC_LAYERS
     refresh_count = len(range(0, NS_STEPS, 100))
@@ -569,25 +673,98 @@ def run_main_path_ns(launches, eigen_summary) -> bool:
     # factors (unchanged since the capture at step 100) and the same
     # starting inverses, once timed and once profiled
     redo = dataclasses.replace(
-        trainer.state, step=100, a_inv=before_refresh.a_inv, g_inv=before_refresh.g_inv
+        run.kstate, step=100, a_inv=before_refresh.a_inv, g_inv=before_refresh.g_inv
     )
     ns0 = newton_schulz.fused_ns_step.launches
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    trainer.kfac.update_inverses(redo)
+    run.kfac.update_inverses(redo)
     torch.cuda.synchronize()
     refresh_ms = (time.perf_counter() - t0) * 1e3
     iterations = newton_schulz.fused_ns_step.launches - ns0
     emit(dict(
         phase='profile_ns', what='step-100 warm refresh (update_inverses), repeated',
         refresh_ms=refresh_ms, fused_ns_step_launches=iterations,
-        profile=device_profile(lambda: trainer.kfac.update_inverses(redo)),
+        profile=device_profile(lambda: run.kfac.update_inverses(redo)),
     ))
     return passed
 
 
+# the probe's warm call and its 9 timed calls, before its profiled passes
+PROBE_TIMED_CALLS = 10
+PROBE_FAMILIES = ('cov_ema', 'ns', 'klclip')
+
+
+def expected_bench_launches(cfg: dict, window: dict, probe_calls: int) -> dict:
+    """Launches of every kernel over one ``bench_lm`` stage, from its
+    configuration: SGD and eager K-FAC over ``warmup + iters`` steps, two
+    ``scan_steps`` calls, the bench's factor cadence of 10, six K-FAC
+    layers a block; the fused-kernel probe calls each fused kernel
+    ``probe_calls`` times (EIGEN runs no Newton-Schulz)."""
+    eager = window['warmup'] + window['iters']
+    scan = 2 * window['scan_steps']
+    captures = len(range(0, eager, 10)) + len(range(0, scan, 10))
+    kfac_layers = 6 * cfg['layers']
+    return {
+        'sym_cov': 2 * kfac_layers * captures,
+        'sym_cov_ema': probe_calls,
+        'klclip_dot': kfac_layers * (eager + scan) + probe_calls,
+        'klclip_scale': kfac_layers * (eager + scan) + probe_calls,
+        'flash_attention_partials': cfg['layers'] * (2 * eager + scan),
+        'fused_ns_step': probe_calls,
+    }
+
+
+def run_bench_lm(launches) -> bool:
+    """The bench's LM stage in process, ``tiny`` then ``flagship``, each
+    with the kernels' counts set to 0 just before and read just after."""
+    from kfac_tpu_torch import bench_lm
+
+    wrappers = main_path_wrappers()
+    ok = True
+    for config in ('tiny', 'flagship'):
+        for w in wrappers.values():
+            w.launches = 0
+        record = bench_lm.run_lm_stage(config, 'cuda')
+        counts = launches[f'bench_lm_{config}']
+        counts.update({n: w.launches for n, w in wrappers.items()})
+        probe = record['fused_kernel_probe']
+        expected = expected_bench_launches(
+            bench_lm.LM_CONFIGS[config], record['window'],
+            PROBE_TIMED_CALLS + probe.get('device_passes', 0),
+        )
+        # after the counted run: one plain step of each trainer, profiled
+        batch = bench_lm.lm_batch(bench_lm.LM_CONFIGS[config], torch.device('cuda'))
+        profiles = {}
+        for kfac in (False, True):
+            trainer = bench_lm.lm_trainer(bench_lm.LM_CONFIGS[config], torch.device('cuda'), kfac)
+            state, _ = trainer.step(trainer.init(), batch)  # step 0: capture, refresh
+            profiles['kfac_plain_step' if kfac else 'sgd_step'] = device_profile(
+                lambda: trainer.step(state, batch)
+            )
+        rates = [record[k] for k in (
+            'sgd_tokens_per_sec', 'eager_tokens_per_sec', 'scan_tokens_per_sec', 'value',
+            'vs_baseline', 'mfu', 'sgd_mfu',
+        )]
+        passed = (
+            all(math.isfinite(r) and r > 0 for r in rates)
+            and all(math.isfinite(x) for x in record['last_loss'].values())
+            and all('fused_p50_ms' in probe[f] and 'fused_error' not in probe[f]
+                    for f in PROBE_FAMILIES)
+            and 'trace_error' not in probe
+            and counts['sym_cov_ema'] > 0 and counts == expected
+        )
+        emit(dict(
+            phase='bench_lm', config=config, record=record, launches=counts,
+            expected_launches=expected, profile=profiles, passed=passed,
+        ))
+        ok &= passed
+    return ok
+
+
 SOURCES = {
     'sym_cov': ('cuda', 'kfac_tpu_torch/csrc/sym_cov.cu', 'kfac_tpu/ops/pallas_cov.py:88', [8192, 2049]),
+    'sym_cov_ema': ('cuda', 'kfac_tpu_torch/csrc/sym_cov.cu', 'kfac_tpu/ops/pallas_cov_ema.py:110', [512, 256]),
     'klclip_dot': ('triton', 'kfac_tpu_torch/ops/klclip_triton.py', 'kfac_tpu/ops/pallas_ns.py:219', [2048, 513]),
     'klclip_scale': ('triton', 'kfac_tpu_torch/ops/klclip_triton.py', 'kfac_tpu/ops/pallas_ns.py:244', [2048, 513]),
     'flash_attention_partials': ('cuda', 'kfac_tpu_torch/csrc/flash_attn.cu', 'kfac_tpu/ops/pallas_attention.py:257', [16, 512, 4, 128]),
@@ -638,7 +815,9 @@ def main() -> int:
 
     ok = True
     results: list[dict] = []
-    launches: dict[str, dict[str, int]] = {'main_path': {}, 'main_path_ns': {}}
+    launches: dict[str, dict[str, int]] = {
+        path: {} for path in ('main_path', 'main_path_ns', 'bench_lm_tiny', 'bench_lm_flagship')
+    }
     eigen_summary: dict = {}
 
     def phase(name, fn, *args):
@@ -666,6 +845,7 @@ def main() -> int:
     phase('reference', run_reference)
     phase('main_path', run_main_path, launches['main_path'], eigen_summary)
     phase('main_path_ns', run_main_path_ns, launches['main_path_ns'], eigen_summary)
+    phase('bench_lm', run_bench_lm, launches)
     print(smi, flush=True)
     emit(kernels_line(results, launches))
     if not ok:

@@ -6,6 +6,7 @@ package has Pallas kernels. Entry points run on ``device='cuda'`` unless
 the caller passes ``device='cpu'``.
 """
 
+from kfac_tpu_torch import tracing, warnings
 from kfac_tpu_torch.enums import ComputeMethod
 from kfac_tpu_torch.layers.capture import CapturedStats, CurvatureCapture
 from kfac_tpu_torch.layers.registry import Registry, register_model
@@ -15,6 +16,7 @@ from kfac_tpu_torch.preconditioner import (
     default_compute_method,
     set_grads,
 )
+from kfac_tpu_torch.training import Trainer, TrainState
 
 __all__ = [
     'CapturedStats',
@@ -23,7 +25,11 @@ __all__ = [
     'KFACPreconditioner',
     'KFACState',
     'Registry',
+    'TrainState',
+    'Trainer',
     'default_compute_method',
     'register_model',
     'set_grads',
+    'tracing',
+    'warnings',
 ]

@@ -12,13 +12,16 @@
 // Bound on an H100: at the flagship's q, k, v (16, 512, 4, 128) the causal
 // work is 4 * D FLOPs for each of the B*H*S*(S+1)/2 visible pairs, 4.3e9
 // FLOP (0.064 ms at the 67 TFLOP/s f32 peak), against 67 MB of inputs and
-// outputs (0.020 ms at 3.35 TB/s): bound by operations. Design: one CTA per
+// outputs (0.020 ms at 3.35 TB/s): bound by operations. At the tiny LM's
+// (4, 128, 4, 32) it is 1.7e7 FLOP against 1.1 MB: 0.0003 ms either way,
+// so launch cost sets its time. Design: one CTA per
 // (batch * head, 64-row Q tile); it loops over 64-row K/V tiles only up to
 // the causal bound q_offset + (j+1)*64 - k_offset, so tiles above the
 // diagonal are never loaded (the TPU kernel's block sparsity). Scores stay
 // in shared memory; the running max and sum are f32 registers, updated
 // online. The offsets are kernel arguments, so ring steps can reuse the
-// kernel. m and l are written as (B, H, S_q): the TPU's 128-lane broadcast
+// kernel. Shared memory is 115 KB at D = 128 and 41 KB at D = 32; the
+// tiles stay 64 rows at both. m and l are written as (B, H, S_q): the TPU's 128-lane broadcast
 // of them was a Mosaic layout constraint. No tensor cores (f32 exact);
 // wgmma and a pipelined K/V ring are later work.
 
@@ -197,15 +200,20 @@ int launch(const float* q, const float* k, const float* v, float* acc,
 
 extern "C" {
 
-// Head dim 128 (the flagship's) is instantiated. Returns
+// Head dims 128 (the flagship's) and 32 (the bench's tiny LM) are
+// instantiated; any other returns cudaErrorInvalidValue. Returns
 // cudaGetLastError() after the launch.
 int flash_attn_partials_f32(const float* q, const float* k, const float* v,
                             float* acc, float* m, float* l, int b, int h,
                             int s_q, int s_k, int d, int q_off, int k_off,
                             int causal, float scale, cudaStream_t stream) {
-  if (d != 128) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<128>(q, k, v, acc, m, l, b, h, s_q, s_k, q_off, k_off, causal,
-                     scale, stream);
+  if (d == 128)
+    return launch<128>(q, k, v, acc, m, l, b, h, s_q, s_k, q_off, k_off,
+                       causal, scale, stream);
+  if (d == 32)
+    return launch<32>(q, k, v, acc, m, l, b, h, s_q, s_k, q_off, k_off,
+                      causal, scale, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* kfac_error_string(int code) {

@@ -1,9 +1,12 @@
-// Symmetric second moment C = a^T a / scale of a row-major (N, D) f32 matrix.
+// Symmetric second moment C = a^T a / scale of a row-major (N, D) f32 matrix,
+// and the same product blended into a running factor,
+// out = beta * F + coeff * a^T a.
 //
-// Replaces the TPU kernel _sym_cov_kernel (kfac_tpu/ops/pallas_cov.py:40,
-// called at :88 by sym_cov). Like it, only tiles on or above the diagonal
-// are computed and each result is written to both (i, j) and (j, i), so C
-// is exactly symmetric.
+// Replaces the TPU kernels _sym_cov_kernel (kfac_tpu/ops/pallas_cov.py:40,
+// called at :88 by sym_cov) and _sym_cov_ema_kernel
+// (kfac_tpu/ops/pallas_cov_ema.py:47, called at :110 by _fused). Like them,
+// only tiles on or above the diagonal are computed and each result is
+// written to both (i, j) and (j, i), so the output is exactly symmetric.
 //
 // Bound on an H100: N*D*(D+1) f32 FLOPs against N*D*4 + D*D*4 bytes. At the
 // flagship's (8192, 2049) that is 3.4e10 FLOP (0.51 ms at the 67 TFLOP/s
@@ -16,6 +19,15 @@
 // are masked on load instead of padded. No tensor cores: f32 products stay
 // f32 (TF32 would keep ~3 decimal digits). wgmma/TMA pipelining is later
 // work.
+//
+// The blend (EMA) is sym_cov_ema_kernel: the same main loop (tile_product,
+// inlined into both kernels) with another epilogue, in which each thread
+// reads F[gi, gj] of its upper element once and writes beta * F + coeff * acc
+// to both halves, so the covariance never reaches device memory. It adds one
+// read of F's upper triangle to the bound (8.4 MB at D = 2049: 0.003 ms at
+// 3.35 TB/s). F is mirrored element by element, where the TPU mirrors whole
+// tiles; the two agree because F is symmetric, which is the function's
+// contract.
 
 #include <cuda_runtime.h>
 
@@ -24,28 +36,30 @@ namespace {
 constexpr int kThreads = 256;  // a 16 x 16 thread grid
 constexpr int kBK = 16;        // rows of `a` staged per step
 
-template <int TM>
-__global__ void __launch_bounds__(kThreads)
-sym_cov_kernel(const float* __restrict__ a, float* __restrict__ c, int n,
-               int d, float scale, int nblk) {
-  constexpr int W = 16 * TM;  // tile edge
-  __shared__ float si[kBK][W];
-  __shared__ float sj[kBK][W];
-
-  // blockIdx.x -> (bi, bj) with bi <= bj, row-major over the upper triangle
+// Tile pair (bi, bj), bi <= bj, of this CTA: blockIdx.x row-major over the
+// upper triangle of the nblk x nblk grid of tiles.
+__device__ __forceinline__ void upper_tile_pair(int nblk, int& bi, int& bj) {
   int t = blockIdx.x;
-  int bi = 0;
+  bi = 0;
   while (t >= nblk - bi) {
     t -= nblk - bi;
     ++bi;
   }
-  const int bj = bi + t;
-  const int i0 = bi * W;
-  const int j0 = bj * W;
+  bj = bi + t;
+}
+
+// The main loop of both kernels: acc[r][q] = sum over the N rows of
+// a[k, i0 + ty + 16 r] * a[k, j0 + tx + 16 q].
+template <int TM>
+__device__ __forceinline__ void tile_product(const float* __restrict__ a,
+                                             int n, int d, int i0, int j0,
+                                             float (&acc)[TM][TM]) {
+  constexpr int W = 16 * TM;  // tile edge
+  __shared__ float si[kBK][W];
+  __shared__ float sj[kBK][W];
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
 
-  float acc[TM][TM];
 #pragma unroll
   for (int r = 0; r < TM; ++r)
 #pragma unroll
@@ -80,10 +94,24 @@ sym_cov_kernel(const float* __restrict__ a, float* __restrict__ c, int n,
     }
     __syncthreads();
   }
+}
+
+template <int TM>
+__global__ void __launch_bounds__(kThreads)
+sym_cov_kernel(const float* __restrict__ a, float* __restrict__ c, int n,
+               int d, float scale, int nblk) {
+  int bi, bj;
+  upper_tile_pair(nblk, bi, bj);
+  const int i0 = bi * 16 * TM;
+  const int j0 = bj * 16 * TM;
+  float acc[TM][TM];
+  tile_product<TM>(a, n, d, i0, j0, acc);
 
   // Epilogue: scale and write each upper element to both halves. On a
   // diagonal tile only gi <= gj is written, so every pair (i, j), (j, i)
   // comes from one accumulator: exact symmetry.
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
 #pragma unroll
   for (int r = 0; r < TM; ++r) {
 #pragma unroll
@@ -99,12 +127,45 @@ sym_cov_kernel(const float* __restrict__ a, float* __restrict__ c, int n,
   }
 }
 
+// sym_cov_kernel with the blend epilogue: c = beta * f + coeff * a^T a.
+template <int TM>
+__global__ void __launch_bounds__(kThreads)
+sym_cov_ema_kernel(const float* __restrict__ a, const float* __restrict__ f,
+                   float* __restrict__ c, int n, int d, float beta,
+                   float coeff, int nblk) {
+  int bi, bj;
+  upper_tile_pair(nblk, bi, bj);
+  const int i0 = bi * 16 * TM;
+  const int j0 = bj * 16 * TM;
+  float acc[TM][TM];
+  tile_product<TM>(a, n, d, i0, j0, acc);
+
+  // Epilogue: blend and write each upper element to both halves, as in
+  // sym_cov_kernel.
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+#pragma unroll
+  for (int r = 0; r < TM; ++r) {
+#pragma unroll
+    for (int q = 0; q < TM; ++q) {
+      const int gi = i0 + ty + 16 * r;
+      const int gj = j0 + tx + 16 * q;
+      if (gi < d && gj < d && (bi < bj || gi <= gj)) {
+        const size_t ij = static_cast<size_t>(gi) * d + gj;
+        const float v = beta * f[ij] + coeff * acc[r][q];
+        c[ij] = v;
+        c[static_cast<size_t>(gj) * d + gi] = v;
+      }
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launch on `stream`; `tile` is 32 or 64 (the output tile edge). Returns
-// cudaGetLastError() after the launch.
+// c = a^T a / scale. Launch on `stream`; `tile` is 32 or 64 (the output
+// tile edge). Returns cudaGetLastError() after the launch.
 int sym_cov_f32(const float* a, float* c, int n, int d, float scale,
                 int tile, cudaStream_t stream) {
   const int nblk = (d + tile - 1) / tile;
@@ -113,6 +174,24 @@ int sym_cov_f32(const float* a, float* c, int n, int d, float scale,
     sym_cov_kernel<4><<<grid, kThreads, 0, stream>>>(a, c, n, d, scale, nblk);
   } else if (tile == 32) {
     sym_cov_kernel<2><<<grid, kThreads, 0, stream>>>(a, c, n, d, scale, nblk);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// c = beta * f + coeff * a^T a for a symmetric (D, D) f; c must not alias f.
+// Same launch rules and return value as sym_cov_f32.
+int sym_cov_ema_f32(const float* a, const float* f, float* c, int n, int d,
+                    float beta, float coeff, int tile, cudaStream_t stream) {
+  const int nblk = (d + tile - 1) / tile;
+  const int grid = nblk * (nblk + 1) / 2;
+  if (tile == 64) {
+    sym_cov_ema_kernel<4><<<grid, kThreads, 0, stream>>>(a, f, c, n, d, beta,
+                                                         coeff, nblk);
+  } else if (tile == 32) {
+    sym_cov_ema_kernel<2><<<grid, kThreads, 0, stream>>>(a, f, c, n, d, beta,
+                                                         coeff, nblk);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

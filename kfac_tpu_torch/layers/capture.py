@@ -55,18 +55,44 @@ def named_grads(model: nn.Module) -> dict[str, torch.Tensor]:
 
 
 def value_and_grad(
-    model: nn.Module, loss_fn: Callable[..., torch.Tensor]
-) -> Callable[..., tuple[torch.Tensor, dict[str, torch.Tensor]]]:
+    model: nn.Module, loss_fn: Callable[..., Any], has_aux: bool = False
+) -> Callable[..., tuple[Any, dict[str, torch.Tensor]]]:
     """``f(*args) -> (loss, grads)``: one forward and backward of
-    ``loss_fn`` with no capture, grads keyed by parameter name."""
+    ``loss_fn`` with no capture, grads keyed by parameter name. With
+    ``has_aux`` ``loss_fn`` returns ``(loss, aux)`` and ``f`` returns
+    ``((loss, aux), grads)``."""
 
     def run(*args: Any, **kwargs: Any):
         model.zero_grad(set_to_none=True)
-        loss = loss_fn(*args, **kwargs)
+        out = loss_fn(*args, **kwargs)
+        loss, aux = out if has_aux else (out, None)
         loss.backward()
-        return loss.detach(), named_grads(model)
+        value = (loss.detach(), aux) if has_aux else loss.detach()
+        return value, named_grads(model)
 
     return run
+
+
+def accumulate_stats(
+    acc: CapturedStats | None, new: CapturedStats
+) -> CapturedStats:
+    """Sum statistics across gradient-accumulation micro-steps; divide by
+    their count with :func:`average_stats` before ``update_factors``.
+    (Routed layers, which accumulate ``w_i F_i``, come in a later slice.)"""
+    if acc is None:
+        return new
+    return CapturedStats(
+        a={n: acc.a[n] + new.a[n] for n in acc.a},
+        g={n: acc.g[n] + new.g[n] for n in acc.g},
+    )
+
+
+def average_stats(acc: CapturedStats, num_steps: int) -> CapturedStats:
+    """Average accumulated statistics over ``num_steps`` micro-steps."""
+    return CapturedStats(
+        a={n: v / num_steps for n, v in acc.a.items()},
+        g={n: v / num_steps for n, v in acc.g.items()},
+    )
 
 
 class CurvatureCapture:

@@ -20,7 +20,7 @@ import torch
 from kfac_tpu_torch.ops import build
 
 NEG_INF = -1e30
-HEAD_DIM = 128  # the flagship's; the only head dim the kernel is built for
+HEAD_DIMS = (32, 128)  # the head dims the kernel is built for: tiny LM, flagship
 
 
 def attend_partials_einsum(q, k, v, q_offset, k_offset, causal):
@@ -57,7 +57,13 @@ def _launcher():
 
 def _flash_partials_kernel(q, k, v, q_offset: int, k_offset: int, causal: bool):
     """Launch the CUDA kernel: the forward of :func:`flash_attention_partials`
-    on the card. Contiguous f32 (B, S, H, D) inputs, D == ``HEAD_DIM``."""
+    on the card. Contiguous f32 (B, S, H, D) inputs, D in ``HEAD_DIMS``."""
+    b, s_q, h, d = q.shape
+    s_k = k.shape[1]
+    if k.shape != (b, s_k, h, d) or v.shape != k.shape:
+        raise ValueError(f'q, k, v shapes disagree: {q.shape}, {k.shape}, {v.shape}')
+    if d not in HEAD_DIMS:
+        raise ValueError(f'the flash attention kernel takes head dims {HEAD_DIMS}, not {d}')
     for t in (q, k, v):
         if t.device.type != 'cuda':
             raise ValueError(f'flash attention runs on cuda or cpu, not {t.device}')
@@ -67,12 +73,6 @@ def _flash_partials_kernel(q, k, v, q_offset: int, k_offset: int, causal: bool):
                 f'(B, S, H, D) tensors; got {t.dtype}, '
                 f'contiguous={t.is_contiguous()}'
             )
-    b, s_q, h, d = q.shape
-    s_k = k.shape[1]
-    if k.shape != (b, s_k, h, d) or v.shape != k.shape:
-        raise ValueError(f'q, k, v shapes disagree: {q.shape}, {k.shape}, {v.shape}')
-    if d != HEAD_DIM:
-        raise ValueError(f'the flash attention kernel takes head dim {HEAD_DIM}, not {d}')
     acc = torch.empty_like(q)
     m = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)

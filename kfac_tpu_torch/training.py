@@ -1,0 +1,290 @@
+"""Training engine: K-FAC-preconditioned train steps with capture cadence
+(counterpart of ``kfac_tpu/training.py``).
+
+The :class:`Trainer` holds the ``nn.Module`` (whose parameters are the
+trained weights) and a ``torch.optim`` optimizer; a :class:`TrainState`
+carries what the JAX package's state carries beside them: the K-FAC state
+and the model's mutable state. The factor cadence is the K-FAC state's
+step, a host integer, so a capture step and a plain step are two Python
+branches and no step reads a device value on the host.
+
+Knobs of the JAX Trainer whose slice comes later (``checkpoints``,
+``auto_layout``, ``fleet``, and a health config that skips non-finite
+steps) raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import inspect
+from typing import Any, Callable
+
+import torch
+import torch.nn as nn
+
+from kfac_tpu_torch import tracing
+from kfac_tpu_torch.device import resolve_device
+from kfac_tpu_torch.layers import capture as capture_lib
+from kfac_tpu_torch.observability import ledger as ledger_lib
+from kfac_tpu_torch.preconditioner import set_grads
+
+
+@dataclasses.dataclass
+class TrainState:
+    """``kfac_state``: the preconditioner's state (None without K-FAC);
+    ``model_state``: mutable model collections, or None."""
+
+    kfac_state: Any
+    model_state: Any = None
+
+
+_LATER_SLICE_KNOBS = ('checkpoints', 'auto_layout', 'fleet')
+
+
+def _index(tree: Any, i: int) -> Any:
+    """Entry ``i`` of the leading axis of every tensor in nested tuples,
+    lists and dicts."""
+    if isinstance(tree, torch.Tensor):
+        return tree[i]
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_index(v, i) for v in tree)
+    raise TypeError(f'batches hold tensors in tuples, lists and dicts, not {type(tree)}')
+
+
+def _leading(tree: Any) -> int:
+    """Length of the leading axis of the first tensor in ``tree``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.shape[0]
+    values = tree.values() if isinstance(tree, dict) else tree
+    return _leading(next(iter(values)))
+
+
+@dataclasses.dataclass
+class Trainer:
+    """Builds and dispatches K-FAC train steps.
+
+    Args:
+        model: the trained module; its parameters must lie on ``device``.
+        optimizer: a ``torch.optim`` optimizer over ``model``'s parameters.
+        loss_fn: ``loss_fn(model_state, batch) -> (loss, new_model_state)``;
+            runs ``model`` inside, so capture's hooks see its layers.
+        kfac: a :class:`kfac_tpu_torch.KFACPreconditioner` (anything with
+            its ``registry``, ``factor_update_steps``, ``init`` and
+            ``step``), or None for a first-order baseline. Its registry's
+            model must be ``model``; its ``factor_update_steps`` sets the
+            capture cadence.
+        run_id: identifier stamped into :meth:`run_header`; generated when
+            None.
+        device: where the model lies, ``'cuda'`` unless the caller passes
+            another.
+    """
+
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    loss_fn: Callable[[Any, Any], tuple[torch.Tensor, Any]]
+    kfac: Any = None
+    checkpoints: Any = None
+    auto_layout: Any = None
+    fleet: Any = None
+    run_id: str | None = None
+    device: str | torch.device = 'cuda'
+
+    def __post_init__(self) -> None:
+        self.device = resolve_device(self.device)
+        for knob in _LATER_SLICE_KNOBS:
+            if getattr(self, knob) is not None:
+                raise NotImplementedError(f'Trainer({knob}=...) is not ported to kfac_tpu_torch yet')
+        for p in self.model.parameters():
+            if p.device.type != self.device.type:
+                raise ValueError(f'model parameters are on {p.device}, not on {self.device}')
+        if self.run_id is None:
+            self.run_id = ledger_lib.new_run_id()
+        # host mirror of kfac_state.step for cadence dispatch; None until
+        # the first step reads it from the state (see resume)
+        self._step_count: int | None = None
+        self._accum: dict[str, Any] | None = None
+        # whether the preconditioner's step accepts the loss; duck-typed so
+        # engines with the bare (state, grads, stats) signature work
+        self._kfac_takes_loss = (
+            self.kfac is not None
+            and 'loss' in inspect.signature(self.kfac.step).parameters
+        )
+        self._run_plain = capture_lib.value_and_grad(self.model, self.loss_fn, has_aux=True)
+        if self.kfac is not None:
+            health = getattr(self.kfac, 'health', None)
+            if getattr(health, 'skip_nonfinite', False):
+                raise NotImplementedError(
+                    'a health config with skip_nonfinite is not ported to kfac_tpu_torch yet'
+                )
+            if self.kfac.registry.model is not self.model:
+                raise ValueError('the registry was built over another model than the trainer\'s')
+            self._run_stats = capture_lib.CurvatureCapture(self.kfac.registry).value_stats_and_grad(
+                self.loss_fn, has_aux=True
+            )
+
+    # ------------------------------------------------------------- builders
+
+    def init(self, model_state: Any = None) -> TrainState:
+        return TrainState(
+            kfac_state=None if self.kfac is None else self.kfac.init(),
+            model_state=model_state,
+        )
+
+    def run_header(self, stream: str) -> dict[str, Any]:
+        """The shared run-header record for one telemetry stream."""
+        return ledger_lib.run_header(self.run_id, stream)
+
+    def _finish_step(
+        self, state: TrainState, grads, stats, new_model_state, loss
+    ) -> TrainState:
+        """Precondition (with K-FAC), write the grads into ``.grad`` and
+        take the optimizer step."""
+        kstate = state.kfac_state
+        if self.kfac is not None:
+            if self._kfac_takes_loss:
+                kstate, grads = self.kfac.step(kstate, grads, stats, loss=loss)
+            else:
+                kstate, grads = self.kfac.step(kstate, grads, stats)
+        set_grads(self.model, grads)
+        self.optimizer.step()
+        return TrainState(kstate, new_model_state)
+
+    # ------------------------------------------------------------- dispatch
+
+    def resume(self, state: TrainState) -> None:
+        """Align cadence dispatch with a (restored) TrainState's step.
+
+        Called automatically on the first step; call explicitly after
+        swapping in a different state mid-run.
+        """
+        ks = state.kfac_state
+        self._step_count = 0 if ks is None else int(ks.step)
+
+    def _sync_step_count(self, state: TrainState) -> None:
+        if self._step_count is None:
+            self.resume(state)
+
+    def _capture_now(self) -> bool:
+        """The engine's factor cadence at the host step count (a schedule
+        is a function of the step)."""
+        cadence = self.kfac.factor_update_steps
+        if callable(cadence):
+            cadence = max(1, int(cadence(self._step_count)))
+        return self._step_count % cadence == 0
+
+    def _step(self, state: TrainState, batch) -> tuple[TrainState, torch.Tensor]:
+        self._sync_step_count(state)
+        if self.kfac is not None and self._capture_now():
+            (loss, new_ms), grads, stats = self._run_stats(state.model_state, batch)
+        else:
+            (loss, new_ms), grads = self._run_plain(state.model_state, batch)
+            stats = None
+        new_state = self._finish_step(state, grads, stats, new_ms, loss)
+        self._step_count += 1
+        return new_state, loss
+
+    @tracing.trace(name='trainer/step')
+    def step(self, state: TrainState, batch) -> tuple[TrainState, torch.Tensor]:
+        """One optimization step; captures curvature on the factor cadence.
+
+        Returns the new state and the loss as a 0-d tensor on the device
+        (not read on the host). Recorded in the tracing table as
+        ``trainer/step``.
+        """
+        return self._step(state, batch)
+
+    @tracing.trace(name='trainer/scan_steps')
+    def scan_steps(self, state: TrainState, batches) -> tuple[TrainState, torch.Tensor]:
+        """``len(batches)`` steps over the leading axis of ``batches``
+        (tensors in nested tuples, lists and dicts), on the same cadence as
+        :meth:`step`. Returns the final state and the per-step losses
+        stacked on the device.
+
+        Unlike the JAX package's ``lax.scan``, this is a host loop of eager
+        steps, not one compiled program.
+        """
+        losses = []
+        for i in range(_leading(batches)):
+            state, loss = self._step(state, _index(batches, i))
+            losses.append(loss)
+        return state, torch.stack(losses)
+
+    # --------------------------------------------------------- accumulation
+
+    def accumulate_microbatch(self, state: TrainState, microbatch) -> torch.Tensor:
+        """Accumulate one micro-batch's gradients and statistics without
+        stepping; finish with :meth:`apply_accumulated` or discard with
+        :meth:`reset_batch`. Returns this micro-batch's loss."""
+        if self.kfac is None:
+            raise ValueError('accumulation requires a kfac preconditioner')
+        self._sync_step_count(state)
+        acc = self._accum
+        if acc is None:
+            acc = self._accum = {
+                'grads': None, 'stats': None, 'loss': 0.0, 'count': 0,
+                'model_state': state.model_state,
+                'capture': self._capture_now(),
+            }
+        if acc['capture']:
+            (loss, model_state), grads, stats = self._run_stats(acc['model_state'], microbatch)
+            acc['stats'] = capture_lib.accumulate_stats(acc['stats'], stats)
+        else:
+            (loss, model_state), grads = self._run_plain(acc['model_state'], microbatch)
+        acc['model_state'] = model_state
+        acc['loss'] = acc['loss'] + loss
+        acc['grads'] = (
+            grads if acc['grads'] is None
+            else {n: g + grads[n] for n, g in acc['grads'].items()}
+        )
+        acc['count'] += 1
+        return loss
+
+    def reset_batch(self) -> None:
+        """Discard the pending micro-batch accumulation; the step counter
+        and the factors are untouched."""
+        self._accum = None
+
+    def apply_accumulated(self, state: TrainState) -> tuple[TrainState, torch.Tensor]:
+        """Finish an incremental accumulation: average the gradients,
+        statistics and loss over the micro-batches, precondition, step."""
+        acc = self._accum
+        if acc is None or acc['count'] == 0:
+            raise ValueError('no pending accumulation: call accumulate_microbatch first')
+        n = acc['count']
+        grads = {k: g / n for k, g in acc['grads'].items()}
+        stats = capture_lib.average_stats(acc['stats'], n) if acc['capture'] else None
+        loss = acc['loss'] / n
+        new_state = self._finish_step(state, grads, stats, acc['model_state'], loss)
+        self._accum = None
+        self._step_count += 1
+        return new_state, loss
+
+    def _step_accumulate(self, state: TrainState, microbatches) -> tuple[TrainState, torch.Tensor]:
+        if self.kfac is None:
+            raise ValueError('step_accumulate requires a kfac preconditioner')
+        if self._accum is not None:
+            raise ValueError(
+                'an incremental accumulation is pending: finish it with '
+                'apply_accumulated or drop it with reset_batch before step_accumulate'
+            )
+        for mb in microbatches:
+            self.accumulate_microbatch(state, mb)
+        return self.apply_accumulated(state)
+
+    @tracing.trace(name='trainer/step_accumulate')
+    def step_accumulate(self, state: TrainState, microbatches) -> tuple[TrainState, torch.Tensor]:
+        """One optimization step over several micro-batches: gradients and
+        curvature statistics are averaged before the preconditioner step.
+        Off the factor cadence the micro-batches run without capture."""
+        return self._step_accumulate(state, microbatches)
+
+    @tracing.trace(name='trainer/step_accumulate_scan')
+    def step_accumulate_scan(self, state: TrainState, microbatches) -> tuple[TrainState, torch.Tensor]:
+        """:meth:`step_accumulate` over the leading axis of
+        ``microbatches``. A host loop, not one compiled program as in the
+        JAX package."""
+        return self._step_accumulate(
+            state, [_index(microbatches, i) for i in range(_leading(microbatches))]
+        )

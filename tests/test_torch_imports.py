@@ -84,6 +84,18 @@ def test_entry_points_default_to_cuda_and_raise_without_gpu(no_gpu):
     kfac = KFACPreconditioner(reg, device='cpu')
     assert all(t.device.type == 'cpu' for t in kfac.init().a.values())
 
+    from kfac_tpu_torch import bench_lm
+    from kfac_tpu_torch.training import Trainer
+
+    opt = torch.optim.SGD(model.parameters(), lr=0.1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(model, opt, lambda ms, b: (model(b).sum(), ms), kfac=kfac)
+    trainer = Trainer(model, opt, lambda ms, b: (model(b).sum(), ms), kfac=kfac, device='cpu')
+    assert trainer.init().kfac_state.step == 0
+    # the bench entry runs with --device cpu (tests/test_torch_bench_lm.py)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench_lm.main(['--config', 'tiny'])
+
 
 def test_register_model_rejects_a_model_on_another_device():
     from kfac_tpu_torch import register_model

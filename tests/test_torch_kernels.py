@@ -10,7 +10,9 @@ configuration::
 Tolerances, the same as ``chip_smoke.py``'s, which also checks that each
 one rejects the plain version at reduced precision (TF32 or bf16): the
 covariance within 1e-5 x max|C| (8192-row f32 sums in another order) and
-exactly symmetric; the kl-clip dot within 1e-7 x sum|p*g| and identical
+exactly symmetric; the covariance blended into a symmetric running factor
+within 1e-5 x max|coeff a^T a| (the blend scales the product's error by
+coeff, so the product is the reference) and exactly symmetric; the kl-clip dot within 1e-7 x sum|p*g| and identical
 from run to run; the kl-clip scale exact; the attention partials within
 1e-5 x max|x| of each output; the Newton-Schulz step within 3e-5 x max of
 x_new and of mx_new and 3e-5 of the residual, every output identical from
@@ -20,7 +22,7 @@ run to run.
 import pytest
 import torch
 
-from kfac_tpu_torch.ops import flash_attention, klclip
+from kfac_tpu_torch.ops import cov_ema, flash_attention, klclip
 from kfac_tpu_torch.ops import newton_schulz as ns_lib
 from kfac_tpu_torch.ops import sym_cov as sym_cov_lib
 
@@ -45,6 +47,32 @@ def test_sym_cov_kernel_matches_plain_on_card(cuda_device, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('shape', [(8192, 513), (512, 256), (77, 130), (1000, 70)])
+def test_sym_cov_ema_kernel_matches_plain_on_card(cuda_device, shape):
+    g = torch.Generator(cuda_device).manual_seed(4)
+    a = torch.randn(shape, generator=g, device=cuda_device)
+    f = sym_cov_lib.sym_cov_plain(torch.randn(shape, generator=g, device=cuda_device))
+    n = shape[0]
+    beta, coeff = 0.95, 0.05 / n
+    before = cov_ema.sym_cov_ema.launches
+    got = cov_ema.sym_cov_ema(f, a, beta, coeff)
+    assert cov_ema.sym_cov_ema.launches == before + 1
+    want = cov_ema.sym_cov_ema_plain(f, a, beta, coeff)
+    assert torch.equal(got, got.T)
+    assert (got - want).abs().max() <= 1e-5 * (coeff * (a.T @ a)).abs().max()
+    cold = cov_ema.fused_cov_ema(None, a, beta)
+    assert (cold - cov_ema.sym_cov_ema_plain(torch.eye(shape[1], device=cuda_device), a, beta, coeff)
+            ).abs().max() <= 1e-5 * (coeff * (a.T @ a)).abs().max()
+
+
+def test_flash_kernel_raises_for_a_head_dim_it_was_not_built_for():
+    # checked before the device, so this runs without a card
+    q = torch.zeros(1, 4, 1, 64, device='meta')
+    with pytest.raises(ValueError, match='head dims'):
+        flash_attention._flash_partials_kernel(q, q, q, 0, 0, True)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize('shape', [(512, 513), (37, 129), (3, 5)])
 def test_klclip_kernels_match_plain_on_card(cuda_device, shape):
     g = torch.Generator(cuda_device).manual_seed(1)
@@ -60,7 +88,8 @@ def test_klclip_kernels_match_plain_on_card(cuda_device, shape):
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     'q_off,k_off,s,d',
-    [(0, 0, 512, 128), (64, 0, 100, 128), (0, 256, 128, 128), (16, 0, 192, 128)],
+    [(0, 0, 512, 128), (64, 0, 100, 128), (0, 256, 128, 128), (16, 0, 192, 128),
+     (0, 0, 128, 32), (16, 0, 100, 32)],
 )
 def test_flash_kernel_matches_plain_on_card(cuda_device, q_off, k_off, s, d):
     g = torch.Generator(cuda_device).manual_seed(2)

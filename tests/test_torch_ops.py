@@ -18,8 +18,9 @@ from kfac_tpu.ops import factors as jfactors
 from kfac_tpu.ops import losses as jlosses
 from kfac_tpu.ops import pallas_attention as jpa
 from kfac_tpu.ops import pallas_cov as jpallas_cov
+from kfac_tpu.ops import pallas_cov_ema as jpallas_cov_ema
 from kfac_tpu.ops import pallas_ns as jpallas_ns
-from kfac_tpu_torch.ops import cov, factors, flash_attention, klclip, losses
+from kfac_tpu_torch.ops import cov, cov_ema, factors, flash_attention, klclip, losses
 from kfac_tpu_torch.ops import newton_schulz as ns_lib
 from kfac_tpu_torch.ops import sym_cov as sym_cov_lib
 
@@ -77,6 +78,54 @@ def test_linear_factors_match_jax(has_bias):
           jcov.linear_a_factor(jnp.asarray(a), has_bias))
     close(cov.linear_g_factor(t(g)), jcov.linear_g_factor(jnp.asarray(g)))
     close(cov.append_bias_ones(t(a)), jcov.append_bias_ones(jnp.asarray(a)))
+
+
+# ------------------------------------------------------------------ cov+EMA
+
+
+def sym_factor(seed, d):
+    f = rand(seed, d, d)
+    return 0.5 * (f + f.T)  # the running factor is symmetric by contract
+
+
+@pytest.mark.parametrize('n,d', [(512, 256), (640, 192)], ids=['probe', 'padding'])
+def test_sym_cov_ema_plain_matches_pallas_interpret(n, d):
+    a, f = rand(20, n, d), sym_factor(21, d)
+    beta, coeff = 0.95, 0.05 / n
+    want = jpallas_cov_ema._fused(jnp.asarray(f), jnp.asarray(a), beta, coeff, interpret=True)
+    got = cov_ema.sym_cov_ema(t(f), t(a), beta, coeff)
+    assert got.dtype == torch.float32 and torch.equal(got, got.T)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    # the unfused pair is the second oracle
+    unfused = jfactors.ema_update(jnp.asarray(f), jcov.get_cov(jnp.asarray(a), scale=n), beta)
+    np.testing.assert_allclose(got.numpy(), np.asarray(unfused), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize('running', [False, True], ids=['cold-start', 'running'])
+def test_fused_cov_ema_matches_jax(running):
+    a = rand(22, 96, 40)
+    f = sym_factor(23, 40) if running else None
+    want = jpallas_cov_ema.fused_cov_ema(
+        None if f is None else jnp.asarray(f), jnp.asarray(a), 0.95, scale=7.0
+    )
+    got = cov_ema.fused_cov_ema(None if f is None else t(f), t(a), 0.95, scale=7.0)
+    close(got, want)
+    assert torch.equal(got, got.T)
+    assert got.dtype == torch.float32
+
+
+def test_fused_cov_ema_promotes_dtype_and_does_not_launch_on_cpu():
+    a = t(rand(24, 30, 12))
+    before = cov_ema.sym_cov_ema.launches
+    out = cov_ema.fused_cov_ema(torch.eye(12, dtype=torch.float64), a, 0.9)
+    assert out.dtype == torch.float64
+    f = t(sym_factor(25, 12))
+    assert torch.equal(
+        cov_ema.sym_cov_ema(f, a, 0.9, 0.1 / 30), cov_ema.sym_cov_ema_plain(f, a, 0.9, 0.1 / 30)
+    )
+    assert cov_ema.sym_cov_ema.launches == before
+    with pytest.raises(ValueError):
+        cov_ema.sym_cov_ema(torch.eye(11), a, 0.9, 0.1)
 
 
 # ------------------------------------------------------------------- kl-clip
