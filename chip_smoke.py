@@ -16,10 +16,16 @@ Phases, one JSON line each:
    against its plain PyTorch version with the stated tolerance, and timed
    with CUDA events beside the plain version, one PyTorch library call as
    a yardstick, and the least time the H100 could take (bytes over 3.35
-   TB/s or f32 FLOPs over 67 TFLOP/s, whichever is larger). Each tolerance
-   must also reject a control: the plain version at reduced precision
-   (TF32 matmuls, or bf16 products), so a kernel that drops below f32
-   fails the check.
+   TB/s or f32 FLOPs over 67 TFLOP/s, whichever is larger; ``sym_cov``'s
+   operations are the tensor cores' 3xTF32 work at 495 TFLOP/s, its f32
+   bound beside, and its time unsplit beside the planned split). Each
+   tolerance must also reject a control: the plain version at reduced
+   precision (TF32 matmuls, or bf16 products), so a kernel that drops
+   below f32 fails the check. The kl-clip kernels also report their
+   device ms from torch.profiler: back to back, their CUDA-event times
+   are the host's enqueue. ``klclip_scale`` is timed at each layer's
+   shape and as the engine calls it, in place once over the flagship's 36
+   layers (out of place and ``_foreach_mul_`` beside).
 4. ``reference``: a two-layer model trained three steps through
    ``Trainer.step`` on the card (kernels) and on the CPU (plain versions)
    from the same weights, once with EIGEN, once with INVERSE +
@@ -69,6 +75,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12  # H100 SXM TF32 tensor cores, dense
 
 FLAGSHIP = dict(batch=16, seq=512, d_model=512, layers=6, heads=4, vocab=8192)
 STEPS = 20
@@ -80,6 +87,9 @@ NS_RTOL = 3e-5
 # K-FAC layers of the flagship: q, k, v, out, fc1 and fc2 of every block
 # (lm_head is skipped), fixed by the configuration, not read from the code
 KFAC_LAYERS = 6 * FLAGSHIP['layers']
+# their preconditioned gradients, (d_out, d_in + bias): q, k, v and out of
+# each block, then fc1, then fc2
+FLAGSHIP_PMATS = [(512, 513)] * 24 + [(2048, 513)] * 6 + [(512, 2049)] * 6
 
 
 def emit(obj) -> None:
@@ -94,9 +104,11 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(
+    nbytes: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S
+) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
@@ -156,19 +168,39 @@ def kernel_cases():
         return torch.randn(*shape, generator=gen, device=dev)
 
     cases = []
-    # rows are the 8192 tokens of a step; A factors carry the bias column
-    for d in (513, 2049, 512, 2048):
-        a = randn(8192, d)
+    sms = sym_cov.sm_count(torch.cuda.current_device())
+    # rows are the 8192 tokens of a step; A factors carry the bias column.
+    # (77, 130): ragged N and D, three 64-wide tiles, one slice per 32-row slab.
+    for n, d in ((8192, 513), (8192, 2049), (8192, 512), (8192, 2048), (77, 130)):
+        a = randn(n, d)
+        plan = sym_cov.plan(n, d, sms)
+        nbytes = 4 * (n * d + d * d)
+        extra = dict(
+            splits=plan.splits, scratch_mib=plan.scratch_bytes / 2**20,
+            bound_f32_ms=bound_ms(nbytes, n * d * (d + 1))[0],
+        )
+        whole = sym_cov.CovPlan(n, d, 1, -(-n // sym_cov.SLAB_ROWS) * sym_cov.SLAB_ROWS)
         cases.append(dict(
-            name='sym_cov', shape=[8192, d],
+            name='sym_cov', shape=[n, d],
             kernel=lambda a=a: sym_cov.sym_cov(a),
             plain=lambda a=a: sym_cov.sym_cov_plain(a),
             library=lambda a=a: torch.matmul(a.T, a),
-            compare=max_err, invariant=lambda got: torch.equal(got, got.T),
-            rtol=1e-5, tol_rule='1e-5 x max|C|, and exactly symmetric',
+            compare=max_err, rtol=1e-5,
+            tol_rule='1e-5 x max|C|, exactly symmetric and run-to-run identical',
             control=tf32(lambda a=a: sym_cov.sym_cov_plain(a)),
             control_rule='plain version with TF32 matmuls',
-            nbytes=4 * (8192 * d + d * d), flops=8192 * d * (d + 1),
+            # the work the kernel issues: 3 TF32 products per f32 product
+            nbytes=nbytes, flops=3 * n * d * (d + 1), flops_per_s=TF32_FLOPS_PER_S,
+            # bit for bit from run to run as well
+            invariant=lambda got, a=a: (
+                torch.equal(got, got.T) and torch.equal(got, sym_cov.sym_cov(a))
+            ),
+            extra=extra,
+            # the same kernel over all N rows in one slice, where the plan splits
+            also_timed={} if plan.splits == 1 else dict(
+                ms_unsplit=lambda a=a, whole=whole, out=torch.empty(d, d, device=dev):
+                sym_cov.launch(a, out, whole.n, whole),
+            ),
         ))
     # the flagship's factor widths, the fused-kernel probe's (512, 256) and a
     # ragged shape. F is a covariance, so symmetric, as the contract asks.
@@ -216,6 +248,7 @@ def kernel_cases():
             control=lambda p=p, g=g: (p.bfloat16() * g.bfloat16()).float().sum(),
             control_rule='bf16 products, f32 sum',
             nbytes=4 * (2 * r * c + 1), flops=2 * r * c,
+            device_kernels=('dot_partials_kernel', 'dot_final_kernel'),
         ))
         cases.append(dict(
             name='klclip_scale', shape=[r, c],
@@ -226,7 +259,39 @@ def kernel_cases():
             control=lambda p=p, s=s: (p.bfloat16() * s).float(),
             control_rule='bf16 product',
             nbytes=4 * (2 * r * c + 1), flops=r * c,
+            device_kernels=('klclip_scale_multi_kernel',),
         ))
+    # the engine's one launch a step: every K-FAC layer's preconditioned
+    # gradient of the flagship (q, k, v, out; fc1; fc2 of 6 blocks)
+    ps = [randn(*shape) for shape in FLAGSHIP_PMATS]
+    s = torch.tensor(0.37, device=dev)
+    numel = sum(p.numel() for p in ps)
+    # timed in place on copies, as the engine calls it: a scale of 1 keeps
+    # repeated calls exact
+    work, lib_work = [p.clone() for p in ps], [p.clone() for p in ps]
+    one = torch.ones((), device=dev)
+
+    def cmp_many(got, want):
+        return max(map(max_err, got, want), key=lambda e: e[0])
+
+    cases.append(dict(
+        name='klclip_scale', shape=[len(ps), numel],
+        kernel=lambda: klclip.klclip_scale_many([p.clone() for p in ps], s, in_place=True),
+        timed=lambda: klclip.klclip_scale_many(work, one, in_place=True),
+        plain=lambda: klclip.klclip_scale_many_plain(ps, s),
+        library=lambda: torch._foreach_mul(ps, s),
+        compare=cmp_many, rtol=0.0, tol_rule='exact, out of place as well',
+        invariant=lambda got: all(map(torch.equal, klclip.klclip_scale_many(ps, s), got)),
+        control=lambda: [(p.bfloat16() * s).float() for p in ps],
+        control_rule='bf16 products',
+        nbytes=4 * (2 * numel + 1), flops=numel,
+        device_kernels=('klclip_scale_multi_kernel',),
+        also_timed=dict(
+            # new outputs, allocated a tensor at a time by the wrapper
+            ms_out_of_place=lambda: klclip.klclip_scale_many(ps, s),
+            library_in_place_ms=lambda: torch._foreach_mul_(lib_work, one),
+        ),
+    ))
     def cmp_flash(got, want):
         # the worst of acc, m and l relative to its own max
         return max(map(max_err, got, want), key=lambda p: p[0] / p[1])
@@ -306,6 +371,30 @@ def kernel_cases():
     return cases
 
 
+def profiled_device_ms(fn, names, calls=20):
+    """Device ms of one ``fn()`` from torch.profiler: per kernel whose name
+    holds one of ``names``, its device time over its launches, summed. 100
+    lead kernels go first (a trace can lose a pass's first records)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    lead = torch.zeros(1, device='cuda')
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(100):
+            lead.add_(1)
+        torch.cuda.synchronize()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    found = [
+        (evt.self_device_time_total / 1e3, evt.count) for evt in prof.key_averages()
+        if str(evt.device_type).endswith('CUDA') and evt.count
+        and any(n in evt.key for n in names)
+    ]
+    if not found:
+        return 'not measured', 0
+    return sum(ms / count for ms, count in found), sum(count for _, count in found)
+
+
 def run_kernels(results) -> bool:
     ok = True
     for case in kernel_cases():
@@ -323,10 +412,22 @@ def run_kernels(results) -> bool:
             extra['rel_err'] = case['detail'](got, want)
             extra['control_rel_err'] = case['detail'](control, want)
         passed = err <= tol and holds and rejects_control
-        ms = time_ms(case['kernel'])
+        timed = case.get('timed', case['kernel'])
+        if 'device_kernels' in case:
+            # back-to-back CUDA events time host enqueue at these sizes
+            extra['device_ms'], extra['device_launches_seen'] = profiled_device_ms(
+                timed, case['device_kernels']
+            )
+        ms = time_ms(timed)
         plain_ms = time_ms(case['plain'])
         library_ms = time_ms(case['library'])
-        bms, by = bound_ms(case['nbytes'], case['flops'])
+        for key, fn in case.get('also_timed', {}).items():
+            extra[key] = time_ms(fn)
+        bms, by = bound_ms(
+            case['nbytes'], case['flops'], case.get('flops_per_s', F32_FLOPS_PER_S)
+        )
+        if 'bound_f32_ms' in extra:
+            extra['bound_f32_share'] = extra['bound_f32_ms'] / ms
         row = dict(
             phase='kernel', name=case['name'], shape=case['shape'],
             max_abs_err=err, max_rel_err=err / ref if ref else err, tol=tol,
@@ -335,7 +436,7 @@ def run_kernels(results) -> bool:
             control_max_rel_err=control_err / ref if ref else control_err,
             rejects_control=rejects_control, passed=passed,
             ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms,
-            bound_by=by, **extra,
+            bound_by=by, bound_share=bms / ms, **extra,
         )
         emit(row)
         results.append(row)
@@ -557,7 +658,7 @@ def expected_launches(steps: int, captures: int) -> dict:
         'sym_cov': 2 * KFAC_LAYERS * captures,
         'sym_cov_ema': 0,
         'klclip_dot': KFAC_LAYERS * steps,
-        'klclip_scale': KFAC_LAYERS * steps,
+        'klclip_scale': steps,  # every layer in one launch
         'flash_attention_partials': FLAGSHIP['layers'] * steps,
     }
 
@@ -709,7 +810,7 @@ def expected_bench_launches(cfg: dict, window: dict, probe_calls: int) -> dict:
         'sym_cov': 2 * kfac_layers * captures,
         'sym_cov_ema': probe_calls,
         'klclip_dot': kfac_layers * (eager + scan) + probe_calls,
-        'klclip_scale': kfac_layers * (eager + scan) + probe_calls,
+        'klclip_scale': eager + scan + probe_calls,
         'flash_attention_partials': cfg['layers'] * (2 * eager + scan),
         'fused_ns_step': probe_calls,
     }
@@ -766,7 +867,7 @@ SOURCES = {
     'sym_cov': ('cuda', 'kfac_tpu_torch/csrc/sym_cov.cu', 'kfac_tpu/ops/pallas_cov.py:88', [8192, 2049]),
     'sym_cov_ema': ('cuda', 'kfac_tpu_torch/csrc/sym_cov.cu', 'kfac_tpu/ops/pallas_cov_ema.py:110', [512, 256]),
     'klclip_dot': ('triton', 'kfac_tpu_torch/ops/klclip_triton.py', 'kfac_tpu/ops/pallas_ns.py:219', [2048, 513]),
-    'klclip_scale': ('triton', 'kfac_tpu_torch/ops/klclip_triton.py', 'kfac_tpu/ops/pallas_ns.py:244', [2048, 513]),
+    'klclip_scale': ('cuda', 'kfac_tpu_torch/csrc/klclip.cu', 'kfac_tpu/ops/pallas_ns.py:244', [KFAC_LAYERS, 18_902_016]),
     'flash_attention_partials': ('cuda', 'kfac_tpu_torch/csrc/flash_attn.cu', 'kfac_tpu/ops/pallas_attention.py:257', [16, 512, 4, 128]),
     'fused_ns_step': ('cuda', 'kfac_tpu_torch/csrc/newton_schulz.cu', 'kfac_tpu/ops/pallas_ns.py:127,139', [2049, 2049]),
 }
@@ -787,7 +888,9 @@ def kernels_line(results, launches) -> dict:
             launches=sum(by_path.values()), launches_by_path=by_path,
             max_abs_err=max(r['max_abs_err'] for r in rows), shape=shape,
             ms=row['ms'], plain_ms=row['plain_ms'], bound_ms=row['bound_ms'],
-            bound_by=row['bound_by'], library_ms=row['library_ms'],
+            bound_by=row['bound_by'], bound_share=row['bound_share'],
+            library_ms=row['library_ms'],
+            **{k: row[k] for k in ('bound_f32_ms', 'bound_f32_share', 'device_ms') if k in row},
         ))
     return {'kernels': out}
 

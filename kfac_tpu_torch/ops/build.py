@@ -24,7 +24,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
-SOURCES = ('sym_cov', 'flash_attn', 'newton_schulz')
+SOURCES = ('sym_cov', 'flash_attn', 'newton_schulz', 'klclip')
 FLAGS = (
     '-gencode=arch=compute_90a,code=sm_90a',
     '-std=c++17',

@@ -24,7 +24,7 @@ import functools
 import torch
 
 from kfac_tpu_torch.ops import build
-from kfac_tpu_torch.ops.sym_cov import tile_for
+from kfac_tpu_torch.ops.sym_cov import sm_count
 
 
 def sym_cov_ema_plain(
@@ -34,6 +34,14 @@ def sym_cov_ema_plain(
     triangle of ``beta * f + coeff * (a^T a)``, mirrored."""
     full = beta * f + coeff * (a.T @ a)
     return torch.triu(full) + torch.triu(full, diagonal=1).T
+
+
+def tile_for(d: int, device: torch.device) -> int:
+    """Output tile edge of the SIMT loop: 64 when its upper-triangle grid
+    gives every SM two CTAs, else 32 (more, smaller CTAs for the d ~ 512
+    factors)."""
+    nblk = -(-d // 64)
+    return 64 if nblk * (nblk + 1) // 2 >= 2 * sm_count(device.index) else 32
 
 
 @functools.cache

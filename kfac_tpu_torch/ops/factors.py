@@ -254,3 +254,16 @@ def kl_clip_apply(pmat: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     ``pmat_f32 * scale`` on the kl-clip kernel, cast back to ``pmat``'s
     dtype."""
     return klclip.klclip_scale(pmat, scale).to(pmat.dtype)
+
+
+def kl_clip_apply_many_(
+    pmats: list[torch.Tensor], scale: torch.Tensor
+) -> list[torch.Tensor]:
+    """:func:`kl_clip_apply` of every layer's preconditioned gradient in one
+    launch of the kl-clip scale kernel, in place: the f32 contiguous
+    ``pmats`` are scaled themselves (the engine's own temporaries; the JAX
+    package's version is functional), others through an f32 copy cast back
+    to their dtype. Returns the scaled tensors."""
+    f32 = [p.float().contiguous() for p in pmats]
+    klclip.klclip_scale_many(f32, scale, in_place=True)
+    return [x.to(p.dtype) for x, p in zip(f32, pmats)]

@@ -1,17 +1,16 @@
-"""Triton kernels of the kl-clip multiply-reduce and scale.
+"""Triton kernels of the kl-clip multiply-reduce.
 
 Imported only by the launchers in :mod:`kfac_tpu_torch.ops.klclip`, on a
 CUDA tensor: the module imports ``triton`` at the top, and the CPU has
 none.
 
-Replaces ``_klclip_dot_kernel`` and ``_klclip_scale_kernel``
-(``kfac_tpu/ops/pallas_ns.py:188`` and ``:203``). Both are bound by
-bytes on an H100: the dot reads two f32 tensors once and does 2 FLOPs per
-8 bytes, the scale reads one and writes one. So the design is one
-coalesced pass each, with no data reuse to exploit. The dot writes one
-partial sum per block and a second single-program pass adds them in a
-fixed order, with no float atomics, so the scalar is the same on every
-run.
+Replaces ``_klclip_dot_kernel`` (``kfac_tpu/ops/pallas_ns.py:188``). It
+is bound by bytes on an H100: it reads two f32 tensors once and does 2
+FLOPs per 8 bytes. So the design is one coalesced pass, with no data
+reuse to exploit. It writes one partial sum per block and a second
+single-program pass adds them in a fixed order, with no float atomics, so
+the scalar is the same on every run. (The scale is the CUDA kernel in
+``csrc/klclip.cu``.)
 """
 
 from __future__ import annotations
@@ -38,12 +37,3 @@ def dot_final_kernel(part_ptr, out_ptr, n, BLOCK: tl.constexpr):
         acc += tl.load(part_ptr + offs, mask=offs < n, other=0.0)
     tl.store(out_ptr, tl.sum(acc, axis=0))
 
-
-@triton.jit
-def scale_kernel(p_ptr, s_ptr, out_ptr, n, BLOCK: tl.constexpr):
-    pid = tl.program_id(0)
-    offs = pid * BLOCK + tl.arange(0, BLOCK)
-    mask = offs < n
-    s = tl.load(s_ptr)
-    p = tl.load(p_ptr + offs, mask=mask, other=0.0)
-    tl.store(out_ptr + offs, p * s, mask=mask)

@@ -3,19 +3,31 @@
 
 On a CUDA tensor :func:`sym_cov` launches the hand-written kernel in
 ``kfac_tpu_torch/csrc/sym_cov.cu`` (which replaces the TPU kernel
-``_sym_cov_kernel``, ``kfac_tpu/ops/pallas_cov.py:40``); on a CPU tensor it
-runs :func:`sym_cov_plain`. Both compute the upper triangle and mirror it,
-so the result is exactly symmetric.
+``_sym_cov_kernel``, ``kfac_tpu/ops/pallas_cov.py:40``): tensor cores at f32
+accuracy (3xTF32), over the upper tile pairs and, where those cannot fill
+the card, over slices of N (:func:`plan`). On a CPU tensor it runs
+:func:`sym_cov_plain`. Both compute the upper triangle and mirror it, so
+the result is exactly symmetric.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from kfac_tpu_torch.ops import build
+
+# rows of `a` per pipeline stage: kSlab in csrc/sym_cov.cu
+SLAB_ROWS = 32
+# output tile edge, and the kernel's CTAs an SM holds at once (119
+# registers x 128 threads and 55 KB of shared memory each, by ptxas)
+TILE = 64
+CTAS_PER_SM = 4
+# the least share of the last wave of CTAs that plan() accepts full
+MIN_WAVE_FILL = 0.9
 
 
 def sym_cov_plain(a: torch.Tensor, scale: float | None = None) -> torch.Tensor:
@@ -28,30 +40,99 @@ def sym_cov_plain(a: torch.Tensor, scale: float | None = None) -> torch.Tensor:
     return (upper + torch.triu(full, diagonal=1).T) / scale
 
 
+class CovPlan(NamedTuple):
+    """How the kernel cuts an (n, d) product: one CTA per upper pair of
+    ``TILE``-wide tiles and row slice; ``splits`` slices of
+    ``rows_per_split`` rows (the last one shorter) cover the n rows."""
+
+    n: int
+    d: int
+    splits: int
+    rows_per_split: int
+
+    @property
+    def nblk(self) -> int:
+        return -(-self.d // TILE)
+
+    @property
+    def pairs(self) -> int:
+        """Upper tile pairs, bi <= bj: the grid's x extent."""
+        return self.nblk * (self.nblk + 1) // 2
+
+    @property
+    def scratch_bytes(self) -> int:
+        """Device memory of the partial tiles (0 when unsplit)."""
+        if self.splits == 1:
+            return 0
+        return 4 * self.splits * self.pairs * TILE**2
+
+
+def wave_fill(ctas: int, sms: int) -> float:
+    """Share of the card's CTA slots that ``ctas`` CTAs keep busy over the
+    waves they take."""
+    slots = CTAS_PER_SM * sms
+    return ctas / (-(-ctas // slots) * slots)
+
+
+def plan(n: int, d: int, sms: int) -> CovPlan:
+    """Split of an (n, d) ``sym_cov`` on a card with ``sms`` SMs.
+
+    The fewest slices of N, each a whole number of 32-row slabs, that make
+    the (tile pair, slice) CTAs fill their waves to ``MIN_WAVE_FILL``; one
+    slice per slab where none does. On an H100 at N = 8192: d = 2048 (528
+    pairs, one full wave) is not split, d = 2049 (561) is cut 6 ways, d =
+    512 (36) 14 ways and d = 513 (45) 11 ways. Every slice ends a partial
+    tile that a second pass adds in order, so a split costs that pass.
+    """
+    nblk = -(-d // TILE)
+    pairs = nblk * (nblk + 1) // 2
+    slabs = max(1, -(-n // SLAB_ROWS))
+    splits = next(
+        (s for s in range(1, slabs + 1) if wave_fill(pairs * s, sms) >= MIN_WAVE_FILL), slabs
+    )
+    per_split = -(-slabs // splits)
+    splits = -(-slabs // per_split)  # at most as many, none empty
+    return CovPlan(n, d, splits, per_split * SLAB_ROWS)
+
+
 @functools.cache
 def _launcher():
     fn = build.library('sym_cov').sym_cov_f32
     fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
 
 
-def tile_for(d: int, device: torch.device) -> int:
-    """Output tile edge: 64 when its upper-triangle grid gives every SM two
-    CTAs, else 32 (more, smaller CTAs for the d ~ 512 factors)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    nblk = -(-d // 64)
-    return 64 if nblk * (nblk + 1) // 2 >= 2 * sms else 32
+@functools.cache
+def sm_count(index: int) -> int:
+    """SMs of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def launch(a: torch.Tensor, out: torch.Tensor, scale: float, p: CovPlan) -> None:
+    """Run the kernel on ``a`` into ``out`` by plan ``p`` (checked
+    arguments; no launch count)."""
+    part = None
+    if p.splits > 1:
+        part = torch.empty(p.scratch_bytes // 4, dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        code = _launcher()(
+            a.data_ptr(), out.data_ptr(), 0 if part is None else part.data_ptr(),
+            p.n, p.d, float(scale), p.splits, p.rows_per_split,
+            torch.cuda.current_stream(a.device).cuda_stream,
+        )
+    build.check('sym_cov', code)
 
 
 def sym_cov(a: torch.Tensor, scale: float | None = None) -> torch.Tensor:
     """``a^T a / scale`` for a 2-D ``a`` of shape (N, D); (D, D) f32.
 
-    CUDA tensors go through the kernel (f32, contiguous, else raises);
-    CPU tensors through :func:`sym_cov_plain`.
+    CUDA tensors go through the kernel (f32, contiguous, else raises); the
+    split plan's scratch is allocated here. CPU tensors go through
+    :func:`sym_cov_plain`.
     """
     if a.ndim != 2:
         raise ValueError(f'expected a 2D tensor, got shape {tuple(a.shape)}')
@@ -70,13 +151,7 @@ def sym_cov(a: torch.Tensor, scale: float | None = None) -> torch.Tensor:
     out = torch.empty((d, d), dtype=torch.float32, device=a.device)
     if d == 0:
         return out
-    with torch.cuda.device(a.device):
-        code = _launcher()(
-            a.data_ptr(), out.data_ptr(), n, d, float(scale),
-            tile_for(d, a.device),
-            torch.cuda.current_stream(a.device).cuda_stream,
-        )
-    build.check('sym_cov', code)
+    launch(a, out, scale, plan(n, d, sm_count(a.device.index)))
     sym_cov.launches += 1
     return out
 

@@ -261,7 +261,8 @@ class KFACPreconditioner:
         """Precondition a ``named_parameters``-keyed grads dict.
 
         kl-clip takes one scalar over all layers, summed in registry order on
-        the device: no per-layer host sync.
+        the device (no per-layer host sync), and scales every layer in one
+        kernel launch, in place.
         """
         damping = resolve(self.damping, state.step)
         lr = resolve(self.lr, state.step)
@@ -278,11 +279,13 @@ class KFACPreconditioner:
         if self.kl_clip is not None and vg_terms:
             kl_clip = resolve(self.kl_clip, state.step)
             scale = factors_lib.kl_clip_scale(sum(vg_terms), kl_clip)
-        out = {}
-        for name, (pmat, helper) in precond.items():
-            if scale is not None:
-                pmat = factors_lib.kl_clip_apply(pmat, scale)
-            out[name] = helper.matrix_to_grads(pmat)
+        pmats = [pmat for pmat, _ in precond.values()]
+        if scale is not None:
+            pmats = factors_lib.kl_clip_apply_many_(pmats, scale)
+        out = {
+            name: helper.matrix_to_grads(pmat)
+            for (name, (_, helper)), pmat in zip(precond.items(), pmats)
+        }
         return registry_lib.merge_layer_grads(grads, out, self.registry)
 
     # ------------------------------------------------------------------ step

@@ -9,14 +9,15 @@ configuration::
 
 Tolerances, the same as ``chip_smoke.py``'s, which also checks that each
 one rejects the plain version at reduced precision (TF32 or bf16): the
-covariance within 1e-5 x max|C| (8192-row f32 sums in another order) and
-exactly symmetric; the covariance blended into a symmetric running factor
-within 1e-5 x max|coeff a^T a| (the blend scales the product's error by
-coeff, so the product is the reference) and exactly symmetric; the kl-clip dot within 1e-7 x sum|p*g| and identical
-from run to run; the kl-clip scale exact; the attention partials within
-1e-5 x max|x| of each output; the Newton-Schulz step within 3e-5 x max of
-x_new and of mx_new and 3e-5 of the residual, every output identical from
-run to run.
+covariance within 1e-5 x max|C| (8192-row f32 sums in another order),
+exactly symmetric and identical from run to run; the covariance blended
+into a symmetric running factor within 1e-5 x max|coeff a^T a| (the blend
+scales the product's error by coeff, so the product is the reference) and
+exactly symmetric; the kl-clip dot within 1e-7 x sum|p*g| and identical
+from run to run; the kl-clip scale bitwise equal to the plain version; the
+attention partials within 1e-5 x max|x| of each output; the Newton-Schulz
+step within 3e-5 x max of x_new and of mx_new and 3e-5 of the residual,
+every output identical from run to run.
 """
 
 import pytest
@@ -35,8 +36,14 @@ def cuda_device():
     return torch.device('cuda')
 
 
+# split (d ~ 512: pairs < SMs) and unsplit (d ~ 2048) plans, ragged N and D,
+# N under one 32-row slab, the 16-byte copies (d % 4 == 0) and the 4-byte ones
 @pytest.mark.cuda
-@pytest.mark.parametrize('shape', [(8192, 513), (1000, 70), (77, 2049)])
+@pytest.mark.parametrize(
+    'shape',
+    [(8192, 513), (1000, 70), (77, 2049), (8192, 512), (4096, 2048), (5, 130),
+     (31, 2049), (77, 130), (300, 64), (1, 1)],
+)
 def test_sym_cov_kernel_matches_plain_on_card(cuda_device, shape):
     g = torch.Generator(cuda_device).manual_seed(0)
     a = torch.randn(shape, generator=g, device=cuda_device)
@@ -44,6 +51,7 @@ def test_sym_cov_kernel_matches_plain_on_card(cuda_device, shape):
     want = sym_cov_lib.sym_cov_plain(a)
     assert torch.equal(got, got.T)
     assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    assert torch.equal(got, sym_cov_lib.sym_cov(a))  # no atomics: repeatable
 
 
 @pytest.mark.cuda
@@ -83,6 +91,63 @@ def test_klclip_kernels_match_plain_on_card(cuda_device, shape):
     assert abs(float(got - klclip.klclip_dot_plain(p, q))) <= 1e-7 * float((p * q).abs().sum())
     s = torch.tensor(0.3, device=cuda_device)
     assert torch.equal(klclip.klclip_scale(p, s), klclip.klclip_scale_plain(p, s))
+
+
+@pytest.mark.cuda
+def test_sym_cov_kernel_with_each_split_matches_plain_on_card(cuda_device):
+    # one shape through splits from 1 to one slice per slab
+    g = torch.Generator(cuda_device).manual_seed(5)
+    a = torch.randn(200, 130, generator=g, device=cuda_device)
+    want = sym_cov_lib.sym_cov_plain(a, 3.0)
+    for slabs_per_split in (1, 2, 3, 4, 7):  # 200 rows are 7 slabs
+        splits = -(-7 // slabs_per_split)
+        p = sym_cov_lib.CovPlan(200, 130, splits, slabs_per_split * 32)
+        got = torch.empty(130, 130, device=cuda_device)
+        sym_cov_lib.launch(a, got, 3.0, p)
+        assert torch.equal(got, got.T)
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max(), splits
+
+
+def scale_cases(device):
+    """Tensors of numel 0 and 1, 2, 3 (mod 4), contiguous views that start
+    off a 16-byte boundary, and 100 tensors (more than one launch's table)."""
+    g = torch.Generator(device).manual_seed(6)
+    base = torch.randn(40_000, generator=g, device=device)
+    ragged = [
+        torch.randn(s, generator=g, device=device) for s in ((37, 129), (5,), (3, 2), (4097,))
+    ]
+    views = [base[1:1 + 4099], base[2:2 + 8194].view(2, 4097), base[3:3 + 17]]
+    many = [torch.randn(i % 7 * 600 + 1, generator=g, device=device) for i in range(100)]
+    return {
+        'ragged': ragged + [torch.empty(0, device=device)] + views,
+        'single': [torch.randn(512, 513, generator=g, device=device)],
+        'many': many,
+    }
+
+
+def offset_copy(p):
+    """A copy of ``p`` at ``p``'s offset from a 16-byte boundary."""
+    off = p.data_ptr() % 16 // 4
+    return torch.empty(p.numel() + off, device=p.device)[off:].view(p.shape).copy_(p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['ragged', 'single', 'many'])
+def test_klclip_scale_many_is_bitwise_plain_on_card(cuda_device, case):
+    ps = scale_cases(cuda_device)[case]
+    s = torch.tensor(0.37, device=cuda_device)
+    want = klclip.klclip_scale_many_plain(ps, s)
+    before = klclip.klclip_scale.launches
+    got = klclip.klclip_scale_many(ps, s)
+    nonempty = sum(p.numel() > 0 for p in ps)
+    assert klclip.klclip_scale.launches == before + -(-nonempty // klclip.TABLE_CAPACITY)
+    for x, w in zip(got, want):
+        assert torch.equal(x, w)
+    # in place, as the engine calls it: the views keep their offsets
+    copies = [offset_copy(p) for p in ps]
+    same = klclip.klclip_scale_many(copies, s, in_place=True)
+    for x, c, w in zip(same, copies, want):
+        assert x is c and torch.equal(x, w)
 
 
 @pytest.mark.cuda

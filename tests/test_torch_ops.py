@@ -55,6 +55,44 @@ def test_sym_cov_plain_matches_pallas_interpret(shape, scale):
     assert torch.equal(got, got.T)
 
 
+def kernel_pair_of(t, nblk):
+    """sym_cov_tc_kernel's pair_of (csrc/sym_cov.cu): tile pair of CTA
+    column t."""
+    bi = 0
+    while t >= nblk - bi:
+        t -= nblk - bi
+        bi += 1
+    return bi, bi + t
+
+
+@pytest.mark.parametrize('n', [77, 8192])
+@pytest.mark.parametrize('d', [130, 512, 513, 2048, 2049])
+@pytest.mark.parametrize('sms', [132, 16])
+def test_sym_cov_plan_covers_each_pair_and_row_once(n, d, sms):
+    p = sym_cov_lib.plan(n, d, sms)
+    tile = sym_cov_lib.TILE
+    assert p.rows_per_split % sym_cov_lib.SLAB_ROWS == 0  # the launcher's check
+    # the kernel's grid is (p.pairs, p.splits); CTA (x, y) takes tile pair
+    # pair_of(x) and rows [y * rows_per_split, min(n, (y + 1) * rows_per_split))
+    pairs = [kernel_pair_of(x, p.nblk) for x in range(p.pairs)]
+    assert sorted(pairs) == [(i, j) for i in range(p.nblk) for j in range(i, p.nblk)]
+    assert (p.nblk - 1) * tile < d <= p.nblk * tile
+    rows = np.zeros(n, np.int64)
+    for y in range(p.splits):
+        begin, end = y * p.rows_per_split, min(n, (y + 1) * p.rows_per_split)
+        assert begin < end  # no slice is empty
+        rows[begin:end] += 1
+    assert (rows == 1).all()
+    # the reduce pass reads splits * pairs tiles of partials
+    assert p.scratch_bytes == 4 * p.splits * p.pairs * tile**2 * (p.splits > 1)
+    # no fewer slices fill the waves; at most one slice per slab
+    fill = [sym_cov_lib.wave_fill(p.pairs * s, sms) for s in range(1, p.splits)]
+    assert all(f < sym_cov_lib.MIN_WAVE_FILL for f in fill)
+    assert p.splits <= -(-n // sym_cov_lib.SLAB_ROWS)
+    if n == 8192 and sms == 132:  # the flagship's factors on an H100
+        assert p.splits == {130: 64, 512: 14, 513: 11, 2048: 1, 2049: 6}[d]
+
+
 def test_sym_cov_wrapper_takes_plain_on_cpu_without_launching():
     a = t(rand(1, 50, 33))
     before = sym_cov_lib.sym_cov.launches
@@ -156,7 +194,38 @@ def test_klclip_wrappers_do_not_launch_on_cpu():
     before = (klclip.klclip_dot.launches, klclip.klclip_scale.launches)
     klclip.klclip_dot(p, p)
     klclip.klclip_scale(p, torch.tensor(2.0))
+    klclip.klclip_scale_many([p, p], torch.tensor(2.0))
     assert (klclip.klclip_dot.launches, klclip.klclip_scale.launches) == before
+
+
+# ragged shapes, one under a TPU tile, an empty one and a 1-D one
+SCALE_SHAPES = [(40, 70), (130, 65), (3, 5), (0, 9), (257,)]
+
+
+def test_klclip_scale_many_plain_matches_pallas_interpret():
+    ps = [rand(10 + i, *shape) for i, shape in enumerate(SCALE_SHAPES)]
+    s = np.float32(0.37)
+    got = klclip.klclip_scale_many([t(p) for p in ps], torch.tensor(s))
+    assert len(got) == len(ps)
+    for p, g in zip(ps, got):
+        assert g.shape == p.shape
+        if p.size == 0:  # the TPU wrapper pads to whole tiles: nothing to hold
+            continue
+        p2 = p if p.ndim == 2 else p.reshape(1, -1)  # it takes 2-D arrays
+        want = jpallas_ns.fused_klclip_scale(jnp.asarray(p2), jnp.asarray(s), interpret=True)
+        np.testing.assert_array_equal(g.numpy().reshape(p2.shape), np.asarray(want))
+
+
+def test_klclip_scale_many_scales_in_place_on_request():
+    ps = [t(rand(20, 6, 4)), t(rand(21, 9))]
+    s = torch.tensor(0.5)
+    want = klclip.klclip_scale_many_plain(ps, s)
+    fresh = klclip.klclip_scale_many(ps, s)
+    assert all(x is not p for x, p in zip(fresh, ps))
+    same = klclip.klclip_scale_many(ps, s, in_place=True)  # as the engine runs it
+    assert len(same) == len(ps) and all(x is p for x, p in zip(same, ps))
+    assert all(torch.equal(x, w) and torch.equal(f, w) for x, f, w in zip(ps, fresh, want))
+    assert klclip.klclip_scale_many([], s) == []
 
 
 # ----------------------------------------------------------------- attention
@@ -443,6 +512,18 @@ def test_kl_clip_terms_and_apply_match_jax():
     s = np.float32(0.25)
     close(factors.kl_clip_apply(t(p), torch.tensor(s)),
           jfactors.kl_clip_apply(jnp.asarray(p), jnp.asarray(s)))
+
+
+def test_kl_clip_apply_many_matches_jax_per_layer_and_keeps_dtype():
+    ps = [rand(40, 12, 7), rand(41, 5, 3)]
+    s = np.float32(0.25)
+    mixed = [t(ps[0]), t(ps[1]).to(torch.bfloat16)]
+    got = factors.kl_clip_apply_many_(mixed, torch.tensor(s))
+    assert [g.dtype for g in got] == [torch.float32, torch.bfloat16]
+    assert got[0] is mixed[0]  # the f32 one in place
+    close(got[0], jfactors.kl_clip_apply(jnp.asarray(ps[0]), jnp.asarray(s)))
+    want = jfactors.kl_clip_apply(jnp.asarray(ps[1], jnp.bfloat16), jnp.asarray(s))
+    np.testing.assert_array_equal(got[1].float().numpy(), np.asarray(want, np.float32))
 
 
 # -------------------------------------------------------------------- losses

@@ -227,6 +227,37 @@ def test_from_jax_kfac_state_continues_like_jax(config, monkeypatch):
             )
 
 
+# kl_clip 1e-6 binds (scale well under 1), 0.001 is the default, 1e3 leaves
+# the gradients unscaled
+@pytest.mark.parametrize('kl_clip', [1e-6, 0.001, 1e3])
+def test_precondition_with_one_grouped_scale_matches_jax(kl_clip):
+    tokens, targets = data()
+    model = JaxLM(**CFG)
+    params = model.init(jax.random.PRNGKey(1), jnp.asarray(tokens))['params']
+    reg = kfac_tpu.register_model(model, jnp.asarray(tokens), skip_layers=['lm_head'])
+    kw = dict(KFAC, inv_update_steps=10, kl_clip=kl_clip)
+    jkfac = kfac_tpu.KFACPreconditioner(registry=reg, **kw)
+    (_, _), grads, stats = kfac_tpu.CurvatureCapture(reg).value_stats_and_grad(
+        jax_lm_loss(model)
+    )(params, (jnp.asarray(tokens), jnp.asarray(targets)))
+    jstate, _ = jkfac.step(jkfac.init(), grads, stats)
+    want = convert.from_flax_params(jax.device_get(jkfac.precondition(jstate, grads)))
+
+    tmodel = TransformerLM(**CFG, device='cpu')
+    tmodel.load_state_dict(convert.from_flax_params(jax.device_get(params)))
+    treg = registry.register_model(tmodel, skip_layers=['lm_head'], device='cpu')
+    tkfac = KFACPreconditioner(treg, **kw, device='cpu')
+    tstate = convert.from_jax_kfac_state(jstate, tkfac)
+    tgrads = convert.from_flax_params(jax.device_get(grads))
+    got = tkfac.precondition(tstate, tgrads)
+    assert set(got) == set(want)
+    scale = max(float(g.abs().max()) for g in want.values())
+    for name, w in want.items():
+        np.testing.assert_allclose(
+            got[name].numpy(), w.numpy(), rtol=1e-5, atol=1e-6 * scale, err_msg=name,
+        )
+
+
 def test_default_compute_method_cuda_branch_equals_jax_off_tpu():
     assert default_compute_method('cuda') == (enums.ComputeMethod.EIGEN, 'cholesky')
     assert default_compute_method('cpu') == (enums.ComputeMethod.EIGEN, 'cholesky')
