@@ -16,9 +16,11 @@ Phases, one JSON line each:
    against its plain PyTorch version with the stated tolerance, and timed
    with CUDA events beside the plain version, one PyTorch library call as
    a yardstick, and the least time the H100 could take (bytes over 3.35
-   TB/s or f32 FLOPs over 67 TFLOP/s, whichever is larger; ``sym_cov``'s
-   operations are the tensor cores' 3xTF32 work at 495 TFLOP/s, its f32
-   bound beside, and its time unsplit beside the planned split). Each
+   TB/s or f32 FLOPs over 67 TFLOP/s, whichever is larger; for the kernels
+   on the tensor cores, ``sym_cov``, ``sym_cov_ema`` and the flash
+   partials, the operations are their 3xTF32 work at 495 TFLOP/s, with
+   the f32 bound beside; the covariance kernels' time at the other form
+   of the split, unsplit or split, beside the planned one). Each
    tolerance must also reject a control: the plain version at reduced
    precision (TF32 matmuls, or bf16 products), so a kernel that drops
    below f32 fails the check. The kl-clip kernels also report their
@@ -66,6 +68,7 @@ import dataclasses
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -153,6 +156,22 @@ def max_err(got, want):
     return float((got - want).abs().max()), float(want.abs().max())
 
 
+def with_plan(fn, forced):
+    """``fn`` run with ``sym_cov.plan`` giving ``forced``: the wrapper's own
+    call, host work included, at another split."""
+    from kfac_tpu_torch.ops import sym_cov
+
+    def run():
+        planned = sym_cov.plan
+        sym_cov.plan = lambda n, d, sms: forced
+        try:
+            return fn()
+        finally:
+            sym_cov.plan = planned
+
+    return run
+
+
 def kernel_cases():
     """One dict per (kernel, flagship shape): the wrapper's call, the plain
     and library calls, ``compare(got, want) -> (max abs error, reference
@@ -169,17 +188,29 @@ def kernel_cases():
 
     cases = []
     sms = sym_cov.sm_count(torch.cuda.current_device())
-    # rows are the 8192 tokens of a step; A factors carry the bias column.
-    # (77, 130): ragged N and D, three 64-wide tiles, one slice per 32-row slab.
-    for n, d in ((8192, 513), (8192, 2049), (8192, 512), (8192, 2048), (77, 130)):
-        a = randn(n, d)
-        plan = sym_cov.plan(n, d, sms)
-        nbytes = 4 * (n * d + d * d)
-        extra = dict(
-            splits=plan.splits, scratch_mib=plan.scratch_bytes / 2**20,
-            bound_f32_ms=bound_ms(nbytes, n * d * (d + 1))[0],
-        )
+
+    def split_fields(n, d, kernel):
+        """The plan's split, and ``also_timed``: the same wrapper call with
+        all N rows in one slice where the plan splits (``ms_unsplit``), or
+        with ``wave_plan``'s split where the plan leaves it whole
+        (``ms_split``)."""
+        p = sym_cov.plan(n, d, sms)
         whole = sym_cov.CovPlan(n, d, 1, -(-n // sym_cov.SLAB_ROWS) * sym_cov.SLAB_ROWS)
+        wave = sym_cov.wave_plan(n, d, sms)
+        if p.splits > 1:
+            timed = dict(ms_unsplit=with_plan(kernel, whole))
+        else:
+            timed = {} if wave.splits == 1 else dict(ms_split=with_plan(kernel, wave))
+        return dict(splits=p.splits, scratch_mib=p.scratch_bytes / 2**20), timed
+
+    # rows are the 8192 tokens of a step; A factors carry the bias column.
+    # (77, 130): ragged N and D, three 64-wide tiles, one slice per 32-row
+    # slab. (512, 129) and (512, 513): the tiny bench's factors; (1024, 129):
+    # the shortest N the plan splits.
+    for n, d in ((8192, 513), (8192, 2049), (8192, 512), (8192, 2048), (77, 130),
+                 (512, 129), (512, 513), (1024, 129)):
+        a = randn(n, d)
+        extra, also_timed = split_fields(n, d, lambda a=a: sym_cov.sym_cov(a))
         cases.append(dict(
             name='sym_cov', shape=[n, d],
             kernel=lambda a=a: sym_cov.sym_cov(a),
@@ -189,18 +220,12 @@ def kernel_cases():
             tol_rule='1e-5 x max|C|, exactly symmetric and run-to-run identical',
             control=tf32(lambda a=a: sym_cov.sym_cov_plain(a)),
             control_rule='plain version with TF32 matmuls',
-            # the work the kernel issues: 3 TF32 products per f32 product
-            nbytes=nbytes, flops=3 * n * d * (d + 1), flops_per_s=TF32_FLOPS_PER_S,
+            nbytes=4 * (n * d + d * d), flops=n * d * (d + 1), tf32x3=True,
             # bit for bit from run to run as well
             invariant=lambda got, a=a: (
                 torch.equal(got, got.T) and torch.equal(got, sym_cov.sym_cov(a))
             ),
-            extra=extra,
-            # the same kernel over all N rows in one slice, where the plan splits
-            also_timed={} if plan.splits == 1 else dict(
-                ms_unsplit=lambda a=a, whole=whole, out=torch.empty(d, d, device=dev):
-                sym_cov.launch(a, out, whole.n, whole),
-            ),
+            extra=extra, also_timed=also_timed,
         ))
     # the flagship's factor widths, the fused-kernel probe's (512, 256) and a
     # ragged shape. F is a covariance, so symmetric, as the contract asks.
@@ -210,6 +235,9 @@ def kernel_cases():
         a, f = randn(n, d), sym_cov.sym_cov_plain(randn(n, d))
         beta, coeff = 0.95, 0.05 / n
         scale = float((coeff * (a.T @ a)).abs().max())
+        extra, also_timed = split_fields(
+            n, d, lambda a=a, f=f, b=beta, c=coeff: cov_ema.sym_cov_ema(f, a, b, c)
+        )
 
         def cmp_ema(got, want, scale=scale):
             return float((got - want).abs().max()), scale
@@ -219,15 +247,21 @@ def kernel_cases():
             kernel=lambda a=a, f=f, b=beta, c=coeff: cov_ema.sym_cov_ema(f, a, b, c),
             plain=lambda a=a, f=f, b=beta, c=coeff: cov_ema.sym_cov_ema_plain(f, a, b, c),
             library=lambda a=a, f=f, b=beta, c=coeff: torch.addmm(f, a.T, a, beta=b, alpha=c),
-            compare=cmp_ema, invariant=lambda got: torch.equal(got, got.T),
-            rtol=1e-5, tol_rule='1e-5 x max|coeff a^T a|, and exactly symmetric',
+            compare=cmp_ema,
+            # bit for bit from run to run as well
+            invariant=lambda got, a=a, f=f, b=beta, c=coeff: (
+                torch.equal(got, got.T) and torch.equal(got, cov_ema.sym_cov_ema(f, a, b, c))
+            ),
+            rtol=1e-5,
+            tol_rule='1e-5 x max|coeff a^T a|, exactly symmetric and run-to-run identical',
             control=tf32(lambda a=a, f=f, b=beta, c=coeff: cov_ema.sym_cov_ema_plain(f, a, b, c)),
             control_rule='plain version with TF32 matmuls',
             # a and the upper triangle of the symmetric F read once, the
             # output written once; the upper triangle's products and the
             # blend of each upper element
             nbytes=4 * (n * d + d * (d + 1) // 2 + d * d),
-            flops=n * d * (d + 1) + 3 * d * (d + 1) // 2,
+            flops=n * d * (d + 1) + 3 * d * (d + 1) // 2, tf32x3=True,
+            extra=extra, also_timed=also_timed,
         ))
     for r, c in ((512, 513), (2048, 513), (512, 2049)):
         p, g = randn(r, c), randn(r, c)
@@ -245,8 +279,17 @@ def kernel_cases():
             # bit for bit from run to run
             invariant=lambda got, p=p, g=g: torch.equal(got, klclip.klclip_dot(p, g)),
             tol_rule='1e-7 x sum|p*g|, and run-to-run identical',
-            control=lambda p=p, g=g: (p.bfloat16() * g.bfloat16()).float().sum(),
-            control_rule='bf16 products, f32 sum',
+            # one sum's rounding errors can cancel by chance (the bf16 dot
+            # once read 6.9e-8 of sum|p*g| at (2048, 513)), so the control is
+            # held to the rule on each of 8 row blocks and the worst counts
+            control=lambda p=p, g=g: [
+                (x.bfloat16() * y.bfloat16()).float().sum() for x, y in zip(p.chunk(8), g.chunk(8))
+            ],
+            control_compare=lambda ctrl, p=p, g=g: max(
+                abs(float(b - klclip.klclip_dot_plain(x, y))) / float((x * y).abs().sum())
+                for b, x, y in zip(ctrl, p.chunk(8), g.chunk(8))
+            ),
+            control_rule='bf16 products, f32 sum, worst of 8 row blocks',
             nbytes=4 * (2 * r * c + 1), flops=2 * r * c,
             device_kernels=('dot_partials_kernel', 'dot_final_kernel'),
         ))
@@ -296,9 +339,10 @@ def kernel_cases():
         # the worst of acc, m and l relative to its own max
         return max(map(max_err, got, want), key=lambda p: p[0] / p[1])
 
-    # the flagship's (head dim 128) and the bench's tiny LM's (head dim 32)
+    # the flagship's (head dim 128), the bench's tiny LM's (head dim 32) and
+    # its `large` LM's (head dim 256)
     for b, s_, h, dh in ((FLAGSHIP['batch'], FLAGSHIP['seq'], FLAGSHIP['heads'], 128),
-                         (4, 128, 4, 32)):
+                         (4, 128, 4, 32), (8, 1024, 4, 256)):
         q, k, v = randn(b, s_, h, dh), randn(b, s_, h, dh), randn(b, s_, h, dh)
 
         def sdpa(q=q, k=k, v=v):
@@ -318,7 +362,7 @@ def kernel_cases():
             ),
             control_rule='plain version with TF32 matmuls',
             nbytes=4 * (4 * b * s_ * h * dh + 2 * b * h * s_),
-            flops=4 * dh * pairs * b * h,
+            flops=4 * dh * pairs * b * h, tf32x3=True,
         ))
     def ns_errors(got, want):
         # x_new and mx_new relative to their own max, the residual relative
@@ -406,8 +450,13 @@ def run_kernels(results) -> bool:
         holds = case.get('invariant', lambda got: True)(got)
         extra = dict(case.get('extra', {}))
         control = case['control']()
-        control_err, _ = case['compare'](control, want)
-        rejects_control = control_err > tol
+        if 'control_compare' in case:  # the worst relative error of its parts
+            control_rel = case['control_compare'](control)
+            rejects_control = control_rel > case['rtol']
+        else:
+            control_err, _ = case['compare'](control, want)
+            control_rel = control_err / ref if ref else control_err
+            rejects_control = control_err > tol
         if 'detail' in case:
             extra['rel_err'] = case['detail'](got, want)
             extra['control_rel_err'] = case['detail'](control, want)
@@ -423,17 +472,29 @@ def run_kernels(results) -> bool:
         library_ms = time_ms(case['library'])
         for key, fn in case.get('also_timed', {}).items():
             extra[key] = time_ms(fn)
-        bms, by = bound_ms(
-            case['nbytes'], case['flops'], case.get('flops_per_s', F32_FLOPS_PER_S)
-        )
-        if 'bound_f32_ms' in extra:
-            extra['bound_f32_share'] = extra['bound_f32_ms'] / ms
+        for key in ('ms_unsplit', 'ms_split'):
+            if key in extra:  # the plan against the other form, in turns:
+                # medians of 4 planned and 4 other timings, which the host's
+                # drift moves by up to a third at these sizes
+                planned, other = [ms], [extra[key]]
+                for _ in range(3):
+                    planned.append(time_ms(timed))
+                    other.append(time_ms(case['also_timed'][key]))
+                extra['ms_planned_turns'] = statistics.median(planned)
+                extra[key + '_turns'] = statistics.median(other)
+                extra['plan_faster'] = extra['ms_planned_turns'] <= extra[key + '_turns']
+        bms, by = bound_ms(case['nbytes'], case['flops'])
+        if case.get('tf32x3'):
+            # the work the kernel issues: 3 TF32 products per f32 product,
+            # with the f32 bound beside it
+            extra['bound_f32_ms'], extra['bound_f32_share'] = bms, bms / ms
+            bms, by = bound_ms(case['nbytes'], 3 * case['flops'], TF32_FLOPS_PER_S)
         row = dict(
             phase='kernel', name=case['name'], shape=case['shape'],
             max_abs_err=err, max_rel_err=err / ref if ref else err, tol=tol,
             tol_rule=case['tol_rule'], invariant_holds=holds,
             control_rule=case['control_rule'],
-            control_max_rel_err=control_err / ref if ref else control_err,
+            control_max_rel_err=control_rel,
             rejects_control=rejects_control, passed=passed,
             ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms,
             bound_by=by, bound_share=bms / ms, **extra,

@@ -3,7 +3,7 @@
 
 Run::
 
-    python -m kfac_tpu_torch.bench_lm --config {tiny,flagship} [--device cuda]
+    python -m kfac_tpu_torch.bench_lm --config {tiny,flagship,large,longctx} [--device cuda]
 
 On one seeded batch (tokens from seed 0, weights from seed 1), 4 heads,
 f32, ``lm_head`` skipped, damping 0.003, lr 0.1, cadence 10/100,
@@ -45,6 +45,10 @@ from kfac_tpu_torch.training import Trainer
 LM_CONFIGS = {
     'tiny': dict(batch=4, seq=128, d_model=128, layers=2, vocab=512),
     'flagship': dict(batch=16, seq=512, d_model=512, layers=6, vocab=8192),
+    # the bench's manual configs: `large` (head dim 256) and `longctx`
+    # (2048-token attention)
+    'large': dict(batch=8, seq=1024, d_model=1024, layers=8, vocab=8192),
+    'longctx': dict(batch=4, seq=2048, d_model=512, layers=6, vocab=8192),
 }
 NUM_HEADS = 4
 # MFU is against the H100 SXM's f32 peak outside the tensor cores: the

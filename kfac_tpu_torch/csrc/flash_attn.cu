@@ -9,174 +9,340 @@
 // m = -1e30, l = 0, acc = 0: the guards of the TPU kernel (p and alpha are
 // zeroed where their operand is <= -1e30 / 2) are reproduced exactly.
 //
-// Bound on an H100: at the flagship's q, k, v (16, 512, 4, 128) the causal
-// work is 4 * D FLOPs for each of the B*H*S*(S+1)/2 visible pairs, 4.3e9
-// FLOP (0.064 ms at the 67 TFLOP/s f32 peak), against 67 MB of inputs and
-// outputs (0.020 ms at 3.35 TB/s): bound by operations. At the tiny LM's
-// (4, 128, 4, 32) it is 1.7e7 FLOP against 1.1 MB: 0.0003 ms either way,
-// so launch cost sets its time. Design: one CTA per
-// (batch * head, 64-row Q tile); it loops over 64-row K/V tiles only up to
-// the causal bound q_offset + (j+1)*64 - k_offset, so tiles above the
-// diagonal are never loaded (the TPU kernel's block sparsity). Scores stay
-// in shared memory; the running max and sum are f32 registers, updated
-// online. The offsets are kernel arguments, so ring steps can reuse the
-// kernel. Shared memory is 115 KB at D = 128 and 41 KB at D = 32; the
-// tiles stay 64 rows at both. m and l are written as (B, H, S_q): the TPU's 128-lane broadcast
-// of them was a Mosaic layout constraint. No tensor cores (f32 exact);
-// wgmma and a pipelined K/V ring are later work.
+// Bound on an H100: the causal work is 4 * D f32 FLOPs for each of the
+// B*H*S*(S+1)/2 visible (query, key) pairs. Both products run on the tensor
+// cores at f32 accuracy by 3xTF32 splitting (as in sym_cov.cu): 3 TF32
+// products per f32 product. At the flagship's q, k, v (16, 512, 4, 128)
+// that is 4.3e9 f32 FLOP (0.064 ms at the 67 TFLOP/s f32 peak; 3x at 495
+// TFLOP/s TF32: 0.026 ms) against 67 MB of inputs and outputs (0.020 ms at
+// 3.35 TB/s): bound by operations. At the `large` LM's (8, 1024, 4, 256):
+// 1.7e10 FLOP, 0.257 ms f32 and 0.104 ms 3xTF32. At the tiny LM's
+// (4, 128, 4, 32): 1.7e7 FLOP against 1.1 MB, 0.0003 ms either way, so
+// launch cost sets its time.
+//
+// Design:
+// - One CTA per (batch * head, kBQ-row Q tile), kBQ = 16 rows a warp. The
+//   grid's y index walks the Q tiles from the last (the longest causal rows)
+//   to the first, so the longest CTAs start in the first wave. A CTA loops
+//   over kBK-row K/V tiles only up to the causal bound q_offset + its last
+//   row - k_offset: tiles above the diagonal are never loaded (the TPU
+//   kernel's block sparsity), and only tiles that cross the diagonal or the
+//   end of the K chunk are masked.
+// - Q (pre-scaling happens at the fragment read: the same f32 product as
+//   q * scale), and K/V tiles in a double-buffered ring, are staged in
+//   shared memory by 16-byte cp.async copies, so tile kt + 1 loads while
+//   tile kt is multiplied. Rows past the chunk are zero-filled.
+// - S = Q K^T and O += P V run as mma.sync.m16n8k8 TF32 with each operand
+//   split into hi + lo (3 products, lo*lo dropped). Scores stay in registers
+//   as mma accumulators: a warp owns 16 query rows; row max and row sum
+//   reduce over the 4 lanes that share a row. The online update (alpha, m,
+//   l) is the TPU kernel's. Each K tile's P V starts from zeroed registers
+//   and joins O as O * alpha + pv in f32 adds (the tensor cores' own f32
+//   sums drift over long chains; see sym_cov.cu).
+// - The k index of both products is permuted so that no value moves
+//   between lanes: logical k = t and t + 4 of an m16n8k8 step stand for
+//   elements 2t and 2t + 1 of its 8. For Q K^T that makes a lane's Q and K
+//   fragment elements adjacent (one 8-byte shared load each); for P V it
+//   makes the S accumulator layout the A fragment layout, with V read at
+//   rows 2t and 2t + 1.
+// - Shared rows are padded so that fragment reads hit 32 banks: Q and K
+//   rows hold D + 8 floats (8-byte reads of rows g, columns 2t), V rows D +
+//   4 (4-byte reads of rows 2t, columns g).
+// - Tile sizes per head dim (Tiles<D>) were chosen from timings on an H100
+//   (`python -m kfac_tpu_torch.flash_tiles`; PERF.md, Findings): 4 warps
+//   and 64-row K/V tiles at D = 32, 4 warps and 32-row tiles at D = 128
+//   (103 KB, two CTAs an SM), 8 warps and 16-row tiles at D = 256 (202
+//   KB, one CTA an SM; with 128 output floats a thread, ptxas gives it
+//   254 registers and spills 8 bytes).
+// The offsets are kernel arguments, so ring steps can reuse the kernel. m
+// and l are written as (B, H, S_q): the TPU's 128-lane broadcast of them
+// was a Mosaic layout constraint.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kBQ = 64;  // query rows per CTA
-constexpr int kBK = 64;  // key rows per K/V tile
-constexpr int kThreads = 256;  // 16 x 16: thread (ty, tx) owns rows ty + 16i
+constexpr int kMaxDevices = 64;
 
+// Warps a CTA (16 query rows each) and K/V tile rows, per head dim.
 template <int D>
-constexpr size_t smem_floats() {
-  return kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * (kBK + 1);
+struct Tiles;
+template <>
+struct Tiles<32> {
+  static constexpr int kWarps = 4;
+  static constexpr int kBK = 64;
+};
+template <>
+struct Tiles<128> {
+  static constexpr int kWarps = 4;
+  static constexpr int kBK = 32;
+};
+template <>
+struct Tiles<256> {
+  static constexpr int kWarps = 8;
+  static constexpr int kBK = 16;
+};
+
+template <int D, int kWarps, int kBK>
+struct Flash {
+  static constexpr int kBQ = 16 * kWarps;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kLdK = D + 8;  // Q and K rows
+  static constexpr int kLdV = D + 4;  // V rows
+  static constexpr int kQFloats = kBQ * kLdK;
+  static constexpr int kStageFloats = kBK * (kLdK + kLdV);
+  static constexpr int kSmemBytes = (kQFloats + 2 * kStageFloats) * 4;
+  static constexpr int kNf = kBK / 8;  // n8 fragments of S (k8 steps of P V)
+  static constexpr int kDf = D / 8;    // k8 steps of Q K^T (n8 fragments of O)
+  static_assert(D % 8 == 0 && kBK % 8 == 0, "tiles are whole mma steps");
+};
+
+// 16 bytes from global to shared; the `valid` floats after src are copied
+// and the rest zero-filled.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(4 * valid));
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// x = hi + lo: hi is x with its low 13 mantissa bits cleared (a TF32
+// value), lo = x - hi, which the mma reads cut to TF32 (sym_cov.cu).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b at f32 accuracy: lo*hi + hi*lo + hi*hi, the small terms first.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], float b0,
+                                           float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split_tf32(b0, bh0, bl0);
+  split_tf32(b1, bh1, bl1);
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+}
+
+// Rows [row0, row0 + R) of one head of a (B, S, H, D) tensor into shared
+// rows of LD floats; `src` is that head's row 0, rows >= s are zero-filled.
+template <int R, int D, int LD, int kThreads>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          size_t row_stride, int row0,
+                                          int s) {
+  constexpr int kPerRow = D / 4;  // 16-byte copies a row
+#pragma unroll
+  for (int e = threadIdx.x; e < R * kPerRow; e += kThreads) {
+    const int r = e / kPerRow;
+    const int c = 4 * (e % kPerRow);
+    const int row = row0 + r;
+    const bool in = row < s;
+    cp_async16(dst + r * LD + c, in ? src + row * row_stride + c : src,
+               in ? 4 : 0);
+  }
+}
+
+template <int D, int kWarps, int kBK>
+__global__ void __launch_bounds__(32 * kWarps, 1)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ acc_out,
                  float* __restrict__ m_out, float* __restrict__ l_out, int h,
                  int s_q, int s_k, int q_off, int k_off, int causal,
                  float scale) {
-  constexpr int CD = D / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* qs = smem;                 // kBQ x (D + 1), pre-scaled q
-  float* ks = qs + kBQ * (D + 1);   // kBK x (D + 1)
-  float* vs = ks + kBK * (D + 1);   // kBK x D
-  float* ps = vs + kBK * D;         // kBQ x (kBK + 1), probabilities
+  using F = Flash<D, kWarps, kBK>;
+  constexpr int kLdK = F::kLdK;
+  constexpr int kLdV = F::kLdV;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;  // kBQ x kLdK, unscaled q
 
   const int bh = blockIdx.x;
   const int b = bh / h;
   const int hh = bh % h;
-  const int qt = blockIdx.y;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * F::kBQ;  // last tile first
   const size_t row_stride = static_cast<size_t>(h) * D;
   const float* qb = q + (static_cast<size_t>(b) * s_q * h + hh) * D;
   const float* kb = k + (static_cast<size_t>(b) * s_k * h + hh) * D;
   const float* vb = v + (static_cast<size_t>(b) * s_k * h + hh) * D;
 
-  for (int e = threadIdx.x; e < kBQ * D; e += kThreads) {
-    const int r = e / D;
-    const int c = e % D;
-    const int s = qt * kBQ + r;
-    qs[r * (D + 1) + c] = s < s_q ? qb[s * row_stride + c] * scale : 0.f;
-  }
-
   const int n_k = (s_k + kBK - 1) / kBK;
   int hi = n_k;
   if (causal) {
     // one past this tile's last query position, in key-chunk coordinates
-    const int q_end = min((qt + 1) * kBQ, s_q);
+    const int q_end = min(q0 + F::kBQ, s_q);
     const int num = q_off + q_end - k_off;
     hi = num <= 0 ? 0 : min((num + kBK - 1) / kBK, n_k);
   }
 
-  float m[4], l[4], o[4][CD];
+  auto stage_k = [&](int kt) {
+    return smem + F::kQFloats + (kt & 1) * F::kStageFloats;
+  };
+  auto load_kv = [&](int kt) {
+    float* ks = stage_k(kt);
+    load_rows<kBK, D, kLdK, F::kThreads>(ks, kb, row_stride, kt * kBK, s_k);
+    load_rows<kBK, D, kLdV, F::kThreads>(ks + kBK * kLdK, vb, row_stride,
+                                         kt * kBK, s_k);
+  };
+
+  load_rows<F::kBQ, D, kLdK, F::kThreads>(qs, qb, row_stride, q0, s_q);
+  if (hi > 0) load_kv(0);
+  cp_async_commit();
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;  // fragment row group
+  const int t = lane & 3;   // thread in group
+  const float* qw = qs + (warp * 16 + g) * kLdK + 2 * t;  // row g, col 2t
+  // this lane's rows g and g + 8 of the warp, as global query positions
+  const int qpos0 = q_off + q0 + warp * 16 + g;
+
+  float o[F::kDf][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
+  for (int df = 0; df < F::kDf; ++df)
 #pragma unroll
-    for (int c = 0; c < CD; ++c) o[i][c] = 0.f;
-  }
+    for (int i = 0; i < 4; ++i) o[df][i] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};
 
   for (int kt = 0; kt < hi; ++kt) {
-    __syncthreads();  // previous tile's readers are done with ks, vs, ps
-    for (int e = threadIdx.x; e < kBK * D; e += kThreads) {
-      const int r = e / D;
-      const int c = e % D;
-      const int s = kt * kBK + r;
-      const bool in = s < s_k;
-      ks[r * (D + 1) + c] = in ? kb[s * row_stride + c] : 0.f;
-      vs[r * D + c] = in ? vb[s * row_stride + c] : 0.f;
-    }
+    if (kt + 1 < hi) load_kv(kt + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile kt (and Q) are in
     __syncthreads();
+    const float* ks = stage_k(kt);
+    const float* vs = ks + kBK * kLdK;
 
-    float sc[4][4];
+    // S = (q * scale) k^T. c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t),
+    // c3 (g + 8, 2t + 1); logical k t / t + 4 = head dims kd + 2t / + 1.
+    float sc[F::kNf][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int nf = 0; nf < F::kNf; ++nf)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-    for (int dd = 0; dd < D; ++dd) {
-      float x[4], y[4];
+      for (int i = 0; i < 4; ++i) sc[nf][i] = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) x[i] = qs[(ty + 16 * i) * (D + 1) + dd];
+    for (int kd = 0; kd < D; kd += 8) {
+      const float2 qa = *reinterpret_cast<const float2*>(qw + kd);
+      const float2 qa8 = *reinterpret_cast<const float2*>(qw + 8 * kLdK + kd);
+      uint32_t ah[4], al[4];
+      split_tf32(qa.x * scale, ah[0], al[0]);
+      split_tf32(qa8.x * scale, ah[1], al[1]);
+      split_tf32(qa.y * scale, ah[2], al[2]);
+      split_tf32(qa8.y * scale, ah[3], al[3]);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) y[j] = ks[(tx + 16 * j) * (D + 1) + dd];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(x[i], y[j], sc[i][j]);
+      for (int nf = 0; nf < F::kNf; ++nf) {
+        const float2 kv = *reinterpret_cast<const float2*>(
+            ks + (nf * 8 + g) * kLdK + kd + 2 * t);
+        mma_3xtf32(sc[nf], ah, al, kv.x, kv.y);
+      }
     }
 
-    float alpha[4];
+    // mask only a tile that crosses the diagonal or the chunk's end
+    const int key0 = kt * kBK;
+    const bool masked =
+        key0 + kBK > s_k ||
+        (causal && k_off + key0 + kBK - 1 > q_off + q0);
+    float alpha[2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q_off + qt * kBQ + ty + 16 * i;
+    for (int r = 0; r < 2; ++r) {
+      const int qpos = qpos0 + 8 * r;
+      if (masked) {
+#pragma unroll
+        for (int nf = 0; nf < F::kNf; ++nf)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int kc = key0 + nf * 8 + 2 * t + e;
+            const bool visible = kc < s_k && (!causal || qpos >= k_off + kc);
+            if (!visible) sc[nf][2 * r + e] = kNegInf;
+          }
+      }
       float bm = kNegInf;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kc = kt * kBK + tx + 16 * j;
-        const bool visible = kc < s_k && (!causal || qpos >= k_off + kc);
-        sc[i][j] = visible ? sc[i][j] : kNegInf;
-        bm = fmaxf(bm, sc[i][j]);
-      }
-      // row max over the 16 threads sharing the row (lanes of one half-warp)
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        bm = fmaxf(bm, __shfl_xor_sync(0xffffffffu, bm, off));
-      const float new_m = fmaxf(m[i], bm);
+      for (int nf = 0; nf < F::kNf; ++nf)
+        bm = fmaxf(bm, fmaxf(sc[nf][2 * r], sc[nf][2 * r + 1]));
+      // the 4 lanes of a row group hold the row
+      bm = fmaxf(bm, __shfl_xor_sync(0xffffffffu, bm, 1));
+      bm = fmaxf(bm, __shfl_xor_sync(0xffffffffu, bm, 2));
+      const float new_m = fmaxf(m[r], bm);
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = sc[i][j] <= kNegInf / 2 ? 0.f : expf(sc[i][j] - new_m);
-        ps[(ty + 16 * i) * (kBK + 1) + tx + 16 * j] = p;
-        rs += p;
-      }
+      for (int nf = 0; nf < F::kNf; ++nf)
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      alpha[i] = m[i] <= kNegInf / 2 ? 0.f : expf(m[i] - new_m);
-      l[i] = l[i] * alpha[i] + rs;
-      m[i] = new_m;
+        for (int e = 0; e < 2; ++e) {
+          float& s = sc[nf][2 * r + e];
+          s = s <= kNegInf / 2 ? 0.f : expf(s - new_m);
+          rs += s;
+        }
+      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+      alpha[r] = m[r] <= kNegInf / 2 ? 0.f : expf(m[r] - new_m);
+      l[r] = l[r] * alpha[r] + rs;
+      m[r] = new_m;
     }
-    __syncthreads();
 
+    // P as A fragments, by the permuted k: a0 = (g, 2t) = c0,
+    // a1 = (g + 8, 2t) = c2, a2 = (g, 2t + 1) = c1, a3 = (g + 8, 2t + 1) = c3
+    uint32_t ph[F::kNf][4], pl[F::kNf][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float pv[CD];
+    for (int nf = 0; nf < F::kNf; ++nf) {
+      split_tf32(sc[nf][0], ph[nf][0], pl[nf][0]);
+      split_tf32(sc[nf][2], ph[nf][1], pl[nf][1]);
+      split_tf32(sc[nf][1], ph[nf][2], pl[nf][2]);
+      split_tf32(sc[nf][3], ph[nf][3], pl[nf][3]);
+    }
+    // O = O * alpha + P V, this tile's P V from zeroed registers;
+    // B = V rows 2t and 2t + 1 of each k8 step, column g
+    const float* vt = vs + 2 * t * kLdV + g;
 #pragma unroll
-      for (int c = 0; c < CD; ++c) pv[c] = 0.f;
-      const float* prow = ps + (ty + 16 * i) * (kBK + 1);
-      for (int j = 0; j < kBK; ++j) {
-        const float p = prow[j];
+    for (int df = 0; df < F::kDf; ++df) {
+      float pv[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int c = 0; c < CD; ++c) pv[c] = fmaf(p, vs[j * D + tx + 16 * c], pv[c]);
+      for (int j = 0; j < F::kNf; ++j) {
+        const float* vj = vt + j * 8 * kLdV + df * 8;
+        mma_3xtf32(pv, ph[j], pl[j], vj[0], vj[kLdV]);
       }
 #pragma unroll
-      for (int c = 0; c < CD; ++c) o[i][c] = o[i][c] * alpha[i] + pv[c];
+      for (int i = 0; i < 4; ++i) o[df][i] = o[df][i] * alpha[i / 2] + pv[i];
     }
+    __syncthreads();  // every warp is done with this stage
   }
+  cp_async_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = qt * kBQ + ty + 16 * i;
+  for (int r = 0; r < 2; ++r) {
+    const int s = q0 + warp * 16 + g + 8 * r;
     if (s >= s_q) continue;
-    float* orow = acc_out + (static_cast<size_t>(b) * s_q + s) * row_stride + hh * D;
+    float* orow =
+        acc_out + (static_cast<size_t>(b) * s_q + s) * row_stride + hh * D;
 #pragma unroll
-    for (int c = 0; c < CD; ++c) orow[tx + 16 * c] = o[i][c];
-    if (tx == 0) {
-      m_out[static_cast<size_t>(bh) * s_q + s] = m[i];
-      l_out[static_cast<size_t>(bh) * s_q + s] = l[i];
+    for (int df = 0; df < F::kDf; ++df)
+      *reinterpret_cast<float2*>(orow + df * 8 + 2 * t) =
+          make_float2(o[df][2 * r], o[df][2 * r + 1]);
+    if (t == 0) {
+      m_out[static_cast<size_t>(bh) * s_q + s] = m[r];
+      l_out[static_cast<size_t>(bh) * s_q + s] = l[r];
     }
   }
 }
@@ -185,14 +351,25 @@ template <int D>
 int launch(const float* q, const float* k, const float* v, float* acc,
            float* m, float* l, int b, int h, int s_q, int s_k, int q_off,
            int k_off, int causal, float scale, cudaStream_t stream) {
-  const size_t bytes = smem_floats<D>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+  using T = Tiles<D>;
+  using F = Flash<D, T::kWarps, T::kBK>;
+  // shared memory above 48 KB is allowed once per device
+  static bool smem_allowed[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(b * h, (s_q + kBQ - 1) / kBQ);
-  flash_fwd_kernel<D><<<grid, kThreads, bytes, stream>>>(
-      q, k, v, acc, m, l, h, s_q, s_k, q_off, k_off, causal, scale);
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!smem_allowed[dev]) {
+    err = cudaFuncSetAttribute(flash_fwd_kernel<D, T::kWarps, T::kBK>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               F::kSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_allowed[dev] = true;
+  }
+  const dim3 grid(b * h, (s_q + F::kBQ - 1) / F::kBQ);
+  flash_fwd_kernel<D, T::kWarps, T::kBK>
+      <<<grid, F::kThreads, F::kSmemBytes, stream>>>(
+          q, k, v, acc, m, l, h, s_q, s_k, q_off, k_off, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -200,20 +377,27 @@ int launch(const float* q, const float* k, const float* v, float* acc,
 
 extern "C" {
 
-// Head dims 128 (the flagship's) and 32 (the bench's tiny LM) are
-// instantiated; any other returns cudaErrorInvalidValue. Returns
+// Head dims 32 (the bench's tiny LM), 128 (the flagship) and 256 (the
+// bench's `large` LM) are instantiated; any other returns
+// cudaErrorInvalidValue. q, k, v, acc start on 16-byte boundaries. Returns
 // cudaGetLastError() after the launch.
 int flash_attn_partials_f32(const float* q, const float* k, const float* v,
                             float* acc, float* m, float* l, int b, int h,
                             int s_q, int s_k, int d, int q_off, int k_off,
                             int causal, float scale, cudaStream_t stream) {
-  if (d == 128)
-    return launch<128>(q, k, v, acc, m, l, b, h, s_q, s_k, q_off, k_off,
-                       causal, scale, stream);
-  if (d == 32)
-    return launch<32>(q, k, v, acc, m, l, b, h, s_q, s_k, q_off, k_off,
-                      causal, scale, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (d) {
+    case 32:
+      return launch<32>(q, k, v, acc, m, l, b, h, s_q, s_k, q_off, k_off,
+                        causal, scale, stream);
+    case 128:
+      return launch<128>(q, k, v, acc, m, l, b, h, s_q, s_k, q_off, k_off,
+                         causal, scale, stream);
+    case 256:
+      return launch<256>(q, k, v, acc, m, l, b, h, s_q, s_k, q_off, k_off,
+                         causal, scale, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 const char* kfac_error_string(int code) {

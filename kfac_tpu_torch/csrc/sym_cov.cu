@@ -45,26 +45,21 @@
 //   atomics: the result is the same bit for bit on every run.
 // S comes from ops/sym_cov.py's plan().
 //
-// sym_cov_ema (sym_cov_ema_kernel) keeps a SIMT f32 loop: one CTA per
-// upper tile pair, a 1-D grid over nblk*(nblk+1)/2; the TPU's sequential k
-// grid axis is a loop over N inside the CTA, staging a kBK-row slab of
-// column blocks i and j in shared memory; each of the 256 threads keeps
-// TM x TM f32 accumulators in registers. In its epilogue each thread reads
-// F[gi, gj] of its upper element once and writes beta * F + coeff * acc to
-// both halves, so the covariance never reaches device memory. It adds one
-// read of F's upper triangle to the bound (8.4 MB at D = 2049: 0.003 ms at
-// 3.35 TB/s). F is mirrored element by element, where the TPU mirrors whole
-// tiles; the two agree because F is symmetric, which is the function's
-// contract.
+// sym_cov_ema runs the same kernels with the blend as a compile-time flag
+// (kBlend), so sym_cov's instantiation is the code it was without it. The
+// epilogue that writes an upper element (the main kernel's where S = 1,
+// the reduce pass's after adding the S partials in order where S > 1)
+// reads F[gi, gj] once and writes beta * F + coeff * sum to both halves, so
+// the covariance never reaches device memory. That adds one read of F's
+// upper triangle to the bound (8.4 MB at D = 2049: 0.003 ms at 3.35 TB/s).
+// F is mirrored element by element, where the TPU mirrors whole tiles; the
+// two agree because F is symmetric, which is the function's contract.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 namespace {
-
-constexpr int kThreads = 256;  // a 16 x 16 thread grid
-constexpr int kBK = 16;        // rows of `a` staged per step
 
 // Tile pair (bi, bj), bi <= bj, of upper-triangle index t, row-major over
 // the nblk x nblk grid of tiles; a CTA's t is its blockIdx.x.
@@ -76,89 +71,6 @@ __device__ __forceinline__ void pair_of(int t, int nblk, int& bi, int& bj) {
   }
   bj = bi + t;
 }
-
-// The SIMT main loop of sym_cov_ema_kernel: acc[r][q] = sum over the N
-// rows of a[k, i0 + ty + 16 r] * a[k, j0 + tx + 16 q].
-template <int TM>
-__device__ __forceinline__ void tile_product(const float* __restrict__ a,
-                                             int n, int d, int i0, int j0,
-                                             float (&acc)[TM][TM]) {
-  constexpr int W = 16 * TM;  // tile edge
-  __shared__ float si[kBK][W];
-  __shared__ float sj[kBK][W];
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-
-#pragma unroll
-  for (int r = 0; r < TM; ++r)
-#pragma unroll
-    for (int q = 0; q < TM; ++q) acc[r][q] = 0.f;
-
-  for (int k0 = 0; k0 < n; k0 += kBK) {
-    // kBK * W == kThreads * TM: each thread stages TM elements of each slab,
-    // consecutive threads on consecutive columns (coalesced rows of `a`)
-#pragma unroll
-    for (int u = 0; u < TM; ++u) {
-      const int e = threadIdx.x + u * kThreads;
-      const int kk = e / W;
-      const int col = e % W;
-      const int row = k0 + kk;
-      const bool in_rows = row < n;
-      const size_t base = static_cast<size_t>(row) * d;
-      si[kk][col] = (in_rows && i0 + col < d) ? a[base + i0 + col] : 0.f;
-      sj[kk][col] = (in_rows && j0 + col < d) ? a[base + j0 + col] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float x[TM], y[TM];
-#pragma unroll
-      for (int r = 0; r < TM; ++r) x[r] = si[kk][ty + 16 * r];
-#pragma unroll
-      for (int q = 0; q < TM; ++q) y[q] = sj[kk][tx + 16 * q];
-#pragma unroll
-      for (int r = 0; r < TM; ++r)
-#pragma unroll
-        for (int q = 0; q < TM; ++q) acc[r][q] = fmaf(x[r], y[q], acc[r][q]);
-    }
-    __syncthreads();
-  }
-}
-
-// The SIMT loop with the blend epilogue: c = beta * f + coeff * a^T a.
-template <int TM>
-__global__ void __launch_bounds__(kThreads)
-sym_cov_ema_kernel(const float* __restrict__ a, const float* __restrict__ f,
-                   float* __restrict__ c, int n, int d, float beta,
-                   float coeff, int nblk) {
-  int bi, bj;
-  pair_of(blockIdx.x, nblk, bi, bj);
-  const int i0 = bi * 16 * TM;
-  const int j0 = bj * 16 * TM;
-  float acc[TM][TM];
-  tile_product<TM>(a, n, d, i0, j0, acc);
-
-  // Epilogue: blend and write each upper element to both halves. On a
-  // diagonal tile only gi <= gj is written, so every pair (i, j), (j, i)
-  // comes from one accumulator: exact symmetry.
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-#pragma unroll
-  for (int r = 0; r < TM; ++r) {
-#pragma unroll
-    for (int q = 0; q < TM; ++q) {
-      const int gi = i0 + ty + 16 * r;
-      const int gj = j0 + tx + 16 * q;
-      if (gi < d && gj < d && (bi < bj || gi <= gj)) {
-        const size_t ij = static_cast<size_t>(gi) * d + gj;
-        const float v = beta * f[ij] + coeff * acc[r][q];
-        c[ij] = v;
-        c[static_cast<size_t>(gj) * d + gi] = v;
-      }
-    }
-  }
-}
-
 
 // ------------------------------------------------- sym_cov: 3xTF32 mma.sync
 
@@ -177,6 +89,22 @@ constexpr int kSmemBytes = kStages * kStageFloats * 4;
 constexpr int kMt = kWarp / 16;  // m16 fragments per warp
 constexpr int kNt = kWarp / 8;   // n8 fragments per warp
 constexpr int kMaxDevices = 64;
+
+// The blend of sym_cov_ema: out = beta * f + coeff * sum (unused by sym_cov).
+struct Blend {
+  const float* f;
+  float beta;
+  float coeff;
+};
+
+// The value written at upper element (gi, gj) from its sum over the rows:
+// sum / scale, or with kBlend the blend, F read once.
+template <bool kBlend>
+__device__ __forceinline__ float epilogue(float sum, float scale,
+                                          const Blend& blend, size_t ij) {
+  if (kBlend) return blend.beta * blend.f[ij] + blend.coeff * sum;
+  return sum / scale;
+}
 
 // 16 bytes from global to shared; the `valid` floats after src are copied
 // and the rest zero-filled.
@@ -220,8 +148,9 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
 
 // Partial or whole C tile of pair blockIdx.x over the rows of slice
 // blockIdx.y: [y * rows_per_split, min(n, (y + 1) * rows_per_split)).
-// direct: C = acc / scale, upper elements mirrored; else the tile's raw sums
-// go to part[(y * pairs + x) * kTile * kTile + m * kTile + n].
+// direct: C = acc / scale (with kBlend, beta * F + coeff * acc), upper
+// elements mirrored; else the tile's raw sums go to
+// part[(y * pairs + x) * kTile * kTile + m * kTile + n].
 //
 // Rows of `a` start at any 4-byte boundary when D % 4 != 0, and cp.async
 // moves 16 aligned bytes. So the slab row of `row` holds the kTile + 4 floats
@@ -231,10 +160,11 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
 // outside the tile's columns, or columns >= D, hold neighbouring elements of
 // `a`; they only reach outputs that are not written. Rows >= the slice's
 // end are zero-filled, and so are bytes past the end of `a`.
+template <bool kBlend>
 __global__ void __launch_bounds__(kTcThreads)
 sym_cov_tc_kernel(const float* __restrict__ a, float* __restrict__ out, int n,
                   int d, float scale, int nblk, int rows_per_split,
-                  int direct) {
+                  int direct, Blend blend) {
   extern __shared__ __align__(16) float smem[];
   int bi, bj;
   pair_of(blockIdx.x, nblk, bi, bj);
@@ -372,8 +302,9 @@ sym_cov_tc_kernel(const float* __restrict__ a, float* __restrict__ out, int n,
         const int gi = i0 + m;
         const int gj = j0 + c;
         if (gi < d && gj < d && (!diag || gi <= gj)) {
-          const float v = acc[mi][ni][r] / scale;
-          out[static_cast<size_t>(gi) * d + gj] = v;
+          const size_t ij = static_cast<size_t>(gi) * d + gj;
+          const float v = epilogue<kBlend>(acc[mi][ni][r], scale, blend, ij);
+          out[ij] = v;
           out[static_cast<size_t>(gj) * d + gi] = v;
         }
       }
@@ -382,11 +313,13 @@ sym_cov_tc_kernel(const float* __restrict__ a, float* __restrict__ out, int n,
 }
 
 // C from the S partial tiles of sym_cov_tc_kernel: for each upper element,
-// the sum over slices in slice order, / scale, written to both halves.
-// Grid: x over pairs, y over kTile * kTile / 256 elements of a tile.
+// the sum over slices in slice order, / scale (with kBlend, blended into
+// F), written to both halves. Grid: x over pairs, y over kTile * kTile / 256
+// elements of a tile.
+template <bool kBlend>
 __global__ void __launch_bounds__(256)
 sym_cov_reduce_kernel(const float* __restrict__ part, float* __restrict__ c,
-                      int d, float scale, int nblk, int splits) {
+                      int d, float scale, int nblk, int splits, Blend blend) {
   int bi, bj;
   pair_of(blockIdx.x, nblk, bi, bj);
   const int e = blockIdx.y * 256 + threadIdx.x;
@@ -398,9 +331,47 @@ sym_cov_reduce_kernel(const float* __restrict__ part, float* __restrict__ c,
       part + static_cast<size_t>(blockIdx.x) * (kTile * kTile) + e;
   float sum = 0.f;
   for (int s = 0; s < splits; ++s) sum += p[s * stride];
-  const float v = sum / scale;
-  c[static_cast<size_t>(gi) * d + gj] = v;
+  const size_t ij = static_cast<size_t>(gi) * d + gj;
+  const float v = epilogue<kBlend>(sum, scale, blend, ij);
+  c[ij] = v;
   c[static_cast<size_t>(gj) * d + gi] = v;
+}
+
+// Both passes of sym_cov (kBlend false) or sym_cov_ema (true); see the
+// exported functions.
+template <bool kBlend>
+int launch(const float* a, float* c, float* part, int n, int d, float scale,
+           Blend blend, int splits, int rows_per_split, cudaStream_t stream) {
+  if (splits < 1 || rows_per_split % kSlab != 0 ||
+      (splits > 1 && part == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // shared memory above 48 KB is allowed once per device
+  static bool smem_allowed[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!smem_allowed[dev]) {
+    err = cudaFuncSetAttribute(sym_cov_tc_kernel<kBlend>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_allowed[dev] = true;
+  }
+  const int nblk = (d + kTile - 1) / kTile;
+  const int pairs = nblk * (nblk + 1) / 2;
+  const bool direct = splits == 1;
+  sym_cov_tc_kernel<kBlend>
+      <<<dim3(pairs, splits), kTcThreads, kSmemBytes, stream>>>(
+          a, direct ? c : part, n, d, scale, nblk, rows_per_split, direct,
+          blend);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || direct) return static_cast<int>(err);
+  sym_cov_reduce_kernel<kBlend>
+      <<<dim3(pairs, kTile * kTile / 256), 256, 0, stream>>>(
+          part, c, d, scale, nblk, splits, blend);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -415,52 +386,18 @@ extern "C" {
 int sym_cov_f32(const float* a, float* c, float* part, int n, int d,
                 float scale, int splits, int rows_per_split,
                 cudaStream_t stream) {
-  if (splits < 1 || rows_per_split % kSlab != 0 ||
-      (splits > 1 && part == nullptr)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  // shared memory above 48 KB is allowed once per device
-  static bool smem_allowed[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  if (!smem_allowed[dev]) {
-    err = cudaFuncSetAttribute(sym_cov_tc_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmemBytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_allowed[dev] = true;
-  }
-  const int nblk = (d + kTile - 1) / kTile;
-  const int pairs = nblk * (nblk + 1) / 2;
-  const bool direct = splits == 1;
-  sym_cov_tc_kernel<<<dim3(pairs, splits), kTcThreads, kSmemBytes, stream>>>(
-      a, direct ? c : part, n, d, scale, nblk, rows_per_split, direct);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || direct) return static_cast<int>(err);
-  sym_cov_reduce_kernel<<<dim3(pairs, kTile * kTile / 256), 256, 0, stream>>>(
-      part, c, d, scale, nblk, splits);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(a, c, part, n, d, scale, Blend{nullptr, 0.f, 0.f},
+                       splits, rows_per_split, stream);
 }
 
 // c = beta * f + coeff * a^T a for a symmetric (D, D) f; c must not alias f.
-// Launch on `stream`; `tile` is 32 or 64 (the output tile edge). Returns
-// cudaGetLastError() after the launch.
-int sym_cov_ema_f32(const float* a, const float* f, float* c, int n, int d,
-                    float beta, float coeff, int tile, cudaStream_t stream) {
-  const int nblk = (d + tile - 1) / tile;
-  const int grid = nblk * (nblk + 1) / 2;
-  if (tile == 64) {
-    sym_cov_ema_kernel<4><<<grid, kThreads, 0, stream>>>(a, f, c, n, d, beta,
-                                                         coeff, nblk);
-  } else if (tile == 32) {
-    sym_cov_ema_kernel<2><<<grid, kThreads, 0, stream>>>(a, f, c, n, d, beta,
-                                                         coeff, nblk);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+// The same kernels, splits and scratch as sym_cov_f32. Returns
+// cudaGetLastError() after the launches.
+int sym_cov_ema_f32(const float* a, const float* f, float* c, float* part,
+                    int n, int d, float beta, float coeff, int splits,
+                    int rows_per_split, cudaStream_t stream) {
+  return launch<true>(a, c, part, n, d, 1.f, Blend{f, beta, coeff}, splits,
+                      rows_per_split, stream);
 }
 
 const char* kfac_error_string(int code) {

@@ -1,10 +1,12 @@
 """Covariance blended into a running factor, ``beta F + coeff a^T a``
 (counterpart of ``kfac_tpu/ops/pallas_cov_ema.py``).
 
-On a CUDA tensor :func:`sym_cov_ema` launches the hand-written kernel in
+On a CUDA tensor :func:`sym_cov_ema` launches the hand-written kernels in
 ``kfac_tpu_torch/csrc/sym_cov.cu`` (``sym_cov_ema_f32``, which replaces the
-TPU kernel ``_sym_cov_ema_kernel``, ``kfac_tpu/ops/pallas_cov_ema.py:47``);
-on a CPU tensor it runs :func:`sym_cov_ema_plain`. Both blend the upper
+TPU kernel ``_sym_cov_ema_kernel``, ``kfac_tpu/ops/pallas_cov_ema.py:47``):
+``sym_cov``'s tensor-core loop (3xTF32) and split over N
+(:func:`kfac_tpu_torch.ops.sym_cov.plan`), with the blend as the epilogue.
+On a CPU tensor it runs :func:`sym_cov_ema_plain`. Both blend the upper
 triangle and mirror it, so the result is exactly symmetric.
 
 Contract, as in the JAX package: ``F`` is symmetric. The kernel reads
@@ -23,8 +25,7 @@ import functools
 
 import torch
 
-from kfac_tpu_torch.ops import build
-from kfac_tpu_torch.ops.sym_cov import sm_count
+from kfac_tpu_torch.ops import build, sym_cov
 
 
 def sym_cov_ema_plain(
@@ -36,24 +37,31 @@ def sym_cov_ema_plain(
     return torch.triu(full) + torch.triu(full, diagonal=1).T
 
 
-def tile_for(d: int, device: torch.device) -> int:
-    """Output tile edge of the SIMT loop: 64 when its upper-triangle grid
-    gives every SM two CTAs, else 32 (more, smaller CTAs for the d ~ 512
-    factors)."""
-    nblk = -(-d // 64)
-    return 64 if nblk * (nblk + 1) // 2 >= 2 * sm_count(device.index) else 32
-
-
 @functools.cache
 def _launcher():
     fn = build.library('sym_cov').sym_cov_ema_f32
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
-        ctypes.c_void_p,
+    fn.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
+
+
+def launch(
+    f: torch.Tensor, a: torch.Tensor, out: torch.Tensor, beta: float, coeff: float,
+    p: sym_cov.CovPlan,
+) -> None:
+    """Run the kernels on ``a`` and ``f`` into ``out`` by plan ``p`` (checked
+    arguments; no launch count)."""
+    part = sym_cov.scratch(p, a.device)
+    with torch.cuda.device(a.device):
+        code = _launcher()(
+            a.data_ptr(), f.data_ptr(), out.data_ptr(),
+            0 if part is None else part.data_ptr(), p.n, p.d, float(beta), float(coeff),
+            p.splits, p.rows_per_split, torch.cuda.current_stream(a.device).cuda_stream,
+        )
+    build.check('sym_cov', code)
 
 
 def sym_cov_ema(
@@ -62,8 +70,9 @@ def sym_cov_ema(
     """``beta * f + coeff * a^T a`` for ``a`` (N, D) and a symmetric ``f``
     (D, D); (D, D) f32, exactly symmetric, a new tensor.
 
-    CUDA tensors go through the kernel (``a`` contiguous f32, else raises;
-    ``f`` is read as f32); CPU tensors through :func:`sym_cov_ema_plain`.
+    CUDA tensors go through the kernels (``a`` contiguous f32, else raises;
+    ``f`` is read as f32), split by ``sym_cov``'s plan, whose scratch is
+    allocated here; CPU tensors go through :func:`sym_cov_ema_plain`.
     """
     if a.ndim != 2:
         raise ValueError(f'expected a 2D tensor, got shape {tuple(a.shape)}')
@@ -85,13 +94,7 @@ def sym_cov_ema(
     out = torch.empty((d, d), dtype=torch.float32, device=a.device)
     if d == 0:
         return out
-    with torch.cuda.device(a.device):
-        code = _launcher()(
-            a.data_ptr(), f.data_ptr(), out.data_ptr(), n, d, float(beta),
-            float(coeff), tile_for(d, a.device),
-            torch.cuda.current_stream(a.device).cuda_stream,
-        )
-    build.check('sym_cov', code)
+    launch(f, a, out, beta, coeff, sym_cov.plan(n, d, sym_cov.sm_count(a.device.index)))
     sym_cov_ema.launches += 1
     return out
 

@@ -20,7 +20,8 @@ import torch
 from kfac_tpu_torch.ops import build
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 128)  # the head dims the kernel is built for: tiny LM, flagship
+# the head dims the kernel is built for: the tiny LM, the flagship, `large`
+HEAD_DIMS = (32, 128, 256)
 
 
 def attend_partials_einsum(q, k, v, q_offset, k_offset, causal):
@@ -57,7 +58,8 @@ def _launcher():
 
 def _flash_partials_kernel(q, k, v, q_offset: int, k_offset: int, causal: bool):
     """Launch the CUDA kernel: the forward of :func:`flash_attention_partials`
-    on the card. Contiguous f32 (B, S, H, D) inputs, D in ``HEAD_DIMS``."""
+    on the card. Contiguous f32 (B, S, H, D) inputs on 16-byte boundaries
+    (the kernel stages them by 16-byte copies), D in ``HEAD_DIMS``."""
     b, s_q, h, d = q.shape
     s_k = k.shape[1]
     if k.shape != (b, s_k, h, d) or v.shape != k.shape:
@@ -73,6 +75,8 @@ def _flash_partials_kernel(q, k, v, q_offset: int, k_offset: int, causal: bool):
                 f'(B, S, H, D) tensors; got {t.dtype}, '
                 f'contiguous={t.is_contiguous()}'
             )
+        if t.data_ptr() % 16:
+            raise ValueError('the flash attention kernel takes tensors on 16-byte boundaries')
     acc = torch.empty_like(q)
     m = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)

@@ -26,8 +26,10 @@ SLAB_ROWS = 32
 # registers x 128 threads and 55 KB of shared memory each, by ptxas)
 TILE = 64
 CTAS_PER_SM = 4
-# the least share of the last wave of CTAs that plan() accepts full
+# the least share of the last wave of CTAs that wave_plan() accepts full
 MIN_WAVE_FILL = 0.9
+# plan() leaves N in one slice up to this many slabs (512 rows)
+MAX_UNSPLIT_SLABS = 16
 
 
 def sym_cov_plain(a: torch.Tensor, scale: float | None = None) -> torch.Tensor:
@@ -74,16 +76,13 @@ def wave_fill(ctas: int, sms: int) -> float:
     return ctas / (-(-ctas // slots) * slots)
 
 
-def plan(n: int, d: int, sms: int) -> CovPlan:
-    """Split of an (n, d) ``sym_cov`` on a card with ``sms`` SMs.
-
-    The fewest slices of N, each a whole number of 32-row slabs, that make
-    the (tile pair, slice) CTAs fill their waves to ``MIN_WAVE_FILL``; one
-    slice per slab where none does. On an H100 at N = 8192: d = 2048 (528
-    pairs, one full wave) is not split, d = 2049 (561) is cut 6 ways, d =
-    512 (36) 14 ways and d = 513 (45) 11 ways. Every slice ends a partial
-    tile that a second pass adds in order, so a split costs that pass.
-    """
+def wave_plan(n: int, d: int, sms: int) -> CovPlan:
+    """The fewest slices of N, each a whole number of 32-row slabs, that
+    make the (tile pair, slice) CTAs of an (n, d) product fill their waves
+    to ``MIN_WAVE_FILL`` on a card with ``sms`` SMs; one slice per slab
+    where none does. On an H100 at N = 8192: d = 2048 (528 pairs, one full
+    wave) is not split, d = 2049 (561) is cut 6 ways, d = 512 (36) 14 ways
+    and d = 513 (45) 11 ways."""
     nblk = -(-d // TILE)
     pairs = nblk * (nblk + 1) // 2
     slabs = max(1, -(-n // SLAB_ROWS))
@@ -93,6 +92,25 @@ def plan(n: int, d: int, sms: int) -> CovPlan:
     per_split = -(-slabs // splits)
     splits = -(-slabs // per_split)  # at most as many, none empty
     return CovPlan(n, d, splits, per_split * SLAB_ROWS)
+
+
+@functools.cache
+def plan(n: int, d: int, sms: int) -> CovPlan:
+    """Split of an (n, d) ``sym_cov`` or ``sym_cov_ema`` on a card with
+    ``sms`` SMs: :func:`wave_plan`'s, but one slice where N is at most
+    ``MAX_UNSPLIT_SLABS`` slabs.
+
+    Every slice ends a partial tile that a second pass adds in order, so a
+    split costs that pass: a second launch and a scratch allocation, host
+    work that sets the time of a small product. The wrapper's call took
+    longer split than whole at N = 77 and 512 on an H100, and shorter
+    split at N = 1024 and 8192 (``chip_smoke.py``'s kernel phase, which
+    times the plan against the other form; readings in PERF.md, Findings).
+    """
+    slabs = max(1, -(-n // SLAB_ROWS))
+    if slabs <= MAX_UNSPLIT_SLABS:
+        return CovPlan(n, d, 1, slabs * SLAB_ROWS)
+    return wave_plan(n, d, sms)
 
 
 @functools.cache
@@ -112,12 +130,17 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def scratch(p: CovPlan, device: torch.device) -> torch.Tensor | None:
+    """The partial tiles of plan ``p`` (None when it is not split)."""
+    if p.splits == 1:
+        return None
+    return torch.empty(p.scratch_bytes // 4, dtype=torch.float32, device=device)
+
+
 def launch(a: torch.Tensor, out: torch.Tensor, scale: float, p: CovPlan) -> None:
     """Run the kernel on ``a`` into ``out`` by plan ``p`` (checked
     arguments; no launch count)."""
-    part = None
-    if p.splits > 1:
-        part = torch.empty(p.scratch_bytes // 4, dtype=torch.float32, device=a.device)
+    part = scratch(p, a.device)
     with torch.cuda.device(a.device):
         code = _launcher()(
             a.data_ptr(), out.data_ptr(), 0 if part is None else part.data_ptr(),

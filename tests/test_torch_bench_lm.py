@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import bench
 from kfac_tpu.models import TransformerLM as JaxLM
 from kfac_tpu_torch import bench_lm
 
@@ -66,6 +67,12 @@ def test_flops_and_params_follow_the_bench_formula(record):
     )
     assert record['n_params'] == n_params
     assert record['flops_per_step'] == flops
+
+
+@pytest.mark.parametrize('name', sorted(bench._LM_CONFIGS))
+def test_lm_configs_are_the_bench_configs(name):
+    assert set(bench_lm.LM_CONFIGS) == set(bench._LM_CONFIGS)
+    assert bench_lm.LM_CONFIGS[name] == bench._LM_CONFIGS[name]
 
 
 def test_entry_point_defaults_to_cuda(monkeypatch):

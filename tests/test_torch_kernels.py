@@ -108,6 +108,27 @@ def test_sym_cov_kernel_with_each_split_matches_plain_on_card(cuda_device):
         assert (got - want).abs().max() <= 1e-5 * want.abs().max(), splits
 
 
+@pytest.mark.cuda
+def test_sym_cov_ema_kernel_with_each_split_matches_plain_on_card(cuda_device):
+    # one shape through splits from 1 to one slice per slab: the blend in
+    # the main kernel's epilogue (1 slice) and in the reduce pass (more)
+    g = torch.Generator(cuda_device).manual_seed(7)
+    a = torch.randn(200, 130, generator=g, device=cuda_device)
+    f = sym_cov_lib.sym_cov_plain(torch.randn(200, 130, generator=g, device=cuda_device))
+    beta, coeff = 0.95, 0.05 / 200
+    want = cov_ema.sym_cov_ema_plain(f, a, beta, coeff)
+    tol = 1e-5 * (coeff * (a.T @ a)).abs().max()
+    for slabs_per_split in (1, 2, 3, 4, 7):  # 200 rows are 7 slabs
+        splits = -(-7 // slabs_per_split)
+        p = sym_cov_lib.CovPlan(200, 130, splits, slabs_per_split * 32)
+        got, again = (torch.empty(130, 130, device=cuda_device) for _ in range(2))
+        cov_ema.launch(f, a, got, beta, coeff, p)
+        cov_ema.launch(f, a, again, beta, coeff, p)
+        assert torch.equal(got, got.T), splits
+        assert torch.equal(got, again), splits  # no atomics: repeatable
+        assert (got - want).abs().max() <= tol, splits
+
+
 def scale_cases(device):
     """Tensors of numel 0 and 1, 2, 3 (mod 4), contiguous views that start
     off a 16-byte boundary, and 100 tensors (more than one launch's table)."""
@@ -154,7 +175,8 @@ def test_klclip_scale_many_is_bitwise_plain_on_card(cuda_device, case):
 @pytest.mark.parametrize(
     'q_off,k_off,s,d',
     [(0, 0, 512, 128), (64, 0, 100, 128), (0, 256, 128, 128), (16, 0, 192, 128),
-     (0, 0, 128, 32), (16, 0, 100, 32)],
+     (0, 0, 128, 32), (16, 0, 100, 32), (0, 0, 256, 256), (48, 0, 100, 256),
+     (0, 128, 96, 256)],
 )
 def test_flash_kernel_matches_plain_on_card(cuda_device, q_off, k_off, s, d):
     g = torch.Generator(cuda_device).manual_seed(2)
@@ -163,6 +185,15 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, q_off, k_off, s, d):
     want = flash_attention.attend_partials_einsum(q, k, v, q_off, k_off, True)
     for x, w in zip(got, want):
         assert (x - w).abs().max() <= 1e-5 * w.abs().max().clamp(max=1e6) + 1e-6
+
+
+@pytest.mark.cuda
+def test_flash_kernel_raises_for_a_tensor_off_a_16_byte_boundary(cuda_device):
+    # the kernel stages rows by 16-byte copies
+    q = torch.zeros(2 * 64 * 4 * 128 + 1, device=cuda_device)[1:].view(2, 64, 4, 128)
+    k = torch.zeros(2, 64, 4, 128, device=cuda_device)
+    with pytest.raises(ValueError, match='16-byte'):
+        flash_attention.flash_attention_partials(q, k, k, 0, 0, True)
 
 
 @pytest.mark.cuda

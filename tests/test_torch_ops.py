@@ -65,8 +65,8 @@ def kernel_pair_of(t, nblk):
     return bi, bi + t
 
 
-@pytest.mark.parametrize('n', [77, 8192])
-@pytest.mark.parametrize('d', [130, 512, 513, 2048, 2049])
+@pytest.mark.parametrize('n', [77, 512, 8192])
+@pytest.mark.parametrize('d', [129, 130, 512, 513, 2048, 2049])
 @pytest.mark.parametrize('sms', [132, 16])
 def test_sym_cov_plan_covers_each_pair_and_row_once(n, d, sms):
     p = sym_cov_lib.plan(n, d, sms)
@@ -90,7 +90,21 @@ def test_sym_cov_plan_covers_each_pair_and_row_once(n, d, sms):
     assert all(f < sym_cov_lib.MIN_WAVE_FILL for f in fill)
     assert p.splits <= -(-n // sym_cov_lib.SLAB_ROWS)
     if n == 8192 and sms == 132:  # the flagship's factors on an H100
-        assert p.splits == {130: 64, 512: 14, 513: 11, 2048: 1, 2049: 6}[d]
+        assert p.splits == {129: 64, 130: 64, 512: 14, 513: 11, 2048: 1, 2049: 6}[d]
+    if n <= 512:  # the tiny bench's factors: one slice
+        assert p.splits == 1
+
+
+@pytest.mark.parametrize('n,splits', [(32, 1), (512, 1), (513, 17), (544, 17), (1024, 32)])
+def test_sym_cov_plan_splits_only_past_sixteen_slabs(n, splits):
+    # at most 16 slabs of 32 rows stay whole; past that the wave rule's
+    # split: 6 tile pairs at d = 130 would need 80 slices to fill 132 SMs'
+    # 528 slots, so each slab is a slice
+    assert sym_cov_lib.MAX_UNSPLIT_SLABS == 16
+    p = sym_cov_lib.plan(n, 130, 132)
+    assert p.splits == splits
+    assert p == (sym_cov_lib.wave_plan(n, 130, 132) if splits > 1 else
+                 sym_cov_lib.CovPlan(n, 130, 1, -(-n // 32) * 32))
 
 
 def test_sym_cov_wrapper_takes_plain_on_cpu_without_launching():
@@ -126,8 +140,12 @@ def sym_factor(seed, d):
     return 0.5 * (f + f.T)  # the running factor is symmetric by contract
 
 
-@pytest.mark.parametrize('n,d', [(512, 256), (640, 192)], ids=['probe', 'padding'])
+@pytest.mark.parametrize(
+    'n,d', [(512, 256), (640, 192), (1000, 200)], ids=['probe', 'padding', 'split']
+)
 def test_sym_cov_ema_plain_matches_pallas_interpret(n, d):
+    if n == 1000:  # ragged N and D that the card's plan splits
+        assert sym_cov_lib.plan(n, d, 132).splits > 1
     a, f = rand(20, n, d), sym_factor(21, d)
     beta, coeff = 0.95, 0.05 / n
     want = jpallas_cov_ema._fused(jnp.asarray(f), jnp.asarray(a), beta, coeff, interpret=True)
@@ -260,6 +278,32 @@ def test_flash_partials_match_pallas_interpret(q_off, k_off, causal):
             jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), q_off, k_off, causal
         ),
     )
+
+
+@pytest.mark.parametrize(
+    'q_off,k_off', [(0, 0), (16, 8), (0, 32)], ids=['dense', 'offsets', 'fully-masked']
+)
+def test_flash_partials_match_pallas_interpret_at_head_dim_256(q_off, k_off):
+    # the `large` LM's head dim (the JAX kernel takes whole blocks of S)
+    q, k, v = (rand(30 + i, 1, 32, 2, 256) for i in range(3))
+    want = jpa.flash_attention_partials(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), q_offset=q_off,
+        k_offset=k_off, causal=True, block_q=16, block_k=16, interpret=True,
+    )
+    assert 256 in flash_attention.HEAD_DIMS
+    got = flash_attention.flash_attention_partials(t(q), t(k), t(v), q_off, k_off, True)
+    close_partials(got, want)
+
+
+def test_flash_tiles_first_candidates_are_the_built_tiles():
+    from kfac_tpu_torch import flash_tiles
+    from kfac_tpu_torch.ops import build
+
+    src = (build.CSRC / 'flash_attn.cu').read_text()
+    built = {d: c[0] for d, c in flash_tiles.CANDIDATES.items()}
+    assert flash_tiles.variant_source(src, built) == src
+    assert set(built) == set(flash_attention.HEAD_DIMS)
+    assert flash_tiles.variant_source(src, {128: (8, 64)}) != src
 
 
 def test_flash_partials_backward_matches_jax_vjp():
