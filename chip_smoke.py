@@ -17,17 +17,19 @@ Phases, one JSON line each:
    with CUDA events beside the plain version, one PyTorch library call as
    a yardstick, and the least time the H100 could take (bytes over 3.35
    TB/s or f32 FLOPs over 67 TFLOP/s, whichever is larger; for the kernels
-   on the tensor cores, ``sym_cov``, ``sym_cov_ema`` and the flash
-   partials, the operations are their 3xTF32 work at 495 TFLOP/s, with
-   the f32 bound beside; the covariance kernels' time at the other form
-   of the split, unsplit or split, beside the planned one). Each
-   tolerance must also reject a control: the plain version at reduced
-   precision (TF32 matmuls, or bf16 products), so a kernel that drops
-   below f32 fails the check. The kl-clip kernels also report their
-   device ms from torch.profiler: back to back, their CUDA-event times
-   are the host's enqueue. ``klclip_scale`` is timed at each layer's
-   shape and as the engine calls it, in place once over the flagship's 36
-   layers (out of place and ``_foreach_mul_`` beside).
+   on the tensor cores, ``sym_cov``, ``sym_cov_ema``, the flash partials
+   and ``fused_ns_step``, the operations are their 3xTF32 work at 495
+   TFLOP/s, with the f32 bound beside; the covariance kernels' time at
+   the other form of the split, unsplit or split, beside the planned one;
+   the Newton-Schulz step's output tile). Each tolerance must also reject
+   a control: the plain version at reduced precision (TF32 matmuls, or
+   bf16 products), so a kernel that drops below f32 fails the check. The
+   kl-clip kernels also report their device ms from torch.profiler: back
+   to back, their CUDA-event times are the host's enqueue. Both are timed
+   at each layer's shape and as the engine calls them, once over the
+   flagship's 36 layers: the dot with its terms' sum and the scale
+   (``library_ms`` is then the 36 ``torch.sum(p * g)`` calls it replaces),
+   the scale in place (out of place and ``_foreach_mul_`` beside).
 4. ``reference``: a two-layer model trained three steps through
    ``Trainer.step`` on the card (kernels) and on the CPU (plain versions)
    from the same weights, once with EIGEN, once with INVERSE +
@@ -93,6 +95,8 @@ KFAC_LAYERS = 6 * FLAGSHIP['layers']
 # their preconditioned gradients, (d_out, d_in + bias): q, k, v and out of
 # each block, then fc1, then fc2
 FLAGSHIP_PMATS = [(512, 513)] * 24 + [(2048, 513)] * 6 + [(512, 2049)] * 6
+# the grouped kl-clip dot's two kernels (csrc/klclip.cu)
+DOT_KERNELS = ('klclip_dot_multi_kernel', 'klclip_dot_final_kernel')
 
 
 def emit(obj) -> None:
@@ -291,7 +295,7 @@ def kernel_cases():
             ),
             control_rule='bf16 products, f32 sum, worst of 8 row blocks',
             nbytes=4 * (2 * r * c + 1), flops=2 * r * c,
-            device_kernels=('dot_partials_kernel', 'dot_final_kernel'),
+            device_kernels=DOT_KERNELS,
         ))
         cases.append(dict(
             name='klclip_scale', shape=[r, c],
@@ -307,8 +311,47 @@ def kernel_cases():
     # the engine's one launch a step: every K-FAC layer's preconditioned
     # gradient of the flagship (q, k, v, out; fc1; fc2 of 6 blocks)
     ps = [randn(*shape) for shape in FLAGSHIP_PMATS]
+    gs = [randn(*shape) for shape in FLAGSHIP_PMATS]
     s = torch.tensor(0.37, device=dev)
     numel = sum(p.numel() for p in ps)
+    lr, kl_clip = 0.1, 0.001  # the flagship's
+
+    def cmp_grouped(got, want):
+        # vg_sum against the sum over the layers of lr^2 sum|p*g|
+        ref = sum(float((p * g).abs().sum()) for p, g in zip(ps, gs)) * lr**2
+        return abs(float(got[1] - want[1])), ref
+
+    def grouped_holds(got):
+        terms, vg, scale = got
+        again = klclip.klclip_dot_many(ps, gs, lr, kl_clip)
+        fold = sum(terms.unbind())  # Python's sum, as the engine's plain path
+        return (
+            all(torch.equal(x, y) for x, y in zip(got, again))
+            and torch.equal(vg, fold)
+            and torch.equal(scale, klclip.kl_clip_scale_plain(fold, kl_clip))
+        )
+
+    cases.append(dict(
+        name='klclip_dot', shape=[len(ps), numel],
+        kernel=lambda: klclip.klclip_dot_many(ps, gs, lr, kl_clip),
+        plain=lambda: klclip.klclip_dot_many_plain(ps, gs, lr, kl_clip),
+        # one PyTorch call a layer, the engine's expression before this kernel
+        library=lambda: [torch.sum(p * g) for p, g in zip(ps, gs)],
+        extra=dict(library_call='torch.sum(p * g), once for each of the 36 layers'),
+        compare=cmp_grouped, rtol=1e-7, invariant=grouped_holds,
+        tol_rule='vg_sum within 1e-7 x sum of lr^2 sum|p*g|; terms, vg_sum and scale '
+                 'run-to-run identical; vg_sum the fold of the terms and the scale the '
+                 'plain expression over it, bit for bit',
+        control=lambda: [(p.bfloat16() * g.bfloat16()).float().sum() for p, g in zip(ps, gs)],
+        control_compare=lambda ctrl: max(
+            abs(float(b - klclip.klclip_dot_plain(p, g))) / float((p * g).abs().sum())
+            for b, p, g in zip(ctrl, ps, gs)
+        ),
+        control_rule='bf16 products, f32 sum, worst of the 36 layers',
+        # p and g read once; the terms, vg_sum and scale written once
+        nbytes=4 * (2 * numel + len(ps) + 2), flops=2 * numel,
+        device_kernels=DOT_KERNELS,
+    ))
     # timed in place on copies, as the engine calls it: a scale of 1 keeps
     # repeated calls exact
     work, lib_work = [p.clone() for p in ps], [p.clone() for p in ps]
@@ -386,7 +429,7 @@ def kernel_cases():
         x, mx = eye / lam_max, m / lam_max
         for _ in range(2):
             x, mx, _ = newton_schulz.fused_ns_step_plain(m, x, mx)
-        tile = newton_schulz.tile_for(d, dev)
+        tile = newton_schulz.plan(d, sms)
 
         def library(m=m, x=x, mx=mx, eye=eye, d=d):
             x_new = torch.matmul(x, 2.0 * eye - mx)
@@ -406,9 +449,9 @@ def kernel_cases():
             control=tf32(lambda m=m, x=x, mx=mx: newton_schulz.fused_ns_step_plain(m, x, mx)),
             control_rule='plain version with TF32 matmuls',
             # inputs m, x, mx read once, x_new, mx_new and resid written once
-            nbytes=4 * (5 * d * d + 1), flops=4 * d**3,
+            nbytes=4 * (5 * d * d + 1), flops=4 * d**3, tf32x3=True,
             extra=dict(
-                tile=tile, ctas=(-(-d // tile)) ** 2,
+                tile=tile, ctas=math.prod(newton_schulz.grid(d, tile)),
                 resid=float(newton_schulz.fused_ns_step_plain(m, x, mx)[2]),
             ),
         ))
@@ -718,8 +761,8 @@ def expected_launches(steps: int, captures: int) -> dict:
     return {
         'sym_cov': 2 * KFAC_LAYERS * captures,
         'sym_cov_ema': 0,
-        'klclip_dot': KFAC_LAYERS * steps,
-        'klclip_scale': steps,  # every layer in one launch
+        'klclip_dot': steps,  # every layer in one launch
+        'klclip_scale': steps,
         'flash_attention_partials': FLAGSHIP['layers'] * steps,
     }
 
@@ -870,7 +913,7 @@ def expected_bench_launches(cfg: dict, window: dict, probe_calls: int) -> dict:
     return {
         'sym_cov': 2 * kfac_layers * captures,
         'sym_cov_ema': probe_calls,
-        'klclip_dot': kfac_layers * (eager + scan) + probe_calls,
+        'klclip_dot': eager + scan + probe_calls,
         'klclip_scale': eager + scan + probe_calls,
         'flash_attention_partials': cfg['layers'] * (2 * eager + scan),
         'fused_ns_step': probe_calls,
@@ -927,7 +970,7 @@ def run_bench_lm(launches) -> bool:
 SOURCES = {
     'sym_cov': ('cuda', 'kfac_tpu_torch/csrc/sym_cov.cu', 'kfac_tpu/ops/pallas_cov.py:88', [8192, 2049]),
     'sym_cov_ema': ('cuda', 'kfac_tpu_torch/csrc/sym_cov.cu', 'kfac_tpu/ops/pallas_cov_ema.py:110', [512, 256]),
-    'klclip_dot': ('triton', 'kfac_tpu_torch/ops/klclip_triton.py', 'kfac_tpu/ops/pallas_ns.py:219', [2048, 513]),
+    'klclip_dot': ('cuda', 'kfac_tpu_torch/csrc/klclip.cu', 'kfac_tpu/ops/pallas_ns.py:219', [KFAC_LAYERS, 18_902_016]),
     'klclip_scale': ('cuda', 'kfac_tpu_torch/csrc/klclip.cu', 'kfac_tpu/ops/pallas_ns.py:244', [KFAC_LAYERS, 18_902_016]),
     'flash_attention_partials': ('cuda', 'kfac_tpu_torch/csrc/flash_attn.cu', 'kfac_tpu/ops/pallas_attention.py:257', [16, 512, 4, 128]),
     'fused_ns_step': ('cuda', 'kfac_tpu_torch/csrc/newton_schulz.cu', 'kfac_tpu/ops/pallas_ns.py:127,139', [2049, 2049]),
@@ -951,7 +994,8 @@ def kernels_line(results, launches) -> dict:
             ms=row['ms'], plain_ms=row['plain_ms'], bound_ms=row['bound_ms'],
             bound_by=row['bound_by'], bound_share=row['bound_share'],
             library_ms=row['library_ms'],
-            **{k: row[k] for k in ('bound_f32_ms', 'bound_f32_share', 'device_ms') if k in row},
+            **{k: row[k] for k in ('bound_f32_ms', 'bound_f32_share', 'device_ms', 'library_call')
+               if k in row},
         ))
     return {'kernels': out}
 

@@ -231,12 +231,10 @@ def kl_clip_scale(
     kl_clip: float | torch.Tensor,
 ) -> torch.Tensor:
     """Gradient scale ``min(1, sqrt(kl_clip / |vg_sum|))``, 1 where the sum
-    is zero. Stays on the device: no host sync."""
-    vg_abs = torch.abs(vg_sum)
-    zero = vg_abs == 0.0
-    safe = torch.where(zero, torch.ones_like(vg_abs), vg_abs)
-    scale = torch.clamp(torch.sqrt(kl_clip / safe), max=1.0)
-    return torch.where(zero, torch.ones_like(scale), scale)
+    is zero. Stays on the device: no host sync. The engine gets it from the
+    grouped kl-clip dot (:func:`kfac_tpu_torch.ops.klclip.klclip_dot_many`),
+    whose plain version this is."""
+    return klclip.kl_clip_scale_plain(vg_sum, kl_clip)
 
 
 def kl_clip_terms(

@@ -26,6 +26,7 @@ from kfac_tpu_torch.hyperparams import ScalarOrSchedule, resolve
 from kfac_tpu_torch.layers import capture as capture_lib
 from kfac_tpu_torch.layers import registry as registry_lib
 from kfac_tpu_torch.ops import factors as factors_lib
+from kfac_tpu_torch.ops import klclip
 
 
 def default_compute_method(
@@ -261,26 +262,25 @@ class KFACPreconditioner:
         """Precondition a ``named_parameters``-keyed grads dict.
 
         kl-clip takes one scalar over all layers, summed in registry order on
-        the device (no per-layer host sync), and scales every layer in one
-        kernel launch, in place.
+        the device (no host sync): every layer's term, their sum and the
+        scale in one launch of the kl-clip dot kernel; then every layer is
+        scaled in one kernel launch, in place.
         """
         damping = resolve(self.damping, state.step)
-        lr = resolve(self.lr, state.step)
         layer_grads = registry_lib.slice_layer_grads(grads, self.registry)
         precond = {}
-        vg_terms = []
+        gmats = []
         for name, helper in self.registry.layers.items():
             gmat = helper.grads_to_matrix(layer_grads[name])
             pmat = self._precondition_one(state, name, gmat, damping)
-            if self.kl_clip is not None:
-                vg_terms.append(factors_lib.kl_clip_terms(pmat, gmat, lr))
+            gmats.append(gmat)
             precond[name] = (pmat, helper)
-        scale = None
-        if self.kl_clip is not None and vg_terms:
-            kl_clip = resolve(self.kl_clip, state.step)
-            scale = factors_lib.kl_clip_scale(sum(vg_terms), kl_clip)
         pmats = [pmat for pmat, _ in precond.values()]
-        if scale is not None:
+        if self.kl_clip is not None and pmats:
+            _, _, scale = klclip.klclip_dot_many(
+                pmats, gmats, resolve(self.lr, state.step),
+                resolve(self.kl_clip, state.step),
+            )
             pmats = factors_lib.kl_clip_apply_many_(pmats, scale)
         out = {
             name: helper.matrix_to_grads(pmat)

@@ -14,7 +14,9 @@ exactly symmetric and identical from run to run; the covariance blended
 into a symmetric running factor within 1e-5 x max|coeff a^T a| (the blend
 scales the product's error by coeff, so the product is the reference) and
 exactly symmetric; the kl-clip dot within 1e-7 x sum|p*g| and identical
-from run to run; the kl-clip scale bitwise equal to the plain version; the
+from run to run, and grouped over layers within 1e-7 x sum of lr^2 sum|p*g|,
+its scale bitwise the plain expression over its own terms; the kl-clip
+scale bitwise equal to the plain version; the
 attention partials within 1e-5 x max|x| of each output; the Newton-Schulz
 step within 3e-5 x max of x_new and of mx_new and 3e-5 of the residual,
 every output identical from run to run.
@@ -23,7 +25,7 @@ every output identical from run to run.
 import pytest
 import torch
 
-from kfac_tpu_torch.ops import cov_ema, flash_attention, klclip
+from kfac_tpu_torch.ops import cov_ema, factors, flash_attention, klclip
 from kfac_tpu_torch.ops import newton_schulz as ns_lib
 from kfac_tpu_torch.ops import sym_cov as sym_cov_lib
 
@@ -217,5 +219,96 @@ def test_ns_kernel_matches_plain_on_card(cuda_device, d):
     for o, w in zip(got[:2], want[:2]):
         assert (o - w).abs().max() <= 3e-5 * w.abs().max()
     assert abs(float(got[2]) - float(want[2])) <= 3e-5 * float(want[2])
+    again = ns_lib.fused_ns_step(m, x, mx)  # no atomics: repeatable
+    assert all(torch.equal(o, p) for o, p in zip(got, again))
+
+
+FLAGSHIP_PMATS = [(512, 513)] * 24 + [(2048, 513)] * 6 + [(512, 2049)] * 6
+
+
+def grouped_dot_cases(device):
+    """(ps, gs) lists: the flagship's 36 layers; g views 1-3 floats off a
+    16-byte boundary and empty tensors; 100 pairs (two launches)."""
+    g = torch.Generator(device).manual_seed(8)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=device)
+
+    base = randn(40_000)
+    ragged = [(37, 129), (0,), (4099,), (4099,), (4099,), (5,), (0, 3)]
+    views = {2: base[1:1 + 4099], 3: base[2:2 + 4099], 4: base[3:3 + 4099]}
+    return {
+        'flagship': ([randn(*s) for s in FLAGSHIP_PMATS], [randn(*s) for s in FLAGSHIP_PMATS]),
+        'offsets': ([randn(*s) for s in ragged],
+                    [views[i] if i in views else randn(*s) for i, s in enumerate(ragged)]),
+        'many': ([randn(i % 7 * 600 + 1) for i in range(100)],
+                 [randn(i % 7 * 600 + 1) for i in range(100)]),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['flagship', 'offsets', 'many'])
+def test_klclip_dot_many_matches_plain_on_card(cuda_device, case):
+    ps, gs = grouped_dot_cases(cuda_device)[case]
+    lr, kl_clip = 0.1, 0.001
+    before = klclip.klclip_dot.launches
+    terms, vg, scale = klclip.klclip_dot_many(ps, gs, lr, kl_clip)
+    assert klclip.klclip_dot.launches == before + -(-len(ps) // klclip.TABLE_CAPACITY)
+    want_terms, want_vg, _ = klclip.klclip_dot_many_plain(ps, gs, lr, kl_clip)
+    tol = 1e-7 * sum(float((p * g).abs().sum()) * lr ** 2 for p, g in zip(ps, gs))
+    assert abs(float(vg - want_vg)) <= tol
+    assert float((terms - want_terms).abs().max()) <= tol
+    # the fold and the scale are the plain expressions over the kernel's terms
+    vg_fold = sum(terms.unbind())
+    assert torch.equal(vg, vg_fold)
+    assert torch.equal(scale, factors.kl_clip_scale(vg_fold, kl_clip))
+    again = klclip.klclip_dot_many(ps, gs, lr, kl_clip)  # no atomics: repeatable
+    assert all(torch.equal(x, y) for x, y in zip((terms, vg, scale), again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['zeros', 'binding', 'nan'])
+def test_klclip_dot_many_scale_edges_on_card(cuda_device, kind):
+    g = torch.Generator(cuda_device).manual_seed(9)
+    ps = [torch.randn(40, 70, generator=g, device=cuda_device) for _ in range(3)]
+    gs = [torch.randn(40, 70, generator=g, device=cuda_device) for _ in range(3)]
+    kl_clip = 1e-9 if kind == 'binding' else 0.001
+    if kind == 'zeros':
+        gs = [torch.zeros_like(p) for p in ps]
+    if kind == 'nan':
+        ps[1][3, 5] = float('nan')
+    terms, vg, scale = klclip.klclip_dot_many(ps, gs, 0.1, kl_clip)
+    want = factors.kl_clip_scale(sum(terms.unbind()), kl_clip)
+    if kind == 'nan':
+        assert torch.isnan(vg) and torch.isnan(scale) and torch.isnan(want)
+        return
+    assert torch.equal(scale, want)
+    if kind == 'zeros':
+        assert float(vg) == 0.0 and float(scale) == 1.0
+    else:
+        assert 0.0 < float(scale) < 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('tile', [(128, 128), (128, 144), (64, 32)])
+@pytest.mark.parametrize('d', [1, 7, 63, 129, 512, 513, 2048, 2049])
+def test_ns_kernel_each_tile_matches_plain_on_card(cuda_device, monkeypatch, d, tile):
+    # both built tiles at every width, whatever the plan would pick
+    monkeypatch.setattr(ns_lib, 'plan', lambda d, sms: tile)
+    g = torch.Generator(cuda_device).manual_seed(10)
+    a = torch.randn(d, d, generator=g, device=cuda_device)
+    eye = torch.eye(d, device=cuda_device)
+    m = a.T @ a / d + 0.003 * eye
+    lam_max = m.abs().sum(-1).max()
+    x, mx = eye / lam_max, m / lam_max
+    for _ in range(2):
+        x, mx, _ = ns_lib.fused_ns_step_plain(m, x, mx)
+    got = ns_lib.fused_ns_step(m, x, mx)
+    want = ns_lib.fused_ns_step_plain(m, x, mx)
+    for o, w in zip(got[:2], want[:2]):
+        assert (o - w).abs().max() <= 3e-5 * w.abs().max()
+    # at d = 1 the Gershgorin start is the inverse itself, so the residual
+    # is f32 rounding: held to 1e-6 absolute there
+    assert abs(float(got[2]) - float(want[2])) <= max(3e-5 * float(want[2]), 1e-6 * (d == 1))
     again = ns_lib.fused_ns_step(m, x, mx)  # no atomics: repeatable
     assert all(torch.equal(o, p) for o, p in zip(got, again))

@@ -8,6 +8,8 @@ frameworks sum in different orders). The kernels themselves are held
 against their plain versions on the card in ``test_torch_kernels.py``.
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -211,9 +213,70 @@ def test_klclip_wrappers_do_not_launch_on_cpu():
     p = t(rand(9, 8, 8))
     before = (klclip.klclip_dot.launches, klclip.klclip_scale.launches)
     klclip.klclip_dot(p, p)
+    klclip.klclip_dot_many([p, p], [p, p], 0.1, 0.001)
     klclip.klclip_scale(p, torch.tensor(2.0))
     klclip.klclip_scale_many([p, p], torch.tensor(2.0))
     assert (klclip.klclip_dot.launches, klclip.klclip_scale.launches) == before
+
+
+# layer sets of the grouped dot: (shapes, lr, kl_clip, how g is made). The
+# zero grads give vg_sum 0 (scale 1); 1e-9 binds (scale well under 1); a
+# NaN in one p carries through to vg_sum and the scale.
+GROUPED_SETS = {
+    'mixed': ([(12, 7), (5, 3), (40, 65), (1, 9)], 0.1, 1e3, 'random'),
+    'zero_grads': ([(12, 7), (33, 4)], 0.1, 0.001, 'zeros'),
+    'binding': ([(40, 65), (8, 129), (3, 3)], 0.3, 1e-9, 'random'),
+    'nan': ([(12, 7), (6, 5)], 0.1, 0.001, 'nan'),
+}
+
+
+def grouped_inputs(name):
+    shapes, lr, kl_clip, kind = GROUPED_SETS[name]
+    ps = [rand(60 + i, *s) for i, s in enumerate(shapes)]
+    gs = [rand(70 + i, *s) if kind != 'zeros' else np.zeros(s, np.float32)
+          for i, s in enumerate(shapes)]
+    if kind == 'nan':
+        ps[1][2, 3] = np.nan
+    return ps, gs, lr, kl_clip
+
+
+@pytest.mark.parametrize('name', list(GROUPED_SETS))
+def test_klclip_dot_many_plain_matches_jax_terms_sum_and_scale(name):
+    ps, gs, lr, kl_clip = grouped_inputs(name)
+    jterms = [jfactors.kl_clip_terms(jnp.asarray(p), jnp.asarray(g), lr) for p, g in zip(ps, gs)]
+    jvg = sum(jterms)
+    jscale = jfactors.kl_clip_scale(jvg, kl_clip)
+    before = klclip.klclip_dot.launches
+    terms, vg, scale = klclip.klclip_dot_many([t(p) for p in ps], [t(g) for g in gs], lr, kl_clip)
+    assert klclip.klclip_dot.launches == before  # plain on the CPU
+    assert terms.shape == (len(ps),) and vg.shape == () and scale.shape == ()
+    # signed sums: the error scales with lr^2 sum|p*g|, not with the result
+    atol = 1e-6 * lr ** 2 * float(np.nansum(np.abs(np.concatenate(
+        [(p * g).ravel() for p, g in zip(ps, gs)]))))
+    np.testing.assert_allclose(terms.numpy(), np.asarray(jterms), rtol=1e-5, atol=atol)
+    np.testing.assert_allclose(float(vg), float(jvg), rtol=1e-5, atol=atol)
+    np.testing.assert_allclose(float(scale), float(jscale), rtol=1e-5)
+    if name == 'zero_grads':
+        assert float(vg) == 0.0 and float(scale) == 1.0
+    if name == 'binding':
+        assert float(scale) < 0.1
+    if name == 'nan':
+        assert np.isnan(float(vg)) and np.isnan(float(scale))
+
+
+def test_klclip_dot_many_raises_on_mismatched_pairs():
+    p, q = t(rand(80, 4, 5)), t(rand(81, 4, 5))
+    with pytest.raises(ValueError, match='one or more pairs'):
+        klclip.klclip_dot_many([p, p], [q], 0.1, 0.001)
+    with pytest.raises(ValueError, match='one or more pairs'):
+        klclip.klclip_dot_many([], [], 0.1, 0.001)
+    with pytest.raises(ValueError, match='shape mismatch'):
+        klclip.klclip_dot_many([p, p], [q, q[:3]], 0.1, 0.001)
+    with pytest.raises(ValueError, match='one device'):
+        klclip.klclip_dot_many([p, p], [q, torch.empty(4, 5, device='meta')], 0.1, 0.001)
+    with pytest.raises(ValueError, match='cuda or cpu'):
+        meta = torch.empty(4, 5, device='meta')
+        klclip.klclip_dot_many([meta], [meta], 0.1, 0.001)
 
 
 # ragged shapes, one under a TPU tile, an empty one and a 1-D one
@@ -401,6 +464,32 @@ def test_fused_ns_step_plain_matches_jax_unfused_body_at_ragged_d(d):
     jmx_new = jnp.asarray(m) @ jx_new
     jr = jnp.linalg.norm(eye - jmx_new) / jnp.sqrt(jnp.asarray(d, jnp.float32))
     close_ns_step(ns_lib.fused_ns_step(t(m), t(x), t(mx)), (jx_new, jmx_new, jr))
+
+
+@pytest.mark.parametrize('sms', [132, 114])
+def test_ns_tile_plan_covers_every_width(sms):
+    for d in range(1, 2101):
+        tile = ns_lib.plan(d, sms)
+        assert tile in ns_lib.TILES
+        rows, cols = ns_lib.grid(d, tile)
+        # the grid covers d, and its last row and column of tiles start inside d
+        assert rows * tile[0] >= d > (rows - 1) * tile[0]
+        assert cols * tile[1] >= d > (cols - 1) * tile[1]
+        # of the two-warpgroup tiles that fill the card, one of the fewest
+        # waves of tile area; else the one-warpgroup tile
+        fills = [x for x in ns_lib.TILES[:-1] if math.prod(ns_lib.grid(d, x)) >= sms]
+
+        def cost(x):
+            return -(-math.prod(ns_lib.grid(d, x)) // sms) * x[0] * x[1]
+
+        if fills:
+            assert tile in fills and cost(tile) == min(map(cost, fills))
+        else:
+            assert tile == ns_lib.TILES[-1]
+    if sms == 132:  # the flagship's factor widths on an H100
+        assert ns_lib.plan(2048, sms) == (128, 128)
+        assert ns_lib.plan(2049, sms) == (128, 144)
+        assert ns_lib.plan(512, sms) == ns_lib.plan(513, sms) == (64, 32)
 
 
 def test_fused_ns_step_checks_shapes_and_does_not_launch_on_cpu():
