@@ -29,7 +29,11 @@ Phases, one JSON line each:
    at each layer's shape and as the engine calls them, once over the
    flagship's 36 layers: the dot with its terms' sum and the scale
    (``library_ms`` is then the 36 ``torch.sum(p * g)`` calls it replaces),
-   the scale in place (out of place and ``_foreach_mul_`` beside).
+   the scale in place (out of place and ``_foreach_mul_`` beside); the
+   dot also in its norm instantiation (each layer's sum(g*g) and sum(p*p)
+   against f64, the dot's outputs bitwise those without norms), and both
+   at the digits MLP's two layers. ``sym_cov`` also at the digits MLP's
+   covariances.
 4. ``reference``: a two-layer model trained three steps through
    ``Trainer.step`` on the card (kernels) and on the CPU (plain versions)
    from the same weights, once with EIGEN, once with INVERSE +
@@ -52,7 +56,27 @@ Phases, one JSON line each:
    by an independent residual. Then the step-100 refresh is repeated from
    the same factors and starting inverses, once timed and once under
    torch.profiler (``profile_ns``).
-7. ``bench_lm``: the bench's LM stage (``kfac_tpu_torch.bench_lm``) in
+7. ``digits_mlp``: the ``digits_mlp`` accuracy recipe
+   (``kfac_tpu_torch.bench_accuracy``: MLP 64 -> 64 -> 10, batch 100, lr
+   0.1, SGD with momentum 0.9, K-FAC damping 0.003, cadence 5/25, 600 steps
+   of each run from one seed, an evaluation every 17), counts set to 0
+   before and read after: both curves, the self-calibrating target, steps
+   and seconds to it and their ratios, the median step ms of each run;
+   passes when both finals are finite and K-FAC reaches the target in
+   fewer steps than SGD.
+8. ``observed``: ``main_path``'s loop with the health sentinel
+   (``warn=False, skip_nonfinite=False``), metrics and the flight recorder
+   on, in turns with the same loop without them: losses within 1e-6 of
+   ``main_path``'s, launch counts (the kl-clip dot in its norm
+   instantiation), the host syncs of every step
+   (``torch.cuda.set_sync_debug_mode``: none on plain and capture steps),
+   a metrics drain and a flight drain, the step ms of each kind with and
+   without, and one capture and one plain step of each under
+   torch.profiler; then three injected faults: a batch whose loss is NaN
+   (skipped, nothing moves), a capture past the quarantine threshold (rolled
+   back, damping x 10), and quarantined refreshes up to ``degrade_after``
+   (the layer's grads leave as the raw gradient times the kl-clip scale).
+9. ``bench_lm``: the bench's LM stage (``kfac_tpu_torch.bench_lm``) in
    process for ``tiny`` and then ``flagship``, counts set to 0 before each
    and read after: every rate finite and positive, every fused-kernel
    probe family timed without error, and every kernel launched exactly as
@@ -97,6 +121,14 @@ KFAC_LAYERS = 6 * FLAGSHIP['layers']
 FLAGSHIP_PMATS = [(512, 513)] * 24 + [(2048, 513)] * 6 + [(512, 2049)] * 6
 # the grouped kl-clip dot's two kernels (csrc/klclip.cu)
 DOT_KERNELS = ('klclip_dot_multi_kernel', 'klclip_dot_final_kernel')
+# the digits MLP (64 -> 64 -> 10, batch 100): its preconditioned gradients
+# (d_out, d_in + bias) and its covariances (rows, width)
+DIGITS_PMATS = [(64, 65), (10, 65)]
+DIGITS_COVS = [(100, 65), (100, 64), (100, 10)]
+# the norm epilogue against f64, each sum of squares relative to itself:
+# between the f32 kernel's worst reading and the bf16 control's least
+# (PERF.md, Findings)
+NORM_RTOL = 1e-6
 
 
 def emit(obj) -> None:
@@ -176,6 +208,115 @@ def with_plan(fn, forced):
     return run
 
 
+def grouped_dot_cases(ps, gs, lr, kl_clip):
+    """The grouped kl-clip dot as the engine calls it over every layer of a
+    model, without and with the norm epilogue: the wrapper's call, the plain
+    version, and the checks of both (see ``kernel_cases``)."""
+    from kfac_tpu_torch.ops import klclip
+
+    numel = sum(p.numel() for p in ps)
+    layers = len(ps)
+
+    def cmp_grouped(got, want):
+        # vg_sum against the sum over the layers of lr^2 sum|p*g|
+        ref = sum(float((p * g).abs().sum()) for p, g in zip(ps, gs)) * lr**2
+        return abs(float(got[1] - want[1])), ref
+
+    def grouped_holds(got):
+        terms, vg, scale = got[:3]
+        again = klclip.klclip_dot_many(ps, gs, lr, kl_clip)
+        fold = sum(terms.unbind())  # Python's sum, as the engine's plain path
+        return (
+            all(torch.equal(x, y) for x, y in zip(got, again))
+            and torch.equal(vg, fold)
+            and torch.equal(scale, klclip.kl_clip_scale_plain(fold, kl_clip))
+        )
+
+    def dot_control_rel(ctrl):
+        return max(
+            abs(float(b - klclip.klclip_dot_plain(p, g))) / float((p * g).abs().sum())
+            for b, p, g in zip(ctrl, ps, gs)
+        )
+
+    dot = dict(
+        name='klclip_dot', shape=[layers, numel],
+        kernel=lambda: klclip.klclip_dot_many(ps, gs, lr, kl_clip),
+        plain=lambda: klclip.klclip_dot_many_plain(ps, gs, lr, kl_clip),
+        # one PyTorch call a layer, the engine's expression before this kernel
+        library=lambda: [torch.sum(p * g) for p, g in zip(ps, gs)],
+        extra=dict(library_call=f'torch.sum(p * g), once for each of the {layers} layers'),
+        compare=cmp_grouped, rtol=1e-7, invariant=grouped_holds,
+        tol_rule='vg_sum within 1e-7 x sum of lr^2 sum|p*g|; terms, vg_sum and scale '
+                 'run-to-run identical; vg_sum the fold of the terms and the scale the '
+                 'plain expression over it, bit for bit',
+        control=lambda: [(p.bfloat16() * g.bfloat16()).float().sum() for p, g in zip(ps, gs)],
+        control_compare=dot_control_rel,
+        control_rule=f'bf16 products, f32 sum, worst of the {layers} layers',
+        # p and g read once; the terms, vg_sum and scale written once
+        nbytes=4 * (2 * numel + layers + 2), flops=2 * numel,
+        device_kernels=DOT_KERNELS,
+    )
+
+    # the norms against an f64 version, each pair's sum of squares relative
+    # to itself (a sum of squares has no cancellation to scale by)
+    sq64 = [(float(torch.sum(g.double() ** 2)), float(torch.sum(p.double() ** 2)))
+            for p, g in zip(ps, gs)]
+
+    def norm_errors(g_sq, p_sq):
+        """(abs error, reference) of the worst of every pair's two sums."""
+        errs = [
+            (abs(float(v) - ref), ref)
+            for k, (gv, pv) in enumerate(zip(g_sq.unbind(), p_sq.unbind()))
+            for v, ref in ((gv, sq64[k][0]), (pv, sq64[k][1]))
+        ]
+        return max(errs, key=lambda e: e[0] / e[1])
+
+    def norms_hold(got):
+        again = klclip.klclip_dot_norms_many(ps, gs, lr, kl_clip)
+        return (
+            all(torch.equal(x, y) for x, y in zip(got, again))  # repeatable
+            # the dot's outputs bitwise those of the instantiation without norms
+            and all(torch.equal(x, y) for x, y in zip(got[:3], klclip.klclip_dot_many(ps, gs, lr, kl_clip)))
+            and grouped_holds(got)
+        )
+
+    def norm_control_rel(ctrl):
+        return max(
+            abs(float(v) - ref) / ref
+            for k, (gv, pv) in enumerate(ctrl)
+            for v, ref in ((gv, sq64[k][0]), (pv, sq64[k][1]))
+        )
+
+    norms = dict(
+        name='klclip_dot_norms', shape=[layers, numel],
+        kernel=lambda: klclip.klclip_dot_norms_many(ps, gs, lr, kl_clip),
+        plain=lambda: klclip.klclip_dot_many_plain(ps, gs, lr, kl_clip, norms=True),
+        library=lambda: (
+            [torch.sum(p * g) for p, g in zip(ps, gs)], torch._foreach_norm(gs),
+            torch._foreach_norm(ps),
+        ),
+        extra=dict(
+            library_call=f'torch.sum(p * g) for each of the {layers} layers, and '
+                         '_foreach_norm of the gs and of the ps',
+            reference='f64 sums of squares',
+        ),
+        compare=lambda got, want: norm_errors(got[3], got[4]),
+        rtol=NORM_RTOL, invariant=norms_hold,
+        tol_rule=f'each pair\'s sum(g*g) and sum(p*p) within {NORM_RTOL:g} of itself (f64); '
+                 'terms, vg_sum and scale bitwise those without norms; all run-to-run identical',
+        control=lambda: [
+            ((g.bfloat16() * g.bfloat16()).float().sum(), (p.bfloat16() * p.bfloat16()).float().sum())
+            for p, g in zip(ps, gs)
+        ],
+        control_compare=norm_control_rel,
+        control_rule=f'bf16 products, f32 sum, worst of the {2 * layers} sums',
+        # p and g read once; terms, vg_sum, scale and the 2 norms written once
+        nbytes=4 * (2 * numel + 3 * layers + 2), flops=6 * numel,
+        device_kernels=DOT_KERNELS,
+    )
+    return [dot, norms]
+
+
 def kernel_cases():
     """One dict per (kernel, flagship shape): the wrapper's call, the plain
     and library calls, ``compare(got, want) -> (max abs error, reference
@@ -210,9 +351,11 @@ def kernel_cases():
     # rows are the 8192 tokens of a step; A factors carry the bias column.
     # (77, 130): ragged N and D, three 64-wide tiles, one slice per 32-row
     # slab. (512, 129) and (512, 513): the tiny bench's factors; (1024, 129):
-    # the shortest N the plan splits.
+    # the shortest N the plan splits. (100, 65), (100, 64), (100, 10): the
+    # digits MLP's A and G factors at its batch of 100 (D = 65 and 10 take
+    # the path for rows off a 16-byte boundary).
     for n, d in ((8192, 513), (8192, 2049), (8192, 512), (8192, 2048), (77, 130),
-                 (512, 129), (512, 513), (1024, 129)):
+                 (512, 129), (512, 513), (1024, 129), *DIGITS_COVS):
         a = randn(n, d)
         extra, also_timed = split_fields(n, d, lambda a=a: sym_cov.sym_cov(a))
         cases.append(dict(
@@ -309,49 +452,15 @@ def kernel_cases():
             device_kernels=('klclip_scale_multi_kernel',),
         ))
     # the engine's one launch a step: every K-FAC layer's preconditioned
-    # gradient of the flagship (q, k, v, out; fc1; fc2 of 6 blocks)
+    # gradient of the flagship (q, k, v, out; fc1; fc2 of 6 blocks), and of
+    # the digits MLP (dense0, head)
+    lr, kl_clip = 0.1, 0.001  # the flagship's and the digits task's
+    for shapes in (FLAGSHIP_PMATS, DIGITS_PMATS):
+        ps, gs = [randn(*shape) for shape in shapes], [randn(*shape) for shape in shapes]
+        cases += grouped_dot_cases(ps, gs, lr, kl_clip)
     ps = [randn(*shape) for shape in FLAGSHIP_PMATS]
-    gs = [randn(*shape) for shape in FLAGSHIP_PMATS]
     s = torch.tensor(0.37, device=dev)
     numel = sum(p.numel() for p in ps)
-    lr, kl_clip = 0.1, 0.001  # the flagship's
-
-    def cmp_grouped(got, want):
-        # vg_sum against the sum over the layers of lr^2 sum|p*g|
-        ref = sum(float((p * g).abs().sum()) for p, g in zip(ps, gs)) * lr**2
-        return abs(float(got[1] - want[1])), ref
-
-    def grouped_holds(got):
-        terms, vg, scale = got
-        again = klclip.klclip_dot_many(ps, gs, lr, kl_clip)
-        fold = sum(terms.unbind())  # Python's sum, as the engine's plain path
-        return (
-            all(torch.equal(x, y) for x, y in zip(got, again))
-            and torch.equal(vg, fold)
-            and torch.equal(scale, klclip.kl_clip_scale_plain(fold, kl_clip))
-        )
-
-    cases.append(dict(
-        name='klclip_dot', shape=[len(ps), numel],
-        kernel=lambda: klclip.klclip_dot_many(ps, gs, lr, kl_clip),
-        plain=lambda: klclip.klclip_dot_many_plain(ps, gs, lr, kl_clip),
-        # one PyTorch call a layer, the engine's expression before this kernel
-        library=lambda: [torch.sum(p * g) for p, g in zip(ps, gs)],
-        extra=dict(library_call='torch.sum(p * g), once for each of the 36 layers'),
-        compare=cmp_grouped, rtol=1e-7, invariant=grouped_holds,
-        tol_rule='vg_sum within 1e-7 x sum of lr^2 sum|p*g|; terms, vg_sum and scale '
-                 'run-to-run identical; vg_sum the fold of the terms and the scale the '
-                 'plain expression over it, bit for bit',
-        control=lambda: [(p.bfloat16() * g.bfloat16()).float().sum() for p, g in zip(ps, gs)],
-        control_compare=lambda ctrl: max(
-            abs(float(b - klclip.klclip_dot_plain(p, g))) / float((p * g).abs().sum())
-            for b, p, g in zip(ctrl, ps, gs)
-        ),
-        control_rule='bf16 products, f32 sum, worst of the 36 layers',
-        # p and g read once; the terms, vg_sum and scale written once
-        nbytes=4 * (2 * numel + len(ps) + 2), flops=2 * numel,
-        device_kernels=DOT_KERNELS,
-    ))
     # timed in place on copies, as the engine calls it: a scale of 1 keeps
     # repeated calls exact
     work, lib_work = [p.clone() for p in ps], [p.clone() for p in ps]
@@ -576,9 +685,17 @@ class LMRun:
             inv_update_steps=inv_every, device=device, **kfac_kw,
         )
         loss = lm_loss(model)
+
+        def loss_fn(ms, batch):
+            # a batch may carry a third element, a weight of the loss: the
+            # observed phase's poisoned batch weighs it by NaN
+            if len(batch) == 3:
+                return loss(batch[:2]) * batch[2], ms
+            return loss(batch), ms
+
         self.trainer = Trainer(
             model, torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
-            lambda ms, batch: (loss(batch), ms), kfac=self.kfac, device=device,
+            loss_fn, kfac=self.kfac, device=device,
         )
         self.state = self.trainer.init()
 
@@ -646,6 +763,7 @@ def device_profile(fn) -> dict:
     return dict(
         wall_ms_profiled=wall, device_busy_ms=busy,
         idle_share=(1 - busy / wall) if busy else 'not measured',
+        kernel_launches=sum(k[2] for k in kernels),
         top=[dict(kernel=k[:90], ms=ms, count=n) for k, ms, n in kernels[:15]],
     )
 
@@ -748,6 +866,7 @@ def main_path_wrappers() -> dict:
         'sym_cov': sym_cov.sym_cov,
         'sym_cov_ema': cov_ema.sym_cov_ema,
         'klclip_dot': klclip.klclip_dot,
+        'klclip_dot_norms': klclip.klclip_dot_norms_many,
         'klclip_scale': klclip.klclip_scale,
         'flash_attention_partials': flash_attention.flash_attention_partials,
         'fused_ns_step': newton_schulz.fused_ns_step,
@@ -762,6 +881,7 @@ def expected_launches(steps: int, captures: int) -> dict:
         'sym_cov': 2 * KFAC_LAYERS * captures,
         'sym_cov_ema': 0,
         'klclip_dot': steps,  # every layer in one launch
+        'klclip_dot_norms': 0,  # only with metrics on
         'klclip_scale': steps,
         'flash_attention_partials': FLAGSHIP['layers'] * steps,
     }
@@ -775,13 +895,14 @@ def step_summary(seconds) -> dict:
     )
 
 
-def run_main_path(launches, summary) -> bool:
+def run_main_path(launches, summary, main_losses) -> bool:
     wrappers = main_path_wrappers()
     torch.cuda.reset_peak_memory_stats()
     for w in wrappers.values():
         w.launches = 0
     run = LMRun(FLAGSHIP, torch.device('cuda'), 10, 100)
     losses, _, seconds = train(run, STEPS)
+    main_losses.extend(losses)
     launches.update({n: w.launches for n, w in wrappers.items()})
     layers = len(run.registry)
     expected = dict(expected_launches(STEPS, len(range(0, STEPS, 10))), fused_ns_step=0)
@@ -895,6 +1016,275 @@ def run_main_path_ns(launches, eigen_summary) -> bool:
     return passed
 
 
+def digits_expected_launches(steps: int) -> dict:
+    """Launches of the ``digits_mlp`` recipe: an SGD and a K-FAC run of
+    ``steps`` steps, each after two warm-up steps on a scratch model; the
+    K-FAC run captures every 5 steps (2 layers, 2 factors each) and
+    preconditions every step, kl-clip on."""
+    kfac_steps = 2 + steps
+    captures = 1 + len(range(0, steps, 5))  # the warm-up's step 0, then the run's
+    return {
+        'sym_cov': 2 * 2 * captures,
+        'sym_cov_ema': 0,
+        'klclip_dot': kfac_steps,
+        'klclip_dot_norms': 0,
+        'klclip_scale': kfac_steps,
+        'flash_attention_partials': 0,
+        'fused_ns_step': 0,
+    }
+
+
+def window_step_ms(curve, every) -> float:
+    """Median over the curve's evaluation windows of the mean step ms."""
+    walls = [0.0] + [wall for _, wall, _ in curve]
+    return statistics.median((b - a) * 1e3 / every for a, b in zip(walls, walls[1:]))
+
+
+def run_digits(launches) -> bool:
+    """The ``digits_mlp`` recipe of ``kfac_tpu_torch.bench_accuracy`` on the
+    card: SGD and K-FAC, 600 steps each from one seed, the self-calibrating
+    target; passes when both finals are finite and K-FAC reaches the target
+    in fewer steps than SGD."""
+    import contextlib
+
+    from kfac_tpu_torch import bench_accuracy
+
+    wrappers = main_path_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    with contextlib.redirect_stdout(sys.stderr):  # its own JSON lines
+        out = bench_accuracy.run_task('cuda', seed=0)
+    launches.update({n: w.launches for n, w in wrappers.items()})
+    task = bench_accuracy.task_digits_mlp('cuda')
+    expected = digits_expected_launches(task['max_steps'])
+    k_steps, s_steps = out['kfac_steps_to_target'], out['sgd_steps_to_target']
+    finite = all(math.isfinite(v) for v in (out['final_sgd'], out['final_kfac']))
+    passed = (
+        finite and k_steps is not None and s_steps is not None and k_steps < s_steps
+        and launches == expected
+    )
+    emit(dict(
+        phase='digits_mlp', **out,
+        sgd_step_ms_median=window_step_ms(out['sgd_curve'], task['eval_every']),
+        kfac_step_ms_median=window_step_ms(out['kfac_curve'], task['eval_every']),
+        step_ms_rule=f'median over the curve\'s windows of {task["eval_every"]} steps, '
+                     'evaluation off the clock',
+        launches=launches, expected_launches=expected, passed=passed,
+    ))
+    return passed
+
+
+OBSERVED_HEALTH = dict(warn=False, skip_nonfinite=False)
+
+
+def counted_step(run):
+    """One ``Trainer.step`` under ``torch.cuda.set_sync_debug_mode('warn')``:
+    (loss, seconds, host syncs the step made). The loss is read after."""
+    import warnings
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            run.state, loss = run.trainer.step(run.state, run.batch)
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    syncs = sum('synchroniz' in str(w.message) for w in caught)
+    return float(loss), seconds, syncs
+
+
+def step_kinds(seconds, syncs, capture_every, inv_every) -> dict:
+    """Step ms and syncs by kind: step 0 (refresh and capture), the median
+    capture step and the median plain step after it."""
+    kinds = {'refresh': [], 'capture': [], 'plain': []}
+    for i, (sec, n) in enumerate(zip(seconds, syncs)):
+        kind = 'refresh' if i % inv_every == 0 else 'capture' if i % capture_every == 0 else 'plain'
+        kinds[kind].append((sec * 1e3, n))
+    return {
+        kind: dict(
+            steps=len(v), ms_median=statistics.median(ms for ms, _ in v),
+            syncs_max=max(n for _, n in v),
+        )
+        for kind, v in kinds.items() if v
+    }
+
+
+def fault_checks(run, layer) -> dict:
+    """The three injected faults on the flagship run, after its counted
+    steps; each checked on the sentinel's counters."""
+    import dataclasses as dc
+
+    kfac, trainer = run.kfac, run.trainer
+    names = list(run.registry.layers)
+    li = names.index(layer)
+    out = {}
+
+    def params():
+        return {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
+
+    # 1. a batch whose loss weight is NaN: skipped, nothing moves
+    kfac.health = dc.replace(kfac.health, skip_nonfinite=True)
+    before, kbefore = params(), run.kstate
+    step0 = kbefore.step
+    nan = torch.full((), float('nan'), device=run.device)
+    run.state, _ = trainer.step(run.state, (*run.batch, nan))
+    after = params()
+    h = run.kstate.health
+    out['nan_batch'] = dict(
+        skipped_steps=int(h.skipped_steps), step_advanced=run.kstate.step == step0 + 1,
+        params_unchanged=all(torch.equal(before[n], after[n]) for n in before),
+        factors_unchanged=all(torch.equal(kbefore.a[n], run.kstate.a[n]) for n in names),
+    )
+    out['nan_batch']['passed'] = (
+        out['nan_batch']['skipped_steps'] == 1 and out['nan_batch']['step_advanced']
+        and out['nan_batch']['params_unchanged'] and out['nan_batch']['factors_unchanged']
+    )
+
+    # 2. one capture of the layer's A statistic scaled by 1e12: its factor
+    # update passes the quarantine threshold and rolls back
+    engine_update = kfac.update_factors
+
+    def poisoned(state, stats):
+        stats.a[layer] = stats.a[layer] * 1e12
+        return engine_update(state, stats)
+
+    kfac.update_factors = poisoned
+    kfac.factor_update_steps = 1  # capture on every step from here
+    mult0 = float(run.kstate.health.damping_mult[li])
+    a0 = run.kstate.a[layer].clone()
+    run.state, _ = trainer.step(run.state, run.batch)
+    h = run.kstate.health
+    mult = h.damping_mult.tolist()
+    out['quarantine'] = dict(
+        layer=layer, rolled_back=torch.equal(run.kstate.a[layer], a0),
+        damping_mult_before=mult0, damping_mult=mult[li],
+        quarantined=int(h.quarantined[li]), quarantine_events=int(h.quarantine_events[li]),
+        other_layers_quarantined=int(h.quarantined.sum()) - int(h.quarantined[li]),
+    )
+    q = out['quarantine']
+    q['passed'] = (
+        q['rolled_back'] and q['damping_mult'] == 10 * mult0 and q['quarantined'] == 1
+        and q['quarantine_events'] == 1 and q['other_layers_quarantined'] == 0
+    )
+
+    # 3. quarantined captures and a refresh on every step until the layer
+    # degrades: its grads then leave as the raw gradient times the scale
+    kfac.inv_update_steps = 1
+    engine_step = kfac.step
+    seen = {}
+
+    def recording(state, grads, stats, loss=None):
+        seen['grads'] = {n: g.clone() for n, g in grads.items()}
+        return engine_step(state, grads, stats, loss=loss)
+
+    kfac.step = recording
+    refreshes = 0
+    while int(run.kstate.health.bad_inv[li]) < kfac.health.degrade_after and refreshes < 10:
+        run.state, _ = trainer.step(run.state, run.batch)
+        refreshes += 1
+    ms = run.kstate.metrics
+    scale = ms.scalars[ms.keys.index('kl_clip_scale')]
+    prefix = run.registry.param_paths[layer]
+    bypassed = {}
+    for n in names:
+        pre = run.registry.param_paths[n]
+        got = trainer.model.get_parameter(f'{pre}.weight').grad
+        bypassed[n] = torch.equal(got, seen['grads'][f'{pre}.weight'] * scale)
+    del kfac.step, kfac.update_factors  # the engine's own methods again
+    out['degrade'] = dict(
+        layer=layer, refreshes=refreshes, bad_inv=int(run.kstate.health.bad_inv[li]),
+        degrade_after=kfac.health.degrade_after,
+        grads_are_raw_times_scale=bypassed[layer],
+        other_layers_bypassed=sum(v for n, v in bypassed.items() if n != layer),
+        weight=f'{prefix}.weight',
+    )
+    d = out['degrade']
+    d['passed'] = (
+        d['bad_inv'] >= d['degrade_after'] and d['grads_are_raw_times_scale']
+        and d['other_layers_bypassed'] == 0
+    )
+    return out
+
+
+def run_observed(launches, main_losses) -> bool:
+    """The flagship EIGEN loop of ``main_path`` with the health sentinel
+    (``warn=False, skip_nonfinite=False``), metrics and the flight recorder
+    on, in turns with the same loop without them: losses against
+    ``main_path``'s, launch counts, host syncs of each step, the drains,
+    the step ms of each kind with and without; then three injected
+    faults."""
+    from kfac_tpu_torch.health import HealthConfig
+    from kfac_tpu_torch.observability import flight_recorder, metrics
+
+    wrappers = main_path_wrappers()
+    cuda = torch.device('cuda')
+    plain_run = LMRun(FLAGSHIP, cuda, 10, 100)
+    run = LMRun(
+        FLAGSHIP, cuda, 10, 100, health=HealthConfig(**OBSERVED_HEALTH),
+        metrics=True, flight=True,
+    )
+    counted = {}
+    losses, seconds, syncs = [], [], []
+    plain_seconds, plain_syncs = [], []
+    for i in range(STEPS):
+        _, sec, n = counted_step(plain_run)  # not counted: the same path as main_path's
+        plain_seconds.append(sec)
+        plain_syncs.append(n)
+        for w in wrappers.values():
+            counted[w] = w.launches
+        loss, sec, n = counted_step(run)
+        for name, w in wrappers.items():
+            launches[name] = launches.get(name, 0) + w.launches - counted[w]
+        losses.append(loss)
+        seconds.append(sec)
+        syncs.append(n)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, main_losses))
+    expected = dict(expected_launches(STEPS, len(range(0, STEPS, 10))), fused_ns_step=0)
+    expected['klclip_dot_norms'], expected['klclip_dot'] = expected['klclip_dot'], 0
+    with_obs = step_kinds(seconds, syncs, 10, 100)
+    without = step_kinds(plain_seconds, plain_syncs, 10, 100)
+    record = metrics.MetricsCollector().drain(run.state)
+    ring = flight_recorder.drain_flight(run.state)
+    zero_syncs = with_obs['capture']['syncs_max'] == 0 and with_obs['plain']['syncs_max'] == 0
+    drained = (
+        record.get('step') == STEPS and len(ring) == STEPS
+        and all(math.isfinite(v) for v in record.values() if isinstance(v, float))
+    )
+    # after the counted steps: the next capture step and plain step of each
+    # run under torch.profiler, in turns
+    profiles = {}
+    for i in (STEPS, STEPS + 1):
+        profiles[f'without_{i}'] = profile_step(plain_run, i)
+        profiles[f'with_{i}'] = profile_step(run, i)
+    faults = fault_checks(run, 'block2/mlp_up')
+    passed = (
+        loss_err <= 1e-6 and launches == expected and zero_syncs and drained
+        and all(f['passed'] for f in faults.values())
+    )
+    emit(dict(
+        phase='observed', config=FLAGSHIP, steps=STEPS,
+        health=OBSERVED_HEALTH, metrics=True, flight=True,
+        losses=losses, loss_rel_err_vs_main_path=loss_err, loss_tol=1e-6,
+        step_kinds_with=with_obs, step_kinds_without=without,
+        overhead_ms={
+            k: with_obs[k]['ms_median'] - without[k]['ms_median'] for k in with_obs
+        },
+        drain=dict(
+            keys=len(record), metric_keys=len(run.kstate.metrics.keys),
+            health_keys=sum(k.startswith('health/') for k in record),
+            flight_records=len(ring), flight_record_keys=len(ring[-1]) if ring else 0,
+            kl_clip_scale=record.get('kl_clip_scale'),
+        ),
+        launches=launches, expected_launches=expected, faults=faults, profile=profiles,
+        passed=passed,
+    ))
+    return passed
+
+
 # the probe's warm call and its 9 timed calls, before its profiled passes
 PROBE_TIMED_CALLS = 10
 PROBE_FAMILIES = ('cov_ema', 'ns', 'klclip')
@@ -914,6 +1304,7 @@ def expected_bench_launches(cfg: dict, window: dict, probe_calls: int) -> dict:
         'sym_cov': 2 * kfac_layers * captures,
         'sym_cov_ema': probe_calls,
         'klclip_dot': eager + scan + probe_calls,
+        'klclip_dot_norms': 0,
         'klclip_scale': eager + scan + probe_calls,
         'flash_attention_partials': cfg['layers'] * (2 * eager + scan),
         'fused_ns_step': probe_calls,
@@ -971,6 +1362,7 @@ SOURCES = {
     'sym_cov': ('cuda', 'kfac_tpu_torch/csrc/sym_cov.cu', 'kfac_tpu/ops/pallas_cov.py:88', [8192, 2049]),
     'sym_cov_ema': ('cuda', 'kfac_tpu_torch/csrc/sym_cov.cu', 'kfac_tpu/ops/pallas_cov_ema.py:110', [512, 256]),
     'klclip_dot': ('cuda', 'kfac_tpu_torch/csrc/klclip.cu', 'kfac_tpu/ops/pallas_ns.py:219', [KFAC_LAYERS, 18_902_016]),
+    'klclip_dot_norms': ('cuda', 'kfac_tpu_torch/csrc/klclip.cu', 'kfac_tpu/ops/pallas_ns.py:219', [KFAC_LAYERS, 18_902_016]),
     'klclip_scale': ('cuda', 'kfac_tpu_torch/csrc/klclip.cu', 'kfac_tpu/ops/pallas_ns.py:244', [KFAC_LAYERS, 18_902_016]),
     'flash_attention_partials': ('cuda', 'kfac_tpu_torch/csrc/flash_attn.cu', 'kfac_tpu/ops/pallas_attention.py:257', [16, 512, 4, 128]),
     'fused_ns_step': ('cuda', 'kfac_tpu_torch/csrc/newton_schulz.cu', 'kfac_tpu/ops/pallas_ns.py:127,139', [2049, 2049]),
@@ -1000,6 +1392,35 @@ def kernels_line(results, launches) -> dict:
     return {'kernels': out}
 
 
+def kernel_resources(log: str) -> dict[str, str]:
+    """``{kernel<template args>: "registers, spills"}`` from ptxas's
+    verbose output: each instantiation apart."""
+    import re
+
+    out, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            sym = name = entry.group(1)
+            # a mangled name is <length><identifier>...: find the kernel's,
+            # then its template arguments (literal bools and ints)
+            for m in re.finditer(r'(?=(\d+))', sym):  # each digit run and its suffixes
+                end = m.start() + len(m.group(1))
+                ident = sym[end:end + int(m.group(1))]
+                if ident.endswith('kernel') and ident.isidentifier():
+                    name = ident
+                    args = re.match(r'I((?:L[bi]\d+E)+)E', sym[end + len(ident):])
+                    if args:
+                        name += '<' + ','.join(
+                            {'b1': 'true', 'b0': 'false'}.get(t + v, v)
+                            for t, v in re.findall(r'L([bi])(\d+)E', args.group(1))
+                        ) + '>'
+                    break
+        elif name and ('registers' in line or 'spill' in line):
+            out[name] = (out.get(name, '') + ' ' + line.split(':', 1)[-1].strip()).strip()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device is visible', file=sys.stderr)
@@ -1024,9 +1445,13 @@ def main() -> int:
     ok = True
     results: list[dict] = []
     launches: dict[str, dict[str, int]] = {
-        path: {} for path in ('main_path', 'main_path_ns', 'bench_lm_tiny', 'bench_lm_flagship')
+        path: {} for path in (
+            'main_path', 'main_path_ns', 'digits_mlp', 'observed', 'bench_lm_tiny',
+            'bench_lm_flagship',
+        )
     }
     eigen_summary: dict = {}
+    main_losses: list[float] = []
 
     def phase(name, fn, *args):
         nonlocal ok
@@ -1041,18 +1466,17 @@ def main() -> int:
     def do_build():
         t0 = time.perf_counter()
         report = build.build()
-        ptxas = {
-            n: [ln for ln in r['ptxas'].splitlines() if 'registers' in ln or 'spill' in ln]
-            for n, r in report.items()
-        }
+        ptxas = {n: kernel_resources(r['ptxas']) for n, r in report.items()}
         emit(dict(phase='build', seconds=time.perf_counter() - t0, ptxas=ptxas, passed=True))
         return True
 
     phase('build', do_build)
     phase('kernel', run_kernels, results)
     phase('reference', run_reference)
-    phase('main_path', run_main_path, launches['main_path'], eigen_summary)
+    phase('main_path', run_main_path, launches['main_path'], eigen_summary, main_losses)
     phase('main_path_ns', run_main_path_ns, launches['main_path_ns'], eigen_summary)
+    phase('digits_mlp', run_digits, launches['digits_mlp'])
+    phase('observed', run_observed, launches['observed'], main_losses)
     phase('bench_lm', run_bench_lm, launches)
     print(smi, flush=True)
     emit(kernels_line(results, launches))

@@ -47,20 +47,50 @@ def from_flax_params(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
 _STATE_FIELDS = ('a', 'g', 'qa', 'qg', 'da', 'dg', 'dgda', 'a_inv', 'g_inv')
 
 
+def _tensor(value: Any, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.array(value)).to(dtype).to(device)
+
+
 def from_jax_kfac_state(jax_state: Any, kfac: KFACPreconditioner) -> KFACState:
     """The port's :class:`KFACState` holding the JAX state's step, factors
-    and decompositions, on ``kfac.device``.
+    and decompositions, on ``kfac.device``; with health and metrics on both
+    sides, also the health counters (the JAX package's per-layer dicts
+    packed in registry order) and the metrics' scalars and step trackers.
+    The flight ring starts empty.
 
     ``jax_state`` is a ``kfac_tpu.KFACState`` (or anything with its fields);
     slots the port's configuration does not use are dropped.
     """
     state = kfac.init()
+    dev = kfac.device
     updates: dict[str, Any] = {'step': int(np.asarray(jax_state.step))}
     for field in _STATE_FIELDS:
         ours = getattr(state, field)
         theirs = getattr(jax_state, field)
         updates[field] = {
-            n: torch.from_numpy(np.array(theirs[n], np.float32)).to(kfac.device)
+            n: torch.from_numpy(np.array(theirs[n], np.float32)).to(dev)
             for n in ours
         }
+    jh = getattr(jax_state, 'health', None)
+    if state.health is not None and jh is not None:
+        names = state.health.names
+        updates['health'] = dataclasses.replace(
+            state.health,
+            skipped_steps=_tensor(jh.skipped_steps, torch.int32, dev),
+            damping_mult=_tensor([jh.damping_mult[n] for n in names], torch.float32, dev),
+            **{
+                field: _tensor([getattr(jh, field)[n] for n in names], torch.int32, dev)
+                for field in ('quarantined', 'bad_inv', 'quarantine_events')
+            },
+        )
+    jm = getattr(jax_state, 'metrics', None)
+    if state.metrics is not None and jm is not None:
+        if tuple(jm.keys) != state.metrics.keys:
+            raise ValueError('the JAX state\'s metric keys differ from the engine\'s')
+        updates['metrics'] = dataclasses.replace(
+            state.metrics,
+            last_factor_step=_tensor(jm.last_factor_step, torch.int32, dev),
+            last_inv_step=_tensor(jm.last_inv_step, torch.int32, dev),
+            scalars=_tensor(jm.scalars, torch.float32, dev),
+        )
     return dataclasses.replace(state, **updates)

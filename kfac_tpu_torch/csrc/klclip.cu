@@ -13,8 +13,8 @@
 //
 // Bound on an H100: both are bytes. The flagship's 36 tensors hold
 // 18,902,016 elements: the dot reads two of each (151.2 MB, 0.045 ms at
-// 3.35 TB/s, 2 FLOPs per 8 bytes); the scale reads and writes one (the
-// same 151.2 MB).
+// 3.35 TB/s, 2 FLOPs per 8 bytes; 6 with the norms, the same bytes); the
+// scale reads and writes one (the same 151.2 MB).
 // Design: the tensor table (pointers, element count, first block) is a
 // kernel parameter, passed by value, so a launch needs no table in device
 // memory; more than kMaxTensors tensors take a few launches. Each block of
@@ -36,6 +36,15 @@
 //   takes more launches of both kernels: the fold carries on from the last
 //   launch's sum, so it runs in one order across them. No float atomics:
 //   every output repeats bit for bit.
+// - The dot's norm epilogue (template flag kNorms, the engine's per-layer
+//   grad_norm and precond_grad_norm telemetry, which the JAX engine takes
+//   next to the kl-clip reduction's read of p): each block also sums g*g
+//   and p*p of its span, its three partials side by side; the final CTA
+//   folds each tensor's Σ g² and Σ p² in the same fixed order as its dot.
+//   The dot's own arithmetic is the same code in both instantiations, so
+//   its terms, sum and scale are bitwise those of the variant without
+//   norms, which keeps its parameter list (a parameter list once moved
+//   ptxas's register choice in sym_cov.cu).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -150,7 +159,33 @@ __device__ __forceinline__ float block_sum(float v) {
   return s;
 }
 
-// partials[b] = sum of p * g over block b's 4096 elements of its tensor.
+// Fixed-order sums of the three values over the block's threads, in
+// thread 0: each the tree of block_sum.
+__device__ __forceinline__ float3 block_sum3(float3 v) {
+  __shared__ float3 warp_sums[kThreads / 32];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    v.x += __shfl_down_sync(0xffffffffu, v.x, o);
+    v.y += __shfl_down_sync(0xffffffffu, v.y, o);
+    v.z += __shfl_down_sync(0xffffffffu, v.z, o);
+  }
+  if (threadIdx.x % 32 == 0) warp_sums[threadIdx.x / 32] = v;
+  __syncthreads();
+  float3 s = make_float3(0.f, 0.f, 0.f);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) {
+      s.x += warp_sums[w].x;
+      s.y += warp_sums[w].y;
+      s.z += warp_sums[w].z;
+    }
+  }
+  return s;
+}
+
+// partials[b] = sum of p * g over block b's 4096 elements of its tensor;
+// with kNorms, partials[3b .. 3b + 2] = that sum, sum of g * g, sum of p * p.
+template <bool kNorms>
 __global__ void __launch_bounds__(kThreads)
 klclip_dot_multi_kernel(const DotTable table, float* __restrict__ partials) {
   const int b = blockIdx.x;
@@ -176,6 +211,8 @@ klclip_dot_multi_kernel(const DotTable table, float* __restrict__ partials) {
   const float4* p4 = reinterpret_cast<const float4*>(p - shift);
   const float4* g4 = reinterpret_cast<const float4*>(g - shift);
   float acc = 0.f;
+  float gg = 0.f;  // kNorms only
+  float pp = 0.f;
 #pragma unroll
   for (int u = 0; u < kVecs; ++u) {
     const long long q = j0 / 4 + threadIdx.x + u * kThreads;
@@ -192,16 +229,43 @@ klclip_dot_multi_kernel(const DotTable table, float* __restrict__ partials) {
       acc = fmaf(x.y, y.y, acc);
       acc = fmaf(x.z, y.z, acc);
       acc = fmaf(x.w, y.w, acc);
+      if constexpr (kNorms) {
+        gg = fmaf(y.x, y.x, gg);
+        gg = fmaf(y.y, y.y, gg);
+        gg = fmaf(y.z, y.z, gg);
+        gg = fmaf(y.w, y.w, gg);
+        pp = fmaf(x.x, x.x, pp);
+        pp = fmaf(x.y, x.y, pp);
+        pp = fmaf(x.z, x.z, pp);
+        pp = fmaf(x.w, x.w, pp);
+      }
       continue;
     }
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const long long k = 4 * q + c - shift;
-      if (k >= 0 && k < n) acc = fmaf(p[k], g[k], acc);
+      if (k >= 0 && k < n) {
+        const float pk = p[k];
+        const float gk = g[k];
+        acc = fmaf(pk, gk, acc);
+        if constexpr (kNorms) {
+          gg = fmaf(gk, gk, gg);
+          pp = fmaf(pk, pk, pp);
+        }
+      }
     }
   }
-  const float s = block_sum(acc);
-  if (threadIdx.x == 0) partials[b] = s;
+  if constexpr (kNorms) {
+    const float3 s = block_sum3(make_float3(acc, gg, pp));
+    if (threadIdx.x == 0) {
+      partials[3 * b] = s.x;
+      partials[3 * b + 1] = s.y;
+      partials[3 * b + 2] = s.z;
+    }
+  } else {
+    const float s = block_sum(acc);
+    if (threadIdx.x == 0) partials[b] = s;
+  }
 }
 
 // For each tensor of the launch: dot = its partials added in order (a warp
@@ -209,22 +273,45 @@ klclip_dot_multi_kernel(const DotTable table, float* __restrict__ partials) {
 // right onto 0, or with `carry` onto the vg_scale[0] of the launch before;
 // with `last`, vg_scale[1] = min(1, sqrt(kl_clip / |vg|)), 1 where vg == 0,
 // NaN where vg is NaN (IEEE division and sqrtf, the plain version's ops).
+// With kNorms, gsq[t] and psq[t] = the tensor's Σ g² and Σ p² partials added
+// in the dot's order (null pointers without).
+template <bool kNorms>
 __global__ void __launch_bounds__(kFinalThreads)
 klclip_dot_final_kernel(const DotSpans spans, const float* __restrict__ partials,
                         float* __restrict__ terms, float* __restrict__ vg_scale,
-                        float lr2, float kl_clip, int carry, int last) {
+                        float lr2, float kl_clip, int carry, int last,
+                        float* __restrict__ gsq, float* __restrict__ psq) {
   __shared__ float dots[kMaxTensors];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  constexpr int kStride = kNorms ? 3 : 1;
   for (int t = warp; t < spans.count; t += kFinalThreads / 32) {
     float s = 0.f;
+    float sg = 0.f;
+    float sp = 0.f;
     for (int i = spans.first_block[t] + lane; i < spans.first_block[t + 1];
          i += 32) {
-      s += partials[i];
+      s += partials[kStride * i];
+      if constexpr (kNorms) {
+        sg += partials[kStride * i + 1];
+        sp += partials[kStride * i + 2];
+      }
     }
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
-    if (lane == 0) dots[t] = s;
+    for (int o = 16; o > 0; o >>= 1) {
+      s += __shfl_down_sync(0xffffffffu, s, o);
+      if constexpr (kNorms) {
+        sg += __shfl_down_sync(0xffffffffu, sg, o);
+        sp += __shfl_down_sync(0xffffffffu, sp, o);
+      }
+    }
+    if (lane == 0) {
+      dots[t] = s;
+      if constexpr (kNorms) {
+        gsq[t] = sg;
+        psq[t] = sp;
+      }
+    }
   }
   __syncthreads();
   if (threadIdx.x != 0) return;
@@ -295,21 +382,25 @@ int klclip_scale_multi_f32(const long long* table, int count,
 // The kl-clip dot of `count` pairs, rows (p, g, numel) of `table`, 64-bit
 // each (numel 0 allowed): out[t] = sum(p_t * g_t) * lr2, out[count] = the
 // terms folded left to right, out[count + 1] = the scale (see
-// klclip_dot_final_kernel). `partials` is scratch of `capacity` floats, at
-// least the sum over the pairs of ceil(numel / 4096) + 1. Two launches per
+// klclip_dot_final_kernel); with `norms`, also out[count + 2 + t] =
+// sum(g_t * g_t) and out[2 * count + 2 + t] = sum(p_t * p_t). `partials` is
+// scratch of `capacity` floats, at least the sum over the pairs of
+// ceil(numel / 4096) + 1, three times that with `norms`. Two launches per
 // kMaxTensors pairs, on `stream`. Returns cudaErrorInvalidValue, launching
 // nothing, where count < 1 or the scratch is short; else the first nonzero
 // cudaGetLastError() after a launch, or cudaSuccess.
 int klclip_dot_multi_f32(const long long* table, int count, float* partials,
                          long long capacity, float* out, float lr2,
-                         float kl_clip, cudaStream_t stream) {
+                         float kl_clip, int norms, cudaStream_t stream) {
   if (count < 1) return static_cast<int>(cudaErrorInvalidValue);
   long long need = 0;
   for (int i = 0; i < count; ++i) {
     const long long n = table[3 * i + 2];
     need += n > 0 ? (n + kBlockElems - 1) / kBlockElems + 1 : 0;
   }
-  if (need > capacity) return static_cast<int>(cudaErrorInvalidValue);
+  if ((norms ? 3 : 1) * need > capacity) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   DotTable t;
   DotSpans spans;
   t.count = 0;
@@ -335,13 +426,23 @@ int klclip_dot_multi_f32(const long long* table, int count, float* partials,
     spans.first_block[t.count] = blocks;
     spans.count = t.count;
     if (blocks > 0) {
-      klclip_dot_multi_kernel<<<blocks, kThreads, 0, stream>>>(t, partials);
+      if (norms) {
+        klclip_dot_multi_kernel<true><<<blocks, kThreads, 0, stream>>>(t, partials);
+      } else {
+        klclip_dot_multi_kernel<false><<<blocks, kThreads, 0, stream>>>(t, partials);
+      }
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return static_cast<int>(err);
     }
-    klclip_dot_final_kernel<<<1, kFinalThreads, 0, stream>>>(
-        spans, partials, out + start, out + count, lr2, kl_clip, start > 0,
-        i + 1 == count);
+    if (norms) {
+      klclip_dot_final_kernel<true><<<1, kFinalThreads, 0, stream>>>(
+          spans, partials, out + start, out + count, lr2, kl_clip, start > 0,
+          i + 1 == count, out + count + 2 + start, out + 2 * count + 2 + start);
+    } else {
+      klclip_dot_final_kernel<false><<<1, kFinalThreads, 0, stream>>>(
+          spans, partials, out + start, out + count, lr2, kl_clip, start > 0,
+          i + 1 == count, nullptr, nullptr);
+    }
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     start = i + 1;

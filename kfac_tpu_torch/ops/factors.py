@@ -54,6 +54,42 @@ def compute_inverse(
     return torch.cholesky_inverse(torch.linalg.cholesky(f + damping * eye))
 
 
+def stacked_by_shape(mats: list[torch.Tensor]):
+    """``(indices, stack)`` for each shape among ``mats``: the positions of
+    the matrices of that shape, in order, and the matrices stacked (one
+    copy), so a per-matrix computation runs once a shape."""
+    groups: dict[tuple[int, ...], list[int]] = {}
+    for k, m in enumerate(mats):
+        groups.setdefault(tuple(m.shape), []).append(k)
+    for idx in groups.values():
+        yield idx, torch.stack([mats[k] for k in idx])
+
+
+def gershgorin_condition_bound(
+    factor: torch.Tensor, damping: float | torch.Tensor
+) -> torch.Tensor:
+    """Upper bound on cond(factor + damping I) of a PSD factor: the
+    largest absolute row sum of ``factor + damping I`` (Gershgorin) over
+    ``damping``, in f32.
+
+    A ``(..., d, d)`` stack gives ``(...,)``; ``damping`` broadcasts (a
+    scalar, or one per matrix). The denominator is floored at f32 ``tiny``
+    and the quotient capped at f32 ``max``, so damping 0 saturates at a
+    huge finite bound instead of inf or 0/0; a NaN factor gives NaN (which
+    fails the health threshold's comparison).
+    """
+    f = factor.float()
+    if isinstance(damping, torch.Tensor):
+        d = damping.float()
+    else:  # a fill on the device: no copy from the host
+        d = torch.full((), damping, dtype=torch.float32, device=f.device)
+    eye = torch.eye(f.shape[-1], dtype=torch.float32, device=f.device)
+    m = f + d[..., None, None] * eye
+    lam_max = torch.amax(torch.sum(torch.abs(m), dim=-1), dim=-1)
+    fi = torch.finfo(torch.float32)
+    return torch.clamp(lam_max / torch.clamp(d, min=fi.tiny), max=fi.max)
+
+
 # Residual above which an f32 inverse is unusable for preconditioning: 'auto'
 # re-solves by Cholesky, and a warm start that ends above it restarts cold
 # (the JAX package's value).

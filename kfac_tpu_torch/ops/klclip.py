@@ -3,9 +3,10 @@
 
 On CUDA tensors both run the CUDA kernels of ``kfac_tpu_torch/csrc/klclip.cu``,
 one launch for a list of tensors: the dot ``klclip_dot_multi_f32``, which
-also folds the layers' terms into the kl-clip scale on the device, and the
-scale ``klclip_scale_multi_f32``. On CPU tensors each wrapper runs the plain
-version beside it.
+also folds the layers' terms into the kl-clip scale on the device (and, in
+its norm instantiation, sums each layer's g*g and p*p in the same pass),
+and the scale ``klclip_scale_multi_f32``. On CPU tensors each wrapper runs
+the plain version beside it.
 """
 
 from __future__ import annotations
@@ -44,14 +45,25 @@ def kl_clip_scale_plain(
 
 
 def klclip_dot_many_plain(
-    ps: Sequence[torch.Tensor], gs: Sequence[torch.Tensor], lr: float, kl_clip: float
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version of :func:`klclip_dot_many`: each layer's
-    ``sum(p * g) * lr**2``, Python's ``sum`` over the layers, then the
-    scale: the engine's expression before the grouped kernel."""
+    ps: Sequence[torch.Tensor],
+    gs: Sequence[torch.Tensor],
+    lr: float,
+    kl_clip: float,
+    norms: bool = False,
+) -> tuple[torch.Tensor, ...]:
+    """Plain version of :func:`klclip_dot_many` (and, with ``norms``, of
+    :func:`klclip_dot_norms_many`): each layer's ``sum(p * g) * lr**2``,
+    Python's ``sum`` over the layers, then the scale: the engine's
+    expression before the grouped kernel; with ``norms`` also each layer's
+    ``sum(g * g)`` and ``sum(p * p)`` in f32."""
     terms = [klclip_dot_plain(p, g) * (lr ** 2) for p, g in zip(ps, gs)]
     vg_sum = sum(terms)
-    return torch.stack(terms), vg_sum, kl_clip_scale_plain(vg_sum, kl_clip)
+    out = (torch.stack(terms), vg_sum, kl_clip_scale_plain(vg_sum, kl_clip))
+    if not norms:
+        return out
+    g_sq = torch.stack([klclip_dot_plain(g, g) for g in gs])
+    p_sq = torch.stack([klclip_dot_plain(p, p) for p in ps])
+    return (*out, g_sq, p_sq)
 
 
 def klclip_scale_plain(p: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -72,10 +84,70 @@ def _dot_launcher():
     fn = build.library('klclip').klclip_dot_multi_f32
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+        ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _dot_many(
+    ps: Sequence[torch.Tensor],
+    gs: Sequence[torch.Tensor],
+    lr: float,
+    kl_clip: float,
+    norms: bool,
+    counted,
+) -> tuple[torch.Tensor, ...]:
+    """The grouped dot of :func:`klclip_dot_many` and
+    :func:`klclip_dot_norms_many`: one launch of the kernel, or of its norm
+    instantiation, for every ``TABLE_CAPACITY`` pairs, each counted on
+    ``counted.launches``."""
+    ps, gs = list(ps), list(gs)
+    if not ps or len(ps) != len(gs):
+        raise ValueError(
+            f'klclip_dot_many takes one or more pairs; got {len(ps)} p and {len(gs)} g'
+        )
+    for p, g in zip(ps, gs):
+        if p.shape != g.shape:
+            raise ValueError(f'shape mismatch: {tuple(p.shape)} vs {tuple(g.shape)}')
+    device = ps[0].device
+    if any(t.device != device for t in ps + gs):
+        raise ValueError('klclip_dot_many takes tensors on one device')
+    if device.type == 'cpu':
+        return klclip_dot_many_plain(ps, gs, lr, kl_clip, norms)
+    if device.type != 'cuda':
+        raise ValueError(f'klclip_dot_many runs on cuda or cpu, not {device}')
+    f32 = torch.float32
+    for t in ps + gs:
+        if t.dtype is not f32 or not t.is_contiguous():
+            raise ValueError(
+                f'the klclip_dot kernel takes contiguous float32 tensors; got '
+                f'{t.dtype}, contiguous={t.is_contiguous()}'
+            )
+    count = len(ps)
+    numels = [p.numel() for p in ps]
+    capacity = sum(-(-n // BLOCK_ELEMS) + 1 for n in numels if n) * (3 if norms else 1)
+    # one allocation: terms, vg_sum, scale, with norms the sums of g*g and
+    # of p*p, then the partial sums' scratch
+    head = count + 2 + (2 * count if norms else 0)
+    out = torch.empty(head + max(capacity, 1), dtype=f32, device=device)
+    # (p, g, numel) a pair, read by the launcher before it returns
+    rows = array.array(
+        'q', [x for p, g, n in zip(ps, gs, numels) for x in (p.data_ptr(), g.data_ptr(), n)]
+    )
+    with torch.cuda.device(device):
+        code = _dot_launcher()(
+            rows.buffer_info()[0], count, out[head:].data_ptr(), capacity,
+            out.data_ptr(), lr ** 2, kl_clip, int(norms),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    build.check('klclip', code)
+    counted.launches += -(-count // TABLE_CAPACITY)
+    outputs = (out[:count], out[count], out[count + 1])
+    if norms:
+        outputs += (out[count + 2:2 * count + 2], out[2 * count + 2:3 * count + 2])
+    return outputs
 
 
 def klclip_dot_many(
@@ -97,46 +169,24 @@ def klclip_dot_many(
     pairs, and the host reads nothing back; CPU tensors through
     :func:`klclip_dot_many_plain`.
     """
-    ps, gs = list(ps), list(gs)
-    if not ps or len(ps) != len(gs):
-        raise ValueError(
-            f'klclip_dot_many takes one or more pairs; got {len(ps)} p and {len(gs)} g'
-        )
-    for p, g in zip(ps, gs):
-        if p.shape != g.shape:
-            raise ValueError(f'shape mismatch: {tuple(p.shape)} vs {tuple(g.shape)}')
-    device = ps[0].device
-    if any(t.device != device for t in ps + gs):
-        raise ValueError('klclip_dot_many takes tensors on one device')
-    if device.type == 'cpu':
-        return klclip_dot_many_plain(ps, gs, lr, kl_clip)
-    if device.type != 'cuda':
-        raise ValueError(f'klclip_dot_many runs on cuda or cpu, not {device}')
-    f32 = torch.float32
-    for t in ps + gs:
-        if t.dtype is not f32 or not t.is_contiguous():
-            raise ValueError(
-                f'the klclip_dot kernel takes contiguous float32 tensors; got '
-                f'{t.dtype}, contiguous={t.is_contiguous()}'
-            )
-    count = len(ps)
-    numels = [p.numel() for p in ps]
-    capacity = sum(-(-n // BLOCK_ELEMS) + 1 for n in numels if n)
-    # one allocation: terms, vg_sum, scale, then the partial sums' scratch
-    out = torch.empty(count + 2 + max(capacity, 1), dtype=f32, device=device)
-    # (p, g, numel) a pair, read by the launcher before it returns
-    rows = array.array(
-        'q', [x for p, g, n in zip(ps, gs, numels) for x in (p.data_ptr(), g.data_ptr(), n)]
-    )
-    with torch.cuda.device(device):
-        code = _dot_launcher()(
-            rows.buffer_info()[0], count, out[count + 2:].data_ptr(), capacity,
-            out.data_ptr(), lr ** 2, kl_clip,
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-    build.check('klclip', code)
-    klclip_dot.launches += -(-count // TABLE_CAPACITY)
-    return out[:count], out[count], out[count + 1]
+    return _dot_many(ps, gs, lr, kl_clip, norms=False, counted=klclip_dot)
+
+
+def klclip_dot_norms_many(
+    ps: Sequence[torch.Tensor],
+    gs: Sequence[torch.Tensor],
+    lr: float,
+    kl_clip: float,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`klclip_dot_many` with the norm epilogue: ``(terms, vg_sum,
+    scale, g_sq, p_sq)``, where ``g_sq[t] = sum(gs[t] * gs[t])`` and
+    ``p_sq[t] = sum(ps[t] * ps[t])`` (T,) come from the same read of every
+    pair (the engine's per-layer ``grad_norm`` and ``precond_grad_norm``).
+    ``terms``, ``vg_sum`` and ``scale`` are bitwise those of
+    :func:`klclip_dot_many`. Launches count on this function, not on
+    ``klclip_dot``.
+    """
+    return _dot_many(ps, gs, lr, kl_clip, norms=True, counted=klclip_dot_norms_many)
 
 
 def klclip_dot(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -234,4 +284,5 @@ def klclip_scale(p: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 klclip_dot.launches = 0
+klclip_dot_norms_many.launches = 0
 klclip_scale.launches = 0

@@ -7,9 +7,15 @@ factor and inverse cadence is a Python ``if`` where JAX traces a
 ``lax.cond``. Gradients are dicts keyed by ``model.named_parameters()``
 names; unregistered parameters pass through unchanged.
 
-Knobs of the JAX engine whose slice comes later (health, metrics, the
-flight recorder, async inverse refresh, offload, stat compression, compile
-watch and host eigendecompositions) raise ``NotImplementedError`` when set.
+The numerical-health sentinel (``health``), the per-layer metrics
+(``metrics``) and the flight recorder (``flight``) ride in the state as the
+JAX engine's do, and none of them reads a device value on the host. The
+per-layer gradient norms come from the norm instantiation of the grouped
+kl-clip dot kernel, in its one read of every layer's p and g.
+
+Knobs of the JAX engine whose slice comes later (async inverse refresh,
+offload, stat compression, compile watch and host eigendecompositions)
+raise ``NotImplementedError`` when set.
 """
 
 from __future__ import annotations
@@ -21,10 +27,13 @@ from typing import Any, Callable
 import torch
 
 from kfac_tpu_torch import enums
+from kfac_tpu_torch import health as health_lib
 from kfac_tpu_torch.device import resolve_device
 from kfac_tpu_torch.hyperparams import ScalarOrSchedule, resolve
 from kfac_tpu_torch.layers import capture as capture_lib
 from kfac_tpu_torch.layers import registry as registry_lib
+from kfac_tpu_torch.observability import flight_recorder as flight_lib
+from kfac_tpu_torch.observability import metrics as metrics_lib
 from kfac_tpu_torch.ops import factors as factors_lib
 from kfac_tpu_torch.ops import klclip
 
@@ -47,7 +56,9 @@ class KFACState:
     ``a``/``g``: EMA Kronecker factors; ``qa``/``qg``/``da``/``dg``:
     eigendecompositions (EIGEN); ``dgda``: fused ``1/(dg (x) da +
     damping)`` with prediv; ``a_inv``/``g_inv``: explicit inverses
-    (INVERSE). Unused slots hold empty dicts.
+    (INVERSE). Unused slots hold empty dicts. ``health``, ``metrics`` and
+    ``flight``: the sentinel's counters, the per-layer metrics and the
+    flight recorder's ring when the engine has them on, else None.
     """
 
     step: int
@@ -60,12 +71,12 @@ class KFACState:
     dgda: dict[str, torch.Tensor]
     a_inv: dict[str, torch.Tensor]
     g_inv: dict[str, torch.Tensor]
+    health: health_lib.HealthState | None = None
+    metrics: metrics_lib.MetricsState | None = None
+    flight: flight_lib.FlightRecorderState | None = None
 
 
-_LATER_SLICE_KNOBS = (
-    'health', 'metrics', 'flight', 'async_inverse', 'offload',
-    'stat_compression', 'compile_watch',
-)
+_LATER_SLICE_KNOBS = ('async_inverse', 'offload', 'stat_compression', 'compile_watch')
 
 
 @dataclasses.dataclass
@@ -79,7 +90,12 @@ class KFACPreconditioner:
     :func:`default_compute_method` for ``device``), ``inverse_solver``
     (``'cholesky'``, ``'newton_schulz'`` or ``'auto'``, for INVERSE),
     ``newton_schulz_iters`` (the iteration cap), ``prediv_eigenvalues``.
-    ``device`` is where the state lives, ``'cuda'`` unless the caller
+    ``health``: a :class:`~kfac_tpu_torch.health.HealthConfig` (True for its
+    defaults). ``metrics``: a :class:`~kfac_tpu_torch.observability.
+    metrics.MetricsConfig` (True for its defaults). ``flight``: a
+    :class:`~kfac_tpu_torch.observability.flight_recorder.
+    FlightRecorderConfig`, True, or an int capacity; it turns ``metrics``
+    on. ``device`` is where the state lives, ``'cuda'`` unless the caller
     passes another.
     """
 
@@ -111,6 +127,7 @@ class KFACPreconditioner:
                 raise NotImplementedError(
                     f'{knob} is not ported to kfac_tpu_torch yet'
                 )
+        self._normalize_observability()
         if self.eigh_impl in ('host', 'eig_host'):
             raise NotImplementedError(
                 f'eigh_impl={self.eigh_impl!r}: only the device '
@@ -158,6 +175,44 @@ class KFACPreconditioner:
                 stacklevel=2,
             )
 
+    def _normalize_observability(self) -> None:
+        """``metrics``, ``flight`` and ``health`` to a config or None, as the
+        JAX engine takes them (``flight`` turns ``metrics`` on)."""
+        if self.metrics is True:
+            self.metrics = metrics_lib.MetricsConfig()
+        elif self.metrics is False:
+            self.metrics = None
+        elif self.metrics is not None and not isinstance(self.metrics, metrics_lib.MetricsConfig):
+            raise TypeError(
+                'metrics must be a MetricsConfig, True, False, or None; '
+                f'got {self.metrics!r}'
+            )
+        if self.flight is True:
+            self.flight = flight_lib.FlightRecorderConfig()
+        elif self.flight is False:
+            self.flight = None
+        elif isinstance(self.flight, int) and not isinstance(self.flight, bool):
+            self.flight = flight_lib.FlightRecorderConfig(capacity=self.flight)
+        elif self.flight is not None and not isinstance(
+            self.flight, flight_lib.FlightRecorderConfig
+        ):
+            raise TypeError(
+                'flight must be a FlightRecorderConfig, True, False, an '
+                f'int capacity, or None; got {self.flight!r}'
+            )
+        if self.flight is not None and self.metrics is None:
+            # the ring records the metric scalar schema
+            self.metrics = metrics_lib.MetricsConfig()
+        if self.health is True:
+            self.health = health_lib.HealthConfig()
+        elif self.health is False:
+            self.health = None
+        elif self.health is not None and not isinstance(self.health, health_lib.HealthConfig):
+            raise TypeError(
+                'health must be a HealthConfig, True, False, or None; got '
+                f'{self.health!r}'
+            )
+
     @property
     def eigen(self) -> bool:
         return self.compute_method == enums.ComputeMethod.EIGEN
@@ -165,7 +220,8 @@ class KFACPreconditioner:
     # ------------------------------------------------------------------ init
 
     def init(self) -> KFACState:
-        """Identity factors and zero decompositions on ``device``."""
+        """Identity factors and zero decompositions on ``device``, with
+        fresh health counters, metrics and flight ring where they are on."""
         dev = self.device
         state = KFACState(0, {}, {}, {}, {}, {}, {}, {}, {}, {})
         for name, h in self.registry.layers.items():
@@ -183,7 +239,25 @@ class KFACPreconditioner:
             else:
                 state.a_inv[name] = torch.zeros((na, na), device=dev)
                 state.g_inv[name] = torch.zeros((ng, ng), device=dev)
+        names = list(self.registry.layers)
+        if self.health is not None:
+            state.health = health_lib.init_health(names, dev)
+        if self.metrics is not None:
+            state.metrics = metrics_lib.init_metrics(self.metrics, names, dev)
+        if self.flight is not None:
+            state.flight = flight_lib.init_flight(
+                self.flight, metrics_lib.metric_keys(self.metrics, names), dev
+            )
         return state
+
+    def _effective_damping(self, state: KFACState, damping: float):
+        """Per layer, the damping its decompositions and preconditioning
+        use: ``damping`` without health, else the (L,) device vector
+        ``damping * damping_mult`` (its entries 0-d views, never read on the
+        host)."""
+        if self.health is None:
+            return [damping] * len(self.registry.layers)
+        return damping * state.health.damping_mult
 
     # --------------------------------------------------------------- factors
 
@@ -191,7 +265,14 @@ class KFACPreconditioner:
         self, state: KFACState, stats: capture_lib.CapturedStats
     ) -> KFACState:
         """EMA-update the running factors from per-batch statistics; layers
-        absent from ``stats`` keep theirs."""
+        absent from ``stats`` keep theirs.
+
+        With health, a layer's update that is non-finite or whose Gershgorin
+        condition bound at its effective damping passes the quarantine
+        threshold rolls both its factors back and escalates its damping;
+        the factor metrics then describe the factors after the rollback, and
+        ``last_factor_step`` advances only for accepted updates.
+        """
         alpha = resolve(self.factor_decay, state.step)
         new_a = {
             n: factors_lib.ema_update(state.a[n], stats.a[n].float(), alpha)
@@ -203,7 +284,74 @@ class KFACPreconditioner:
             if n in stats.g else state.g[n]
             for n in state.g
         }
-        return dataclasses.replace(state, a=new_a, g=new_g)
+        names = list(self.registry.layers)
+        touched = [i for i, n in enumerate(names) if n in stats.a or n in stats.g]
+        ok = None  # (len(touched),) verdicts, with health
+        health = state.health
+        if self.health is not None and touched:
+            cfg = self.health
+            eff = self._effective_damping(state, resolve(self.damping, state.step))
+            # both factors of each touched layer, judged at its damping
+            ok = health_lib.factors_ok(
+                [f[names[i]] for i in touched for f in (new_a, new_g)],
+                [eff[i] for i in touched for _ in range(2)],
+                cfg.quarantine_threshold,
+            ).view(len(touched), 2).all(dim=1)
+            for k, i in enumerate(touched):
+                n = names[i]
+                new_a[n] = torch.where(ok[k], new_a[n], state.a[n])
+                new_g[n] = torch.where(ok[k], new_g[n], state.g[n])
+            idx = _positions(touched, len(names), ok.device)
+            fields = (health.damping_mult, health.quarantined, health.quarantine_events)
+            moved = health_lib.quarantine_update(
+                cfg, ok, *(f if idx is None else f[idx] for f in fields)
+            )
+            mult, quarantined, events = (
+                m if idx is None else f.index_copy(0, idx, m) for f, m in zip(fields, moved)
+            )
+            health = dataclasses.replace(
+                health, damping_mult=mult, quarantined=quarantined, quarantine_events=events
+            )
+        state = dataclasses.replace(state, a=new_a, g=new_g, health=health)
+        if self.metrics is not None and state.metrics is not None and touched:
+            state = dataclasses.replace(
+                state, metrics=self._record_factor_metrics(state, touched, ok)
+            )
+        return state
+
+    def _record_factor_metrics(
+        self, state: KFACState, touched: list[int], ok: torch.Tensor | None
+    ) -> metrics_lib.MetricsState:
+        """The factor phase's metrics on the factors after any rollback:
+        the Gershgorin bounds of the ``touched`` layers, and their
+        ``last_factor_step`` advanced where ``ok`` (None: every one)."""
+        ms = state.metrics
+        names = list(self.registry.layers)
+        if self.metrics.factor_bounds:
+            lmin, lmax = metrics_lib.gershgorin_bounds_each(
+                [f[names[i]] for f in (state.a, state.g) for i in touched]
+            )
+            k = len(touched)
+            values = {
+                'factor_lmin/a': lmin[:k], 'factor_lmax/a': lmax[:k],
+                'factor_lmin/g': lmin[k:], 'factor_lmax/g': lmax[k:],
+            }
+            if len(touched) == len(names):
+                ms = metrics_lib.set_families(ms, values)
+            else:
+                ms = metrics_lib.update_scalars(ms, {
+                    f'{f}/{names[i]}': v[k]
+                    for f, v in values.items() for k, i in enumerate(touched)
+                })
+        if len(touched) == len(names):
+            last = metrics_lib.advance_all(ms.last_factor_step, ok, state.step)
+        else:
+            last = metrics_lib.advance_last(
+                ms.last_factor_step, ms.names,
+                {names[i]: None if ok is None else ok[k] for k, i in enumerate(touched)},
+                state.step,
+            )
+        return dataclasses.replace(ms, last_factor_step=last)
 
     # -------------------------------------------------------------- inverses
 
@@ -211,30 +359,70 @@ class KFACPreconditioner:
         """Recompute eigendecompositions (or damped inverses) from the
         current factors. Newton-Schulz warm-starts each factor from its
         previous inverse, A then G in registry order, as the JAX engine
-        does; the all-zeros inverses of a fresh state take the cold start."""
-        damping = resolve(self.damping, state.step)
+        does; the all-zeros inverses of a fresh state take the cold start.
+
+        With health, each layer runs at its effective damping; a non-finite
+        result rolls back to the layer's previous decomposition, and
+        ``bad_inv`` counts up when the refresh ran from a quarantined factor
+        or was non-finite, down otherwise.
+        """
+        eff = self._effective_damping(state, resolve(self.damping, state.step))
+        names = list(self.registry.layers)
+        oks = []  # with health, each layer's verdict
+
+        def checked(name, cand, prev):
+            """``cand`` with health: kept where every output is finite, else
+            ``prev`` (the layer's previous slots)."""
+            if self.health is None:
+                return cand
+            ok = torch.stack([torch.isfinite(v).all() for v in cand.values()]).all()
+            oks.append(ok)
+            return {k: torch.where(ok, v, prev[k][name]) for k, v in cand.items()}
+
+        slots = {}
         if not self.eigen:
-            a_inv, g_inv = {}, {}
-            for n in self.registry.layers:
-                for new, factor, prev in (
-                    (a_inv, state.a[n], state.a_inv[n]),
-                    (g_inv, state.g[n], state.g_inv[n]),
-                ):
-                    new[n] = factors_lib.damped_inverse(
-                        factor, damping, self.inverse_solver,
+            for i, n in enumerate(names):
+                cand = {
+                    key: factors_lib.damped_inverse(
+                        factor, eff[i], self.inverse_solver,
                         self.newton_schulz_iters, x0=prev,
                     )
-            return dataclasses.replace(state, a_inv=a_inv, g_inv=g_inv)
-        qa, qg, da, dg, dgda = {}, {}, {}, {}, {}
-        for name in self.registry.layers:
-            adec = factors_lib.compute_eigh(state.a[name])
-            gdec = factors_lib.compute_eigh(state.g[name])
-            qa[name], qg[name] = adec.q, gdec.q
-            if self.prediv_eigenvalues:
-                dgda[name] = factors_lib.prediv_eigenvalues(adec, gdec, damping)
-            else:
-                da[name], dg[name] = adec.d, gdec.d
-        return dataclasses.replace(state, qa=qa, qg=qg, da=da, dg=dg, dgda=dgda)
+                    for key, factor, prev in (
+                        ('a_inv', state.a[n], state.a_inv[n]),
+                        ('g_inv', state.g[n], state.g_inv[n]),
+                    )
+                }
+                slots[n] = checked(n, cand, {'a_inv': state.a_inv, 'g_inv': state.g_inv})
+        else:
+            prev = {'qa': state.qa, 'qg': state.qg, 'da': state.da, 'dg': state.dg,
+                    'dgda': state.dgda}
+            for i, n in enumerate(names):
+                adec = factors_lib.compute_eigh(state.a[n])
+                gdec = factors_lib.compute_eigh(state.g[n])
+                cand = {'qa': adec.q, 'qg': gdec.q}
+                if self.prediv_eigenvalues:
+                    cand['dgda'] = factors_lib.prediv_eigenvalues(adec, gdec, eff[i])
+                else:
+                    cand['da'], cand['dg'] = adec.d, gdec.d
+                slots[n] = checked(n, cand, prev)
+        updates = {
+            key: {n: slots[n][key] for n in names}
+            for key in next(iter(slots.values()), {})
+        }
+        state = dataclasses.replace(state, **updates)
+        ok = None
+        if self.health is not None and names:
+            h = state.health
+            ok = torch.stack(oks)
+            state = dataclasses.replace(state, health=dataclasses.replace(
+                h, bad_inv=health_lib.inversion_update(self.health, ok, h.quarantined, h.bad_inv)
+            ))
+        if self.metrics is not None and state.metrics is not None:
+            ms = state.metrics
+            state = dataclasses.replace(state, metrics=dataclasses.replace(
+                ms, last_inv_step=metrics_lib.advance_all(ms.last_inv_step, ok, state.step)
+            ))
+        return state
 
     # --------------------------------------------------------- precondition
 
@@ -257,7 +445,10 @@ class KFACPreconditioner:
         )
 
     def precondition(
-        self, state: KFACState, grads: dict[str, torch.Tensor]
+        self,
+        state: KFACState,
+        grads: dict[str, torch.Tensor],
+        metrics_out: dict[str, torch.Tensor] | None = None,
     ) -> dict[str, torch.Tensor]:
         """Precondition a ``named_parameters``-keyed grads dict.
 
@@ -265,26 +456,63 @@ class KFACPreconditioner:
         the device (no host sync): every layer's term, their sum and the
         scale in one launch of the kl-clip dot kernel; then every layer is
         scaled in one kernel launch, in place.
+
+        With health, each layer is preconditioned at its effective damping,
+        and a degraded layer's preconditioned gradient is its raw gradient
+        (still kl-clipped with the rest). ``metrics_out``, when given, gets
+        this phase's metric families as vectors in registry order:
+        ``damping_eff``, ``kl_clip_scale`` and, with ``grad_norms``,
+        ``grad_norm`` and ``precond_grad_norm`` (its pre-scale norm times
+        ``|scale|``), both from the norm instantiation of the kl-clip dot's
+        one pass, with or without kl-clip.
         """
         damping = resolve(self.damping, state.step)
+        eff = self._effective_damping(state, damping)
+        degraded = (
+            None if self.health is None
+            else health_lib.is_degraded(self.health, state.health.bad_inv)
+        )
         layer_grads = registry_lib.slice_layer_grads(grads, self.registry)
-        precond = {}
-        gmats = []
-        for name, helper in self.registry.layers.items():
+        helpers, gmats, pmats = [], [], []
+        for i, (name, helper) in enumerate(self.registry.layers.items()):
             gmat = helper.grads_to_matrix(layer_grads[name])
-            pmat = self._precondition_one(state, name, gmat, damping)
+            pmat = self._precondition_one(state, name, gmat, eff[i])
+            if degraded is not None:
+                pmat = torch.where(degraded[i], gmat.to(pmat.dtype), pmat)
+            helpers.append(helper)
             gmats.append(gmat)
-            precond[name] = (pmat, helper)
-        pmats = [pmat for pmat, _ in precond.values()]
-        if self.kl_clip is not None and pmats:
-            _, _, scale = klclip.klclip_dot_many(
-                pmats, gmats, resolve(self.lr, state.step),
-                resolve(self.kl_clip, state.step),
+            pmats.append(pmat)
+        norms = metrics_out is not None and self.metrics.grad_norms and bool(pmats)
+        scale = None
+        if pmats and (self.kl_clip is not None or norms):
+            lr = resolve(self.lr, state.step)
+            kl_clip = 1.0 if self.kl_clip is None else resolve(self.kl_clip, state.step)
+            if norms:
+                _, _, scale, g_sq, p_sq = klclip.klclip_dot_norms_many(pmats, gmats, lr, kl_clip)
+            else:
+                _, _, scale = klclip.klclip_dot_many(pmats, gmats, lr, kl_clip)
+            if self.kl_clip is None:
+                scale = None
+            else:
+                pmats = factors_lib.kl_clip_apply_many_(pmats, scale)
+        if metrics_out is not None:
+            dev = self.device
+            metrics_out['kl_clip_scale'] = (
+                torch.ones((), device=dev) if scale is None else scale
             )
-            pmats = factors_lib.kl_clip_apply_many_(pmats, scale)
+            if norms:
+                p_norm = torch.sqrt(p_sq)
+                metrics_out['grad_norm'] = torch.sqrt(g_sq)
+                metrics_out['precond_grad_norm'] = (
+                    p_norm if scale is None else p_norm * torch.abs(scale)
+                )
+            metrics_out['damping_eff'] = (
+                eff if self.health is not None
+                else torch.full((len(pmats),), damping, device=dev)
+            )
         out = {
             name: helper.matrix_to_grads(pmat)
-            for (name, (_, helper)), pmat in zip(precond.items(), pmats)
+            for name, helper, pmat in zip(self.registry.layers, helpers, pmats)
         }
         return registry_lib.merge_layer_grads(grads, out, self.registry)
 
@@ -295,17 +523,97 @@ class KFACPreconditioner:
         state: KFACState,
         grads: dict[str, torch.Tensor],
         stats: capture_lib.CapturedStats | None,
+        loss: torch.Tensor | None = None,
     ) -> tuple[KFACState, dict[str, torch.Tensor]]:
         """One K-FAC step: maybe update factors and inverses, then
         precondition. ``stats=None`` skips the factor update (a step
-        without capture)."""
+        without capture). With metrics, the step's scalars and staleness
+        go into ``state.metrics``; with the flight recorder, one ring row
+        then records them beside ``loss`` (when given) and the raw grads'
+        global norm."""
         step = state.step
         if stats is not None and step % resolve(self.factor_update_steps, step) == 0:
             state = self.update_factors(state, stats)
         if step % resolve(self.inv_update_steps, step) == 0:
             state = self.update_inverses(state)
-        new_grads = self.precondition(state, grads)
+        if self.metrics is not None and state.metrics is not None:
+            families: dict[str, torch.Tensor] = {}
+            new_grads = self.precondition(state, grads, metrics_out=families)
+            ms = metrics_lib.set_families(state.metrics, families)
+            state = dataclasses.replace(
+                state, metrics=metrics_lib.finalize(ms, self.metrics, step)
+            )
+        else:
+            new_grads = self.precondition(state, grads)
+        if self.flight is not None and state.flight is not None:
+            state = dataclasses.replace(state, flight=flight_lib.record(
+                state.flight, step, state.metrics.scalars, loss=loss,
+                grad_norm=flight_lib.global_grad_norm(grads),
+            ))
         return dataclasses.replace(state, step=step + 1), new_grads
+
+    # ------------------------------------------------------------- utilities
+
+    def extract_factors(self, state: KFACState) -> dict[str, dict[str, torch.Tensor]]:
+        """Each layer's factors, ``{name: {'a': A, 'g': G}}``."""
+        return {n: {'a': state.a[n], 'g': state.g[n]} for n in state.a}
+
+    def describe(self) -> str:
+        """The registration and the options, one line each."""
+        lines = [
+            f'KFACPreconditioner: {len(self.registry.layers)} registered '
+            f'layers, compute_method={self.compute_method.name}, '
+            f'inverse_solver={self.inverse_solver}',
+        ]
+        if self.health is not None:
+            hc = self.health
+            lines.append(
+                f'  health: skip_nonfinite={hc.skip_nonfinite} '
+                f'quarantine_threshold={hc.quarantine_threshold} '
+                f'damping_escalation={hc.damping_escalation} '
+                f'degrade_after={hc.degrade_after}'
+            )
+        if self.metrics is not None:
+            mc = self.metrics
+            lines.append(
+                f'  metrics: grad_norms={mc.grad_norms} '
+                f'factor_bounds={mc.factor_bounds} staleness={mc.staleness}'
+            )
+        for name, h in self.registry.layers.items():
+            lines.append(
+                f'  {name}: {type(h).__name__} '
+                f'A={h.a_factor_shape[0]}x{h.a_factor_shape[0]} '
+                f'G={h.g_factor_shape[0]}x{h.g_factor_shape[0]}'
+                f'{" +bias" if h.has_bias else ""}'
+            )
+        return '\n'.join(lines)
+
+    def memory_usage(self, state: KFACState) -> dict[str, int]:
+        """Bytes of the factors and of their decompositions or inverses."""
+
+        def nbytes(d: dict[str, torch.Tensor]) -> int:
+            return int(sum(v.numel() * v.element_size() for v in d.values()))
+
+        sizes = {
+            'a_factors': nbytes(state.a),
+            'g_factors': nbytes(state.g),
+            'a_inverses': nbytes(state.qa) + nbytes(state.da) + nbytes(state.a_inv),
+            'g_inverses': (
+                nbytes(state.qg) + nbytes(state.dg) + nbytes(state.dgda) + nbytes(state.g_inv)
+            ),
+        }
+        sizes['total'] = sum(sizes.values())
+        return sizes
+
+
+def _positions(
+    touched: list[int], count: int, device: torch.device
+) -> torch.Tensor | None:
+    """Index vector of the ``touched`` layers on ``device``, or None when
+    every layer is touched (the common case, which copies nothing)."""
+    if len(touched) == count:
+        return None
+    return torch.tensor(touched, device=device)
 
 
 def set_grads(model: torch.nn.Module, grads: dict[str, torch.Tensor]) -> None:

@@ -129,3 +129,29 @@ def log_trace(
     """Log the trace table, one line per name."""
     for key, value in sorted(get_trace(**kwargs).items()):
         logger.log(level, f'{label} {key}: {value:.6f}s')
+
+
+def health_counters(state: Any) -> dict[str, Any]:
+    """Flat snapshot of an engine state's health counters (or of a bare
+    ``HealthState``): ``{'health/skipped_steps': ...,
+    'health/<layer>/damping_mult': ..., '.../quarantined': ...,
+    '.../bad_inv': ..., '.../quarantine_events': ...}``, in the JAX
+    package's key order; ``{}`` when the sentinel is off. One read from
+    the device."""
+    from kfac_tpu_torch import health as health_lib
+
+    health = getattr(state, 'health', state)
+    if not isinstance(health, health_lib.HealthState):
+        return {}
+    vals = health_lib.host_values(health)
+    out: dict[str, Any] = {'health/skipped_steps': vals['skipped_steps']}
+    for field in health_lib.PER_LAYER_FIELDS:
+        for name, v in vals[field].items():
+            out[f'health/{name}/{field}'] = v
+    return out
+
+
+def log_health(state: Any, level: int = logging.INFO) -> None:
+    """Log the health counter snapshot (nothing when health is off)."""
+    for key, value in sorted(health_counters(state).items()):
+        logger.log(level, f'health: {key}: {value}')

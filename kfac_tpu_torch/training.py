@@ -6,11 +6,14 @@ trained weights) and a ``torch.optim`` optimizer; a :class:`TrainState`
 carries what the JAX package's state carries beside them: the K-FAC state
 and the model's mutable state. The factor cadence is the K-FAC state's
 step, a host integer, so a capture step and a plain step are two Python
-branches and no step reads a device value on the host.
+branches and no step reads a device value on the host, with two
+exceptions, both the health sentinel's: ``skip_nonfinite`` reads the
+finiteness of the loss and grads once a step (where the JAX package gates
+the update with ``lax.cond`` on the device), and ``warn`` reads the health
+counters after each eager step, as the JAX Trainer does.
 
 Knobs of the JAX Trainer whose slice comes later (``checkpoints``,
-``auto_layout``, ``fleet``, and a health config that skips non-finite
-steps) raise ``NotImplementedError``.
+``auto_layout``, ``fleet``) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import Any, Callable
 import torch
 import torch.nn as nn
 
+from kfac_tpu_torch import health as health_lib
 from kfac_tpu_torch import tracing
 from kfac_tpu_torch.device import resolve_device
 from kfac_tpu_torch.layers import capture as capture_lib
@@ -113,11 +117,6 @@ class Trainer:
         )
         self._run_plain = capture_lib.value_and_grad(self.model, self.loss_fn, has_aux=True)
         if self.kfac is not None:
-            health = getattr(self.kfac, 'health', None)
-            if getattr(health, 'skip_nonfinite', False):
-                raise NotImplementedError(
-                    'a health config with skip_nonfinite is not ported to kfac_tpu_torch yet'
-                )
             if self.kfac.registry.model is not self.model:
                 raise ValueError('the registry was built over another model than the trainer\'s')
             self._run_stats = capture_lib.CurvatureCapture(self.kfac.registry).value_stats_and_grad(
@@ -136,12 +135,30 @@ class Trainer:
         """The shared run-header record for one telemetry stream."""
         return ledger_lib.run_header(self.run_id, stream)
 
+    def _health_cfg(self) -> health_lib.HealthConfig | None:
+        """The engine's health config, or None when the sentinel is off."""
+        return None if self.kfac is None else getattr(self.kfac, 'health', None)
+
     def _finish_step(
         self, state: TrainState, grads, stats, new_model_state, loss
     ) -> TrainState:
         """Precondition (with K-FAC), write the grads into ``.grad`` and
-        take the optimizer step."""
+        take the optimizer step.
+
+        With the health sentinel's ``skip_nonfinite``, a non-finite loss or
+        gradient skips the whole update: the parameters, the optimizer
+        state, the factors and the model state stay put; only the step
+        clock and ``skipped_steps`` advance. The verdict is read on the
+        host, one sync a step.
+        """
         kstate = state.kfac_state
+        hc = self._health_cfg()
+        if (
+            hc is not None and hc.skip_nonfinite
+            and getattr(kstate, 'health', None) is not None
+            and not bool(health_lib.all_finite(loss, grads))
+        ):
+            return TrainState(health_lib.mark_skipped(kstate), state.model_state)
         if self.kfac is not None:
             if self._kfac_takes_loss:
                 kstate, grads = self.kfac.step(kstate, grads, stats, loss=loss)
@@ -165,6 +182,23 @@ class Trainer:
     def _sync_step_count(self, state: TrainState) -> None:
         if self._step_count is None:
             self.resume(state)
+
+    def check_health(self, state: TrainState) -> dict[str, Any]:
+        """Host snapshot of the health counters (``health.summary``), with
+        the first-occurrence warnings of quarantined and degraded layers;
+        ``{}`` when the sentinel is off. One read from the device: the eager
+        step paths call it after each step when ``HealthConfig.warn`` is
+        set, :meth:`scan_steps` never does."""
+        hc = self._health_cfg()
+        ks = state.kfac_state
+        if hc is None or ks is None or getattr(ks, 'health', None) is None:
+            return {}
+        return health_lib.check_and_warn(hc, ks.health, step=self._step_count)
+
+    def _maybe_warn(self, state: TrainState) -> None:
+        hc = self._health_cfg()
+        if hc is not None and hc.warn:
+            self.check_health(state)
 
     def _capture_now(self) -> bool:
         """The engine's factor cadence at the host step count (a schedule
@@ -193,7 +227,9 @@ class Trainer:
         (not read on the host). Recorded in the tracing table as
         ``trainer/step``.
         """
-        return self._step(state, batch)
+        new_state, loss = self._step(state, batch)
+        self._maybe_warn(new_state)
+        return new_state, loss
 
     @tracing.trace(name='trainer/scan_steps')
     def scan_steps(self, state: TrainState, batches) -> tuple[TrainState, torch.Tensor]:
@@ -259,6 +295,7 @@ class Trainer:
         new_state = self._finish_step(state, grads, stats, acc['model_state'], loss)
         self._accum = None
         self._step_count += 1
+        self._maybe_warn(new_state)
         return new_state, loss
 
     def _step_accumulate(self, state: TrainState, microbatches) -> tuple[TrainState, torch.Tensor]:

@@ -15,7 +15,9 @@ into a symmetric running factor within 1e-5 x max|coeff a^T a| (the blend
 scales the product's error by coeff, so the product is the reference) and
 exactly symmetric; the kl-clip dot within 1e-7 x sum|p*g| and identical
 from run to run, and grouped over layers within 1e-7 x sum of lr^2 sum|p*g|,
-its scale bitwise the plain expression over its own terms; the kl-clip
+its scale bitwise the plain expression over its own terms, and with its
+norm epilogue each sum(g*g) and sum(p*p) within 1e-6 of itself (against
+f64), the dot's outputs bitwise those without norms; the kl-clip
 scale bitwise equal to the plain version; the
 attention partials within 1e-5 x max|x| of each output; the Newton-Schulz
 step within 3e-5 x max of x_new and of mx_new and 3e-5 of the residual,
@@ -228,7 +230,8 @@ FLAGSHIP_PMATS = [(512, 513)] * 24 + [(2048, 513)] * 6 + [(512, 2049)] * 6
 
 def grouped_dot_cases(device):
     """(ps, gs) lists: the flagship's 36 layers; g views 1-3 floats off a
-    16-byte boundary and empty tensors; 100 pairs (two launches)."""
+    16-byte boundary and empty tensors; 100 pairs (two launches); the
+    digits MLP's 2 layers."""
     g = torch.Generator(device).manual_seed(8)
 
     def randn(*shape):
@@ -243,11 +246,12 @@ def grouped_dot_cases(device):
                     [views[i] if i in views else randn(*s) for i, s in enumerate(ragged)]),
         'many': ([randn(i % 7 * 600 + 1) for i in range(100)],
                  [randn(i % 7 * 600 + 1) for i in range(100)]),
+        'digits': ([randn(64, 65), randn(10, 65)], [randn(64, 65), randn(10, 65)]),
     }
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('case', ['flagship', 'offsets', 'many'])
+@pytest.mark.parametrize('case', ['flagship', 'offsets', 'many', 'digits'])
 def test_klclip_dot_many_matches_plain_on_card(cuda_device, case):
     ps, gs = grouped_dot_cases(cuda_device)[case]
     lr, kl_clip = 0.1, 0.001
@@ -264,6 +268,28 @@ def test_klclip_dot_many_matches_plain_on_card(cuda_device, case):
     assert torch.equal(scale, factors.kl_clip_scale(vg_fold, kl_clip))
     again = klclip.klclip_dot_many(ps, gs, lr, kl_clip)  # no atomics: repeatable
     assert all(torch.equal(x, y) for x, y in zip((terms, vg, scale), again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['flagship', 'offsets', 'many', 'digits'])
+def test_klclip_dot_norms_many_matches_plain_on_card(cuda_device, case):
+    ps, gs = grouped_dot_cases(cuda_device)[case]
+    lr, kl_clip = 0.1, 0.001
+    before, dot_before = klclip.klclip_dot_norms_many.launches, klclip.klclip_dot.launches
+    got = klclip.klclip_dot_norms_many(ps, gs, lr, kl_clip)
+    assert klclip.klclip_dot_norms_many.launches == before + -(-len(ps) // klclip.TABLE_CAPACITY)
+    assert klclip.klclip_dot.launches == dot_before
+    # the dot's arithmetic is the instantiation's without norms, bit for bit
+    for x, y in zip(got[:3], klclip.klclip_dot_many(ps, gs, lr, kl_clip)):
+        assert torch.equal(x, y)
+    g_sq, p_sq = got[3:]
+    assert g_sq.shape == p_sq.shape == (len(ps),)
+    for t, (p, g) in enumerate(zip(ps, gs)):
+        for v, x in ((g_sq[t], g), (p_sq[t], p)):
+            ref = float(torch.sum(x.double() ** 2))
+            assert abs(float(v) - ref) <= 1e-6 * ref
+    again = klclip.klclip_dot_norms_many(ps, gs, lr, kl_clip)  # no atomics: repeatable
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
 
 
 @pytest.mark.cuda

@@ -271,6 +271,10 @@ def small_registry():
     return registry.register_model(model, device='cpu')
 
 
+# knobs of this list once raised as the others do
+PORTED_KNOBS = ('health', 'metrics', 'flight')
+
+
 @pytest.mark.parametrize(
     'knob,value',
     [
@@ -281,6 +285,11 @@ def small_registry():
     ],
 )
 def test_later_slice_knobs_raise(knob, value):
+    if knob in PORTED_KNOBS:
+        # ported since: the engine builds the knob's state instead of raising
+        state = KFACPreconditioner(small_registry(), device='cpu', **{knob: value}).init()
+        assert getattr(state, knob) is not None
+        return
     with pytest.raises(NotImplementedError):
         KFACPreconditioner(small_registry(), device='cpu', **{knob: value})
 

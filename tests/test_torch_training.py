@@ -247,16 +247,22 @@ def test_later_slice_knobs_raise(knob):
 
 
 def test_health_skip_nonfinite_raises():
+    # skip_nonfinite raised before the sentinel was ported; now a Trainer
+    # takes it, and, as the JAX Trainer does, gates only a state that
+    # carries health counters: this engine's state has none, so even a
+    # non-finite step goes through
     model = torch.nn.Sequential(torch.nn.Linear(4, 3))
     reg = registry.register_model(model, device='cpu')
+    calls = []
     engine = SimpleNamespace(
-        registry=reg, factor_update_steps=1, init=lambda: None,
-        step=lambda state, grads, stats: (state, grads),
-        health=SimpleNamespace(skip_nonfinite=True),
+        registry=reg, factor_update_steps=1, init=lambda: SimpleNamespace(step=0),
+        step=lambda state, grads, stats: (calls.append(stats) or state, grads),
+        health=SimpleNamespace(skip_nonfinite=True, warn=False),
     )
-    with pytest.raises(NotImplementedError, match='skip_nonfinite'):
-        Trainer(model, torch.optim.SGD(model.parameters(), lr=0.1),
-                lambda ms, b: (model(b).sum(), ms), kfac=engine, device='cpu')
+    trainer = Trainer(model, torch.optim.SGD(model.parameters(), lr=0.1),
+                      lambda ms, b: (model(b).sum(), ms), kfac=engine, device='cpu')
+    state, loss = trainer.step(trainer.init(), torch.full((2, 4), float('nan')))
+    assert len(calls) == 1 and torch.isnan(loss)
 
 
 def test_misuse_raises():
