@@ -48,7 +48,8 @@ Phases, one JSON line each:
    steps on one seeded batch, with the kernels' launch counts set to 0
    just before and read just after; then one more capture step and one
    plain step under torch.profiler (``profile``: device time by kernel,
-   idle share).
+   idle share). The run's losses and host copies of its state after
+   steps 10 and 15 are the uninterrupted reference of ``resume``.
 6. ``main_path_ns``: the same flagship with INVERSE + Newton-Schulz for
    110 steps, so the inverse refreshes at step 0 (cold start) and step 100
    (warm start from the step-0 inverses), counts set to 0 just before and
@@ -76,13 +77,33 @@ Phases, one JSON line each:
    (skipped, nothing moves), a capture past the quarantine threshold (rolled
    back, damping x 10), and quarantined refreshes up to ``degrade_after``
    (the layer's grads leave as the raw gradient times the kl-clip scale).
-9. ``bench_lm``: the bench's LM stage (``kfac_tpu_torch.bench_lm``) in
-   process for ``tiny`` and then ``flagship``, counts set to 0 before each
+9. ``resume``: checkpoint and preemption on the flagship (EIGEN, cadence
+   10/100), held against ``main_path``'s uninterrupted run: a fresh run
+   under
+   ``Trainer(checkpoints=CheckpointManager(save_interval_steps=10, keep=2,
+   async_save=True))`` that sends itself a real SIGTERM after step 13, so
+   step 14's ``on_step`` saves an emergency checkpoint and raises
+   ``Preempted`` (each step's ms, host syncs and whether it saved: none on
+   a step that neither saves nor refreshes); ``checkpoint.restore`` of the
+   step-10 checkpoint into a fresh Trainer (params, momentum and factors
+   bitwise the uninterrupted run's, steps 10-19 within 1e-6 of its losses);
+   ``Trainer.restore_latest`` at the emergency step, 5 steps within 1e-6 of
+   an in-memory oracle (the uninterrupted state at step 15,
+   ``rematerialize``d, stepped on); the same restore into INVERSE +
+   Newton-Schulz (``fused_ns_step`` launches of the cold
+   ``rematerialize``, every inverse's residual <= 5e-2); then the bytes on
+   disk and the times of a blocking and an async save, of the restore
+   (read and rematerialize) and of the emergency save. Counts set to 0
+   before, read after.
+10. ``bench_lm``: the bench's LM stage (``kfac_tpu_torch.bench_lm``) in
+   process for ``tiny`` and then ``flagship``, at half the bench's own
+   window (50 timed steps, 50 ``scan_steps``), counts set to 0 before each
    and read after: every rate finite and positive, every fused-kernel
    probe family timed without error, and every kernel launched exactly as
    often as the configuration says (``sym_cov_ema`` by the probe).
 
-Then the card's name and power limit as nvidia-smi prints them, the
+Then each phase's seconds and the script's (``timing``), the card's name
+and power limit as nvidia-smi prints them, the
 ``kernels`` line, and ``{"ok": true, "device": ...}`` as the last line.
 Any failed phase makes the exit code 1 and suppresses the last line; no
 CUDA card, or no package beside this script, exits 1 at once.
@@ -94,13 +115,17 @@ import dataclasses
 import json
 import math
 import os
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
 import time
 import traceback
+import warnings
 
 import torch
+from torch.utils import _pytree as pytree
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
@@ -665,7 +690,7 @@ class LMRun:
     batch, weights from seed 1: a capture step every ``capture_every``
     steps, a plain step otherwise."""
 
-    def __init__(self, cfg, device, capture_every, inv_every, **kfac_kw):
+    def __init__(self, cfg, device, capture_every, inv_every, checkpoints=None, **kfac_kw):
         import kfac_tpu_torch as kt
         from kfac_tpu_torch.models import TransformerLM, lm_loss
         from kfac_tpu_torch.training import Trainer
@@ -695,7 +720,7 @@ class LMRun:
 
         self.trainer = Trainer(
             model, torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
-            loss_fn, kfac=self.kfac, device=device,
+            loss_fn, kfac=self.kfac, checkpoints=checkpoints, device=device,
         )
         self.state = self.trainer.init()
 
@@ -895,13 +920,21 @@ def step_summary(seconds) -> dict:
     )
 
 
-def run_main_path(launches, summary, main_losses) -> bool:
+def run_main_path(launches, summary, main_losses, snaps) -> bool:
+    """The flagship's 20 steps; ``snaps`` takes host copies of its state
+    after steps ``RESUME_INTERVAL`` and ``RESUME_STEP``, off the clock."""
     wrappers = main_path_wrappers()
     torch.cuda.reset_peak_memory_stats()
     for w in wrappers.values():
         w.launches = 0
     run = LMRun(FLAGSHIP, torch.device('cuda'), 10, 100)
-    losses, _, seconds = train(run, STEPS)
+    losses, seconds = [], []
+    for i in range(STEPS):
+        loss, sec = run.step()
+        losses.append(loss)
+        seconds.append(sec)
+        if i + 1 in (RESUME_INTERVAL, RESUME_STEP):
+            snaps[i + 1] = run_snapshot(run)
     main_losses.extend(losses)
     launches.update({n: w.launches for n, w in wrappers.items()})
     layers = len(run.registry)
@@ -1285,6 +1318,318 @@ def run_observed(launches, main_losses) -> bool:
     return passed
 
 
+RESUME_SIGNAL_AFTER = 13  # the step after which the resume phase sends SIGTERM
+RESUME_INTERVAL = 10  # its periodic saves
+RESUME_TAIL = 5  # steps after restore_latest
+RESUME_STEP = RESUME_SIGNAL_AFTER + 2  # the emergency checkpoint's step
+
+
+def resume_expected_launches() -> dict:
+    """Launches of every kernel but the NS step over the ``resume`` phase:
+    the interrupted run (steps 0-14), the continuity run (steps 10-19),
+    the resumed run and its oracle (steps 15-19 each) and the
+    Newton-Schulz run's one step at 15; capture on steps 0 and 10."""
+    steps = RESUME_STEP + (STEPS - RESUME_INTERVAL) + 2 * RESUME_TAIL + 1
+    captures = 2 + 1
+    return {
+        'sym_cov': 2 * KFAC_LAYERS * captures,
+        'sym_cov_ema': 0,
+        'klclip_dot': steps,
+        'klclip_dot_norms': 0,
+        'klclip_scale': steps,
+        'flash_attention_partials': FLAGSHIP['layers'] * steps,
+    }
+
+
+def run_snapshot(run) -> dict:
+    """Host copies of a run's weights, optimizer state, factors and step
+    (on the host, so the card's peak memory stays the run's own)."""
+    def host(tree):
+        return pytree.tree_map_only(torch.Tensor, lambda t: t.cpu(), tree)
+
+    return dict(
+        params=host(run.trainer.model.state_dict()),
+        optimizer=host(run.trainer.optimizer.state_dict()),
+        a=host(run.kstate.a), g=host(run.kstate.g), step=run.kstate.step,
+    )
+
+
+def bitwise_as(run, snap) -> dict:
+    """Whether the run's params, momentum buffers and factors equal the
+    snapshot's bit for bit, and its step the snapshot's."""
+    def same(x, host):
+        return torch.equal(x, host.to(x.device))
+
+    opt = run.trainer.optimizer.state_dict()['state']
+    return dict(
+        params=all(same(v, snap['params'][k]) for k, v in run.trainer.model.state_dict().items()),
+        momentum=len(opt) == len(snap['optimizer']['state']) and all(
+            same(v['momentum_buffer'], snap['optimizer']['state'][i]['momentum_buffer'])
+            for i, v in opt.items()
+        ),
+        factors=all(same(run.kstate.a[n], v) for n, v in snap['a'].items())
+        and all(same(run.kstate.g[n], v) for n, v in snap['g'].items()),
+        step=run.kstate.step == snap['step'],
+    )
+
+
+def rel_errs(got, want) -> float:
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def timed_method(obj, name, out: list):
+    """Wrap ``obj.name`` so each call's seconds (device work included) land
+    in ``out``."""
+    fn = getattr(obj, name)
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+        return result
+
+    setattr(obj, name, timed)
+
+
+def synced(fn):
+    """(result, seconds) of ``fn()`` between two device synchronises."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def interrupted_steps(run, mgr) -> tuple[list, object]:
+    """Steps of ``run`` under its manager until ``Preempted``, a real SIGTERM
+    sent after step ``RESUME_SIGNAL_AFTER``: per step its loss (None for
+    the preempted one), ms, host syncs (``set_sync_debug_mode``, as
+    ``counted_step``) and whether it started a save."""
+    from kfac_tpu_torch.resilience import Preempted
+
+    steps, preempted = [], None
+    for i in range(STEPS):
+        if i == RESUME_SIGNAL_AFTER + 1:
+            os.kill(os.getpid(), signal.SIGTERM)
+        loss = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            torch.cuda.set_sync_debug_mode('warn')
+            try:
+                run.state, loss = run.trainer.step(run.state, run.batch)
+            except Preempted as exc:
+                preempted = exc
+            finally:
+                torch.cuda.set_sync_debug_mode('default')
+        torch.cuda.synchronize()
+        steps.append(dict(
+            step=i, ms=(time.perf_counter() - t0) * 1e3,
+            syncs=sum('synchroniz' in str(w.message) for w in caught),
+            saved=os.path.isdir(mgr.step_dir(i + 1)),
+            loss=None if loss is None else float(loss),
+        ))
+        if preempted is not None:
+            break
+    return steps, preempted
+
+
+def run_resume(launches, u_losses, snaps) -> bool:
+    """Checkpoint and preemption on the flagship (see the module's
+    docstring, phase 9), against ``main_path``'s losses ``u_losses`` and
+    its snapshots ``snaps``."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build', 'chip_smoke_resume')
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        return resume_phase(root, launches, u_losses, snaps)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def resume_phase(root, launches, u_losses, snaps) -> bool:
+    from kfac_tpu_torch import checkpoint
+    from kfac_tpu_torch.ops import factors, newton_schulz
+    from kfac_tpu_torch.resilience import CheckpointManager
+    from kfac_tpu_torch.training import TrainState
+
+    wrappers = main_path_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    cuda = torch.device('cuda')
+    out: dict = dict(phase='resume', config=FLAGSHIP, kfac='default (EIGEN)', cadence=[10, 100])
+
+    # 1. the uninterrupted run is main_path's
+    if len(u_losses) != STEPS or set(snaps) != {RESUME_INTERVAL, RESUME_STEP}:
+        raise RuntimeError('resume needs main_path\'s losses and snapshots')
+    snap10, snap15 = snaps[RESUME_INTERVAL], snaps[RESUME_STEP]
+
+    # 2. interrupted by a real SIGTERM
+    mgr = CheckpointManager(
+        root, save_interval_steps=RESUME_INTERVAL, keep=2, async_save=True,
+        install_signals=('SIGTERM', 'SIGUSR1'),
+    )
+    emergency_s = []
+    timed_method(mgr, 'save_emergency', emergency_s)
+    try:
+        run = LMRun(FLAGSHIP, cuda, 10, 100, checkpoints=mgr)
+        steps, preempted = interrupted_steps(run, mgr)
+    finally:
+        mgr.close()
+    del run
+    saved_step = RESUME_STEP
+    quiet = [s for s in steps if not s['saved'] and s['step'] % 100]
+    out['interrupted'] = dict(
+        steps=steps, preempted=preempted is not None and dict(
+            signal=preempted.signal_name, step=preempted.step,
+            path=os.path.relpath(preempted.path, root),
+        ),
+        latest=mgr.latest_step(), rotation=mgr.rotation_steps(),
+        syncs_max_quiet_steps=max(s['syncs'] for s in quiet),
+        refresh_step_syncs=steps[0]['syncs'],
+        loss_rel_err_vs_uninterrupted=rel_errs(
+            [s['loss'] for s in steps[:-1]], u_losses[:len(steps) - 1]
+        ),
+        emergency_save_ms=[s * 1e3 for s in emergency_s],
+    )
+    it = out['interrupted']
+    interrupted_ok = (
+        preempted is not None and preempted.signal_name == 'SIGTERM'
+        and preempted.step == saved_step and it['latest'] == saved_step
+        and it['rotation'] == [saved_step, RESUME_INTERVAL]
+        and checkpoint.is_committed(mgr.checkpoint_path(saved_step))
+        and [s['step'] for s in steps if s['saved']] == [RESUME_INTERVAL - 1, saved_step - 1]
+        and it['syncs_max_quiet_steps'] == 0
+        and it['loss_rel_err_vs_uninterrupted'] <= 1e-6
+    )
+    nbytes = {
+        s: os.path.getsize(os.path.join(mgr.checkpoint_path(s), checkpoint.PAYLOAD))
+        for s in (RESUME_INTERVAL, saved_step)
+    }
+
+    # 3. exact continuity from the step-10 checkpoint
+    run = LMRun(FLAGSHIP, cuda, 10, 100)
+    remat_s = []
+    timed_method(run.kfac, 'rematerialize', remat_s)
+    (kstate, extra), restore_s = synced(
+        lambda: checkpoint.restore(mgr.checkpoint_path(RESUME_INTERVAL), run.kfac)
+    )
+    _, load_s = synced(lambda: (
+        run.trainer.model.load_state_dict(extra['model']),
+        run.trainer.optimizer.load_state_dict(extra['optimizer']),
+    ))
+    run.state = TrainState(kstate)
+    run.trainer.resume(run.state)
+    bitwise = bitwise_as(run, snap10)
+    c_losses = [run.step()[0] for _ in range(STEPS - RESUME_INTERVAL)]
+    out['continuity'] = dict(
+        restored_step=kstate.step, bitwise=bitwise, losses=c_losses,
+        loss_rel_err=rel_errs(c_losses, u_losses[RESUME_INTERVAL:]), loss_tol=1e-6,
+        restore_ms=restore_s * 1e3, rematerialize_ms=remat_s[0] * 1e3,
+        read_ms=(restore_s - remat_s[0]) * 1e3, load_state_dicts_ms=load_s * 1e3,
+    )
+    continuity_ok = all(bitwise.values()) and out['continuity']['loss_rel_err'] <= 1e-6
+    del run, kstate, extra
+
+    # 4. restore_latest at the emergency step, against the in-memory oracle
+    run = LMRun(FLAGSHIP, cuda, 10, 100, checkpoints=CheckpointManager(root, install_signals=()))
+    remat_s = []
+    timed_method(run.kfac, 'rematerialize', remat_s)
+    run.state, latest_s = synced(run.trainer.restore_latest)
+    restored_bits = bitwise_as(run, snap15)
+    r_losses = [run.step()[0] for _ in range(RESUME_TAIL)]
+    del run
+    oracle = LMRun(FLAGSHIP, cuda, 10, 100)
+    oracle.trainer.model.load_state_dict(snap15['params'])
+    oracle.trainer.optimizer.load_state_dict(snap15['optimizer'])
+    oracle.state = TrainState(oracle.kfac.rematerialize(dataclasses.replace(
+        oracle.kfac.init(), step=snap15['step'],
+        a={n: v.to(cuda) for n, v in snap15['a'].items()},
+        g={n: v.to(cuda) for n, v in snap15['g'].items()},
+    )))
+    oracle.trainer.resume(oracle.state)
+    o_losses = [oracle.step()[0] for _ in range(RESUME_TAIL)]
+    out['restore_latest'] = dict(
+        restored_step=snap15['step'] if restored_bits['step'] else None,
+        bitwise_as_uninterrupted=restored_bits, losses=r_losses, oracle_losses=o_losses,
+        loss_rel_err=rel_errs(r_losses, o_losses), loss_tol=1e-6,
+        restore_latest_ms=latest_s * 1e3, rematerialize_ms=remat_s[0] * 1e3,
+    )
+    latest_ok = restored_bits['step'] and out['restore_latest']['loss_rel_err'] <= 1e-6
+
+    # 5. the same checkpoint into INVERSE + Newton-Schulz
+    ns_run = LMRun(
+        FLAGSHIP, cuda, 10, 100, checkpoints=CheckpointManager(root, install_signals=()),
+        **INVERSE_NS,
+    )
+    ns0, starts0 = newton_schulz.fused_ns_step.launches, dict(factors.newton_schulz_inverse_info.starts)
+    ns_run.state, ns_restore_s = synced(ns_run.trainer.restore_latest)
+    ns_launches = newton_schulz.fused_ns_step.launches - ns0
+    resid = inverse_residuals(ns_run)
+    ns_step = ns_run.kstate.step
+    ns_loss = ns_run.step()[0]
+    n_factors = 2 * KFAC_LAYERS
+    out['newton_schulz'] = dict(
+        kfac=INVERSE_NS, restored_step=ns_step,
+        fused_ns_step_launches=ns_launches, launch_range=[n_factors, 40 * n_factors],
+        starts={k: v - starts0[k] for k, v in factors.newton_schulz_inverse_info.starts.items()},
+        max_independent_residual=max(resid), residual_limit=factors.NS_FALLBACK_RESIDUAL,
+        restore_latest_ms=ns_restore_s * 1e3, next_loss=ns_loss,
+    )
+    ns_ok = (
+        ns_step == saved_step and n_factors <= ns_launches <= 40 * n_factors
+        and max(resid) <= factors.NS_FALLBACK_RESIDUAL and math.isfinite(ns_loss)
+    )
+
+    # 6. bytes, and a blocking and an async save of the oracle's state
+    extra = oracle.trainer.checkpoint_extras(oracle.state)
+
+    def tensor_bytes(tree):
+        return sum(t.numel() * t.element_size() for t in pytree.tree_leaves(tree)
+                   if isinstance(t, torch.Tensor))
+
+    # the snapshot alone: its copies enqueued (return), then done
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snap, ready = checkpoint.snapshot({'kfac': checkpoint.durable_state(oracle.kstate), **extra})
+    snapshot_return_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    snapshot_done_s = time.perf_counter() - t0
+    del snap, ready
+    # the handle is dropped at once, so the async save below finds the
+    # blocking save's pinned block free in PyTorch's host cache
+    _, blocking_s = synced(lambda: checkpoint.save(
+        os.path.join(root, 'blocking'), oracle.kstate, extra=extra, engine=oracle.kfac,
+    ).wait_until_finished())
+    handle, return_s = synced(lambda: checkpoint.save(
+        os.path.join(root, 'async'), oracle.kstate, extra=extra, engine=oracle.kfac, wait=False,
+    ))
+    _, wait_s = synced(handle.wait_until_finished)
+    out['save'] = dict(
+        bytes_on_disk=nbytes,
+        bytes_factors=tensor_bytes([oracle.kstate.a, oracle.kstate.g]),
+        bytes_params=tensor_bytes(extra['model']),
+        bytes_momentum=tensor_bytes(extra['optimizer']),
+        snapshot_return_ms=snapshot_return_s * 1e3, snapshot_done_ms=snapshot_done_s * 1e3,
+        blocking_save_ms=blocking_s * 1e3, async_return_ms=return_s * 1e3,
+        async_wait_ms=wait_s * 1e3,
+    )
+    del oracle, ns_run, extra
+    launches.update({n: w.launches for n, w in wrappers.items()})
+    expected = resume_expected_launches()
+    counts_ok = {n: launches[n] for n in expected} == expected and launches['fused_ns_step'] == ns_launches
+    out.update(
+        launches=launches, expected_launches=dict(expected, fused_ns_step=[n_factors, 40 * n_factors]),
+        passed=bool(interrupted_ok and continuity_ok and latest_ok and ns_ok and counts_ok),
+    )
+    emit(out)
+    return out['passed']
+
+
+# half the bench's own window, to keep the script within its time
+BENCH_WINDOW = dict(warmup=5, iters=50, scan_steps=50)
 # the probe's warm call and its 9 timed calls, before its profiled passes
 PROBE_TIMED_CALLS = 10
 PROBE_FAMILIES = ('cov_ema', 'ns', 'klclip')
@@ -1321,7 +1666,7 @@ def run_bench_lm(launches) -> bool:
     for config in ('tiny', 'flagship'):
         for w in wrappers.values():
             w.launches = 0
-        record = bench_lm.run_lm_stage(config, 'cuda')
+        record = bench_lm.run_lm_stage(config, 'cuda', **BENCH_WINDOW)
         counts = launches[f'bench_lm_{config}']
         counts.update({n: w.launches for n, w in wrappers.items()})
         probe = record['fused_kernel_probe']
@@ -1422,6 +1767,7 @@ def kernel_resources(log: str) -> dict[str, str]:
 
 
 def main() -> int:
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device is visible', file=sys.stderr)
         return 1
@@ -1446,15 +1792,18 @@ def main() -> int:
     results: list[dict] = []
     launches: dict[str, dict[str, int]] = {
         path: {} for path in (
-            'main_path', 'main_path_ns', 'digits_mlp', 'observed', 'bench_lm_tiny',
-            'bench_lm_flagship',
+            'main_path', 'main_path_ns', 'digits_mlp', 'observed', 'resume',
+            'bench_lm_tiny', 'bench_lm_flagship',
         )
     }
     eigen_summary: dict = {}
     main_losses: list[float] = []
+    main_snaps: dict = {}
+    seconds: dict[str, float] = {}
 
     def phase(name, fn, *args):
         nonlocal ok
+        t0 = time.perf_counter()
         try:
             passed = fn(*args)
         except Exception:  # report the phase's failure and go on to the next
@@ -1462,6 +1811,7 @@ def main() -> int:
             emit(dict(phase=name, passed=False, error=traceback.format_exc(limit=3)))
             passed = False
         ok &= bool(passed)
+        seconds[name] = time.perf_counter() - t0
 
     def do_build():
         t0 = time.perf_counter()
@@ -1473,11 +1823,13 @@ def main() -> int:
     phase('build', do_build)
     phase('kernel', run_kernels, results)
     phase('reference', run_reference)
-    phase('main_path', run_main_path, launches['main_path'], eigen_summary, main_losses)
+    phase('main_path', run_main_path, launches['main_path'], eigen_summary, main_losses, main_snaps)
     phase('main_path_ns', run_main_path_ns, launches['main_path_ns'], eigen_summary)
     phase('digits_mlp', run_digits, launches['digits_mlp'])
     phase('observed', run_observed, launches['observed'], main_losses)
+    phase('resume', run_resume, launches['resume'], main_losses, main_snaps)
     phase('bench_lm', run_bench_lm, launches)
+    emit(dict(phase='timing', seconds=seconds, total_seconds=time.perf_counter() - start))
     print(smi, flush=True)
     emit(kernels_line(results, launches))
     if not ok:

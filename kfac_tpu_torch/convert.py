@@ -94,3 +94,24 @@ def from_jax_kfac_state(jax_state: Any, kfac: KFACPreconditioner) -> KFACState:
             scalars=_tensor(jm.scalars, torch.float32, dev),
         )
     return dataclasses.replace(state, **updates)
+
+
+def from_jax_durable(arrays: Mapping[str, Any], kfac: KFACPreconditioner) -> KFACState:
+    """A rematerialized port :class:`KFACState` from the JAX package's
+    durable dict (``kfac_tpu.checkpoint.durable_state``) as numpy arrays:
+    ``{'step', 'a': {layer: A}, 'g': {layer: G}}`` and, when its sentinel
+    was on, ``'health'`` (a dict per counter keyed by layer). The factors
+    go through :meth:`KFACPreconditioner.insert_factors` and
+    :meth:`~KFACPreconditioner.rematerialize`, as a restore does, so a JAX
+    run continues in the port; the JAX health counters are kept where the
+    engine has a sentinel."""
+    from kfac_tpu_torch import checkpoint
+
+    loaded = {
+        'step': int(np.asarray(arrays['step'])),
+        'a': {n: np.array(v, np.float32) for n, v in arrays['a'].items()},
+        'g': {n: np.array(v, np.float32) for n, v in arrays['g'].items()},
+    }
+    if arrays.get('health') is not None:
+        loaded['health'] = arrays['health']
+    return checkpoint.from_durable(kfac, loaded, 'the JAX durable state')

@@ -300,9 +300,12 @@ class PostmortemWriter:
     A bundle holds ``history.npz`` and ``history.jsonl`` (the ring),
     ``factors.json`` (per-layer Gershgorin bounds, norms, staleness),
     ``health.json``, ``describe.txt``, ``config.json``,
-    ``fingerprint.json`` and ``MANIFEST.json`` (whose
-    ``emergency_checkpoint`` stays None until the port has checkpoints).
-    Only process 0 writes unless ``all_processes``.
+    ``fingerprint.json`` and ``MANIFEST.json``. With a
+    ``checkpoint_manager`` (a :class:`kfac_tpu_torch.resilience.
+    CheckpointManager`), a degrade event first flushes one emergency
+    checkpoint of the observed state, and ``MANIFEST.json`` records its
+    path as ``emergency_checkpoint`` (else None). Only process 0 writes
+    unless ``all_processes``.
     """
 
     def __init__(
@@ -313,6 +316,7 @@ class PostmortemWriter:
         max_bundles: int = 16,
         all_processes: bool = False,
         run_id: str | None = None,
+        checkpoint_manager: Any = None,
     ) -> None:
         self.root = os.fspath(root)
         os.makedirs(self.root, exist_ok=True)
@@ -321,6 +325,7 @@ class PostmortemWriter:
         self.max_bundles = int(max_bundles)
         self.all_processes = bool(all_processes)
         self.run_id = run_id
+        self.checkpoint_manager = checkpoint_manager
         self.bundles: list[str] = []
         self._seen_skipped = 0
         self._seen_events = 0
@@ -404,12 +409,18 @@ class PostmortemWriter:
                 self._last_nonfinite_step = step
         if not reasons:
             return None
+        emergency_ckpt = None
+        if 'degrade' in reasons and self.checkpoint_manager is not None:
+            # every process enters the blocking save, once per degrade event
+            # (the trigger above dedupes against _seen_degraded)
+            emergency_ckpt = self.checkpoint_manager.save_emergency(state, reason='degrade')
         if not self.all_processes and multihost.process_index() != 0:
             return None
         if len(self.bundles) >= self.max_bundles:
             return None
         return self.write_bundle(
             kstate, '-'.join(reasons), record=record, history=history, step=step,
+            emergency_checkpoint=emergency_ckpt,
         )
 
     # ---------------------------------------------------------- the bundle
@@ -421,6 +432,7 @@ class PostmortemWriter:
         record: dict[str, Any] | None = None,
         history: list[dict[str, Any]] | None = None,
         step: int | None = None,
+        emergency_checkpoint: str | None = None,
     ) -> str:
         """Write one bundle directory now; returns its path."""
         kstate = getattr(state, 'kfac_state', state)
@@ -478,7 +490,7 @@ class PostmortemWriter:
             'process_index': multihost.process_index(),
             'record': record,
             'files': sorted(files),
-            'emergency_checkpoint': None,
+            'emergency_checkpoint': emergency_checkpoint,
         })
         self.bundles.append(bdir)
         return bdir

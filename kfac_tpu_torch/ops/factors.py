@@ -48,10 +48,19 @@ def compute_eigh(factor: torch.Tensor) -> EigenDecomp:
 def compute_inverse(
     factor: torch.Tensor, damping: float | torch.Tensor
 ) -> torch.Tensor:
-    """Tikhonov-damped explicit inverse in f32, via Cholesky."""
+    """Tikhonov-damped explicit inverse in f32, via Cholesky.
+
+    A damped factor that is not positive definite gives an all-NaN inverse,
+    as the JAX function's ``cho_factor`` does, chosen on the device from
+    ``cholesky_ex``'s ``info`` (no host read), so the health sentinel can
+    roll it back."""
     f = factor.float()
     eye = torch.eye(f.shape[0], dtype=f.dtype, device=f.device)
-    return torch.cholesky_inverse(torch.linalg.cholesky(f + damping * eye))
+    chol, info = torch.linalg.cholesky_ex(f + damping * eye)
+    ok = info == 0
+    # a failed factorization's partial L is swapped for I before the solve
+    inv = torch.cholesky_inverse(torch.where(ok, chol, eye))
+    return torch.where(ok, inv, torch.full_like(inv, float('nan')))
 
 
 def stacked_by_shape(mats: list[torch.Tensor]):

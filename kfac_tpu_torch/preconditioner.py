@@ -558,6 +558,42 @@ class KFACPreconditioner:
         """Each layer's factors, ``{name: {'a': A, 'g': G}}``."""
         return {n: {'a': state.a[n], 'g': state.g[n]} for n in state.a}
 
+    def insert_factors(
+        self, state: KFACState, factors: dict[str, dict[str, Any]]
+    ) -> KFACState:
+        """Inverse of :meth:`extract_factors`: each registered layer named in
+        ``factors`` takes its ``'a'`` and ``'g'`` (tensors or arrays) as f32
+        on ``device``; others keep theirs. Call :meth:`rematerialize`
+        afterwards."""
+        new_a, new_g = dict(state.a), dict(state.g)
+        for name, fg in factors.items():
+            if name in new_a:
+                new_a[name] = torch.as_tensor(fg['a']).to(self.device, torch.float32)
+                new_g[name] = torch.as_tensor(fg['g']).to(self.device, torch.float32)
+        return dataclasses.replace(state, a=new_a, g=new_g)
+
+    def rematerialize(self, state: KFACState) -> KFACState:
+        """Recompute the decompositions from the current factors, as after
+        a checkpoint load: :meth:`update_inverses`, with health and metrics
+        as a refresh ticks them. A restored state starts from
+        :meth:`init`'s all-zeros decompositions, so Newton-Schulz starts
+        cold there (no ``x0`` survives a restart); on a live state it
+        warm-starts, and a non-finite result rolls back under health, as
+        in the JAX engine."""
+        return self.update_inverses(state)
+
+    def topology(self) -> dict[str, Any]:
+        """Process and device counts, recorded (for information only) in
+        checkpoint layout manifests, as the JAX engine's."""
+        from kfac_tpu_torch.parallel import multihost
+
+        cuda = self.device.type == 'cuda'
+        return {
+            'process_count': multihost.process_count(),
+            'device_count': torch.cuda.device_count() if cuda else 1,
+            'backend': self.device.type,
+        }
+
     def describe(self) -> str:
         """The registration and the options, one line each."""
         lines = [

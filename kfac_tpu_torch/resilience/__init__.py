@@ -1,0 +1,19 @@
+"""Preemption-safe training: the checkpoint autopilot and signal handling
+(counterpart of ``kfac_tpu/resilience``, its dense part).
+
+``CheckpointManager`` owns a keep-N rotation of step-numbered checkpoint
+directories with an atomically replaced ``LATEST`` pointer, drives
+periodic async saves from the Trainer's step paths, flushes an emergency
+blocking save when a preemption signal arrives, and restores the newest
+good checkpoint with last-good fallback. The fleet controller and the
+chaos harness come in later slices.
+"""
+
+from kfac_tpu_torch.resilience import signals
+from kfac_tpu_torch.resilience.manager import (
+    CheckpointManager,
+    Preempted,
+    RestoreResult,
+)
+
+__all__ = ['CheckpointManager', 'Preempted', 'RestoreResult', 'signals']

@@ -10,10 +10,11 @@ branches and no step reads a device value on the host, with two
 exceptions, both the health sentinel's: ``skip_nonfinite`` reads the
 finiteness of the loss and grads once a step (where the JAX package gates
 the update with ``lax.cond`` on the device), and ``warn`` reads the health
-counters after each eager step, as the JAX Trainer does.
+counters after each eager step, as the JAX Trainer does. A checkpoint
+manager (``checkpoints``) adds none on a step that does not save.
 
-Knobs of the JAX Trainer whose slice comes later (``checkpoints``,
-``auto_layout``, ``fleet``) raise ``NotImplementedError``.
+Knobs of the JAX Trainer whose slice comes later (``auto_layout``,
+``fleet``) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from typing import Any, Callable
 
 import torch
 import torch.nn as nn
+from torch.utils import _pytree as pytree
 
 from kfac_tpu_torch import health as health_lib
 from kfac_tpu_torch import tracing
@@ -42,7 +44,7 @@ class TrainState:
     model_state: Any = None
 
 
-_LATER_SLICE_KNOBS = ('checkpoints', 'auto_layout', 'fleet')
+_LATER_SLICE_KNOBS = ('auto_layout', 'fleet')
 
 
 def _index(tree: Any, i: int) -> Any:
@@ -79,6 +81,14 @@ class Trainer:
             ``step``), or None for a first-order baseline. Its registry's
             model must be ``model``; its ``factor_update_steps`` sets the
             capture cadence.
+        checkpoints: a :class:`kfac_tpu_torch.resilience.CheckpointManager`.
+            Every step entry (:meth:`step`, :meth:`scan_steps`,
+            :meth:`apply_accumulated`, :meth:`step_accumulate` and
+            :meth:`step_accumulate_scan`) calls its ``on_step`` once after
+            its update, so periodic async saves and signal-driven emergency
+            saves ride the loop; :meth:`restore_latest` resumes from its
+            rotation. Its saves hold :meth:`checkpoint_extras` beside the
+            K-FAC state, and a manager without an engine gets ``kfac``.
         run_id: identifier stamped into :meth:`run_header`; generated when
             None.
         device: where the model lies, ``'cuda'`` unless the caller passes
@@ -117,11 +127,23 @@ class Trainer:
         )
         self._run_plain = capture_lib.value_and_grad(self.model, self.loss_fn, has_aux=True)
         if self.kfac is not None:
-            if self.kfac.registry.model is not self.model:
-                raise ValueError('the registry was built over another model than the trainer\'s')
-            self._run_stats = capture_lib.CurvatureCapture(self.kfac.registry).value_stats_and_grad(
-                self.loss_fn, has_aux=True
-            )
+            self._bind_capture()
+        if self.checkpoints is not None:
+            if self.kfac is None:
+                raise ValueError(
+                    'Trainer(checkpoints=...) requires a kfac preconditioner: '
+                    'the CheckpointManager persists the K-FAC durable state'
+                )
+            self.checkpoints.extras_of = self.checkpoint_extras
+            if self.checkpoints.engine is None:
+                self.checkpoints.engine = self.kfac
+
+    def _bind_capture(self) -> None:
+        if self.kfac.registry.model is not self.model:
+            raise ValueError('the registry was built over another model than the trainer\'s')
+        self._run_stats = capture_lib.CurvatureCapture(self.kfac.registry).value_stats_and_grad(
+            self.loss_fn, has_aux=True
+        )
 
     # ------------------------------------------------------------- builders
 
@@ -183,6 +205,62 @@ class Trainer:
         if self._step_count is None:
             self.resume(state)
 
+    def rebind_engine(self, engine: Any) -> None:
+        """Swap in a rebuilt preconditioner over the same model: the capture
+        is rebuilt from its registry, the step mirror resyncs from the next
+        state, and the checkpoint manager saves and restores with it."""
+        self.kfac = engine
+        self._kfac_takes_loss = 'loss' in inspect.signature(engine.step).parameters
+        self._bind_capture()
+        self._step_count = None
+        if self.checkpoints is not None:
+            self.checkpoints.engine = engine
+
+    # ---------------------------------------------------------- checkpoints
+
+    def checkpoint_extras(self, state: TrainState) -> dict[str, Any]:
+        """What a checkpoint holds beside the K-FAC state: the module's and
+        the optimizer's ``state_dict()`` (aliases of the live tensors; the
+        save snapshots them) and the ``model_state`` when there is one."""
+        extra = {'model': self.model.state_dict(), 'optimizer': self.optimizer.state_dict()}
+        if state.model_state is not None:
+            extra['model_state'] = state.model_state
+        return extra
+
+    def _drive_checkpoints(self, state: TrainState) -> None:
+        """Tick the checkpoint autopilot after a completed step (host work
+        only unless it saves). A ``Preempted`` raised here leaves the step
+        call with the emergency checkpoint already durable."""
+        if self.checkpoints is not None:
+            self.checkpoints.on_step(state, step=self._step_count)
+
+    def restore_latest(self, model_state: Any = None) -> TrainState | None:
+        """Resume from the ``checkpoints`` manager's newest good checkpoint:
+        the module's parameters and buffers and the optimizer's state are
+        loaded in place, and the returned ``TrainState`` carries the
+        rematerialized K-FAC state and the saved ``model_state`` (else
+        ``model_state``), with the cadence dispatch aligned to the restored
+        step. Returns None when the rotation holds nothing restorable (a
+        fresh start: call :meth:`init`)."""
+        if self.checkpoints is None:
+            raise ValueError(
+                'Trainer has no checkpoints manager: construct with '
+                'checkpoints=CheckpointManager(...)'
+            )
+        result = self.checkpoints.restore_latest(
+            engine=self.kfac, extra_template={'model': None, 'optimizer': None}
+        )
+        if result is None:
+            return None
+        self.model.load_state_dict(result.extra['model'])
+        self.optimizer.load_state_dict(result.extra['optimizer'])
+        saved_ms = result.extra.get('model_state', model_state)
+        state = TrainState(result.state, pytree.tree_map_only(
+            torch.Tensor, lambda t: t.to(self.device), saved_ms))
+        self._accum = None
+        self.resume(state)
+        return state
+
     def check_health(self, state: TrainState) -> dict[str, Any]:
         """Host snapshot of the health counters (``health.summary``), with
         the first-occurrence warnings of quarantined and degraded layers;
@@ -229,6 +307,7 @@ class Trainer:
         """
         new_state, loss = self._step(state, batch)
         self._maybe_warn(new_state)
+        self._drive_checkpoints(new_state)
         return new_state, loss
 
     @tracing.trace(name='trainer/scan_steps')
@@ -245,6 +324,7 @@ class Trainer:
         for i in range(_leading(batches)):
             state, loss = self._step(state, _index(batches, i))
             losses.append(loss)
+        self._drive_checkpoints(state)
         return state, torch.stack(losses)
 
     # --------------------------------------------------------- accumulation
@@ -296,6 +376,7 @@ class Trainer:
         self._accum = None
         self._step_count += 1
         self._maybe_warn(new_state)
+        self._drive_checkpoints(new_state)
         return new_state, loss
 
     def _step_accumulate(self, state: TrainState, microbatches) -> tuple[TrainState, torch.Tensor]:

@@ -1,7 +1,8 @@
 """Package rules of the PyTorch port.
 
 - ``kfac_tpu_torch`` and ``chip_smoke.py`` import neither JAX (``jax``,
-  ``flax``, ``optax``) nor anything of ``kfac_tpu``, checked on the ASTs.
+  ``flax``, ``optax``), nor orbax, nor anything of ``kfac_tpu``, checked on
+  the ASTs; the checkpoint and resilience modules among them.
 - Entry points default to CUDA: without a GPU they raise unless the caller
   passes ``device='cpu'``.
 - Nothing imports ``triton`` when a module is imported.
@@ -16,7 +17,7 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = {'jax', 'jaxlib', 'flax', 'optax', 'kfac_tpu'}
+FORBIDDEN = {'jax', 'jaxlib', 'flax', 'optax', 'orbax', 'kfac_tpu'}
 PORT_FILES = sorted((ROOT / 'kfac_tpu_torch').rglob('*.py')) + [ROOT / 'chip_smoke.py']
 
 
@@ -41,6 +42,16 @@ def imported_roots(path):
 @pytest.mark.parametrize('path', PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_file_imports_no_jax_and_no_kfac_tpu(path):
     assert path.exists()
+    assert not imported_roots(path) & FORBIDDEN
+
+
+@pytest.mark.parametrize('rel', [
+    'checkpoint.py', 'convert.py', 'resilience/__init__.py', 'resilience/signals.py',
+    'resilience/manager.py', 'resilience/worker.py', 'parallel/multihost.py',
+])
+def test_checkpoint_and_resilience_modules_are_covered(rel):
+    path = ROOT / 'kfac_tpu_torch' / rel
+    assert path in PORT_FILES
     assert not imported_roots(path) & FORBIDDEN
 
 

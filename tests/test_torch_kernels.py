@@ -338,3 +338,29 @@ def test_ns_kernel_each_tile_matches_plain_on_card(cuda_device, monkeypatch, d, 
     assert abs(float(got[2]) - float(want[2])) <= max(3e-5 * float(want[2]), 1e-6 * (d == 1))
     again = ns_lib.fused_ns_step(m, x, mx)  # no atomics: repeatable
     assert all(torch.equal(o, p) for o, p in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_async_checkpoint_snapshot_precedes_in_place_updates_on_card(cuda_device, tmp_path):
+    """``checkpoint.save(wait=False)`` enqueues its device-to-host copies on
+    the current stream: an in-place update enqueued right after the call
+    runs after them, so the files hold the values of the call."""
+    import os
+    from types import SimpleNamespace
+
+    from kfac_tpu_torch import checkpoint
+
+    g = torch.Generator(cuda_device).manual_seed(3)
+    x = torch.randn(4096, 4096, generator=g, device=cuda_device)  # 64 MiB
+    before = x.cpu()
+    state = SimpleNamespace(step=3, a={'l': x}, g={'l': x[:64, :64]}, health=None)
+    path = str(tmp_path / 'ck')
+    handle = checkpoint.save(path, state, extra={'w': x}, wait=False)
+    for _ in range(4):
+        x.mul_(2.0)
+    handle.wait_until_finished()
+    payload = torch.load(os.path.join(path, checkpoint.PAYLOAD), weights_only=True)
+    assert torch.equal(payload['w'], before)
+    assert torch.equal(payload['kfac']['a']['l'], before)
+    assert torch.equal(payload['kfac']['g']['l'], before[:64, :64])
+    assert payload['kfac']['step'] == 3

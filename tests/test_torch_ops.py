@@ -424,6 +424,73 @@ def test_compute_inverse_matches_jax():
           jfactors.damped_inverse(jnp.asarray(f), 0.01, solver='cholesky'), rtol=1e-4)
 
 
+# a damped factor that is not positive definite: eigenvalues 3 and -1
+NOT_PD = np.float32([[1.0, 2.0], [2.0, 1.0]])
+
+
+def test_compute_inverse_of_a_non_pd_factor_is_all_nan_as_in_jax():
+    want = np.asarray(jfactors.compute_inverse(jnp.asarray(NOT_PD), 0.003))
+    got = factors.compute_inverse(t(NOT_PD), 0.003)
+    assert np.isnan(want).all() and torch.isnan(got).all()
+    # a larger factor failing late in the factorization: all NaN as well
+    f = spd(34, 12)
+    f[-1, -1] = -5.0
+    want = np.asarray(jfactors.compute_inverse(jnp.asarray(f), 0.003))
+    got = factors.compute_inverse(t(f), 0.003)
+    assert np.isnan(want).all() and torch.isnan(got).all()
+    # a tensor damping (the health path's) takes the same path
+    assert torch.isnan(factors.compute_inverse(t(NOT_PD), torch.tensor(0.003))).all()
+    # the PD case is unchanged (rtol 1e-4, as test_compute_inverse_matches_jax)
+    f = spd(35, 12)
+    close(factors.compute_inverse(t(f), torch.tensor(0.003)),
+          jfactors.compute_inverse(jnp.asarray(f), 0.003), rtol=1e-4)
+
+
+def test_non_pd_factor_under_cholesky_rolls_back_with_jax_health_counters():
+    """INVERSE + Cholesky with the sentinel on: a layer whose damped factor is
+    not PD gets NaN inverses, rolled back to its previous ones, and its
+    ``bad_inv`` counts up, in both packages; the other layer refreshes."""
+    import kfac_tpu
+    from kfac_tpu import health as jhealth
+    from kfac_tpu.models import MLP as FlaxMLP
+    from kfac_tpu_torch import convert, health
+    from kfac_tpu_torch.layers import registry
+    from kfac_tpu_torch.models import MLP
+    from kfac_tpu_torch.preconditioner import KFACPreconditioner
+
+    opts = dict(damping=0.003, compute_method='inverse', inverse_solver='cholesky')
+    jk = kfac_tpu.KFACPreconditioner(
+        registry=kfac_tpu.register_model(FlaxMLP(features=(8,), num_classes=5), jnp.zeros((2, 6))),
+        health=jhealth.HealthConfig(warn=False), **opts,
+    )
+    tk = KFACPreconditioner(
+        registry.register_model(MLP(6, (8,), 5, device='cpu'), device='cpu'),
+        health=health.HealthConfig(warn=False), device='cpu', **opts,
+    )
+    js = jk.update_inverses(jk.init())  # a healthy refresh of the identities first
+    ts = convert.from_jax_kfac_state(js, tk)
+    bad = spd(36, 9)
+    bad[0, 0] = -4.0
+    good = spd(37, 8)
+    js = js._replace(a={**js.a, 'head': jnp.asarray(bad)}, g={**js.g, 'dense0': jnp.asarray(good)})
+    ts = tk.insert_factors(ts, {'head': {'a': t(bad), 'g': ts.g['head']},
+                                'dense0': {'a': ts.a['dense0'], 'g': t(good)}})
+    ts0 = ts
+    for _ in range(2):
+        js2, ts2 = jk.update_inverses(js), tk.update_inverses(ts)
+        for field in ('bad_inv', 'quarantined', 'quarantine_events', 'damping_mult'):
+            want = [np.asarray(getattr(js2.health, field)[n]) for n in ('dense0', 'head')]
+            np.testing.assert_array_equal(getattr(ts2.health, field).numpy(), want, err_msg=field)
+        for side in ('a_inv', 'g_inv'):
+            for n in ('dense0', 'head'):
+                close(getattr(ts2, side)[n], getattr(js2, side)[n], rtol=1e-4)
+        # the head's inverses are the previous ones
+        assert torch.equal(ts2.a_inv['head'], ts.a_inv['head'])
+        js, ts = js2, ts2
+    assert ts.health.bad_inv.tolist() == [0, 2]
+    assert not torch.equal(ts.g_inv['dense0'], ts0.g_inv['dense0'])  # refreshed
+
+
 # ------------------------------------------------------------ Newton-Schulz
 
 

@@ -241,7 +241,18 @@ def small_trainer(kfac_kw=None, engine=None, **kw):
 
 
 @pytest.mark.parametrize('knob', ['checkpoints', 'auto_layout', 'fleet'])
-def test_later_slice_knobs_raise(knob):
+def test_later_slice_knobs_raise(knob, tmp_path):
+    if knob == 'checkpoints':
+        # ported since: the trainer binds the manager instead of raising
+        from kfac_tpu_torch.resilience import CheckpointManager
+
+        mgr = CheckpointManager(tmp_path, install_signals=())
+        trainer = small_trainer(checkpoints=mgr)
+        assert mgr.engine is trainer.kfac
+        assert mgr.extras_of == trainer.checkpoint_extras
+        with pytest.raises(ValueError, match='requires a kfac'):
+            Trainer(trainer.model, trainer.optimizer, trainer.loss_fn, device='cpu', checkpoints=mgr)
+        return
     with pytest.raises(NotImplementedError, match=knob):
         small_trainer(**{knob: object()})
 
