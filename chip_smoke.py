@@ -51,7 +51,7 @@ Phases, one JSON line each:
    idle share). The run's losses and host copies of its state after
    steps 10 and 15 are the uninterrupted reference of ``resume``.
 6. ``main_path_ns``: the same flagship with INVERSE + Newton-Schulz for
-   110 steps, so the inverse refreshes at step 0 (cold start) and step 100
+   101 steps, so the inverse refreshes at step 0 (cold start) and step 100
    (warm start from the step-0 inverses), counts set to 0 just before and
    read just after; every factor's inverse is checked after each refresh
    by an independent residual. Then the step-100 refresh is repeated from
@@ -95,12 +95,32 @@ Phases, one JSON line each:
    disk and the times of a blocking and an async save, of the restore
    (read and rematerialize) and of the emergency save. Counts set to 0
    before, read after.
-10. ``bench_lm``: the bench's LM stage (``kfac_tpu_torch.bench_lm``) in
-   process for ``tiny`` and then ``flagship``, at half the bench's own
-   window (50 timed steps, 50 ``scan_steps``), counts set to 0 before each
+10. ``async_refresh``: the async inverse refresh, each run with the counts
+   set to 0 just before and read just after, held exactly. (a) The
+   flagship (EIGEN, cadence 10/10, so the sliced refresh is bit for bit the
+   synchronous one a window back) for 31 steps through ``Trainer.step``,
+   once synchronous and once ``async_inverse='sliced'``: the slice plan,
+   the step ms over steps 11-30 (median, max, max / median), the host
+   syncs of each kind of step, the peak memory, and the oracle: the
+   sliced run's decompositions after its swaps at steps 20 and 30 bit for
+   bit ``compute_eigh`` on the card of its factors after steps 10 and 20
+   (a stated tolerance instead only if cuSOLVER does not repeat itself on
+   one input). (b) The async spike probe's MLP (``bench_lm.probe_trainer``:
+   d 512, batch 256, window 8, a warm window and three more) under INVERSE
+   + Newton-Schulz, ``'sliced'``: every swapped inverse's independent
+   residual against the factors it came from <= 5e-2, ``fused_ns_step``
+   launches inside the range the refreshes give, host syncs by step. (c)
+   The same MLP under EIGEN, ``'host'``: each boundary's wait in the pump,
+   the step ms while the worker runs, and after each swap the
+   preconditioned grads within rtol 5e-3, atol 1e-4 of the synchronous
+   engine's refresh of the factors a window back.
+11. ``bench_lm``: the bench's LM stage (``kfac_tpu_torch.bench_lm``) in
+   process for ``tiny`` and then ``flagship``, at a quarter of the bench's
+   own window (25 timed steps, 25 ``scan_steps``), counts set to 0 before each
    and read after: every rate finite and positive, every fused-kernel
-   probe family timed without error, and every kernel launched exactly as
-   often as the configuration says (``sym_cov_ema`` by the probe).
+   probe family timed without error, the async spike probe's keys, and
+   every kernel launched exactly as often as the configuration says
+   (``sym_cov_ema`` by the fused-kernel probe).
 
 Then each phase's seconds and the script's (``timing``), the card's name
 and power limit as nvidia-smi prints them, the
@@ -133,7 +153,7 @@ TF32_FLOPS_PER_S = 495e12  # H100 SXM TF32 tensor cores, dense
 
 FLAGSHIP = dict(batch=16, seq=512, d_model=512, layers=6, heads=4, vocab=8192)
 STEPS = 20
-NS_STEPS = 110  # inverse refreshes at 0 (cold) and 100 (warm)
+NS_STEPS = 101  # inverse refreshes at 0 (cold) and 100 (warm)
 # NS kernel vs plain, relative, for x_new, mx_new and the residual: between
 # the f32 kernel's worst reading (6.2e-6) and the TF32 control's least
 # (5.9e-4 of max|x_new|) on an H100 (PERF.md, Findings)
@@ -185,7 +205,7 @@ def time_ms(fn) -> float:
         fn()
     torch.cuda.synchronize()
     est = (time.perf_counter() - t0) / 3
-    iters = max(5, min(200, int(0.2 / max(est, 1e-6))))
+    iters = max(5, min(200, int(0.1 / max(est, 1e-6))))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -1341,16 +1361,17 @@ def resume_expected_launches() -> dict:
     }
 
 
+def host_copy(tree):
+    return pytree.tree_map_only(torch.Tensor, lambda t: t.cpu(), tree)
+
+
 def run_snapshot(run) -> dict:
     """Host copies of a run's weights, optimizer state, factors and step
     (on the host, so the card's peak memory stays the run's own)."""
-    def host(tree):
-        return pytree.tree_map_only(torch.Tensor, lambda t: t.cpu(), tree)
-
     return dict(
-        params=host(run.trainer.model.state_dict()),
-        optimizer=host(run.trainer.optimizer.state_dict()),
-        a=host(run.kstate.a), g=host(run.kstate.g), step=run.kstate.step,
+        params=host_copy(run.trainer.model.state_dict()),
+        optimizer=host_copy(run.trainer.optimizer.state_dict()),
+        a=host_copy(run.kstate.a), g=host_copy(run.kstate.g), step=run.kstate.step,
     )
 
 
@@ -1628,11 +1649,305 @@ def resume_phase(root, launches, u_losses, snaps) -> bool:
     return out['passed']
 
 
-# half the bench's own window, to keep the script within its time
-BENCH_WINDOW = dict(warmup=5, iters=50, scan_steps=50)
+# ------------------------------------------------------------ async refresh
+
+
+ASYNC_EVERY = 10  # (a)'s factor and inverse cadence: the sliced refresh is then bitwise a window back
+ASYNC_STEPS = 31  # swaps at steps 10, 20 and 30
+ASYNC_ORACLE = ((20, 10), (30, 20))  # (swap step, step whose factors it decomposed)
+PROBE_WINDOW = 8  # (b) and (c): the async spike probe's window
+PROBE_STEPS = PROBE_WINDOW * 4 + 1  # a warm window and three more, to the fourth swap
+PROBE_LAYERS = 4  # the probe MLP's K-FAC layers: three hidden and the head
+# (c): the JAX package's tolerance of the host mode against the lagged sync
+HOST_RTOL, HOST_ATOL = 5e-3, 1e-4
+
+
+class ProbeRun:
+    """``bench_lm.probe_trainer``'s loop in the shape ``counted_step``
+    drives (``trainer``, ``state``, ``batch``)."""
+
+    def __init__(self, device, **kfac_kw):
+        from kfac_tpu_torch import bench_lm
+
+        self.trainer, self.batch = bench_lm.probe_trainer(device, window=PROBE_WINDOW, **kfac_kw)
+        self.kfac = self.trainer.kfac
+        self.state = self.trainer.init()
+
+    @property
+    def kstate(self):
+        return self.state.kfac_state
+
+
+def slice_plan(kfac) -> list[dict]:
+    """Units per slice and their n^3 load."""
+    from kfac_tpu_torch.async_inverse import sliced
+
+    cost = dict(sliced.dense_units(kfac))
+    return [dict(units=len(s), n3_load=sum(cost[u] for u in s)) for s in kfac._async_slices]
+
+
+def syncs_by_kind(syncs, every) -> dict:
+    """Host syncs of step 0, of the window boundaries after it and of the
+    other steps: each kind's count of steps, max and median."""
+    kinds = {'step_0': [syncs[0]], 'boundary': [], 'other': []}
+    for i, n in enumerate(syncs[1:], start=1):
+        kinds['boundary' if i % every == 0 else 'other'].append(n)
+    return {k: dict(steps=len(v), syncs_max=max(v), syncs_median=statistics.median(v))
+            for k, v in kinds.items() if v}
+
+
+def count_into(launches, wrappers) -> dict:
+    """This run's counts, added into the phase's ``launches``."""
+    counts = {n: w.launches for n, w in wrappers.items()}
+    for n, c in counts.items():
+        launches[n] = launches.get(n, 0) + c
+    return counts
+
+
+def async_flagship_run(mode, launches, device) -> tuple[dict, dict, dict]:
+    """(a): the flagship at cadence 10/10 through ``Trainer.step``, counts
+    set to 0 just before and read just after; host copies, taken off the
+    clock, of the sliced run's factors after steps 10 and 20 and its
+    decompositions after 20 and 30, or of the sync run's decompositions
+    after 10."""
+    wrappers = main_path_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    if device.type == 'cuda':
+        torch.cuda.reset_peak_memory_stats()
+    run = LMRun(FLAGSHIP, device, ASYNC_EVERY, ASYNC_EVERY, async_inverse=mode)
+    losses, seconds, syncs, factors_at, decomps_at = [], [], [], {}, {}
+    for i in range(ASYNC_STEPS):
+        loss, sec, n = counted_step(run)
+        losses.append(loss)
+        seconds.append(sec)
+        syncs.append(n)
+        if mode == 'sliced' and i in (10, 20):
+            factors_at[i] = host_copy({'a': run.kstate.a, 'g': run.kstate.g})
+        if i in ((20, 30) if mode == 'sliced' else (10,)):
+            decomps_at[i] = host_copy({f: getattr(run.kstate, f) for f in ('qa', 'qg', 'da', 'dg')})
+    counts = count_into(launches, wrappers)
+    expected = dict(expected_launches(ASYNC_STEPS, len(range(0, ASYNC_STEPS, ASYNC_EVERY))),
+                    fused_ns_step=0)
+    window_ms = [s * 1e3 for s in seconds[11:]]
+    median = statistics.median(window_ms)
+    out = dict(
+        mode=mode or 'sync', losses=losses,
+        finite=all(math.isfinite(x) for x in losses), loss_falls=losses[-1] < losses[0],
+        step_ms=[s * 1e3 for s in seconds],
+        steps_11_30=dict(ms_median=median, ms_max=max(window_ms), refresh_spike_ratio=max(window_ms) / median),
+        syncs=syncs_by_kind(syncs, ASYNC_EVERY),
+        peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30 if device.type == 'cuda' else None,
+        launches=counts, expected_launches=expected,
+    )
+    if mode == 'sliced':
+        out['slice_plan'] = slice_plan(run.kfac)
+    out['passed'] = out['finite'] and out['loss_falls'] and counts == expected
+    return out, factors_at, decomps_at
+
+
+def eigh_oracle(factors_at, decomps_at, device) -> dict:
+    """The sliced run's active decompositions after the swaps at steps 20
+    and 30 against ``compute_eigh`` on the card of its factors after steps
+    10 and 20; where they differ, ``compute_eigh`` again (whether cuSOLVER
+    repeats itself on one input)."""
+    from kfac_tpu_torch.ops import factors
+
+    bitwise, repeatable, worst = True, True, dict(d_rel=0.0, recon_rel=0.0)
+    differing = []
+    for swap, src in ASYNC_ORACLE:
+        for side, qf, df in (('a', 'qa', 'da'), ('g', 'qg', 'dg')):
+            for n, f_host in factors_at[src][side].items():
+                f = f_host.to(device)
+                one = factors.compute_eigh(f)
+                q, d = decomps_at[swap][qf][n], decomps_at[swap][df][n]
+                same = torch.equal(one.q.cpu(), q) and torch.equal(one.d.cpu(), d)
+                bitwise &= same
+                if not same:
+                    differing.append(f'{swap}:{side}:{n}')
+                    two = factors.compute_eigh(f)
+                    repeatable &= torch.equal(one.q, two.q) and torch.equal(one.d, two.d)
+                qc, dc = q.to(device), d.to(device)
+                worst['d_rel'] = max(worst['d_rel'], float((dc - one.d).abs().max() / one.d.abs().max()))
+                recon = qc @ torch.diag(dc) @ qc.T
+                worst['recon_rel'] = max(worst['recon_rel'], float((recon - f).abs().max() / f.abs().max()))
+    return dict(bitwise=bitwise, cusolver_repeatable=repeatable if differing else 'not tested',
+                differing=differing[:8],
+                tolerance='eigenvalues within 1e-5 of max|d|, Q diag(d) Q^T within 1e-4 of max|F|, '
+                          'held only where cuSOLVER does not repeat itself', **worst)
+
+
+def async_probe_ns(launches, device) -> dict:
+    """(b): the probe MLP, INVERSE + Newton-Schulz, ``'sliced'``: every
+    swapped inverse's independent residual against the factors it was
+    computed from, ``fused_ns_step`` launches and host syncs by step."""
+    from kfac_tpu_torch.ops import factors
+
+    wrappers = main_path_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    run = ProbeRun(device, async_inverse='sliced', **INVERSE_NS)
+    damping = run.kfac.damping
+    losses, seconds, syncs, residuals, boundary = [], [], [], {}, {}
+    for i in range(PROBE_STEPS):
+        loss, sec, n = counted_step(run)
+        losses.append(loss)
+        seconds.append(sec)
+        syncs.append(n)
+        if i % PROBE_WINDOW == 0:
+            boundary[i] = run.kstate
+            if i:  # the swap's inverses came from the factors a window back
+                prev, st = boundary[i - PROBE_WINDOW], run.kstate
+                resid = []
+                for n in run.kfac.registry.layers:
+                    for f, x in ((prev.a[n], st.a_inv[n]), (prev.g[n], st.g_inv[n])):
+                        eye = torch.eye(f.shape[0], device=f.device)
+                        r = torch.linalg.norm(eye - (f + damping * eye) @ x) / math.sqrt(f.shape[0])
+                        resid.append(float(r))
+                residuals[i] = max(resid)
+    counts = count_into(launches, wrappers)
+    # one unit a slice-step, and the cold start's every factor
+    refreshes = 2 * PROBE_LAYERS + sum(
+        len(run.kfac._async_slices[i % PROBE_WINDOW]) for i in range(PROBE_STEPS)
+        if i % PROBE_WINDOW < run.kfac._async_n_slices
+    )
+    # at least one iteration a refresh; at most the cap twice (a warm start
+    # that restarts cold)
+    ns_range = [refreshes, 2 * 40 * refreshes]
+    expected = dict(expected_launches(PROBE_STEPS, len(range(0, PROBE_STEPS, PROBE_WINDOW))),
+                    flash_attention_partials=0)
+    expected.update(sym_cov=2 * PROBE_LAYERS * len(range(0, PROBE_STEPS, PROBE_WINDOW)))
+    window_ms = [s * 1e3 for s in seconds[PROBE_WINDOW + 1:]]
+    out = dict(
+        config='probe MLP d512 b256, INVERSE + Newton-Schulz, sliced, window 8', steps=PROBE_STEPS,
+        losses=losses, slice_plan=slice_plan(run.kfac),
+        max_independent_residual_by_swap=residuals, residual_limit=factors.NS_FALLBACK_RESIDUAL,
+        fused_ns_step_launches=counts['fused_ns_step'], fused_ns_step_range=ns_range,
+        syncs=syncs_by_kind(syncs, PROBE_WINDOW),
+        step_ms_median=statistics.median(window_ms), step_ms_max=max(window_ms),
+        launches=counts, expected_launches=dict(expected, fused_ns_step=ns_range),
+    )
+    out['passed'] = (
+        all(math.isfinite(x) for x in losses) and len(residuals) == 4
+        and all(r <= factors.NS_FALLBACK_RESIDUAL for r in residuals.values())
+        and ns_range[0] <= counts['fused_ns_step'] <= ns_range[1]
+        and {n: counts[n] for n in expected} == expected
+    )
+    return out
+
+
+def async_probe_host(launches, device) -> dict:
+    """(c): the probe MLP, EIGEN, ``'host'``: each boundary's wait in the
+    pump, the step ms while the worker runs, and the preconditioned grads
+    after each swap against the synchronous engine's refresh of the factors
+    a window back."""
+    from kfac_tpu_torch import KFACPreconditioner
+
+    wrappers = main_path_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    run = ProbeRun(device, async_inverse='host')
+    kfac = run.kfac
+    engine_step, seen = kfac.step, {}
+
+    def recording(state, grads, stats, loss=None):
+        if state.step % PROBE_WINDOW == 0:
+            seen[state.step] = {n: g.clone() for n, g in grads.items()}
+        return engine_step(state, grads, stats, loss=loss)
+
+    kfac.step = recording
+    waits, seconds, syncs, at = [], [], [], {}
+    for i in range(PROBE_STEPS):
+        loss, sec, n = counted_step(run)
+        seconds.append(sec)
+        syncs.append(n)
+        if i == 0:  # the worker exists from the first launch on
+            worker, take = kfac._async_worker, kfac._async_worker.take
+
+            def timed_take(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return take(*args, **kwargs)
+                finally:
+                    waits.append((time.perf_counter() - t0) * 1e3)
+
+            worker.take = timed_take
+        if i % PROBE_WINDOW == 0:
+            at[i] = run.kstate
+    del kfac.step
+    counts = count_into(launches, wrappers)
+    sync_engine = KFACPreconditioner(
+        kfac.registry, damping=kfac.damping, lr=kfac.lr, factor_update_steps=PROBE_WINDOW,
+        inv_update_steps=PROBE_WINDOW, device=kfac.device,
+    )
+    worst = []
+    for b in range(PROBE_WINDOW, PROBE_STEPS, PROBE_WINDOW):
+        prev = at[b - PROBE_WINDOW]
+        ref = sync_engine.update_inverses(dataclasses.replace(at[b], a=prev.a, g=prev.g))
+        want = sync_engine.precondition(ref, seen[b])
+        got = kfac.precondition(at[b], seen[b])
+        # how far past rtol * |want| + atol, at worst (<= 0 passes)
+        worst.append(max(
+            float(((got[n] - w).abs() - HOST_RTOL * w.abs() - HOST_ATOL).max()) for n, w in want.items()
+        ))
+    expected = dict(expected_launches(PROBE_STEPS, len(range(0, PROBE_STEPS, PROBE_WINDOW))),
+                    flash_attention_partials=0, fused_ns_step=0)
+    expected.update(sym_cov=2 * PROBE_LAYERS * len(range(0, PROBE_STEPS, PROBE_WINDOW)))
+    steps_ms = [s * 1e3 for s in seconds]
+    other = [ms for i, ms in enumerate(steps_ms) if i % PROBE_WINDOW]
+    out = dict(
+        config='probe MLP d512 b256, EIGEN, host, window 8', steps=PROBE_STEPS,
+        boundary_wait_ms=waits, boundary_step_ms=steps_ms[PROBE_WINDOW::PROBE_WINDOW],
+        other_step_ms_median=statistics.median(other), other_step_ms_max=max(other),
+        syncs=syncs_by_kind(syncs, PROBE_WINDOW),
+        grads_excess_over_tolerance_by_swap=worst, rtol=HOST_RTOL, atol=HOST_ATOL,
+        launches=counts, expected_launches=expected,
+    )
+    out['passed'] = (
+        len(worst) == 4 and all(x <= 0 for x in worst) and len(waits) == 4 and counts == expected
+    )
+    return out
+
+
+def run_async_refresh(launches, device=torch.device('cuda')) -> bool:
+    """The async refresh (see the module's docstring, phase 10)."""
+    out: dict = dict(phase='async_refresh', config=FLAGSHIP, cadence=[ASYNC_EVERY, ASYNC_EVERY])
+    runs = {}
+    sync, _, sync_decomps = async_flagship_run(None, launches, device)
+    sliced, factors_at, decomps_at = async_flagship_run('sliced', launches, device)
+    oracle = eigh_oracle(factors_at, decomps_at, device)
+    # steps 0-9 run alike in both, so the sync refresh at step 10 is the
+    # sliced swap at step 20 as well
+    oracle['sync_step_10_is_sliced_step_20'] = all(
+        torch.equal(sync_decomps[10][f][n], decomps_at[20][f][n])
+        for f in decomps_at[20] for n in decomps_at[20][f]
+    )
+    del factors_at, decomps_at, sync_decomps
+    runs['sync'], runs['sliced'] = sync, sliced
+    oracle['passed'] = oracle['bitwise'] or (
+        not oracle['cusolver_repeatable'] and oracle['d_rel'] <= 1e-5 and oracle['recon_rel'] <= 1e-4
+    )
+    out.update(flagship=runs, oracle=oracle)
+    out['sliced_ns'] = async_probe_ns(launches, device)
+    out['host'] = async_probe_host(launches, device)
+    out['passed'] = bool(
+        sync['passed'] and sliced['passed'] and oracle['passed'] and out['sliced_ns']['passed']
+        and out['host']['passed']
+    )
+    emit(out)
+    return out['passed']
+
+
+# a quarter of the bench's own window, to keep the script within its time
+BENCH_WINDOW = dict(warmup=5, iters=25, scan_steps=25)
 # the probe's warm call and its 9 timed calls, before its profiled passes
 PROBE_TIMED_CALLS = 10
 PROBE_FAMILIES = ('cov_ema', 'ns', 'klclip')
+# the keys of the bench's _async_spike_probe
+SPIKE_PROBE_KEYS = {'async_probe_config'} | {
+    f'{k}{s}' for k in ('step_p50_ms', 'step_p95_ms', 'step_max_ms', 'refresh_spike_ratio')
+    for s in ('', '_sync')
+}
 
 
 def expected_bench_launches(cfg: dict, window: dict, probe_calls: int) -> dict:
@@ -1640,17 +1955,21 @@ def expected_bench_launches(cfg: dict, window: dict, probe_calls: int) -> dict:
     configuration: SGD and eager K-FAC over ``warmup + iters`` steps, two
     ``scan_steps`` calls, the bench's factor cadence of 10, six K-FAC
     layers a block; the fused-kernel probe calls each fused kernel
-    ``probe_calls`` times (EIGEN runs no Newton-Schulz)."""
+    ``probe_calls`` times (EIGEN runs no Newton-Schulz); the async spike
+    probe runs its MLP twice (sync, sliced) over a warm window and step and
+    three timed windows, capturing every ``PROBE_WINDOW`` steps."""
     eager = window['warmup'] + window['iters']
     scan = 2 * window['scan_steps']
     captures = len(range(0, eager, 10)) + len(range(0, scan, 10))
     kfac_layers = 6 * cfg['layers']
+    spike_steps = PROBE_WINDOW * 4 + 1
+    spike_captures = len(range(0, spike_steps, PROBE_WINDOW))
     return {
-        'sym_cov': 2 * kfac_layers * captures,
+        'sym_cov': 2 * kfac_layers * captures + 2 * 2 * PROBE_LAYERS * spike_captures,
         'sym_cov_ema': probe_calls,
-        'klclip_dot': eager + scan + probe_calls,
+        'klclip_dot': eager + scan + probe_calls + 2 * spike_steps,
         'klclip_dot_norms': 0,
-        'klclip_scale': eager + scan + probe_calls,
+        'klclip_scale': eager + scan + probe_calls + 2 * spike_steps,
         'flash_attention_partials': cfg['layers'] * (2 * eager + scan),
         'fused_ns_step': probe_calls,
     }
@@ -1694,9 +2013,13 @@ def run_bench_lm(launches) -> bool:
                     for f in PROBE_FAMILIES)
             and 'trace_error' not in probe
             and counts['sym_cov_ema'] > 0 and counts == expected
+            and set(record['async_spike_probe']) == SPIKE_PROBE_KEYS
+            and all(math.isfinite(v) and v > 0 for k, v in record['async_spike_probe'].items()
+                    if k != 'async_probe_config')
         )
         emit(dict(
-            phase='bench_lm', config=config, record=record, launches=counts,
+            phase='bench_lm', config=config, async_spike_probe=record['async_spike_probe'],
+            record=record, launches=counts,
             expected_launches=expected, profile=profiles, passed=passed,
         ))
         ok &= passed
@@ -1793,7 +2116,7 @@ def main() -> int:
     launches: dict[str, dict[str, int]] = {
         path: {} for path in (
             'main_path', 'main_path_ns', 'digits_mlp', 'observed', 'resume',
-            'bench_lm_tiny', 'bench_lm_flagship',
+            'async_refresh', 'bench_lm_tiny', 'bench_lm_flagship',
         )
     }
     eigen_summary: dict = {}
@@ -1828,6 +2151,7 @@ def main() -> int:
     phase('digits_mlp', run_digits, launches['digits_mlp'])
     phase('observed', run_observed, launches['observed'], main_losses)
     phase('resume', run_resume, launches['resume'], main_losses, main_snaps)
+    phase('async_refresh', run_async_refresh, launches['async_refresh'])
     phase('bench_lm', run_bench_lm, launches)
     emit(dict(phase='timing', seconds=seconds, total_seconds=time.perf_counter() - start))
     print(smi, flush=True)

@@ -17,7 +17,10 @@ SGD(0.1, momentum 0.9), the compute method left to the platform default
 The step windows are the bench's: 5 warm-up steps, then 100 timed steps
 (5..104), so the timed window holds 10 captures and the refresh at step
 100. Then the fused-kernel probe: the port's fused kernels (cov+EMA,
-Newton-Schulz, kl-clip) against the plain expressions they fuse.
+Newton-Schulz, kl-clip) against the plain expressions they fuse; and the
+async refresh spike probe (``async_spike_probe``, the port of the bench's
+``_async_spike_probe``): per-step times of an MLP under the synchronous
+refresh and under ``async_inverse='sliced'``.
 
 Prints the card's name and power limit (``nvidia-smi``) on CUDA, then one
 JSON line. On the CPU the kernels' plain versions run and the record says
@@ -33,11 +36,12 @@ import subprocess
 import time
 from typing import Any
 
+import numpy as np
 import torch
 
 from kfac_tpu_torch.device import resolve_device
 from kfac_tpu_torch.layers.registry import register_model
-from kfac_tpu_torch.models import TransformerLM, lm_loss
+from kfac_tpu_torch.models import MLP, TransformerLM, lm_loss
 from kfac_tpu_torch.ops import cov_ema, klclip, newton_schulz
 from kfac_tpu_torch.preconditioner import KFACPreconditioner
 from kfac_tpu_torch.training import Trainer
@@ -78,8 +82,9 @@ def lm_batch(cfg: dict, device: torch.device) -> tuple[torch.Tensor, torch.Tenso
     return tokens.to(device), torch.roll(tokens, -1, dims=1).to(device)
 
 
-def lm_trainer(cfg: dict, device: torch.device, kfac: bool) -> Trainer:
-    """The bench's LM, weights from seed 1, under K-FAC or plain SGD."""
+def lm_trainer(cfg: dict, device: torch.device, kfac: bool, **kfac_kw: Any) -> Trainer:
+    """The bench's LM, weights from seed 1, under K-FAC (the bench's
+    settings, ``kfac_kw`` over them) or plain SGD."""
     model = TransformerLM(
         vocab_size=cfg['vocab'], d_model=cfg['d_model'], num_heads=NUM_HEADS,
         num_layers=cfg['layers'], max_len=cfg['seq'], seed=1, device=device,
@@ -89,10 +94,8 @@ def lm_trainer(cfg: dict, device: torch.device, kfac: bool) -> Trainer:
         # the output head is excluded from K-FAC, as in the bench (its G
         # factor is vocab x vocab); its gradient still flows
         reg = register_model(model, skip_layers=['lm_head'], device=device)
-        engine = KFACPreconditioner(
-            reg, damping=0.003, lr=0.1, factor_update_steps=10,
-            inv_update_steps=100, device=device,
-        )
+        settings = dict(damping=0.003, lr=0.1, factor_update_steps=10, inv_update_steps=100)
+        engine = KFACPreconditioner(reg, **{**settings, **kfac_kw}, device=device)
     loss = lm_loss(model)
     return Trainer(
         model, torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
@@ -302,6 +305,76 @@ def _profiled_pass(variants: dict, device: torch.device) -> list[tuple[float, fl
     return events
 
 
+def probe_trainer(
+    device: torch.device, d: int = 512, window: int = 8, **kfac_kw: Any
+) -> tuple[Trainer, tuple[torch.Tensor, torch.Tensor]]:
+    """The async spike probe's loop: an MLP with features ``(d, d, d)`` and
+    32 classes (weights from seed 5), one batch of 256 (inputs and targets
+    from seeds 3 and 4), MSE, SGD(0.05), K-FAC with damping 1e-3, lr 0.1
+    and cadence ``window``/``window``, and ``kfac_kw``. Returns the Trainer
+    and the batch."""
+    model = MLP(d, (d, d, d), 32, seed=5, device=device)
+    x = torch.randn(256, d, generator=torch.Generator().manual_seed(3)).to(device)
+    y = torch.randn(256, 32, generator=torch.Generator().manual_seed(4)).to(device)
+    kfac = KFACPreconditioner(
+        register_model(model, device=device), damping=1e-3, lr=0.1,
+        factor_update_steps=window, inv_update_steps=window, device=device, **kfac_kw,
+    )
+
+    def loss_fn(ms, batch):
+        return torch.mean((model(batch[0]) - batch[1]) ** 2), ms
+
+    trainer = Trainer(
+        model, torch.optim.SGD(model.parameters(), lr=0.05), loss_fn, kfac=kfac, device=device,
+    )
+    return trainer, (x, y)
+
+
+def async_spike_probe(
+    device: torch.device, d: int = 512, window: int = 8, windows: int = 3
+) -> dict[str, Any]:
+    """Per-step times of :func:`probe_trainer`'s loop under the synchronous
+    refresh and under ``async_inverse='sliced'``: one warm window (and
+    step), then ``windows`` timed windows, each step between two
+    synchronises.
+
+    Returns the bench's keys: ``step_{p50,p95,max}_ms`` and
+    ``refresh_spike_ratio`` (max step over median step) of the sliced
+    series, the same with ``_sync`` of the synchronous one, and
+    ``async_probe_config``.
+    """
+
+    def series(async_inverse) -> np.ndarray:
+        trainer, batch = probe_trainer(device, d, window, async_inverse=async_inverse)
+        state = trainer.init()
+        for _ in range(window + 1):  # one full warm window
+            state, _ = trainer.step(state, batch)
+        _sync(device)
+        times = []
+        for _ in range(window * windows):
+            t0 = time.perf_counter()
+            state, _ = trainer.step(state, batch)
+            _sync(device)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return np.asarray(times)
+
+    t_sync = series(None)
+    t_sliced = series('sliced')
+
+    def stats(suffix: str, ts: np.ndarray) -> dict[str, float]:
+        return {
+            f'step_p50_ms{suffix}': float(np.percentile(ts, 50)),
+            f'step_p95_ms{suffix}': float(np.percentile(ts, 95)),
+            f'step_max_ms{suffix}': float(np.max(ts)),
+            f'refresh_spike_ratio{suffix}': float(np.max(ts) / np.median(ts)),
+        }
+
+    return {
+        'async_probe_config': f'mlp_d{d}_b256_w{window}',
+        **stats('', t_sliced), **stats('_sync', t_sync),
+    }
+
+
 def flops_per_step(model: torch.nn.Module, cfg: dict) -> tuple[int, float]:
     """(parameter count, model FLOPs of one step): 6 per matmul parameter
     per token (forward and backward) plus 12 L d S per token for the
@@ -364,6 +437,7 @@ def run_lm_stage(
         compute_method=kfac_trainer.kfac.compute_method.name,
     )
     result['fused_kernel_probe'] = fused_kernel_probe(device)
+    result['async_spike_probe'] = async_spike_probe(device)
     return result
 
 

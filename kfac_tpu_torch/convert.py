@@ -55,8 +55,10 @@ def from_jax_kfac_state(jax_state: Any, kfac: KFACPreconditioner) -> KFACState:
     """The port's :class:`KFACState` holding the JAX state's step, factors
     and decompositions, on ``kfac.device``; with health and metrics on both
     sides, also the health counters (the JAX package's per-layer dicts
-    packed in registry order) and the metrics' scalars and step trackers.
-    The flight ring starts empty.
+    packed in registry order) and the metrics' scalars and step trackers;
+    with ``async_inverse='sliced'`` on both sides, the shadow's fields,
+    ``progress`` and ``damping``, so a run continues from a mid-window JAX
+    state. The flight ring starts empty.
 
     ``jax_state`` is a ``kfac_tpu.KFACState`` (or anything with its fields);
     slots the port's configuration does not use are dropped.
@@ -92,6 +94,18 @@ def from_jax_kfac_state(jax_state: Any, kfac: KFACPreconditioner) -> KFACState:
             last_factor_step=_tensor(jm.last_factor_step, torch.int32, dev),
             last_inv_step=_tensor(jm.last_inv_step, torch.int32, dev),
             scalars=_tensor(jm.scalars, torch.float32, dev),
+        )
+    js = getattr(jax_state, 'shadow', None)
+    if state.shadow is not None and js is not None:
+        updates['shadow'] = dataclasses.replace(
+            state.shadow,
+            progress=int(np.asarray(js.progress)),
+            damping=float(np.asarray(js.damping)),
+            **{
+                field: {n: _tensor(getattr(js, field)[n], torch.float32, dev) for n in ours}
+                for field in _STATE_FIELDS[2:]
+                if (ours := getattr(state.shadow, field))
+            },
         )
     return dataclasses.replace(state, **updates)
 

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Iterable
+from typing import Any, Iterable, Mapping
 
 import torch
 import torch.nn as nn
@@ -63,10 +63,78 @@ def make_helper(module: nn.Module, name: str) -> helpers.DenseHelper | None:
     return None
 
 
+def _leaves(node: Any):
+    if isinstance(node, Mapping):
+        for value in node.values():
+            yield from _leaves(value)
+    else:
+        yield node
+
+
+def _mask_value(mask: Any, path: tuple[str, ...], name: str) -> bool:
+    """The trainability a mask gives the layer at module path ``path``.
+
+    The mask is a nested dict of bools over ``named_modules()`` path
+    components, with the parameter names (``weight``, ``bias``) below a
+    layer, and prefix semantics, as the JAX package's optax-style pytree:
+    a bool at a prefix covers everything beneath it, and a path the mask
+    does not mention is trainable. A layer whose own subtree mixes True
+    and False raises: K-FAC preconditions a layer's weight and bias
+    jointly.
+    """
+    node = mask
+    for key in path:
+        if isinstance(node, bool):
+            return node
+        if not isinstance(node, Mapping):
+            raise TypeError(
+                f'mask node at a prefix of layer {name!r} is '
+                f'{type(node).__name__}; expected a bool or a mapping '
+                '(a prefix tree of bools over module paths)'
+            )
+        if key not in node:
+            return True
+        node = node[key]
+    if isinstance(node, bool):
+        return node
+    values = {bool(v) for v in _leaves(node)}
+    if not values:
+        return True
+    if len(values) > 1:
+        raise ValueError(
+            f'mask splits layer {name!r} into trainable and frozen '
+            'leaves; K-FAC preconditions a layer jointly, so mask whole '
+            'layers (a bool at the layer path or a uniform subtree). '
+            '(LoRA units, whose adapters mask as one, are not ported yet.)'
+        )
+    return values.pop()
+
+
+def masked_registry(registry: Registry, mask: Any) -> Registry:
+    """``registry`` without the layers ``mask`` freezes (``mask=None``
+    returns it as it is). A frozen layer gets no capture hooks, no factors
+    and no metrics keys, and its gradients pass through the preconditioner
+    unchanged, as an unregistered layer's do (see :func:`_mask_value` for
+    the mask's form)."""
+    if mask is None:
+        return registry
+    keep = [
+        name for name, prefix in registry.param_paths.items()
+        if _mask_value(mask, tuple(prefix.split('.')), name)
+    ]
+    return dataclasses.replace(
+        registry,
+        layers={n: registry.layers[n] for n in keep},
+        modules={n: registry.modules[n] for n in keep},
+        param_paths={n: registry.param_paths[n] for n in keep},
+    )
+
+
 def register_model(
     model: nn.Module,
     skip_layers: list[str] | None = None,
     device: str | torch.device = 'cuda',
+    mask: Any = None,
 ) -> Registry:
     """Walk ``model`` and return its K-FAC registry.
 
@@ -74,6 +142,7 @@ def register_model(
     and its lower-cased class name. Layers come in module-definition order,
     which for the port's models is their call order. ``device`` is where
     the model must lie (``'cuda'`` unless the caller passes another).
+    ``mask`` drops the layers it freezes (:func:`masked_registry`).
     """
     device = resolve_device(device)
     for p in model.parameters():
@@ -97,9 +166,9 @@ def register_model(
             layers[name] = helper
             modules[name] = mod
             param_paths[name] = prefix
-    return Registry(
+    return masked_registry(Registry(
         model=model, layers=layers, modules=modules, param_paths=param_paths
-    )
+    ), mask)
 
 
 def slice_layer_grads(

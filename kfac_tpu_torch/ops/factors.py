@@ -1,8 +1,9 @@
 """Second-order factor math (counterpart of ``kfac_tpu/ops/factors.py``).
 
-EMA updates, the device eigendecomposition, the damped inverse by Cholesky
-or Newton-Schulz, eigen/inverse preconditioning and the kl-clip terms.
-Decompositions run in f32. The batched forms come in a later slice.
+EMA updates, the eigendecomposition (on the device, or by LAPACK on the
+host), the damped inverse by Cholesky or Newton-Schulz, eigen/inverse
+preconditioning and the kl-clip terms. Decompositions run in f32. The
+batched damped inverses come in a later slice.
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from kfac_tpu_torch.ops import klclip
@@ -36,12 +38,48 @@ class EigenDecomp(NamedTuple):
     d: torch.Tensor
 
 
-def compute_eigh(factor: torch.Tensor) -> EigenDecomp:
-    """Eigendecompose a symmetric factor in f32 on its own device
-    (``torch.linalg.eigh``), eigenvalues clamped >= 0."""
+EIGH_IMPLS = ('device', 'host', 'eig_host')
+
+
+def batched_eigh(factor: torch.Tensor, impl: str = 'device') -> tuple[torch.Tensor, torch.Tensor]:
+    """``(eigenvalues, eigenvectors)`` of a (..., d, d) symmetric stack, in
+    f32, on the factor's device.
+
+    ``impl='device'`` is ``torch.linalg.eigh`` (the JAX package's
+    ``'xla'``); ``'host'`` is ``numpy.linalg.eigh`` (LAPACK) on a host copy;
+    ``'eig_host'`` is the general ``numpy.linalg.eig`` on a host copy, real
+    parts, pairs sorted by eigenvalue ascending: the reference's handling of
+    factors that drift non-symmetric (a robustness corner; the factors here
+    are symmetric by construction). A half-precision factor is upcast to
+    f32 first; a non-float one raises.
+    """
     if not factor.dtype.is_floating_point:
-        raise TypeError(f'compute_eigh needs a real float factor, got {factor.dtype}')
-    d, q = torch.linalg.eigh(factor.float())
+        raise TypeError(
+            f'batched_eigh requires a real floating factor stack; got {factor.dtype}'
+        )
+    f = factor.float()
+    if impl == 'device':
+        return torch.linalg.eigh(f)
+    if impl not in EIGH_IMPLS:
+        raise ValueError(f"unknown eigh impl {impl!r}: 'device', 'host', or 'eig_host'")
+    m = f.detach().cpu().numpy()
+    if impl == 'host':
+        w, v = np.linalg.eigh(m)
+    else:
+        w, v = np.linalg.eig(m)
+        w, v = np.real(w), np.real(v)
+        order = np.argsort(w, axis=-1)
+        w = np.take_along_axis(w, order, -1)
+        v = np.take_along_axis(v, order[..., None, :], -1)
+    return tuple(
+        torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(factor.device) for x in (w, v)
+    )
+
+
+def compute_eigh(factor: torch.Tensor, impl: str = 'device') -> EigenDecomp:
+    """Eigendecompose a symmetric factor in f32 by :func:`batched_eigh`'s
+    ``impl``, eigenvalues clamped >= 0."""
+    d, q = batched_eigh(factor, impl)
     return EigenDecomp(q=q, d=torch.clamp(d, min=0.0))
 
 

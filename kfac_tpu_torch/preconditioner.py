@@ -13,9 +13,13 @@ JAX engine's do, and none of them reads a device value on the host. The
 per-layer gradient norms come from the norm instantiation of the grouped
 kl-clip dot kernel, in its one read of every layer's p and g.
 
-Knobs of the JAX engine whose slice comes later (async inverse refresh,
-offload, stat compression, compile watch and host eigendecompositions)
-raise ``NotImplementedError`` when set.
+The async inverse refresh (``async_inverse``) double-buffers the
+decompositions in a ``shadow`` slot, refreshed in per-step slices
+(``'sliced'``) or by a host worker thread (``'host'``); see
+:mod:`kfac_tpu_torch.async_inverse`.
+
+Knobs of the JAX engine whose slice comes later (offload, stat
+compression, compile watch) raise ``NotImplementedError`` when set.
 """
 
 from __future__ import annotations
@@ -28,6 +32,10 @@ import torch
 
 from kfac_tpu_torch import enums
 from kfac_tpu_torch import health as health_lib
+from kfac_tpu_torch.async_inverse import config as async_config_lib
+from kfac_tpu_torch.async_inverse import host as async_host
+from kfac_tpu_torch.async_inverse import sliced as async_sliced
+from kfac_tpu_torch.async_inverse import slots as async_slots
 from kfac_tpu_torch.device import resolve_device
 from kfac_tpu_torch.hyperparams import ScalarOrSchedule, resolve
 from kfac_tpu_torch.layers import capture as capture_lib
@@ -59,6 +67,10 @@ class KFACState:
     (INVERSE). Unused slots hold empty dicts. ``health``, ``metrics`` and
     ``flight``: the sentinel's counters, the per-layer metrics and the
     flight recorder's ring when the engine has them on, else None.
+    ``shadow``: the :class:`~kfac_tpu_torch.async_inverse.ShadowSlots` of
+    ``async_inverse='sliced'``, else None (the host mode's double buffer
+    is its worker's payload). It is ephemeral: a restore rematerializes
+    the active decompositions and resets it.
     """
 
     step: int
@@ -74,9 +86,10 @@ class KFACState:
     health: health_lib.HealthState | None = None
     metrics: metrics_lib.MetricsState | None = None
     flight: flight_lib.FlightRecorderState | None = None
+    shadow: async_slots.ShadowSlots | None = None
 
 
-_LATER_SLICE_KNOBS = ('async_inverse', 'offload', 'stat_compression', 'compile_watch')
+_LATER_SLICE_KNOBS = ('offload', 'stat_compression', 'compile_watch')
 
 
 @dataclasses.dataclass
@@ -89,14 +102,22 @@ class KFACPreconditioner:
     the kl-clip scale), ``compute_method`` (None picks
     :func:`default_compute_method` for ``device``), ``inverse_solver``
     (``'cholesky'``, ``'newton_schulz'`` or ``'auto'``, for INVERSE),
-    ``newton_schulz_iters`` (the iteration cap), ``prediv_eigenvalues``.
+    ``newton_schulz_iters`` (the iteration cap), ``eigh_impl`` (the EIGEN
+    decomposition: ``'device'``, ``'host'`` or ``'eig_host'``, see
+    :func:`~kfac_tpu_torch.ops.factors.batched_eigh`),
+    ``prediv_eigenvalues``.
     ``health``: a :class:`~kfac_tpu_torch.health.HealthConfig` (True for its
     defaults). ``metrics``: a :class:`~kfac_tpu_torch.observability.
     metrics.MetricsConfig` (True for its defaults). ``flight``: a
     :class:`~kfac_tpu_torch.observability.flight_recorder.
     FlightRecorderConfig`, True, or an int capacity; it turns ``metrics``
-    on. ``device`` is where the state lives, ``'cuda'`` unless the caller
-    passes another.
+    on. ``async_inverse``: an :class:`~kfac_tpu_torch.async_inverse.
+    AsyncInverseConfig`, a mode (``'sliced'`` or ``'host'``), or True
+    (``'sliced'``); it needs an int ``inv_update_steps``. ``mask``: a
+    trainability mask over module paths whose frozen layers are dropped
+    from the registry (:func:`~kfac_tpu_torch.layers.registry.
+    masked_registry`). ``device`` is where the state lives, ``'cuda'``
+    unless the caller passes another.
     """
 
     registry: registry_lib.Registry
@@ -119,6 +140,7 @@ class KFACPreconditioner:
     offload: Any = None
     stat_compression: Any = None
     compile_watch: Any = None
+    mask: Any = None
 
     def __post_init__(self) -> None:
         self.device = resolve_device(self.device)
@@ -127,13 +149,11 @@ class KFACPreconditioner:
                 raise NotImplementedError(
                     f'{knob} is not ported to kfac_tpu_torch yet'
                 )
+        if self.mask is not None:
+            # every consumer of the registry sees only trainable layers
+            self.registry = registry_lib.masked_registry(self.registry, self.mask)
         self._normalize_observability()
-        if self.eigh_impl in ('host', 'eig_host'):
-            raise NotImplementedError(
-                f'eigh_impl={self.eigh_impl!r}: only the device '
-                "eigendecomposition ('device', torch.linalg.eigh) is ported"
-            )
-        if self.eigh_impl != 'device':
+        if self.eigh_impl not in factors_lib.EIGH_IMPLS:
             raise ValueError(f'unknown eigh_impl {self.eigh_impl!r}')
         if isinstance(self.compute_method, str):
             try:
@@ -174,6 +194,31 @@ class KFACPreconditioner:
                 'some inverse updates will recompute from unchanged factors',
                 stacklevel=2,
             )
+        self.async_inverse = async_config_lib.as_async_config(self.async_inverse)
+        if self.async_inverse is not None and callable(self.inv_update_steps):
+            raise ValueError(
+                'async_inverse requires a static int inv_update_steps (the '
+                'refresh window is planned when the engine is built); got a '
+                'schedule'
+            )
+        self._plan_async()
+
+    def _plan_async(self) -> None:
+        """The async refresh's plan: ``_async_mode`` (None, ``'sliced'`` or
+        ``'host'``), ``_async_n_steps`` (the window) and, for sliced mode,
+        ``_async_slices`` / ``_async_n_slices`` (the balanced per-step
+        unit buckets)."""
+        acfg = self.async_inverse
+        self._async_mode = None if acfg is None else acfg.mode
+        self._async_worker = None
+        if acfg is None:
+            return
+        self._async_n_steps = int(self.inv_update_steps)
+        if acfg.mode == 'sliced':
+            units = async_sliced.dense_units(self)
+            n = min(self._async_n_steps, acfg.max_slices or len(units))
+            self._async_slices = async_slots.plan_slices(units, n)
+            self._async_n_slices = len(self._async_slices)
 
     def _normalize_observability(self) -> None:
         """``metrics``, ``flight`` and ``health`` to a config or None, as the
@@ -248,6 +293,9 @@ class KFACPreconditioner:
             state.flight = flight_lib.init_flight(
                 self.flight, metrics_lib.metric_keys(self.metrics, names), dev
             )
+        # the host mode's double buffer is its worker's payload
+        if self._async_mode == 'sliced':
+            state.shadow = async_sliced.dense_shadow(self, state)
         return state
 
     def _effective_damping(self, state: KFACState, damping: float):
@@ -397,8 +445,8 @@ class KFACPreconditioner:
             prev = {'qa': state.qa, 'qg': state.qg, 'da': state.da, 'dg': state.dg,
                     'dgda': state.dgda}
             for i, n in enumerate(names):
-                adec = factors_lib.compute_eigh(state.a[n])
-                gdec = factors_lib.compute_eigh(state.g[n])
+                adec = factors_lib.compute_eigh(state.a[n], self.eigh_impl)
+                gdec = factors_lib.compute_eigh(state.g[n], self.eigh_impl)
                 cand = {'qa': adec.q, 'qg': gdec.q}
                 if self.prediv_eigenvalues:
                     cand['dgda'] = factors_lib.prediv_eigenvalues(adec, gdec, eff[i])
@@ -527,14 +575,19 @@ class KFACPreconditioner:
     ) -> tuple[KFACState, dict[str, torch.Tensor]]:
         """One K-FAC step: maybe update factors and inverses, then
         precondition. ``stats=None`` skips the factor update (a step
-        without capture). With metrics, the step's scalars and staleness
-        go into ``state.metrics``; with the flight recorder, one ring row
-        then records them beside ``loss`` (when given) and the raw grads'
-        global norm."""
+        without capture); under ``async_inverse`` the sliced or host stage
+        takes the place of the inverse cadence. With metrics, the step's
+        scalars and staleness go into ``state.metrics``; with the flight
+        recorder, one ring row then records them beside ``loss`` (when
+        given) and the raw grads' global norm."""
         step = state.step
         if stats is not None and step % resolve(self.factor_update_steps, step) == 0:
             state = self.update_factors(state, stats)
-        if step % resolve(self.inv_update_steps, step) == 0:
+        if self._async_mode == 'sliced':
+            state = async_sliced.dense_async_step(self, state)
+        elif self._async_mode == 'host':
+            state = async_host.dense_host_step(self, state)
+        elif step % resolve(self.inv_update_steps, step) == 0:
             state = self.update_inverses(state)
         if self.metrics is not None and state.metrics is not None:
             families: dict[str, torch.Tensor] = {}
@@ -579,8 +632,15 @@ class KFACPreconditioner:
         :meth:`init`'s all-zeros decompositions, so Newton-Schulz starts
         cold there (no ``x0`` survives a restart); on a live state it
         warm-starts, and a non-finite result rolls back under health, as
-        in the JAX engine."""
-        return self.update_inverses(state)
+        in the JAX engine. Under async refresh the shadow (sliced) or the
+        worker (host) is reset too: the first boundary after a mid-window
+        restore then skips its swap."""
+        state = self.update_inverses(state)
+        if self._async_mode == 'sliced':
+            state = dataclasses.replace(state, shadow=async_sliced.dense_shadow(self, state))
+        elif self._async_mode == 'host':
+            async_host.reset_worker(self)
+        return state
 
     def topology(self) -> dict[str, Any]:
         """Process and device counts, recorded (for information only) in
@@ -601,6 +661,11 @@ class KFACPreconditioner:
             f'layers, compute_method={self.compute_method.name}, '
             f'inverse_solver={self.inverse_solver}',
         ]
+        if self.mask is not None:
+            lines.append(
+                '  mask: trainability mask active — frozen layers are '
+                'unregistered (no factors, gradients pass through)'
+            )
         if self.health is not None:
             hc = self.health
             lines.append(

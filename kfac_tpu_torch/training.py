@@ -11,7 +11,9 @@ exceptions, both the health sentinel's: ``skip_nonfinite`` reads the
 finiteness of the loss and grads once a step (where the JAX package gates
 the update with ``lax.cond`` on the device), and ``warn`` reads the health
 counters after each eager step, as the JAX Trainer does. A checkpoint
-manager (``checkpoints``) adds none on a step that does not save.
+manager (``checkpoints``) adds none on a step that does not save. Under
+``async_inverse='host'`` every step path pumps the engine's refresh worker
+where the JAX Trainer does (:meth:`Trainer._drive_async`).
 
 Knobs of the JAX Trainer whose slice comes later (``auto_layout``,
 ``fleet``) raise ``NotImplementedError``.
@@ -29,6 +31,7 @@ from torch.utils import _pytree as pytree
 
 from kfac_tpu_torch import health as health_lib
 from kfac_tpu_torch import tracing
+from kfac_tpu_torch.async_inverse import host as async_host_lib
 from kfac_tpu_torch.device import resolve_device
 from kfac_tpu_torch.layers import capture as capture_lib
 from kfac_tpu_torch.observability import ledger as ledger_lib
@@ -278,6 +281,23 @@ class Trainer:
         if hc is not None and hc.warn:
             self.check_health(state)
 
+    def _drive_async(self, state: TrainState, step: int | None) -> TrainState:
+        """Promote a finished host-offloaded inverse refresh into the K-FAC
+        state (``async_inverse='host'``; a no-op otherwise). With ``step``:
+        only at window boundaries, waiting for the refresh in flight. Without
+        (``scan_steps``, once at entry, as the JAX Trainer pumps its
+        compiled scan): a finished refresh, without waiting."""
+        if (
+            self.kfac is None
+            or state.kfac_state is None
+            or getattr(self.kfac, '_async_mode', None) != 'host'
+        ):  # as the JAX Trainer: the traced pump runs in host mode only
+            return state
+        ks = async_host_lib.pump(self.kfac, state.kfac_state, step=step)
+        if ks is state.kfac_state:
+            return state
+        return dataclasses.replace(state, kfac_state=ks)
+
     def _capture_now(self) -> bool:
         """The engine's factor cadence at the host step count (a schedule
         is a function of the step)."""
@@ -305,6 +325,8 @@ class Trainer:
         (not read on the host). Recorded in the tracing table as
         ``trainer/step``.
         """
+        self._sync_step_count(state)
+        state = self._drive_async(state, self._step_count)
         new_state, loss = self._step(state, batch)
         self._maybe_warn(new_state)
         self._drive_checkpoints(new_state)
@@ -318,8 +340,10 @@ class Trainer:
         stacked on the device.
 
         Unlike the JAX package's ``lax.scan``, this is a host loop of eager
-        steps, not one compiled program.
+        steps, not one compiled program; it pumps the host refresh only at
+        entry, as the JAX package's scan does.
         """
+        state = self._drive_async(state, None)
         losses = []
         for i in range(_leading(batches)):
             state, loss = self._step(state, _index(batches, i))
@@ -372,6 +396,7 @@ class Trainer:
         grads = {k: g / n for k, g in acc['grads'].items()}
         stats = capture_lib.average_stats(acc['stats'], n) if acc['capture'] else None
         loss = acc['loss'] / n
+        state = self._drive_async(state, self._step_count)
         new_state = self._finish_step(state, grads, stats, acc['model_state'], loss)
         self._accum = None
         self._step_count += 1

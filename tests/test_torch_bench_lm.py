@@ -1,8 +1,8 @@
 """The port's bench LM stage (``kfac_tpu_torch.bench_lm``) on the CPU.
 
 A 1 + 3 step window (and 3 scan steps) of the ``tiny`` config: the record
-carries the keys of the bench's LM stage, the plain versions ran, and no
-device metric is filled from a CPU run. Its FLOP count is held against the
+carries the keys of the bench's LM stage (the async spike probe's too), the
+plain versions ran, and no device metric is filled from a CPU run. Its FLOP count is held against the
 bench's formula applied to the JAX model's parameters.
 """
 
@@ -50,6 +50,18 @@ def test_cpu_probe_ran_the_plain_versions(record):
         assert 'fused_error' not in row
         assert row['fused_p50_ms'] > 0 and row['unfused_p50_ms'] > 0
     assert 'device_ms' not in probe
+
+
+def test_cpu_record_has_the_async_spike_probe(record):
+    """The port of ``bench._async_spike_probe``: its keys, at its MLP."""
+    probe = record['async_spike_probe']
+    keys = {f'{k}{s}' for k in ('step_p50_ms', 'step_p95_ms', 'step_max_ms', 'refresh_spike_ratio')
+            for s in ('', '_sync')}
+    assert set(probe) == keys | {'async_probe_config'}
+    assert probe['async_probe_config'] == 'mlp_d512_b256_w8'
+    for s in ('', '_sync'):
+        assert 0 < probe[f'step_p50_ms{s}'] <= probe[f'step_p95_ms{s}'] <= probe[f'step_max_ms{s}']
+        assert probe[f'refresh_spike_ratio{s}'] >= 1.0
 
 
 def test_flops_and_params_follow_the_bench_formula(record):

@@ -416,6 +416,39 @@ def test_compute_eigh_matches_jax_through_reconstruction():
     close(rec, wrec, rtol=1e-4, atol_rel=1e-5)
 
 
+@pytest.mark.parametrize('impl,jimpl', [('device', 'xla'), ('host', 'host'), ('eig_host', 'eig_host')])
+def test_batched_eigh_matches_jax(impl, jimpl):
+    """Each ``impl`` on a (3, 12, 12) stack against the JAX function's: the
+    host forms call the same LAPACK routine on the same f32 input, so
+    eigenvalues and eigenvectors are equal to rounding; the device form by
+    its eigenvalues and reconstruction."""
+    f = np.stack([spd(40 + k, 12) for k in range(3)])
+    d, q = factors.batched_eigh(t(f), impl)
+    jd, jq = jfactors.batched_eigh(jnp.asarray(f), jimpl)
+    assert d.dtype == q.dtype == torch.float32 and q.shape == (3, 12, 12)
+    close(d, jd, rtol=1e-4, atol_rel=1e-5)
+    if impl == 'device':
+        rec = q @ torch.diag_embed(d) @ q.transpose(-1, -2)
+        close(rec, f, rtol=1e-4, atol_rel=1e-5)
+    else:
+        close(q, jq, rtol=1e-5, atol_rel=1e-5)
+    dec = factors.compute_eigh(t(f[0]), impl)
+    jdec = jfactors.compute_eigh(jnp.asarray(f[0]), impl=jimpl)
+    close(dec.d, jdec.d, rtol=1e-4, atol_rel=1e-5)
+
+
+def test_batched_eigh_upcasts_and_rejects_as_jax():
+    f = spd(44, 8)
+    for impl in ('device', 'host', 'eig_host'):
+        d, _ = factors.batched_eigh(t(f).to(torch.bfloat16), impl)
+        assert d.dtype == torch.float32
+        close(d, np.linalg.eigvalsh(f.astype(np.float64)), rtol=2e-2, atol_rel=2e-2)
+        with pytest.raises(TypeError, match='real floating'):
+            factors.batched_eigh(torch.ones(3, 3, dtype=torch.int32), impl)
+    with pytest.raises(ValueError, match='unknown eigh impl'):
+        factors.batched_eigh(t(f), 'xla')
+
+
 def test_compute_inverse_matches_jax():
     f = spd(33, 16)
     close(factors.compute_inverse(t(f), 0.003),

@@ -61,7 +61,7 @@ def jax_run(config):
     reg = kfac_tpu.register_model(model, jnp.asarray(tokens), skip_layers=['lm_head'])
     with warnings.catch_warnings():
         warnings.simplefilter('ignore')  # inverse cadence not a multiple
-        kfac = kfac_tpu.KFACPreconditioner(registry=reg, **KFAC, **config)
+        kfac = kfac_tpu.KFACPreconditioner(registry=reg, **{**KFAC, **config})
     loss = jax_lm_loss(model)
     run = kfac_tpu.CurvatureCapture(reg).value_stats_and_grad(loss)
     opt = optax.sgd(0.1, momentum=0.9)
@@ -101,7 +101,7 @@ def torch_run(init_params, config):
     reg = registry.register_model(model, skip_layers=['lm_head'], device='cpu')
     with warnings.catch_warnings():
         warnings.simplefilter('ignore')
-        kfac = KFACPreconditioner(reg, **KFAC, **config, device='cpu')
+        kfac = KFACPreconditioner(reg, **{**KFAC, **config}, device='cpu')
     loss = lm_loss(model)
     run = capture.CurvatureCapture(reg).value_stats_and_grad(loss)
     plain = capture.value_and_grad(model, loss)
@@ -272,7 +272,7 @@ def small_registry():
 
 
 # knobs of this list once raised as the others do
-PORTED_KNOBS = ('health', 'metrics', 'flight')
+PORTED_KNOBS = ('health', 'metrics', 'flight', 'async_inverse', 'eigh_impl')
 
 
 @pytest.mark.parametrize(
@@ -285,10 +285,24 @@ PORTED_KNOBS = ('health', 'metrics', 'flight')
     ],
 )
 def test_later_slice_knobs_raise(knob, value):
+    if knob == 'eigh_impl':
+        # ported since: the engine refreshes with the host eigendecomposition,
+        # the device's eigenvalues to rounding
+        kfac = KFACPreconditioner(small_registry(), device='cpu', **{knob: value})
+        state = kfac.init()
+        state.a['0'] = torch.tensor([[2.0, 0.5, 0.0, 0.1, 0.0], [0.5, 1.0, 0.0, 0.0, 0.0],
+                                     [0.0, 0.0, 3.0, 0.0, 0.0], [0.1, 0.0, 0.0, 1.5, 0.0],
+                                     [0.0, 0.0, 0.0, 0.0, 0.5]])
+        state = kfac.update_inverses(state)
+        want = torch.linalg.eigvalsh(state.a['0'])
+        torch.testing.assert_close(state.da['0'], want, rtol=1e-5, atol=1e-6)
+        assert torch.equal(state.dg['0'], torch.ones(3))
+        return
     if knob in PORTED_KNOBS:
         # ported since: the engine builds the knob's state instead of raising
+        # (async_inverse's is the sliced shadow)
         state = KFACPreconditioner(small_registry(), device='cpu', **{knob: value}).init()
-        assert getattr(state, knob) is not None
+        assert getattr(state, 'shadow' if knob == 'async_inverse' else knob) is not None
         return
     with pytest.raises(NotImplementedError):
         KFACPreconditioner(small_registry(), device='cpu', **{knob: value})
@@ -318,3 +332,87 @@ def test_unknown_options_are_rejected():
         KFACPreconditioner(small_registry(), device='cpu', compute_method='svd')
     with pytest.raises(ValueError):
         KFACPreconditioner(small_registry(), device='cpu', factor_update_steps=0)
+
+
+SCHEDULES = {
+    'exp_decay_factor_averaging': lambda h: h.exp_decay_factor_averaging(0.95),
+    'lambda_schedule': lambda h: h.lambda_schedule(0.003, lambda s: 0.5 ** (s // 10)),
+    'piecewise_constant': lambda h: h.piecewise_constant([5, 20, 40], [1e-3, 3e-3, 1e-2, 3e-2]),
+    'exponential_decay': lambda h: h.exponential_decay(0.1, 0.5, 15),
+    'exponential_decay_staircase': lambda h: h.exponential_decay(0.1, 0.5, 15, staircase=True),
+    'linear_warmup': lambda h: h.linear_warmup(0.1, 12),
+}
+
+
+@pytest.mark.parametrize('name', list(SCHEDULES))
+def test_schedules_match_jax(name):
+    from kfac_tpu import hyperparams as jhp
+    from kfac_tpu_torch import hyperparams as thp
+
+    ours, theirs = SCHEDULES[name](thp), SCHEDULES[name](jhp)
+    steps = list(range(0, 60)) + [100, 1000]
+    got = [ours(s) for s in steps]
+    assert all(isinstance(v, float) for v in got)
+    # the JAX schedules compute in f32 (a power of up to 66 amplifies its
+    # rounding), the port's in Python floats
+    np.testing.assert_allclose(got, [float(theirs(jnp.asarray(s))) for s in steps], rtol=1e-5)
+
+
+def test_schedule_validation_matches_jax():
+    from kfac_tpu import hyperparams as jhp
+    from kfac_tpu_torch import hyperparams as thp
+
+    for make in (lambda h: h.exp_decay_factor_averaging(0.0),
+                 lambda h: h.piecewise_constant([1, 2], [1.0])):
+        with pytest.raises(ValueError) as ours:
+            make(thp)
+        with pytest.raises(ValueError) as theirs:
+            make(jhp)
+        assert str(ours.value) == str(theirs.value)
+
+
+def test_scheduled_engine_matches_jax():
+    """A damping, decay and lr schedule through both engines' steps."""
+    from kfac_tpu import hyperparams as jhp
+    from kfac_tpu_torch import hyperparams as thp
+
+    def kw(h):
+        return dict(damping=h.piecewise_constant([3], [0.01, 0.003]),
+                    factor_decay=h.exp_decay_factor_averaging(0.9),
+                    lr=h.lambda_schedule(0.1, lambda s: 1.0 + s / 10))
+
+    init, jl, jp, _ = jax_run(dict(CONFIGS['eigen'], **kw(jhp)))
+    tl, tp, _ = torch_run(init, dict(CONFIGS['eigen'], **kw(thp)))
+    np.testing.assert_allclose(tl, jl, rtol=1e-5)
+    for i, (g, w) in enumerate(zip(tp, jp)):
+        scale = max(float(np.abs(v.numpy()).max()) for v in w.values())
+        for n in w:
+            np.testing.assert_allclose(g[n].numpy(), w[n].numpy(), rtol=1e-4, atol=1e-4 * scale,
+                                       err_msg=f'step {i} {n}')
+
+
+def test_host_eigh_engine_matches_jax():
+    """``eigh_impl='host'`` through both engines' steps (the bench loop)."""
+    config = dict(CONFIGS['eigen'], eigh_impl='host')
+    init, jl, jp, _ = jax_run(config)
+    tl, tp, _ = torch_run(init, config)
+    np.testing.assert_allclose(tl, jl, rtol=1e-5)
+    for g, w in zip(tp, jp):
+        scale = max(float(np.abs(v.numpy()).max()) for v in w.values())
+        for n in w:
+            np.testing.assert_allclose(g[n].numpy(), w[n].numpy(), rtol=1e-4, atol=1e-4 * scale)
+
+
+def test_describe_names_the_mask_as_jax_does():
+    jreg = kfac_tpu.register_model(MLP(features=(5,), num_classes=3), jnp.zeros((1, 4)))
+    ours = KFACPreconditioner(
+        registry.register_model(torch_mlp(), device='cpu'), device='cpu', mask={'head': False}
+    ).describe()
+    theirs = kfac_tpu.KFACPreconditioner(registry=jreg, mask={'head': False}).describe()
+    assert ours == theirs
+
+
+def torch_mlp():
+    from kfac_tpu_torch.models import MLP as TorchMLP
+
+    return TorchMLP(4, (5,), 3, device='cpu')
