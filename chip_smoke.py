@@ -33,7 +33,13 @@ Phases, one JSON line each:
    dot also in its norm instantiation (each layer's sum(g*g) and sum(p*p)
    against f64, the dot's outputs bitwise those without norms), and both
    at the digits MLP's two layers. ``sym_cov`` also at the digits MLP's
-   covariances.
+   covariances and at a rank's rows of the kaisa phase at four ranks
+   (2048). ``fused_ns_step_stacked`` at each (slots, d, d) block a rank
+   of the kaisa phase solves on this machine's cards, one a store (at one
+   card (24, 513), (6, 513), (6, 2049), (24, 512), (6, 2048), (6, 512);
+   at four a quarter of the slots, fc2's padded from 6 to 8): each slot
+   within tolerance and bitwise the 2-D launch at the same tile (the
+   library call: two ``torch.bmm`` and ``torch.linalg.matrix_norm``).
 4. ``reference``: a two-layer model trained three steps through
    ``Trainer.step`` on the card (kernels) and on the CPU (plain versions)
    from the same weights, once with EIGEN, once with INVERSE +
@@ -114,7 +120,28 @@ Phases, one JSON line each:
    the step ms while the worker runs, and after each swap the
    preconditioned grads within rtol 5e-3, atol 1e-4 of the synchronous
    engine's refresh of the factors a window back.
-11. ``bench_lm``: the bench's LM stage (``kfac_tpu_torch.bench_lm``) in
+11. ``kaisa``: the KAISA engine (``DistributedKFAC``) over NCCL, one rank
+   a visible card, spawned by ``kfac_tpu_torch.parallel.spawn_world``
+   (one card: a world of one rank, which still runs NCCL, the stacked
+   stores, the bucketed triangle all-reduce and the stacked Newton-Schulz
+   kernel). The flagship at cadence 10/10 through ``Trainer.step`` on the
+   global batch (each rank its row block): 21 steps under EIGEN at every
+   gradient-worker fraction the world allows (one: 1.0; four: 1, 0.5,
+   0.25), with each stat transport (ALLREDUCE, ALLREDUCE_BUCKETED); then 11
+   steps under INVERSE + Newton-Schulz at every fraction. Each run's
+   counts are set to 0 just before and read just after, on every rank.
+   Checks: losses finite and falling, within 1e-4 relative of the dense
+   ``KFACPreconditioner``'s on the same card, batch and weights, and rank
+   0's last preconditioned grads within 1e-3 of their max; parameters
+   identical on every rank (bitwise); launches exact on every rank
+   (``sym_cov`` two a layer a capture, the grouped kl-clip dot and scale
+   once a step, the flash partials once a block a step) and the stacked
+   ``fused_ns_step_stacked`` inside [1, 80] a live stacked solve a
+   refresh; every refresh's independent residual <= 5e-2. Each run prints
+   its step ms by kind (plain median, capture + refresh, the refresh
+   alone), each rank's peak memory beside ``memory_usage()``'s
+   decomposition bytes, and ``comms_report()``'s bytes per collective.
+12. ``bench_lm``: the bench's LM stage (``kfac_tpu_torch.bench_lm``) in
    process for ``tiny`` and then ``flagship``, at a quarter of the bench's
    own window (25 timed steps, 25 ``scan_steps``), counts set to 0 before each
    and read after: every rate finite and positive, every fused-kernel
@@ -399,8 +426,10 @@ def kernel_cases():
     # the shortest N the plan splits. (100, 65), (100, 64), (100, 10): the
     # digits MLP's A and G factors at its batch of 100 (D = 65 and 10 take
     # the path for rows off a 16-byte boundary).
+    # (2048, 513) and (2048, 2049): a rank's A factors in the kaisa phase at
+    # four ranks (its 4 of the 16 rows of the batch).
     for n, d in ((8192, 513), (8192, 2049), (8192, 512), (8192, 2048), (77, 130),
-                 (512, 129), (512, 513), (1024, 129), *DIGITS_COVS):
+                 (512, 129), (512, 513), (1024, 129), *DIGITS_COVS, (2048, 513), (2048, 2049)):
         a = randn(n, d)
         extra, also_timed = split_fields(n, d, lambda a=a: sym_cov.sym_cov(a))
         cases.append(dict(
@@ -573,6 +602,18 @@ def kernel_cases():
     def detail_ns(got, want):
         return dict(zip(('x_new', 'mx_new', 'resid'), (e / r for e, r in ns_errors(got, want))))
 
+    def cmp_ns_stacked(got, want):
+        # the worst slot's worst output, relative to that slot's own scale
+        return max(
+            (cmp_ns([g[i] for g in got], [w[i] for w in want]) for i in range(want[0].shape[0])),
+            key=lambda p: p[0] / p[1],
+        )
+
+    def detail_ns_stacked(got, want):
+        per_slot = [detail_ns([g[i] for g in got], [w[i] for w in want])
+                    for i in range(want[0].shape[0])]
+        return {k: max(d[k] for d in per_slot) for k in per_slot[0]}
+
     # one NS iteration as the solver meets it: m = a^T a / 8192 + 0.003 I,
     # the Gershgorin x0, then two plain iterations
     for d in (513, 2049, 512, 2048):
@@ -609,7 +650,71 @@ def kernel_cases():
                 resid=float(newton_schulz.fused_ns_step_plain(m, x, mx)[2]),
             ),
         ))
+    # the stacked step at each block a rank of the kaisa phase solves on
+    # this machine's cards: one per A and G store
+    for slots, d in kaisa_ns_blocks(torch.cuda.device_count()):
+        a = randn(slots, 2048, d)
+        eye = torch.eye(d, device=dev)
+        m = (a.mT @ a / 2048 + 0.003 * eye).contiguous()
+        lam_max = m.abs().sum(-1).amax(-1)[:, None, None]
+        x, mx = eye / lam_max, m / lam_max
+        for _ in range(2):
+            x, mx, _ = newton_schulz.fused_ns_step_plain(m, x, mx)
+        x, mx = x.contiguous(), mx.contiguous()
+        tile = newton_schulz.plan(d, sms, slots)
+
+        def library(m=m, x=x, mx=mx, eye=eye, d=d):
+            x_new = torch.bmm(x, 2.0 * eye - mx)
+            mx_new = torch.bmm(m, x_new)
+            return x_new, mx_new, torch.linalg.matrix_norm(eye - mx_new) / math.sqrt(d)
+
+        def two_d(m=m, x=x, mx=mx, tile=tile):
+            """Each slot through the 2-D launch at the stack's tile."""
+            return [newton_schulz.fused_ns_step(m[i], x[i], mx[i], tile=tile)
+                    for i in range(m.shape[0])]
+
+        cases.append(dict(
+            name='fused_ns_step_stacked', shape=[slots, d, d],
+            kernel=lambda m=m, x=x, mx=mx: newton_schulz.fused_ns_step_stacked(m, x, mx),
+            plain=lambda m=m, x=x, mx=mx: newton_schulz.fused_ns_step_plain(m, x, mx),
+            library=library, compare=cmp_ns_stacked, detail=detail_ns_stacked, rtol=NS_RTOL,
+            # bit for bit the 2-D launch slot by slot, and from run to run
+            invariant=lambda got, m=m, x=x, mx=mx, two_d=two_d: all(
+                torch.equal(got[k][i], one[k]) for i, one in enumerate(two_d()) for k in range(3)
+            ) and all(
+                torch.equal(g, h)
+                for g, h in zip(got, newton_schulz.fused_ns_step_stacked(m, x, mx))
+            ),
+            tol_rule=(f'{NS_RTOL:g} x each slot\'s max|x_new|, max|mx_new| and resid; '
+                      'each slot bitwise the 2-D launch at the same tile; run-to-run identical'),
+            control=tf32(lambda m=m, x=x, mx=mx: newton_schulz.fused_ns_step_plain(m, x, mx)),
+            control_rule='plain version with TF32 matmuls',
+            nbytes=4 * slots * (5 * d * d + 1), flops=4 * slots * d**3, tf32x3=True,
+            extra=dict(tile=tile, ctas=slots * math.prod(newton_schulz.grid(d, tile))),
+        ))
     return cases
+
+
+def kaisa_ns_blocks(world: int) -> list[tuple[int, int]]:
+    """(slots, d) of the stacked Newton-Schulz solves on one rank of the
+    kaisa phase at ``world`` ranks: a rank's block (its 1/world of the
+    padded slots) of each A and G store the engine builds for the flagship
+    at the default configuration."""
+    import kfac_tpu_torch as kt
+    from kfac_tpu_torch.models import TransformerLM
+    from kfac_tpu_torch.parallel import kaisa
+
+    cfg, dev = FLAGSHIP, torch.device('cuda')
+    model = TransformerLM(
+        vocab_size=cfg['vocab'], d_model=cfg['d_model'], num_heads=cfg['heads'],
+        num_layers=cfg['layers'], max_len=cfg['seq'], seed=1, device=dev,
+    )
+    reg = kt.register_model(model, skip_layers=['lm_head'], device=dev)
+    config = kt.KFACPreconditioner(reg, device=dev)
+    buckets = kaisa.build_buckets(reg, world, config.bucket_granularity)
+    stores = kaisa.build_stores(reg, world, config.bucket_granularity,
+                                config.colocate_factors, buckets)
+    return list(dict.fromkeys((sb.padded // world, sb.d) for side in stores for sb in side))
 
 
 def profiled_device_ms(fn, names, calls=20):
@@ -1938,6 +2043,239 @@ def run_async_refresh(launches, device=torch.device('cuda')) -> bool:
     return out['passed']
 
 
+# ------------------------------------------------------------------- kaisa
+
+KAISA_EVERY = 10  # factor and inverse cadence of the kaisa phase
+KAISA_STEPS = 21  # EIGEN: captures and refreshes at steps 0, 10 and 20
+KAISA_NS_STEPS = 11  # INVERSE + Newton-Schulz: a cold refresh at 0, a warm one at 10
+KAISA_METHODS = ('allreduce', 'allreduce_bucketed')
+
+
+def kaisa_wrappers() -> dict:
+    from kfac_tpu_torch.ops import newton_schulz
+
+    return dict(main_path_wrappers(), fused_ns_step_stacked=newton_schulz.fused_ns_step_stacked)
+
+
+def kaisa_jobs(world: int) -> list[dict]:
+    """The kaisa phase's runs on ``world`` ranks: EIGEN at every fraction
+    the world allows with each stat transport, then INVERSE +
+    Newton-Schulz at every fraction (bucketed)."""
+    from kfac_tpu_torch import assignment
+
+    jobs = [
+        dict(frac=f, allreduce_method=m, kfac={}, steps=KAISA_STEPS)
+        for f in assignment.candidate_fractions(world) for m in KAISA_METHODS
+    ]
+    jobs += [
+        dict(frac=f, allreduce_method='allreduce_bucketed', kfac=INVERSE_NS, steps=KAISA_NS_STEPS)
+        for f in assignment.candidate_fractions(world)
+    ]
+    return jobs
+
+
+def kaisa_expected(steps: int) -> dict:
+    """Launches on one rank over ``steps`` steps at cadence 10/10: two
+    ``sym_cov`` a layer a capture (on the rank's rows), the grouped
+    kl-clip dot and scale once a step, the flash partials once a block a
+    step; no 2-D Newton-Schulz step."""
+    return dict(expected_launches(steps, len(range(0, steps, KAISA_EVERY))), fused_ns_step=0)
+
+
+def param_digest(model) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for _, p in sorted(model.named_parameters()):
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def kaisa_rank(rank: int, world: int, device: torch.device, jobs: list[dict]) -> list[dict]:
+    """One NCCL rank of the kaisa phase: each job's flagship run through
+    ``Trainer.step`` with a ``DistributedKFAC`` on the global batch (the
+    rank takes its row block), the kernels' counts set to 0 just before
+    and read just after."""
+    import kfac_tpu_torch as kt
+    from kfac_tpu_torch.models import TransformerLM, lm_loss
+    from kfac_tpu_torch.parallel import DistributedKFAC, kaisa_mesh
+    from kfac_tpu_torch.training import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = FLAGSHIP
+    wrappers = kaisa_wrappers()
+    out = []
+    for job in jobs:
+        model = TransformerLM(
+            vocab_size=cfg['vocab'], d_model=cfg['d_model'], num_heads=cfg['heads'],
+            num_layers=cfg['layers'], max_len=cfg['seq'], seed=1, device=device,
+        )
+        gen = torch.Generator().manual_seed(0)
+        tokens = torch.randint(0, cfg['vocab'], (cfg['batch'], cfg['seq']), generator=gen)
+        batch = (tokens.to(device), torch.roll(tokens, -1, dims=1).to(device))
+        reg = kt.register_model(model, skip_layers=['lm_head'], device=device)
+        config = kt.KFACPreconditioner(
+            reg, damping=0.003, lr=0.1, factor_update_steps=KAISA_EVERY,
+            inv_update_steps=KAISA_EVERY, device=device,
+            allreduce_method=job['allreduce_method'], **job['kfac'],
+        )
+        engine = DistributedKFAC(config, kaisa_mesh(job['frac'], device=device))
+        loss = lm_loss(model)
+        trainer = Trainer(
+            model, torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
+            lambda ms, b: (loss(b), ms), kfac=engine, device=device,
+        )
+        state = trainer.init()
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        for w in wrappers.values():
+            w.launches = 0
+        losses, seconds, residuals = [], [], []
+        for i in range(job['steps']):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            state, value = trainer.step(state, batch)
+            losses.append(float(value))
+            torch.cuda.synchronize(device)
+            seconds.append(time.perf_counter() - t0)
+            if job['kfac'] and i % KAISA_EVERY == 0:
+                res = engine.inverse_residuals(state.kfac_state)
+                residuals.append(max(float(r.max()) for side in res.values() for r in side.values()))
+        launches = {n: w.launches for n, w in wrappers.items()}
+        peak = torch.cuda.max_memory_allocated(device)
+        grads = {
+            n: p.grad.detach().cpu().clone()
+            for n, p in model.named_parameters() if p.grad is not None
+        } if rank == 0 else None
+        # the refresh alone, after the counted run (every rank: it gathers)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        engine.update_inverses(state.kfac_state)
+        torch.cuda.synchronize(device)
+        refresh_ms = (time.perf_counter() - t0) * 1e3
+        # a stacked solve launches where the rank's block holds a live slot
+        live_solves = sum(
+            engine._factor_range(sb.padded)[0] < len(sb.layers)
+            for sb in engine.a_store + engine.g_store
+        )
+        memory = engine.memory_usage(state.kfac_state)
+        comms = engine.comms_report()
+        transport = comms['stat_transport']
+        out.append(dict(
+            rank=rank, frac=job['frac'], strategy=engine.strategy.name,
+            allreduce_method=job['allreduce_method'], kfac=job['kfac'] or 'default (EIGEN)',
+            grid=[engine.grad_workers, engine.mesh.n_cols],
+            losses=losses, step_ms=[s * 1e3 for s in seconds],
+            plain_step_ms_median=statistics.median(
+                s * 1e3 for i, s in enumerate(seconds) if i % KAISA_EVERY),
+            capture_refresh_step_ms=[s * 1e3 for i, s in enumerate(seconds)
+                                     if i and i % KAISA_EVERY == 0],
+            refresh_alone_ms=refresh_ms,
+            launches=launches, live_stacked_solves=live_solves,
+            max_independent_residual_by_refresh=residuals,
+            peak_memory_bytes=peak,
+            memory_usage={k: v for k, v in memory.items() if k != 'padding_waste'},
+            decomposition_bytes=memory['a_inverses'] + memory['g_inverses'],
+            comms=dict(
+                stat_transport=dict(
+                    method=transport['method'], collectives=transport['collectives'],
+                    bytes=transport['bytes'], dense_bytes=transport['dense_bytes'],
+                    chunk_bytes=[c['bytes'] for c in transport['chunks']],
+                ),
+                decomp_reshard_bytes=comms['decomp_reshard_bytes'],
+                grad_broadcast_bytes=comms['grad_broadcast_bytes'],
+            ),
+            stores=[(sb.key, len(sb.layers), sb.padded) for sb in engine.a_store + engine.g_store],
+            param_digest=param_digest(model), grads=grads,
+        ))
+        del trainer, engine, model, state
+        torch.cuda.empty_cache()
+    return out
+
+
+def kaisa_dense_reference(kfac_kw: dict, steps: int) -> tuple[list, dict]:
+    """(losses, last step's preconditioned grads on the host) of the dense
+    engine on the same card, global batch and weights, cadence 10/10."""
+    run = LMRun(FLAGSHIP, torch.device('cuda'), KAISA_EVERY, KAISA_EVERY, **kfac_kw)
+    losses, _, _ = train(run, steps)
+    return losses, {n: g.cpu() for n, g in run.grads().items()}
+
+
+def run_kaisa(launches) -> bool:
+    """The KAISA engine over NCCL (see the module's docstring, phase 11)."""
+    from kfac_tpu_torch.ops import factors
+    from kfac_tpu_torch.parallel import spawn_world
+
+    world = torch.cuda.device_count()
+    jobs = kaisa_jobs(world)
+    dense = {
+        'eigen': kaisa_dense_reference({}, KAISA_STEPS),
+        'ns': kaisa_dense_reference(INVERSE_NS, KAISA_NS_STEPS),
+    }
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    results = spawn_world(kaisa_rank, world, 'nccl', 'cuda', args=(jobs,), timeout_s=600)
+    seconds = time.perf_counter() - t0
+    ok = True
+    for j, job in enumerate(jobs):
+        rows = [r[j] for r in results]
+        r0 = rows[0]
+        want_losses, want_grads = dense['ns' if job['kfac'] else 'eigen']
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(r0['losses'], want_losses))
+        scale = max(float(g.abs().max()) for g in want_grads.values())
+        grad_err = max(float((r0['grads'][n] - g).abs().max()) for n, g in want_grads.items()) / scale
+        expected = kaisa_expected(job['steps'])
+        refreshes = len(range(0, job['steps'], KAISA_EVERY))
+        per_refresh = [r['live_stacked_solves'] for r in rows]
+        ns_range = [
+            [refreshes * n, refreshes * n * 2 * 40] if job['kfac'] else [0, 0] for n in per_refresh
+        ]
+        launches_exact = all(
+            {n: r['launches'][n] for n in expected} == expected for r in rows
+        )
+        ns_inside = all(
+            lo <= r['launches']['fused_ns_step_stacked'] <= hi for r, (lo, hi) in zip(rows, ns_range)
+        )
+        finite = all(math.isfinite(x) for x in r0['losses'])
+        falling = r0['losses'][-1] < r0['losses'][0]
+        same_params = len({r['param_digest'] for r in rows}) == 1
+        residual_ok = all(
+            x <= factors.NS_FALLBACK_RESIDUAL
+            for r in rows for x in r['max_independent_residual_by_refresh']
+        )
+        passed = (
+            finite and falling and loss_err <= 1e-4 and grad_err <= 1e-3 and same_params
+            and launches_exact and ns_inside and residual_ok
+        )
+        for name, count in r0['launches'].items():
+            launches[name] = launches.get(name, 0) + count
+        emit(dict(
+            phase='kaisa', world=world, backend='nccl', frac=job['frac'],
+            strategy=r0['strategy'], grid=r0['grid'], allreduce_method=job['allreduce_method'],
+            kfac=r0['kfac'], steps=job['steps'], cadence=[KAISA_EVERY, KAISA_EVERY],
+            losses=r0['losses'], dense_losses=want_losses, loss_rel_err=loss_err, loss_tol=1e-4,
+            pgrad_err_rel_to_max=grad_err, pgrad_tol=1e-3, finite=finite, loss_falls=falling,
+            params_identical_on_every_rank=same_params,
+            step_ms_by_rank=[dict(
+                rank=r['rank'], plain_median=r['plain_step_ms_median'],
+                capture_and_refresh=r['capture_refresh_step_ms'],
+                refresh_alone=r['refresh_alone_ms'],
+            ) for r in rows],
+            peak_memory_by_rank=[r['peak_memory_bytes'] for r in rows],
+            decomposition_bytes_by_rank=[r['decomposition_bytes'] for r in rows],
+            memory_usage_rank0=r0['memory_usage'], comms=r0['comms'], stores=r0['stores'],
+            launches_by_rank=[r['launches'] for r in rows],
+            expected_launches=dict(expected, fused_ns_step_stacked=ns_range),
+            max_independent_residual_by_refresh=[
+                r['max_independent_residual_by_refresh'] for r in rows],
+            residual_limit=factors.NS_FALLBACK_RESIDUAL, passed=passed,
+        ))
+        ok &= passed
+    emit(dict(phase='kaisa_world', world=world, jobs=len(jobs), spawn_seconds=seconds, passed=ok))
+    return ok
+
+
 # a quarter of the bench's own window, to keep the script within its time
 BENCH_WINDOW = dict(warmup=5, iters=25, scan_steps=25)
 # the probe's warm call and its 9 timed calls, before its profiled passes
@@ -2034,6 +2372,8 @@ SOURCES = {
     'klclip_scale': ('cuda', 'kfac_tpu_torch/csrc/klclip.cu', 'kfac_tpu/ops/pallas_ns.py:244', [KFAC_LAYERS, 18_902_016]),
     'flash_attention_partials': ('cuda', 'kfac_tpu_torch/csrc/flash_attn.cu', 'kfac_tpu/ops/pallas_attention.py:257', [16, 512, 4, 128]),
     'fused_ns_step': ('cuda', 'kfac_tpu_torch/csrc/newton_schulz.cu', 'kfac_tpu/ops/pallas_ns.py:127,139', [2049, 2049]),
+    # the largest block a rank solves on this machine's cards
+    'fused_ns_step_stacked': ('cuda', 'kfac_tpu_torch/csrc/newton_schulz.cu', 'kfac_tpu/ops/pallas_ns.py:127,139', None),
 }
 
 
@@ -2043,6 +2383,8 @@ def kernels_line(results, launches) -> dict:
     out = []
     for name, (route, source, replaces, shape) in SOURCES.items():
         rows = [r for r in results if r['name'] == name]
+        if shape is None and rows:
+            shape = max((r['shape'] for r in rows), key=lambda s: s[0] * s[-1] ** 3)
         row = next((r for r in rows if r['shape'] == shape), None)
         if row is None:
             continue
@@ -2116,7 +2458,7 @@ def main() -> int:
     launches: dict[str, dict[str, int]] = {
         path: {} for path in (
             'main_path', 'main_path_ns', 'digits_mlp', 'observed', 'resume',
-            'async_refresh', 'bench_lm_tiny', 'bench_lm_flagship',
+            'async_refresh', 'kaisa', 'bench_lm_tiny', 'bench_lm_flagship',
         )
     }
     eigen_summary: dict = {}
@@ -2152,6 +2494,7 @@ def main() -> int:
     phase('observed', run_observed, launches['observed'], main_losses)
     phase('resume', run_resume, launches['resume'], main_losses, main_snaps)
     phase('async_refresh', run_async_refresh, launches['async_refresh'])
+    phase('kaisa', run_kaisa, launches['kaisa'])
     phase('bench_lm', run_bench_lm, launches)
     emit(dict(phase='timing', seconds=seconds, total_seconds=time.perf_counter() - start))
     print(smi, flush=True)

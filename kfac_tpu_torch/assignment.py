@@ -1,0 +1,332 @@
+"""KAISA work assignment: who computes which factor inverse, who gets grads
+(a copy of ``kfac_tpu/assignment.py``, pure Python).
+
+One assignment object answers the queries of every rank. The KAISA
+worker/receiver grid has ``grad_workers`` rows and ``world/grad_workers``
+columns, rank d at (row, col) = divmod(d, n_cols): a column holds the
+ranks that share a layer's decompositions (its gradient workers), a row
+the ranks among which a preconditioned gradient is shared.
+:class:`kfac_tpu_torch.parallel.mesh.KaisaGrid` builds a process group
+for each row and each column of this grid.
+"""
+
+from __future__ import annotations
+
+import abc
+from typing import Iterable
+
+from kfac_tpu_torch import enums
+
+
+class WorkAssignment(abc.ABC):
+    """Query surface for layer work placement (reference ABC:
+    kfac/assignment.py:30-118, minus torch process-group plumbing)."""
+
+    @abc.abstractmethod
+    def broadcast_gradients(self) -> bool:
+        """Whether preconditioned gradients must be shared across devices."""
+
+    @abc.abstractmethod
+    def broadcast_inverses(self) -> bool:
+        """Whether factor inverses must be shared across devices."""
+
+    @abc.abstractmethod
+    def get_layers(self) -> tuple[str, ...]:
+        """All assigned layer names."""
+
+    @abc.abstractmethod
+    def get_factors(self, layer: str) -> tuple[str, ...]:
+        """Factor keys for a layer (e.g. ('A', 'G'))."""
+
+    @abc.abstractmethod
+    def inv_worker(self, layer: str, factor: str) -> int:
+        """Device computing the inverse/eigendecomposition of a factor."""
+
+    @abc.abstractmethod
+    def is_grad_worker(self, device: int, layer: str) -> bool:
+        """Whether ``device`` preconditions the gradient of ``layer``."""
+
+    @abc.abstractmethod
+    def src_grad_worker(self, device: int, layer: str) -> int:
+        """Device that supplies ``device`` with the preconditioned grad."""
+
+    @abc.abstractmethod
+    def factor_group(self, layer: str, factor: str) -> tuple[int, ...]:
+        """Devices participating in the factor averaging (always the world
+        under strong data parallelism; reference kfac/assignment.py:442-453)."""
+
+    @abc.abstractmethod
+    def grad_worker_group(self, layer: str) -> tuple[int, ...]:
+        """Devices that share the layer's inverses (a grid column)."""
+
+    @abc.abstractmethod
+    def grad_receiver_group(self, device: int, layer: str) -> tuple[int, ...]:
+        """Devices among which the preconditioned grad is shared (the grid
+        row containing ``device``)."""
+
+
+def grad_worker_count(
+    world_size: int,
+    grad_worker_fraction: float,
+) -> int:
+    """Validate and convert a gradient-worker fraction into a worker count.
+
+    Semantics of the reference's constructor validation
+    (kfac/preconditioner.py:173-199 and kfac/assignment.py:155-172):
+    fraction 0 means MEM-OPT (one worker); the count must be a positive
+    integer dividing world_size.
+    """
+    if not 0 <= grad_worker_fraction <= 1:
+        raise ValueError(
+            f'grad_worker_fraction must be in [0, 1], got {grad_worker_fraction}'
+        )
+    if world_size < 1:
+        raise ValueError('world_size must be >= 1')
+    if grad_worker_fraction == 0:
+        return 1  # documented MEM-OPT alias (reference kfac/preconditioner.py)
+    count = world_size * grad_worker_fraction
+    if abs(count - round(count)) > 1e-8 or round(count) < 1:
+        raise ValueError(
+            f'world_size * grad_worker_fraction = {world_size} * '
+            f'{grad_worker_fraction} is not a positive integer'
+        )
+    count = int(round(count))
+    if world_size % count != 0:
+        raise ValueError(
+            f'gradient worker count {count} must divide world_size {world_size}'
+        )
+    return count
+
+
+def candidate_fractions(world_size: int) -> tuple[float, ...]:
+    """All gradient-worker fractions realizable on ``world_size`` devices.
+
+    The divisor structure :func:`grad_worker_count` validates against IS
+    the KAISA candidate space: every divisor c of the world gives one
+    legal grid (c rows x world/c columns). Returned descending — COMM-OPT
+    (1.0) first, MEM-OPT (1/world) last — the enumeration order of the
+    autotuner's search grid (kfac_tpu/autotune/search.py).
+    """
+    if world_size < 1:
+        raise ValueError('world_size must be >= 1')
+    return tuple(
+        c / world_size
+        for c in range(world_size, 0, -1)
+        if world_size % c == 0
+    )
+
+
+def strategy_for_fraction(
+    world_size: int,
+    grad_worker_fraction: float,
+) -> enums.DistributedStrategy:
+    """Map a fraction to its KAISA strategy name (reference
+    kfac/enums.py:40-54)."""
+    count = grad_worker_count(world_size, grad_worker_fraction)
+    if count == world_size:
+        return enums.DistributedStrategy.COMM_OPT
+    if count == 1:
+        return enums.DistributedStrategy.MEM_OPT
+    return enums.DistributedStrategy.HYBRID_OPT
+
+
+def partition_grad_workers(
+    world_size: int,
+    grad_workers: int,
+) -> list[tuple[int, ...]]:
+    """Columns of the KAISA grid: device d sits at (row, col) =
+    (d // n_cols, d % n_cols) with n_cols = world/grad_workers; a column
+    holds the devices sharing one layer's second-order state.
+
+    Matches the reference's grid (kfac/assignment.py:321-363) but returns a
+    deterministically ordered list (col 0, col 1, ...) instead of a set.
+    """
+    n_cols = _check_grid(world_size, grad_workers)
+    return [
+        tuple(range(col, world_size, n_cols)) for col in range(n_cols)
+    ]
+
+
+def partition_grad_receivers(
+    world_size: int,
+    grad_workers: int,
+) -> list[tuple[int, ...]]:
+    """Rows of the KAISA grid (reference kfac/assignment.py:365-395)."""
+    n_cols = _check_grid(world_size, grad_workers)
+    return [
+        tuple(range(row * n_cols, (row + 1) * n_cols))
+        for row in range(grad_workers)
+    ]
+
+
+def _check_grid(world_size: int, grad_workers: int) -> int:
+    if world_size < 1:
+        raise ValueError('world_size must be >= 1')
+    if grad_workers < 1 or world_size % grad_workers != 0:
+        raise ValueError(
+            f'grad_workers {grad_workers} must divide world_size {world_size}'
+        )
+    return world_size // grad_workers
+
+
+def greedy_assign(
+    work: dict[str, dict[str, float]],
+    worker_groups: list[tuple[int, ...]],
+    world_size: int,
+    colocate_factors: bool = True,
+) -> dict[str, dict[str, int]]:
+    """Least-loaded greedy placement of factor work onto devices.
+
+    Deterministic (identical result on every host, which substitutes for
+    consensus exactly as in the reference, SURVEY.md section 3.1): layers are
+    visited in descending total-cost order (ties keep dict order), each is
+    placed in the least-loaded worker group, and within the group either the
+    whole layer goes to the least-loaded device (``colocate_factors``) or
+    each factor does, heaviest first. Reference algorithm:
+    kfac/assignment.py:227-319.
+    """
+    loads = [0.0] * world_size
+    totals = {layer: sum(fs.values()) for layer, fs in work.items()}
+    order = sorted(work, key=lambda layer: totals[layer], reverse=True)
+    placement: dict[str, dict[str, int]] = {}
+
+    def least_loaded(devices: Iterable[int]) -> int:
+        return min(devices, key=lambda d: (loads[d], d))
+
+    for layer in order:
+        group = min(
+            worker_groups,
+            key=lambda g: (sum(loads[d] for d in g), g),
+        )
+        placement[layer] = {}
+        if colocate_factors:
+            dev = least_loaded(group)
+            loads[dev] += totals[layer]
+            for factor in work[layer]:
+                placement[layer][factor] = dev
+        else:
+            heaviest_first = sorted(
+                work[layer].items(), key=lambda kv: (kv[1], kv[0]), reverse=True
+            )
+            for factor, cost in heaviest_first:
+                dev = least_loaded(group)
+                loads[dev] += cost
+                placement[layer][factor] = dev
+    return placement
+
+
+class KAISAAssignment(WorkAssignment):
+    """KAISA placement over a device grid.
+
+    Args:
+        work: layer -> factor -> cost (n^3 for COMPUTE, n^2 for MEMORY cost
+            models; see :func:`compute_work_costs`).
+        world_size: total device count.
+        grad_worker_fraction: fraction of devices preconditioning each
+            layer's gradient (1 = COMM-OPT, 1/world = MEM-OPT).
+        colocate_factors: place A and G of a layer on the same device
+            (required for MEM-OPT, as in reference
+            kfac/preconditioner.py:202-211).
+    """
+
+    def __init__(
+        self,
+        work: dict[str, dict[str, float]],
+        *,
+        world_size: int,
+        grad_worker_fraction: float = 1.0,
+        colocate_factors: bool = True,
+    ) -> None:
+        self.world_size = world_size
+        self.grad_workers = grad_worker_count(world_size, grad_worker_fraction)
+        self.grad_worker_fraction = grad_worker_fraction
+        self.strategy = strategy_for_fraction(world_size, grad_worker_fraction)
+        if (
+            self.strategy == enums.DistributedStrategy.MEM_OPT
+            and not colocate_factors
+        ):
+            raise ValueError(
+                'MEM-OPT requires colocate_factors=True: with a single '
+                'gradient worker per layer both factors must live together'
+            )
+        self.colocate_factors = colocate_factors
+        self._columns = partition_grad_workers(world_size, self.grad_workers)
+        self._rows = partition_grad_receivers(world_size, self.grad_workers)
+        self.n_cols = len(self._columns)
+        self._placement = greedy_assign(
+            work, self._columns, world_size, colocate_factors
+        )
+        # Column of a layer = the column containing its inverse worker(s).
+        self._layer_column: dict[str, tuple[int, ...]] = {}
+        for layer, factors in self._placement.items():
+            some_worker = next(iter(factors.values()))
+            self._layer_column[layer] = self._columns[some_worker % self.n_cols]
+
+    # ---------------------------------------------------------------- grid
+
+    def mesh_shape(self) -> tuple[int, int]:
+        """(grad_workers, world/grad_workers): rows x cols of the KAISA grid.
+
+        The decompositions are all-gathered within a column (the inverse
+        broadcast) and the preconditioned gradients within a row (the
+        gradient broadcast).
+        """
+        return (self.grad_workers, self.n_cols)
+
+    def device_coords(self, device: int) -> tuple[int, int]:
+        """(row, col) of a device in the KAISA grid."""
+        return divmod(device, self.n_cols)
+
+    # ------------------------------------------------------------- queries
+
+    def broadcast_gradients(self) -> bool:
+        return self.grad_workers < self.world_size
+
+    def broadcast_inverses(self) -> bool:
+        return self.grad_workers > 1
+
+    def get_layers(self) -> tuple[str, ...]:
+        return tuple(self._placement)
+
+    def get_factors(self, layer: str) -> tuple[str, ...]:
+        return tuple(self._placement[layer])
+
+    def inv_worker(self, layer: str, factor: str) -> int:
+        return self._placement[layer][factor]
+
+    def is_grad_worker(self, device: int, layer: str) -> bool:
+        return device in self._layer_column[layer]
+
+    def src_grad_worker(self, device: int, layer: str) -> int:
+        row, _ = self.device_coords(device)
+        (src,) = set(self._layer_column[layer]) & set(self._rows[row])
+        return src
+
+    def factor_group(self, layer: str, factor: str) -> tuple[int, ...]:
+        return tuple(range(self.world_size))
+
+    def grad_worker_group(self, layer: str) -> tuple[int, ...]:
+        return self._layer_column[layer]
+
+    def grad_receiver_group(self, device: int, layer: str) -> tuple[int, ...]:
+        row, _ = self.device_coords(device)
+        return self._rows[row]
+
+
+def compute_work_costs(
+    layers: dict[str, object],
+    strategy: enums.AssignmentStrategy = enums.AssignmentStrategy.COMPUTE,
+) -> dict[str, dict[str, float]]:
+    """Per-factor work costs from a registry's layer helpers.
+
+    COMPUTE weights by n^3 (eigendecomposition FLOPs), MEMORY by n^2 (bytes)
+    — reference heuristic: kfac/preconditioner.py:270-285.
+    """
+    exp = 3 if strategy == enums.AssignmentStrategy.COMPUTE else 2
+    costs: dict[str, dict[str, float]] = {}
+    for name, helper in layers.items():
+        costs[name] = {
+            'A': float(helper.a_factor_shape[0] ** exp),
+            'G': float(helper.g_factor_shape[0] ** exp),
+        }
+    return costs

@@ -129,3 +129,55 @@ def from_jax_durable(arrays: Mapping[str, Any], kfac: KFACPreconditioner) -> KFA
     if arrays.get('health') is not None:
         loaded['health'] = arrays['health']
     return checkpoint.from_durable(kfac, loaded, 'the JAX durable state')
+
+
+def from_jax_dist_state(jax_state: Any, engine: Any) -> Any:
+    """This rank's :class:`~kfac_tpu_torch.parallel.DistKFACState` from a
+    JAX ``DistKFACState`` of the same configuration and world, or from the
+    dict of its fields that :func:`gather_dist_state` returns, its stacks
+    as numpy (``numpy.asarray`` of the global arrays): the rank's factor
+    block of each store and its column's block of each decomposition, on
+    ``engine.device``. The step and ``inv_damping`` are carried over."""
+    def field_of(name):
+        return jax_state[name] if isinstance(jax_state, Mapping) else getattr(jax_state, name)
+
+    state = engine.init()
+    dev = engine.device
+    updates: dict[str, Any] = {
+        'step': int(np.asarray(field_of('step'))),
+        'inv_damping': float(np.asarray(field_of('inv_damping'))),
+    }
+    for field in _STATE_FIELDS:
+        theirs = field_of(field)
+        blocks = {}
+        for key in getattr(state, field):
+            full = np.asarray(theirs[key], np.float32)
+            lo, hi = (
+                engine._factor_range(full.shape[0]) if field in ('a', 'g')
+                else engine._column_range(full.shape[0])
+            )
+            blocks[key] = torch.from_numpy(np.array(full[lo:hi])).to(dev)
+        updates[field] = blocks
+    return dataclasses.replace(state, **updates)
+
+
+def gather_dist_state(state: Any, engine: Any) -> dict[str, Any]:
+    """The global stacks of a distributed state, as numpy on every rank
+    (a collective: every rank calls it): ``{'step', 'inv_damping', 'a':
+    {key: (L, d, d)}, 'g', 'qa', ...}`` in the JAX ``DistKFACState``'s
+    layout. Factors are gathered from every rank's block; a decomposition
+    from the first row's ranks (each holds its column's block)."""
+    from kfac_tpu_torch.parallel import collectives
+
+    out: dict[str, Any] = {'step': state.step, 'inv_damping': state.inv_damping}
+    for field in _STATE_FIELDS:
+        stacks = {}
+        for key, local in getattr(state, field).items():
+            if field in ('a', 'g'):
+                full = engine._gather_blocks(local)
+            else:
+                full = collectives.all_gather_cat(local, engine.mesh.group)
+                full = full[:local.shape[0] * engine.mesh.n_cols]
+            stacks[key] = full.detach().cpu().numpy()
+        out[field] = stacks
+    return out

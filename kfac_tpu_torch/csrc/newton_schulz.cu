@@ -55,6 +55,18 @@
 //   fixed-order tree over its threads) to partials[cta], and a single-CTA
 //   pass sums the partials in a fixed order and writes sqrt(sum) / sqrt(d).
 //   No float atomics: every output repeats bit for bit from run to run.
+// - A stack of L matrices (the distributed engine's slot stores) is one
+//   launch of each kernel: the slot is blockIdx.z, and each slot's
+//   partials and residual are its own. An optional active[L] mask on the
+//   device lets a frozen slot's CTAs return at once (a slot whose own
+//   stopping rule has fired, while the others iterate on); their outputs
+//   are then left unwritten. The stacked instantiation (kStacked) differs
+//   from the 2-D one only in the slot's index offset, so a slot of a
+//   stack is bit for bit the 2-D result at the same tile. The 2-D launch
+//   keeps its own instantiation, the code of the 2-D kernel before the
+//   slot axis (if constexpr): on an H100 its time at d = 2048 and 2049
+//   moved with any change to its indexing (same outputs), and this form
+//   is level with it (python -m kfac_tpu_torch.ns_ab).
 
 #include <cuda_runtime.h>
 
@@ -211,23 +223,39 @@ __device__ __forceinline__ void wgmma(float (&d)[16], const uint32_t (&a)[4],
 }
 
 // C = A op(B) for row-major (d, d) A, B, C, where op(B) = 2I - B when
-// kTwoIMinusB, else B, over a (64 kWG) x kBN tile of C per CTA. With
-// kResid, also writes the CTA's sum of (delta_rc - C_rc)^2 over its
-// in-range elements to partials[cta].
-template <int kWG, int kBN, bool kTwoIMinusB, bool kResid>
+// kTwoIMinusB, else B, over a (64 kWG) x kBN tile of C per CTA; with
+// kStacked, for slot blockIdx.z of (L, d, d) stacks (skipped where
+// active[z] == 0). With kResid, also writes the CTA's sum of
+// (delta_rc - C_rc)^2 over its in-range elements to partials[z][cta].
+template <int kWG, int kBN, bool kTwoIMinusB, bool kResid, bool kStacked>
 __global__ void __launch_bounds__(128 * kWG)
 ns_wgmma_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                float* __restrict__ c, float* __restrict__ partials, int d) {
+                float* __restrict__ c, float* __restrict__ partials,
+                const unsigned char* __restrict__ active, int d) {
   using T = Tile<kWG, kBN>;
   extern __shared__ __align__(128) float smem[];
+  // the slot's first element in the stacks: an index offset (moving a, b
+  // and c by the slot took more registers and was slower at d = 2049 on
+  // an H100)
+  int slot = 0;
+  long long base = 0;
+  if constexpr (kStacked) {
+    slot = blockIdx.z;
+    if (active != nullptr && active[slot] == 0) return;  // uniform per CTA
+    base = static_cast<long long>(slot) * d * d;
+  }
   float* planes = smem;  // buffer u: hi at 2u * kPlaneB, lo after it
   float* ring = smem + 4 * T::kPlaneB;
 
   const int i0 = blockIdx.y * T::kBM;
   const int j0 = blockIdx.x * kBN;
   const int nslab = (d + kBK - 1) / kBK;
-  const int sa = static_cast<int>(reinterpret_cast<uintptr_t>(a) % 16) / 4;
-  const int sb = static_cast<int>(reinterpret_cast<uintptr_t>(b) % 16) / 4;
+  int sa = static_cast<int>(reinterpret_cast<uintptr_t>(a) % 16) / 4;
+  int sb = static_cast<int>(reinterpret_cast<uintptr_t>(b) % 16) / 4;
+  if constexpr (kStacked) {
+    sa = static_cast<int>((reinterpret_cast<uintptr_t>(a) / 4 + base) & 3);
+    sb = static_cast<int>((reinterpret_cast<uintptr_t>(b) / 4 + base) & 3);
+  }
   const long long total = static_cast<long long>(d) * d;
   // floats from the 16-byte boundary at or before row `row`'s start
   auto shift_a = [&](int row) { return ((row & 3) * (d & 3) + sa) & 3; };
@@ -250,7 +278,11 @@ ns_wgmma_kernel(const float* __restrict__ a, const float* __restrict__ b,
       const long long f =
           static_cast<long long>(row) * d - shift_a(row) + k0 + c4;
       const int v = row < d ? inside(f) : 0;
-      cp_async16(ra + r * T::kLdA + c4, v ? a + f : a - sa, v);
+      if constexpr (kStacked) {
+        cp_async16(ra + r * T::kLdA + c4, v ? a + base + f : a + base - sa, v);
+      } else {
+        cp_async16(ra + r * T::kLdA + c4, v ? a + f : a - sa, v);
+      }
     }
     constexpr int kPerRowB = kBN / 4 + 1;
     for (int e = threadIdx.x; e < kBK * kPerRowB; e += T::kThreads) {
@@ -260,7 +292,11 @@ ns_wgmma_kernel(const float* __restrict__ a, const float* __restrict__ b,
       const long long f =
           static_cast<long long>(row) * d - shift_b(row) + j0 + c4;
       const int v = row < d ? inside(f) : 0;
-      cp_async16(rb + kk * T::kLdB + c4, v ? b + f : b - sb, v);
+      if constexpr (kStacked) {
+        cp_async16(rb + kk * T::kLdB + c4, v ? b + base + f : b + base - sb, v);
+      } else {
+        cp_async16(rb + kk * T::kLdB + c4, v ? b + f : b - sb, v);
+      }
     }
   };
 
@@ -386,7 +422,11 @@ ns_wgmma_kernel(const float* __restrict__ a, const float* __restrict__ b,
     const int gi = i0 + wg * 64 + warp * 16 + g + 8 * ((i % 4) / 2);
     const int gj = j0 + (i / 4) * 8 + 2 * t + i % 2;
     if (gi < d && gj < d) {
-      c[static_cast<size_t>(gi) * d + gj] = acc[i];
+      if constexpr (kStacked) {
+        c[base + static_cast<long long>(gi) * d + gj] = acc[i];
+      } else {
+        c[static_cast<size_t>(gi) * d + gj] = acc[i];
+      }
       if (kResid) {
         const float delta = (gi == gj ? 1.f : 0.f) - acc[i];
         local = fmaf(delta, delta, local);
@@ -405,16 +445,26 @@ ns_wgmma_kernel(const float* __restrict__ a, const float* __restrict__ b,
       float s = 0.f;
 #pragma unroll
       for (int w = 0; w < T::kThreads / 32; ++w) s += smem[w];
-      partials[blockIdx.y * gridDim.x + blockIdx.x] = s;
+      if constexpr (kStacked) {
+        partials[(static_cast<size_t>(slot) * gridDim.y + blockIdx.y) * gridDim.x +
+                 blockIdx.x] = s;
+      } else {
+        partials[blockIdx.y * gridDim.x + blockIdx.x] = s;
+      }
     }
   }
 }
 
-// resid = sqrt(sum of partials) / sqrt(d), summed in a fixed order by one CTA.
+// resid[z] = sqrt(sum of slot z's n partials) / sqrt(d), summed in a fixed
+// order by one CTA a slot (blockIdx.x).
 __global__ void __launch_bounds__(kFinalThreads)
 ns_resid_final_kernel(const float* __restrict__ partials, int n,
-                      float* __restrict__ resid, int d) {
+                      float* __restrict__ resid,
+                      const unsigned char* __restrict__ active, int d) {
   __shared__ float red[kFinalThreads];
+  const int slot = blockIdx.x;
+  if (active != nullptr && active[slot] == 0) return;
+  partials += static_cast<size_t>(slot) * n;
   float s = 0.f;
   for (int i = threadIdx.x; i < n; i += kFinalThreads) s += partials[i];
   red[threadIdx.x] = s;
@@ -423,17 +473,17 @@ ns_resid_final_kernel(const float* __restrict__ partials, int n,
     if (threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
     __syncthreads();
   }
-  if (threadIdx.x == 0) resid[0] = sqrtf(red[0]) / sqrtf(static_cast<float>(d));
+  if (threadIdx.x == 0) resid[slot] = sqrtf(red[0]) / sqrtf(static_cast<float>(d));
 }
 
-template <int kWG, int kBN>
+template <int kWG, int kBN, bool kStacked>
 int launch(const float* m, const float* x, const float* mx, float* x_new,
-           float* mx_new, float* partials, float* resid, int d,
-           cudaStream_t stream) {
+           float* mx_new, float* partials, float* resid,
+           const unsigned char* active, int slots, int d, cudaStream_t stream) {
   using T = Tile<kWG, kBN>;
-  auto* xupdate = ns_wgmma_kernel<kWG, kBN, true, false>;
-  auto* product = ns_wgmma_kernel<kWG, kBN, false, true>;
-  // shared memory above 48 KB is allowed once per device
+  auto* xupdate = ns_wgmma_kernel<kWG, kBN, true, false, kStacked>;
+  auto* product = ns_wgmma_kernel<kWG, kBN, false, true, kStacked>;
+  // shared memory above 48 KB is allowed once per device and instantiation
   static bool smem_allowed[kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -448,17 +498,15 @@ int launch(const float* m, const float* x, const float* mx, float* x_new,
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_allowed[dev] = true;
   }
-  const dim3 grid((d + kBN - 1) / kBN, (d + T::kBM - 1) / T::kBM);
-  ns_wgmma_kernel<kWG, kBN, true, false>
-      <<<grid, T::kThreads, T::kSmemBytes, stream>>>(x, mx, x_new, nullptr, d);
+  const dim3 grid((d + kBN - 1) / kBN, (d + T::kBM - 1) / T::kBM, slots);
+  xupdate<<<grid, T::kThreads, T::kSmemBytes, stream>>>(x, mx, x_new, nullptr, active, d);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  ns_wgmma_kernel<kWG, kBN, false, true>
-      <<<grid, T::kThreads, T::kSmemBytes, stream>>>(m, x_new, mx_new, partials, d);
+  product<<<grid, T::kThreads, T::kSmemBytes, stream>>>(m, x_new, mx_new, partials, active, d);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  ns_resid_final_kernel<<<1, kFinalThreads, 0, stream>>>(
-      partials, grid.x * grid.y, resid, d);
+  ns_resid_final_kernel<<<slots, kFinalThreads, 0, stream>>>(
+      partials, grid.x * grid.y, resid, active, d);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -466,21 +514,30 @@ int launch(const float* m, const float* x, const float* mx, float* x_new,
 
 extern "C" {
 
-// One iteration on `stream`: x_new, mx_new (d, d), resid (one float), with
-// `partials` scratch of ceil(d / tile_m) * ceil(d / tile_n) floats. The
-// output tile (tile_m, tile_n) is (128, 128), (128, 144) or (64, 32).
-// Returns the
-// first nonzero cudaGetLastError() of the three launches, else 0.
-int ns_step_f32(const float* m, const float* x, const float* mx, float* x_new,
-                float* mx_new, float* partials, float* resid, int d,
-                int tile_m, int tile_n, cudaStream_t stream) {
-  if (d <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (tile_m == 128 && tile_n == 144)
-    return launch<2, 144>(m, x, mx, x_new, mx_new, partials, resid, d, stream);
-  if (tile_m == 128 && tile_n == 128)
-    return launch<2, 128>(m, x, mx, x_new, mx_new, partials, resid, d, stream);
-  if (tile_m == 64 && tile_n == 32)
-    return launch<1, 32>(m, x, mx, x_new, mx_new, partials, resid, d, stream);
+// One iteration on `stream` for each of `slots` (L) stacked matrices:
+// x_new, mx_new (L, d, d), resid (L floats), with `partials` scratch of
+// L * ceil(d / tile_m) * ceil(d / tile_n) floats. Slot z is skipped, its
+// outputs unwritten, where `active` (L bytes on the device, or null for
+// every slot) holds 0. The output tile (tile_m, tile_n) is (128, 128),
+// (128, 144) or (64, 32). Returns the first nonzero cudaGetLastError() of
+// the three launches, else 0.
+int ns_step_stacked_f32(const float* m, const float* x, const float* mx,
+                        float* x_new, float* mx_new, float* partials,
+                        float* resid, const unsigned char* active, int slots,
+                        int d, int tile_m, int tile_n, cudaStream_t stream) {
+  if (d <= 0 || slots <= 0 || slots > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // a stack of one with every slot active is the 2-D launch
+  const bool stacked = slots > 1 || active != nullptr;
+#define NS_LAUNCH(WG, BN)                                                              \
+  return stacked ? launch<WG, BN, true>(m, x, mx, x_new, mx_new, partials, resid, active, \
+                                        slots, d, stream)                                \
+                 : launch<WG, BN, false>(m, x, mx, x_new, mx_new, partials, resid,        \
+                                         nullptr, 1, d, stream)
+  if (tile_m == 128 && tile_n == 144) NS_LAUNCH(2, 144);
+  if (tile_m == 128 && tile_n == 128) NS_LAUNCH(2, 128);
+  if (tile_m == 64 && tile_n == 32) NS_LAUNCH(1, 32);
+#undef NS_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -24,7 +24,6 @@ from __future__ import annotations
 import argparse
 import array
 import ctypes
-import hashlib
 import json
 import subprocess
 import sys
@@ -41,12 +40,7 @@ DOT_KERNELS = ('klclip_dot_multi_kernel', 'klclip_dot_final_kernel')
 
 def other_launcher(source: Path):
     """``klclip_dot_multi_f32`` of ``source``, built like this tree's."""
-    digest = hashlib.sha256(source.read_bytes() + ' '.join(build.FLAGS).encode()).hexdigest()[:16]
-    out = build.BUILD_DIR / f'libklclip_other-{digest}.so'
-    if not out.exists():
-        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        subprocess.run([build.nvcc(), *build.FLAGS, '-o', str(out), str(source)], check=True)
-    fn = ctypes.CDLL(str(out)).klclip_dot_multi_f32
+    fn = build.other_library('klclip', source).klclip_dot_multi_f32
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
         ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,

@@ -48,9 +48,10 @@ def nvcc() -> str:
     return found
 
 
-def target(name: str) -> Path:
-    """Library path for source ``name``, keyed by its content and flags."""
-    src = (CSRC / f'{name}.cu').read_bytes()
+def target(name: str, source: Path | None = None) -> Path:
+    """Library path for source ``name`` (``csrc/<name>.cu``, or
+    ``source``), keyed by its content and flags."""
+    src = (source or CSRC / f'{name}.cu').read_bytes()
     digest = hashlib.sha256(src + ' '.join(FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f'lib{name}-{digest}.so'
 
@@ -103,6 +104,17 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library of source ``name``, built first if needed."""
     build((name,))
     return ctypes.CDLL(str(target(name)))
+
+
+def other_library(name: str, source: Path) -> ctypes.CDLL:
+    """``source``, another commit's ``csrc/<name>.cu`` (for an A/B of two
+    versions of a kernel in one process), built with this tree's flags and
+    loaded."""
+    out = target(f'{name}_other', source)
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        subprocess.run([nvcc(), *FLAGS, '-o', str(out), str(source)], check=True)
+    return ctypes.CDLL(str(out))
 
 
 def check(name: str, code: int) -> None:

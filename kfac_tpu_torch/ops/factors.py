@@ -2,8 +2,13 @@
 
 EMA updates, the eigendecomposition (on the device, or by LAPACK on the
 host), the damped inverse by Cholesky or Newton-Schulz, eigen/inverse
-preconditioning and the kl-clip terms. Decompositions run in f32. The
-batched damped inverses come in a later slice.
+preconditioning and the kl-clip terms. Decompositions run in f32.
+
+The distributed engine's stores are (L, d, d) stacks: the Cholesky
+inverse and the preconditioning products take a leading slot axis, and
+:func:`newton_schulz_inverse_stacked` and
+:func:`batched_damped_inverse_auto` are the stacked solvers (the JAX
+package vmaps the per-matrix ones).
 """
 
 from __future__ import annotations
@@ -86,16 +91,18 @@ def compute_eigh(factor: torch.Tensor, impl: str = 'device') -> EigenDecomp:
 def compute_inverse(
     factor: torch.Tensor, damping: float | torch.Tensor
 ) -> torch.Tensor:
-    """Tikhonov-damped explicit inverse in f32, via Cholesky.
+    """Tikhonov-damped explicit inverse in f32, via Cholesky, of a (d, d)
+    factor or each slot of an (L, d, d) stack (``damping`` a scalar, or
+    (L,) for a stack).
 
     A damped factor that is not positive definite gives an all-NaN inverse,
     as the JAX function's ``cho_factor`` does, chosen on the device from
     ``cholesky_ex``'s ``info`` (no host read), so the health sentinel can
     roll it back."""
     f = factor.float()
-    eye = torch.eye(f.shape[0], dtype=f.dtype, device=f.device)
-    chol, info = torch.linalg.cholesky_ex(f + damping * eye)
-    ok = info == 0
+    eye = torch.eye(f.shape[-1], dtype=f.dtype, device=f.device)
+    chol, info = torch.linalg.cholesky_ex(f + _slot_scalar(damping, f) * eye)
+    ok = (info == 0)[..., None, None]
     # a failed factorization's partial L is swapped for I before the solve
     inv = torch.cholesky_inverse(torch.where(ok, chol, eye))
     return torch.where(ok, inv, torch.full_like(inv, float('nan')))
@@ -187,45 +194,21 @@ def newton_schulz_inverse_info(
     threshold returns what the JAX function returns.
 
     ``lax.while_loop`` becomes a host loop that reads each iteration's
-    residual: one device sync per iteration, at inverse refreshes only.
-    ``differentiable=True`` (the fixed-trip scan) is not ported and raises.
-    Each call adds one to ``newton_schulz_inverse_info.starts['warm']``,
-    ``['cold']`` or ``['warm_restarted']``.
+    stopping rule: one device sync per iteration, at inverse refreshes
+    only. ``differentiable=True`` (the fixed-trip scan) is not ported and
+    raises. Each call adds one to ``newton_schulz_inverse_info.starts['warm']``,
+    ``['cold']`` or ``['warm_restarted']``. The solve is
+    :func:`newton_schulz_inverse_stacked` of a stack of one.
     """
     if differentiable:
         raise NotImplementedError(
             'newton_schulz_inverse_info(differentiable=True) is not ported yet'
         )
-    m = factor.float()
-    d = m.shape[-1]
-    eye = torch.eye(d, dtype=m.dtype, device=m.device)
-    m = m + damping * eye
-
-    def residual(mx):
-        return torch.linalg.norm(eye - mx) / math.sqrt(d)
-
-    def iterate(x, mx):
-        resid = residual(mx)
-        value, prev, k = float(resid), math.inf, 0
-        while k < max_iters and value > tol and value < prev:
-            x, mx, resid = ns_lib.fused_ns_step(m, x, mx)
-            prev, value, k = value, float(resid), k + 1
-        return x, resid, k
-
-    warm_iters = 0
-    if x0 is not None:
-        # safeguarded warm start: the m @ x0 product doubles as mx0
-        x = x0.float()
-        mx = m @ x
-        if float(residual(mx)) < 0.5:
-            x, resid, warm_iters = iterate(x, mx)
-            if float(resid) <= NS_FALLBACK_RESIDUAL:
-                newton_schulz_inverse_info.starts['warm'] += 1
-                return NewtonSchulzInfo(x, resid, warm_iters)
-    newton_schulz_inverse_info.starts['warm_restarted' if warm_iters else 'cold'] += 1
-    lam_max = torch.max(torch.sum(torch.abs(m), dim=-1))  # Gershgorin bound
-    x, resid, k = iterate(eye / lam_max, m / lam_max)
-    return NewtonSchulzInfo(x, resid, warm_iters + k)
+    info = newton_schulz_inverse_stacked(
+        factor[None], damping, max_iters=max_iters, tol=tol,
+        x0=None if x0 is None else x0[None],
+    )
+    return NewtonSchulzInfo(info.inverse[0], info.residual[0], int(info.iterations[0]))
 
 
 newton_schulz_inverse_info.starts = {'warm': 0, 'cold': 0, 'warm_restarted': 0}
@@ -274,6 +257,155 @@ def damped_inverse(
 damped_inverse.cholesky_fallbacks = 0
 
 
+class StackedNewtonSchulzInfo(NamedTuple):
+    """Result of :func:`newton_schulz_inverse_stacked`, per slot of an (L,
+    d, d) stack: the damped ``inverse`` (L, d, d) f32 and its ``residual``
+    (L,) f32 on the stack's device; on the host, the ``iterations`` run
+    (L,) int32 (both runs of a restarted slot), ``warm`` (L,) bool (the
+    safeguard kept the slot's ``x0``) and ``restarted`` (L,) bool (a warm
+    start that ended above :data:`NS_FALLBACK_RESIDUAL` and ran again
+    cold)."""
+
+    inverse: torch.Tensor
+    residual: torch.Tensor
+    iterations: torch.Tensor
+    warm: torch.Tensor
+    restarted: torch.Tensor
+
+
+def newton_schulz_inverse_stacked(
+    stack: torch.Tensor,
+    damping: float | torch.Tensor,
+    max_iters: int = 40,
+    tol: float = 1e-6,
+    x0: torch.Tensor | None = None,
+    live: torch.Tensor | None = None,
+) -> StackedNewtonSchulzInfo:
+    """:func:`newton_schulz_inverse_info` of every slot of an (L, d, d)
+    stack at once, as the JAX package's ``vmap`` of it: each slot runs its
+    own stopping rule, and a slot whose rule has fired keeps its iterate,
+    residual and count while the others iterate on. ``damping`` is a
+    scalar or (L,); ``x0`` (L, d, d) warm-starts each slot behind its own
+    safeguard; ``live`` (L,) bool, when given, marks the slots to solve,
+    and the others (a store's padding) never iterate and return their
+    start.
+
+    Each iteration is one launch of :func:`~kfac_tpu_torch.ops.
+    newton_schulz.fused_ns_step_stacked` over the whole stack, its
+    ``active`` mask the slots still running (no mask when every slot runs;
+    a stack of one goes through :func:`~kfac_tpu_torch.ops.newton_schulz.
+    fused_ns_step`, the 2-D launch), and one host read, the (L,)
+    residuals: the stopping rules run on the host. The port's repair of
+    the warm start holds per slot: a warm start that ends above
+    :data:`NS_FALLBACK_RESIDUAL` runs again from the cold start. Each
+    live slot adds one to ``newton_schulz_inverse_info.starts``.
+    """
+    m = stack.float()
+    slots, d = m.shape[0], m.shape[-1]
+    eye = torch.eye(d, dtype=m.dtype, device=m.device)
+    m = m + _slot_scalar(damping, m) * eye
+    live = [True] * slots if live is None else live.tolist()
+
+    def residual(mx):
+        return torch.linalg.matrix_norm(eye - mx) / math.sqrt(d)
+
+    def cold():
+        lam_max = torch.amax(torch.sum(torch.abs(m), dim=-1), dim=-1)  # Gershgorin bounds
+        return eye / lam_max[:, None, None], m / lam_max[:, None, None]
+
+    def iterate(x, mx, eligible):
+        """The eligible slots to their own stops: (x, resid, its values
+        on the host, iterations)."""
+        resid = residual(mx)
+        values, prev, k = resid.tolist(), [math.inf] * slots, [0] * slots
+        while True:
+            active = [
+                e and n < max_iters and tol < v < p
+                for e, n, v, p in zip(eligible, k, values, prev)
+            ]
+            if not any(active):
+                return x, resid, values, k
+            prev = [v if a else p for a, v, p in zip(active, values, prev)]
+            k = [n + a for n, a in zip(k, active)]
+            if all(active):  # no mask; a stack of one is the 2-D launch
+                if slots == 1:
+                    x, mx, resid = (t[None] for t in ns_lib.fused_ns_step(m[0], x[0], mx[0]))
+                else:
+                    x, mx, resid = ns_lib.fused_ns_step_stacked(m, x, mx)
+            else:
+                mask = torch.tensor(active, device=m.device)
+                x_new, mx_new, r_new = ns_lib.fused_ns_step_stacked(m, x, mx, mask)
+                keep = mask[:, None, None]
+                x = torch.where(keep, x_new, x)
+                mx = torch.where(keep, mx_new, mx)
+                resid = torch.where(mask, r_new, resid)
+            values = resid.tolist()  # the iteration's one host read
+
+    warm = [False] * slots
+    if x0 is not None:
+        # safeguarded warm start: the m @ x0 product doubles as mx0
+        x = x0.float()
+        mx = m @ x
+        safe = residual(mx) < 0.5
+        warm = safe.tolist()
+    if not all(warm):
+        cold_x, cold_mx = cold()
+        if any(warm):
+            keep = safe[:, None, None]
+            x, mx = torch.where(keep, x, cold_x), torch.where(keep, mx, cold_mx)
+        else:
+            x, mx = cold_x, cold_mx
+    warm = [w and v for w, v in zip(warm, live)]
+    x, resid, values, k = iterate(x.contiguous(), mx.contiguous(), live)
+    restarted = [w and not v <= NS_FALLBACK_RESIDUAL for w, v in zip(warm, values)]
+    starts = newton_schulz_inverse_info.starts
+    starts['warm'] += sum(warm) - sum(restarted)
+    starts['warm_restarted'] += sum(restarted)
+    starts['cold'] += sum(live) - sum(warm)
+    if any(restarted):
+        xc, rc, _, kc = iterate(*(t.contiguous() for t in cold()), restarted)
+        again = torch.tensor(restarted, device=m.device)
+        x = torch.where(again[:, None, None], xc, x)
+        resid = torch.where(again, rc, resid)
+        k = [n + c for n, c in zip(k, kc)]
+    return StackedNewtonSchulzInfo(
+        x, resid, torch.tensor(k, dtype=torch.int32), torch.tensor(warm), torch.tensor(restarted)
+    )
+
+
+def batched_damped_inverse_auto(
+    stack: torch.Tensor,
+    damping: float | torch.Tensor,
+    iters: int = 40,
+    x0: torch.Tensor | None = None,
+    live: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The ``'auto'`` inverse of every slot of an (L, d, d) stack, paying
+    the Cholesky only when Newton-Schulz fails (the JAX function of the
+    same name): the stacked Newton-Schulz solve, then, if some live slot's
+    residual is not at or below :data:`NS_FALLBACK_RESIDUAL` (NaN
+    included; one host read), the batched Cholesky inverse of the stack,
+    taken at those slots. Each such slot adds one to
+    ``damped_inverse.cholesky_fallbacks``."""
+    info = newton_schulz_inverse_stacked(stack, damping, max_iters=iters, x0=x0, live=live)
+    bad = ~(info.residual <= NS_FALLBACK_RESIDUAL)
+    if live is not None:
+        bad = bad & live
+    n_bad = int(bad.sum())
+    if not n_bad:
+        return info.inverse
+    damped_inverse.cholesky_fallbacks += n_bad
+    return torch.where(bad[:, None, None], compute_inverse(stack, damping), info.inverse)
+
+
+def _slot_scalar(value: float | torch.Tensor, like: torch.Tensor):
+    """A scalar as it is, or an (L,) tensor shaped (L, 1, 1) to scale the
+    slots of an (L, d, d) stack."""
+    if isinstance(value, torch.Tensor) and value.ndim == 1:
+        return value.to(like.dtype)[:, None, None]
+    return value
+
+
 def eigen_preconditioned_grad(
     grad: torch.Tensor,
     a: EigenDecomp,
@@ -281,12 +413,14 @@ def eigen_preconditioned_grad(
     damping: float | torch.Tensor,
 ) -> torch.Tensor:
     """``qg @ [(qg^T grad qa) / (dg (x) da + damping)] @ qa^T`` for a
-    (d_out, d_in) gradient."""
+    (d_out, d_in) gradient, or for each slot of (L, d_out, d_in) with
+    stacked decompositions (batched products; ``damping`` scalar or
+    (L,))."""
     grad_dtype = grad.dtype
     grad = grad.to(a.q.dtype)
-    v1 = g.q.T @ grad @ a.q
-    v2 = v1 / (torch.outer(g.d, a.d) + damping)
-    return (g.q @ v2 @ a.q.T).to(grad_dtype)
+    v1 = g.q.mT @ grad @ a.q
+    v2 = v1 / (g.d[..., :, None] * a.d[..., None, :] + _slot_scalar(damping, v1))
+    return (g.q @ v2 @ a.q.mT).to(grad_dtype)
 
 
 def prediv_eigenvalues(
@@ -294,8 +428,10 @@ def prediv_eigenvalues(
     g: EigenDecomp,
     damping: float | torch.Tensor,
 ) -> torch.Tensor:
-    """Precomputed ``1 / (dg (x) da + damping)`` (d_out, d_in)."""
-    return 1.0 / (torch.outer(g.d, a.d) + damping)
+    """Precomputed ``1 / (dg (x) da + damping)`` (d_out, d_in), or (L,
+    d_out, d_in) from stacked eigenvalues."""
+    outer = g.d[..., :, None] * a.d[..., None, :]
+    return 1.0 / (outer + _slot_scalar(damping, outer))
 
 
 def inverse_preconditioned_grad(
@@ -303,7 +439,8 @@ def inverse_preconditioned_grad(
     a_inv: torch.Tensor,
     g_inv: torch.Tensor,
 ) -> torch.Tensor:
-    """Precondition via explicit inverses: ``g_inv @ grad @ a_inv``."""
+    """Precondition via explicit inverses: ``g_inv @ grad @ a_inv``, for
+    one matrix or each slot of a stack."""
     grad_dtype = grad.dtype
     grad = grad.to(a_inv.dtype)
     return (g_inv @ grad @ a_inv).to(grad_dtype)

@@ -1,0 +1,793 @@
+"""KAISA distributed K-FAC over ``torch.distributed`` (counterpart of
+``kfac_tpu/parallel/kaisa.py``).
+
+The JAX engine expresses KAISA as data layout on a device mesh and lets
+XLA insert the collectives; here one process runs each rank of a
+:class:`~kfac_tpu_torch.parallel.mesh.KaisaGrid` and the collectives are
+explicit. The layout is the JAX engine's:
+
+- Layers are grouped by factor size class into buckets, and each side's
+  factors are stacked into stores ``(L, d, d)``, padded with identity
+  slots to a multiple of the world (exact: a padding slot's gradient is
+  zero).
+- Factors are sharded over every rank: each rank holds one block of
+  ``L / world`` slots of each store, and decomposes that block.
+- Decompositions are resident in the strategy's layout: the slots of a
+  column's block on every rank of that column (COMM-OPT: one column, so
+  every rank holds every slot; MEM-OPT: one rank a column). The
+  all-gather within the column after a refresh is KAISA's inverse
+  broadcast.
+- Each column preconditions the gradients of its slots, and the
+  all-gather within each row is KAISA's gradient broadcast.
+
+Which rank decomposes which block is ordered so that the reshard is one
+all-gather within each column: rank ``(row, col)`` holds factor block
+``col * grad_workers + row``. Under COMM-OPT and MEM-OPT that is block
+``rank``, the JAX engine's placement; under HYBRID the blocks of a column
+are spread over its rows where the JAX mesh places them on consecutive
+devices. The resident decompositions, which ``memory_usage`` counts and
+``convert`` moves, lie where the JAX engine's do on every strategy.
+
+The steps take this rank's statistics, from a mean loss over its own row
+block of the global batch, and the global mean gradients (the
+``Trainer`` reduces them, :meth:`DistributedKFAC.average_grads`). The
+health sentinel, metrics, flight recorder, async refresh, stat
+compression, offload, compile watch and ``auto_layout`` of the JAX engine
+come in a later slice and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Any, NamedTuple
+
+import torch
+import torch.distributed as dist
+
+from kfac_tpu_torch import assignment as assignment_lib
+from kfac_tpu_torch import enums
+from kfac_tpu_torch.hyperparams import resolve
+from kfac_tpu_torch.layers import capture as capture_lib
+from kfac_tpu_torch.layers import registry as registry_lib
+from kfac_tpu_torch.observability import comms as comms_lib
+from kfac_tpu_torch.ops import factors as factors_lib
+from kfac_tpu_torch.ops import klclip
+from kfac_tpu_torch.parallel import collectives
+from kfac_tpu_torch.parallel import mesh as mesh_lib
+
+
+def size_class(d: int, granularity: int) -> int:
+    """A factor dimension rounded up to its size class: ``granularity <=
+    1`` keeps it; dims below the granularity round to the next power of
+    two (>= 8), capped at the granularity; larger dims to the next
+    multiple of the granularity."""
+    if granularity <= 1 or d == 0:
+        return d
+    if d >= granularity:
+        return -(-d // granularity) * granularity
+    c = 8
+    while c < d:
+        c *= 2
+    return min(c, granularity)
+
+
+def pad_factor(m: torch.Tensor, c: int) -> torch.Tensor:
+    """A (d, d) factor in its (c, c) class slot, an identity block in the
+    padding (a decoupled unit eigenspace, so preconditioning the real
+    block is unchanged)."""
+    d = m.shape[0]
+    if d == c:
+        return m
+    out = torch.zeros((c, c), dtype=m.dtype, device=m.device)
+    out[:d, :d] = m
+    idx = torch.arange(d, c, device=m.device)
+    out[idx, idx] = 1.0
+    return out
+
+
+def pad_grad(m: torch.Tensor, cg: int, ca: int) -> torch.Tensor:
+    """A (dg, da) gradient matrix zero-padded into its (cg, ca) slot."""
+    if tuple(m.shape) == (cg, ca):
+        return m
+    out = torch.zeros((cg, ca), dtype=m.dtype, device=m.device)
+    out[:m.shape[0], :m.shape[1]] = m
+    return out
+
+
+class Bucket(NamedTuple):
+    """Layers sharing factor size classes, stacked along a slot axis.
+    ``da``/``dg`` are class dims; ``dims`` each layer's true (da, dg)."""
+
+    key: str
+    layers: tuple[str, ...]
+    da: int
+    dg: int
+    padded: int  # slots, padding to a multiple of the world included
+    dims: tuple[tuple[int, int], ...]
+
+
+def build_buckets(
+    registry: registry_lib.Registry, world: int, granularity: int = 128
+) -> list[Bucket]:
+    """Group registered layers by (A class, G class), padded to the
+    world."""
+    groups: dict[tuple[int, int], list[tuple[str, int, int]]] = {}
+    for name, h in registry.layers.items():
+        da, dg = h.a_factor_shape[0], h.g_factor_shape[0]
+        key = (size_class(da, granularity), size_class(dg, granularity))
+        groups.setdefault(key, []).append((name, da, dg))
+    return [
+        Bucket(
+            key=f'{ca}x{cg}',
+            layers=tuple(r[0] for r in rows),
+            da=ca,
+            dg=cg,
+            padded=-(-len(rows) // world) * world,
+            dims=tuple((r[1], r[2]) for r in rows),
+        )
+        for (ca, cg), rows in sorted(groups.items())
+    ]
+
+
+class StorageBucket(NamedTuple):
+    """One side's (A or G) factor store: layers stacked along slots. With
+    ``colocate_factors`` the stores mirror the pair buckets, so a layer's
+    A and G share a slot; without, each side groups by its own dim."""
+
+    key: str
+    layers: tuple[str, ...]
+    d: int  # class dim
+    padded: int
+    dims: tuple[int, ...]  # true per-layer dims
+
+
+def build_side_buckets(
+    registry: registry_lib.Registry,
+    world: int,
+    side: str,
+    granularity: int = 128,
+) -> list[StorageBucket]:
+    """Group layers by one side's size class (non-colocated stores)."""
+    groups: dict[int, list[tuple[str, int]]] = {}
+    for name, h in registry.layers.items():
+        d = h.a_factor_shape[0] if side == 'a' else h.g_factor_shape[0]
+        groups.setdefault(size_class(d, granularity), []).append((name, d))
+    return [
+        StorageBucket(
+            key=f'{side}{c}',
+            layers=tuple(r[0] for r in rows),
+            d=c,
+            padded=-(-len(rows) // world) * world,
+            dims=tuple(r[1] for r in rows),
+        )
+        for c, rows in sorted(groups.items())
+    ]
+
+
+def build_stores(
+    registry: registry_lib.Registry,
+    world: int,
+    granularity: int,
+    colocate: bool,
+    buckets: list[Bucket],
+) -> tuple[list[StorageBucket], list[StorageBucket]]:
+    """The (A stores, G stores) of a configuration: the pair buckets'
+    sides when colocated, else each side bucketed by its own dim."""
+    if colocate:
+        return (
+            [StorageBucket(b.key, b.layers, b.da, b.padded, tuple(d[0] for d in b.dims))
+             for b in buckets],
+            [StorageBucket(b.key, b.layers, b.dg, b.padded, tuple(d[1] for d in b.dims))
+             for b in buckets],
+        )
+    return (
+        build_side_buckets(registry, world, 'a', granularity),
+        build_side_buckets(registry, world, 'g', granularity),
+    )
+
+
+@dataclasses.dataclass
+class DistKFACState:
+    """This rank's shards of the stacked state: store key -> tensor.
+
+    ``a``/``g``: the rank's factor block of each store, (L / world, d, d).
+    ``qa``/``qg``/``da``/``dg`` (EIGEN), ``dgda`` (prediv) and
+    ``a_inv``/``g_inv`` (INVERSE): the resident block of the rank's column,
+    (L / n_cols, ...); unused fields hold empty dicts. ``inv_damping``: the
+    damping the resident decompositions were built with (read by
+    :meth:`DistributedKFAC.inverse_residuals`).
+    """
+
+    step: int
+    a: dict[str, torch.Tensor]
+    g: dict[str, torch.Tensor]
+    qa: dict[str, torch.Tensor]
+    qg: dict[str, torch.Tensor]
+    da: dict[str, torch.Tensor]
+    dg: dict[str, torch.Tensor]
+    dgda: dict[str, torch.Tensor]
+    a_inv: dict[str, torch.Tensor]
+    g_inv: dict[str, torch.Tensor]
+    inv_damping: float
+
+
+_LATER_SLICE_KNOBS = (
+    'health', 'metrics', 'flight', 'async_inverse', 'offload', 'stat_compression',
+    'compile_watch',
+)
+
+
+@dataclasses.dataclass
+class DistributedKFAC:
+    """KAISA preconditioning over a :class:`~kfac_tpu_torch.parallel.mesh.
+    KaisaGrid`.
+
+    Args:
+        config: the :class:`~kfac_tpu_torch.KFACPreconditioner` carrying
+            the cadences, damping, decay, kl-clip, lr, compute method,
+            solver and the distributed fields (``bucket_granularity``,
+            ``colocate_factors``, ``allreduce_method``,
+            ``allreduce_bucket_cap_mb``).
+        mesh: the grid from :func:`~kfac_tpu_torch.parallel.mesh.
+            kaisa_mesh`; its shape is the gradient worker fraction. None
+            builds the COMM-OPT grid over the default group.
+        auto_layout: not ported yet (raises).
+
+    The state lives on ``mesh.device``. Every method that moves data
+    between ranks (``init`` does not) must be called by every rank.
+    """
+
+    config: Any  # a KFACPreconditioner
+    mesh: Any = None
+    auto_layout: Any = None
+
+    def __post_init__(self) -> None:
+        if self.auto_layout is not None:
+            raise NotImplementedError(
+                'DistributedKFAC(auto_layout=...) is not ported to kfac_tpu_torch yet'
+            )
+        for knob in _LATER_SLICE_KNOBS:
+            if getattr(self.config, knob) not in (None, False):
+                raise NotImplementedError(
+                    f'{knob} on DistributedKFAC is not ported to kfac_tpu_torch yet'
+                )
+        if self.mesh is None:
+            self.mesh = mesh_lib.kaisa_mesh(device=self.config.device)
+        self.device = self.mesh.device
+        self.registry = self.config.registry
+        self.grad_workers = self.mesh.grad_workers
+        self.world = self.mesh.world_size
+        self.strategy = assignment_lib.strategy_for_fraction(
+            self.world, self.grad_workers / self.world
+        )
+        self.granularity = int(self.config.bucket_granularity)
+        self.buckets = build_buckets(self.registry, self.world, self.granularity)
+        self.colocate = bool(self.config.colocate_factors)
+        # the reference's query surface (and its MEM-OPT => colocated rule)
+        self.assignment = assignment_lib.KAISAAssignment(
+            assignment_lib.compute_work_costs(self.registry.layers),
+            world_size=self.world,
+            grad_worker_fraction=self.grad_workers / self.world,
+            colocate_factors=self.colocate,
+        )
+        self.a_store, self.g_store = build_stores(
+            self.registry, self.world, self.granularity, self.colocate, self.buckets
+        )
+        self._a_slot = {n: (sb.key, i) for sb in self.a_store for i, n in enumerate(sb.layers)}
+        self._g_slot = {n: (sb.key, i) for sb in self.g_store for i, n in enumerate(sb.layers)}
+        self._eigen = self.config.compute_method == enums.ComputeMethod.EIGEN
+        self._prediv = self._eigen and self.config.prediv_eigenvalues
+        if self._prediv and not self.colocate:
+            raise NotImplementedError(
+                'prediv_eigenvalues stores the fused per-layer eigenvalue '
+                'grid, which requires colocate_factors=True'
+            )
+        if self.config.prediv_eigenvalues and not self._eigen:
+            warnings.warn(
+                'prediv_eigenvalues has no effect with the INVERSE compute method; ignoring',
+                stacklevel=2,
+            )
+        gw, nc = self.grad_workers, self.mesh.n_cols
+        # factor block k lives on the rank at (row, col) = (k % gw, k // gw)
+        self._block = self.mesh.col * gw + self.mesh.row
+        self._block_owner = [(k % gw) * nc + k // gw for k in range(self.world)]
+
+    # ------------------------------------------------------------- layout
+
+    @property
+    def factor_update_steps(self):
+        return self.config.factor_update_steps
+
+    def _factor_range(self, padded: int) -> tuple[int, int]:
+        """Slots ``[lo, hi)`` of this rank's factor block of a stack."""
+        per = padded // self.world
+        return self._block * per, (self._block + 1) * per
+
+    def _column_range(self, padded: int) -> tuple[int, int]:
+        """Slots ``[lo, hi)`` of this rank's column block: its resident
+        decompositions and the gradients it preconditions."""
+        per = padded // self.mesh.n_cols
+        return self.mesh.col * per, (self.mesh.col + 1) * per
+
+    def _live(self, layers: tuple[str, ...], lo: int, hi: int) -> torch.Tensor:
+        """(hi - lo,) bool: which slots of ``[lo, hi)`` hold a layer (the
+        rest are padding)."""
+        return torch.arange(lo, hi, device=self.device) < len(layers)
+
+    def _gather_blocks(self, block: torch.Tensor) -> torch.Tensor:
+        """Every rank's factor block of a stack, gathered and put in slot
+        order: the global stack."""
+        parts = collectives.all_gather_cat(block, self.mesh.group).chunk(self.world)
+        return torch.cat([parts[self._block_owner[k]] for k in range(self.world)])
+
+    # --------------------------------------------------------------- init
+
+    def init(self) -> DistKFACState:
+        """This rank's shards: identity factors, zero decompositions."""
+        dev = self.device
+        state = DistKFACState(
+            0, {}, {}, {}, {}, {}, {}, {}, {}, {},
+            inv_damping=float(resolve(self.config.damping, 0)),
+        )
+        for store, fac, q, dvec, inv in (
+            (self.a_store, state.a, state.qa, state.da, state.a_inv),
+            (self.g_store, state.g, state.qg, state.dg, state.g_inv),
+        ):
+            for sb in store:
+                lo, hi = self._factor_range(sb.padded)
+                fac[sb.key] = torch.eye(sb.d, device=dev).repeat(hi - lo, 1, 1)
+                clo, chi = self._column_range(sb.padded)
+                if self._eigen:
+                    q[sb.key] = torch.zeros((chi - clo, sb.d, sb.d), device=dev)
+                    if not self._prediv:
+                        dvec[sb.key] = torch.zeros((chi - clo, sb.d), device=dev)
+                else:
+                    inv[sb.key] = torch.zeros((chi - clo, sb.d, sb.d), device=dev)
+        if self._prediv:
+            for b in self.buckets:
+                clo, chi = self._column_range(b.padded)
+                state.dgda[b.key] = torch.zeros((chi - clo, b.dg, b.da), device=dev)
+        return state
+
+    # ------------------------------------------------------------ factors
+
+    def _reduce_stats(
+        self, stats: capture_lib.CapturedStats
+    ) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:
+        """The world's statistics from this rank's: ``(a, g)`` name ->
+        class-dim factor, for every captured layer.
+
+        ``ALLREDUCE`` sums each true-dim factor in its own all-reduce;
+        ``ALLREDUCE_BUCKETED`` packs the upper triangles of the class-dim
+        factors, A stores then G stores, into flat buffers of at most
+        ``allreduce_bucket_cap_mb`` and all-reduces each buffer.
+
+        Scale: each rank's A is its rows' ``a^T a / rows``, so the mean
+        over equal row blocks is the global one (sum / world). Its G comes
+        from the cotangents of the mean loss over its own rows, ``world``
+        times the global mean loss's, so its ``g^T g / rows`` is ``world^2``
+        times what the global batch's rows give, and the global G is the
+        sum / world^3. (Under pjit the JAX capture sees the global
+        cotangents.)
+        """
+        cfg = self.config
+        order = [
+            (side, n, sb.d)
+            for side, store, side_stats in (('a', self.a_store, stats.a), ('g', self.g_store, stats.g))
+            for sb in store for n in sb.layers if n in side_stats
+        ]
+        raw = [(stats.a if side == 'a' else stats.g)[n].float() for side, n, _ in order]
+        if cfg.allreduce_method == enums.AllreduceMethod.ALLREDUCE_BUCKETED:
+            cap = cfg.allreduce_bucket_cap_mb
+            tris = [collectives.get_triu(pad_factor(m, d)) for m, (_, _, d) in zip(raw, order)]
+            summed = [
+                collectives.fill_triu((d, d), t)
+                for t, (_, _, d) in zip(
+                    collectives.all_reduce_sum_flat(
+                        tris, self.mesh.group, None if cap is None else cap * 1e6
+                    ),
+                    order,
+                )
+            ]
+        else:
+            summed = [
+                pad_factor(m, d)
+                for m, (_, _, d) in zip(collectives.all_reduce_sum(raw, self.mesh.group), order)
+            ]
+        scale = {'a': float(self.world), 'g': float(self.world) ** 3}
+        out: dict[str, dict[str, torch.Tensor]] = {'a': {}, 'g': {}}
+        for (side, n, _), m in zip(order, summed):
+            out[side][n] = m / scale[side]
+        return out['a'], out['g']
+
+    def update_factors(
+        self, state: DistKFACState, stats: capture_lib.CapturedStats
+    ) -> DistKFACState:
+        """EMA update of this rank's factor blocks from the world's
+        statistics (:meth:`_reduce_stats`: every rank passes its own, from
+        the mean loss over its own equal row block). Registered layers
+        absent from ``stats`` keep their factors, as in the JAX engine."""
+        alpha = resolve(self.config.factor_decay, state.step)
+        red_a, red_g = self._reduce_stats(stats)
+        new = {}
+        for side, store, fac, red in (
+            ('a', self.a_store, state.a, red_a), ('g', self.g_store, state.g, red_g),
+        ):
+            new[side] = {}
+            for sb in store:
+                lo, hi = self._factor_range(sb.padded)
+                rows = []
+                for s in range(lo, hi):
+                    if s >= len(sb.layers):
+                        rows.append(torch.eye(sb.d, device=self.device))
+                    else:
+                        rows.append(red.get(sb.layers[s], fac[sb.key][s - lo]))
+                new[side][sb.key] = alpha * fac[sb.key] + (1 - alpha) * torch.stack(rows)
+        return dataclasses.replace(state, a=new['a'], g=new['g'])
+
+    # ----------------------------------------------------------- inverses
+
+    def _sharded_inv(
+        self, block: torch.Tensor, damping: float, prev: torch.Tensor, live: torch.Tensor
+    ) -> torch.Tensor:
+        """Damped inverses of this rank's factor block; ``prev`` (the
+        resident inverses of the same slots) warm-starts Newton-Schulz per
+        slot behind its safeguard; the padding slots (``live`` False) never
+        iterate."""
+        cfg = self.config
+        if cfg.inverse_solver == 'auto':
+            return factors_lib.batched_damped_inverse_auto(
+                block, damping, cfg.newton_schulz_iters, x0=prev, live=live
+            )
+        if cfg.inverse_solver == 'newton_schulz':
+            return factors_lib.newton_schulz_inverse_stacked(
+                block, damping, cfg.newton_schulz_iters, x0=prev, live=live
+            ).inverse
+        return factors_lib.compute_inverse(block, damping)
+
+    def update_inverses(self, state: DistKFACState) -> DistKFACState:
+        """Decompose (EIGEN) or invert (INVERSE) this rank's factor blocks,
+        then gather each column's blocks on every rank of the column (the
+        inverse broadcast: one all-gather a stack and field)."""
+        cfg = self.config
+        damping = float(resolve(cfg.damping, state.step))
+        col = self.mesh.col_group
+        sub = self.mesh.row  # this rank's block within its column's
+        updates: dict[str, dict[str, torch.Tensor]] = {}
+        if self._eigen:
+            eig: dict[tuple[str, str], torch.Tensor] = {}
+            for side, store, fac in (('a', self.a_store, state.a), ('g', self.g_store, state.g)):
+                q_out = updates.setdefault('q' + side, {})
+                for sb in store:
+                    d_, q_ = factors_lib.batched_eigh(fac[sb.key], cfg.eigh_impl)
+                    d_ = torch.clamp(d_, min=0.0)
+                    q_out[sb.key] = collectives.all_gather_cat(q_, col)
+                    if self._prediv:
+                        eig[side, sb.key] = d_
+                    else:
+                        updates.setdefault('d' + side, {})[sb.key] = collectives.all_gather_cat(d_, col)
+            if self._prediv:
+                updates['dgda'] = {
+                    b.key: collectives.all_gather_cat(
+                        factors_lib.prediv_eigenvalues(
+                            factors_lib.EigenDecomp(None, eig['a', b.key]),
+                            factors_lib.EigenDecomp(None, eig['g', b.key]),
+                            damping,
+                        ),
+                        col,
+                    )
+                    for b in self.buckets
+                }
+        else:
+            for side, store, fac, prev in (
+                ('a', self.a_store, state.a, state.a_inv), ('g', self.g_store, state.g, state.g_inv),
+            ):
+                out = updates.setdefault(side + '_inv', {})
+                for sb in store:
+                    lo, hi = self._factor_range(sb.padded)
+                    per = hi - lo
+                    cand = self._sharded_inv(
+                        fac[sb.key], damping, prev[sb.key][sub * per:(sub + 1) * per],
+                        self._live(sb.layers, lo, hi),
+                    )
+                    out[sb.key] = collectives.all_gather_cat(cand, col)
+        return dataclasses.replace(state, **updates, inv_damping=damping)
+
+    def inverse_residuals(self, state: DistKFACState) -> dict[str, dict[str, torch.Tensor]]:
+        """Per slot, the relative identity residual ``||I - (F + damping I)
+        F_inv||_F / sqrt(d)`` of the resident inverses, at the damping they
+        were built with: ``{'a': {key: (L,)}, 'g': {...}}`` over the global
+        stacks (each rank computes its factor block's, then they are
+        gathered). INVERSE only."""
+        if self._eigen:
+            raise ValueError(
+                'inverse_residuals applies to the INVERSE compute method; '
+                'the EIGEN path reconstructs from eigendecompositions '
+                'whose quality is a property of eigh, not an iteration'
+            )
+        out: dict[str, dict[str, torch.Tensor]] = {}
+        for side, store, fac, inv in (
+            ('a', self.a_store, state.a, state.a_inv), ('g', self.g_store, state.g, state.g_inv),
+        ):
+            out[side] = {}
+            for sb in store:
+                lo, hi = self._factor_range(sb.padded)
+                per = hi - lo
+                finv = inv[sb.key][self.mesh.row * per:(self.mesh.row + 1) * per]
+                eye = torch.eye(sb.d, device=self.device)
+                r = eye - (fac[sb.key] + state.inv_damping * eye) @ finv
+                res = torch.sqrt(torch.sum(r * r, dim=(-2, -1)) / sb.d)
+                out[side][sb.key] = self._gather_blocks(res)
+        return out
+
+    # ------------------------------------------------------- precondition
+
+    def precondition(
+        self, state: DistKFACState, grads: dict[str, torch.Tensor]
+    ) -> dict[str, torch.Tensor]:
+        """Precondition the global mean grads (a ``named_parameters``-keyed
+        dict, the same on every rank): each rank preconditions its
+        column's slots with its resident decompositions (batched
+        products), the row all-gathers the stacks (the gradient
+        broadcast), and the kl-clip scale of every layer's true-dim matrix
+        comes from one launch of the grouped kl-clip dot and is applied in
+        one launch of its scale, as in the dense engine.
+
+        With ``colocate_factors=False`` a pair bucket's rows of the side
+        stores are assembled from the full side stacks, gathered within
+        the row first (the decomposition exchange non-colocation pays
+        for)."""
+        cfg = self.config
+        damping = resolve(cfg.damping, state.step)
+        row = self.mesh.row_group
+        layer_grads = registry_lib.slice_layer_grads(grads, self.registry)
+        gmats = {
+            n: h.grads_to_matrix(layer_grads[n]).float()
+            for n, h in self.registry.layers.items()
+        }
+        full: dict[str, dict[str, torch.Tensor]] = {}
+        if not self.colocate:
+            # every side stack, gathered within the row in one order on
+            # every rank (the decomposition exchange)
+            fields = ('qa', 'da', 'qg', 'dg') if self._eigen else ('a_inv', 'g_inv')
+            full = {
+                f: {k: collectives.all_gather_cat(v, row) for k, v in getattr(state, f).items()}
+                for f in fields
+            }
+
+        def side_rows(field, slot_map, names, shape):
+            """Rows of the full side stacks' ``field`` for ``names`` (zeros
+            for padding)."""
+            return torch.stack([
+                torch.zeros(shape, device=self.device) if n is None
+                else full[field][slot_map[n][0]][slot_map[n][1]]
+                for n in names
+            ])
+
+        pmats: dict[str, torch.Tensor] = {}
+        for b in self.buckets:
+            lo, hi = self._column_range(b.padded)
+            names = [b.layers[s] if s < len(b.layers) else None for s in range(lo, hi)]
+            gstack = torch.stack([
+                torch.zeros((b.dg, b.da), device=self.device) if n is None
+                else pad_grad(gmats[n], b.dg, b.da)
+                for n in names
+            ])
+
+            def dec(field, side_key_map, shape):
+                if self.colocate:
+                    return getattr(state, field)[b.key]
+                return side_rows(field, side_key_map, names, shape)
+
+            if self._prediv:
+                qa, qg = state.qa[b.key], state.qg[b.key]
+                pstack = qg @ ((qg.mT @ gstack @ qa) * state.dgda[b.key]) @ qa.mT
+            elif self._eigen:
+                pstack = factors_lib.eigen_preconditioned_grad(
+                    gstack,
+                    factors_lib.EigenDecomp(
+                        dec('qa', self._a_slot, (b.da, b.da)), dec('da', self._a_slot, (b.da,))
+                    ),
+                    factors_lib.EigenDecomp(
+                        dec('qg', self._g_slot, (b.dg, b.dg)), dec('dg', self._g_slot, (b.dg,))
+                    ),
+                    damping,
+                )
+            else:
+                pstack = factors_lib.inverse_preconditioned_grad(
+                    gstack,
+                    dec('a_inv', self._a_slot, (b.da, b.da)),
+                    dec('g_inv', self._g_slot, (b.dg, b.dg)),
+                )
+            # the gradient broadcast: every column's block on every rank
+            pfull = collectives.all_gather_cat(pstack, row)
+            for i, name in enumerate(b.layers):
+                dag, dgg = b.dims[i]
+                pmats[name] = pfull[i, :dgg, :dag].contiguous()
+
+        names = [n for b in self.buckets for n in b.layers]
+        pm = [pmats[n] for n in names]
+        if pm and cfg.kl_clip is not None:
+            lr = resolve(cfg.lr, state.step)
+            kl_clip = resolve(cfg.kl_clip, state.step)
+            _, _, scale = klclip.klclip_dot_many(pm, [gmats[n] for n in names], lr, kl_clip)
+            pm = factors_lib.kl_clip_apply_many_(pm, scale)
+        out = {
+            n: self.registry.layers[n].matrix_to_grads(p.to(layer_grads[n]['weight'].dtype))
+            for n, p in zip(names, pm)
+        }
+        return registry_lib.merge_layer_grads(grads, out, self.registry)
+
+    # --------------------------------------------------------------- step
+
+    def average_grads(
+        self, grads: dict[str, torch.Tensor], loss: torch.Tensor
+    ) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
+        """The mean over the ranks of each rank's grads and loss (from its
+        own row block), in flat buffers of at most
+        ``allreduce_bucket_cap_mb``: the global mean grads and loss that
+        pjit hands the JAX engine."""
+        cap = self.config.allreduce_bucket_cap_mb
+        mean, (loss,) = collectives.mean_grads(
+            grads, self.mesh.group, None if cap is None else cap * 1e6,
+            extra=[loss.detach().float().reshape(1)],
+        )
+        return mean, loss[0]
+
+    def step(
+        self,
+        state: DistKFACState,
+        grads: dict[str, torch.Tensor],
+        stats: capture_lib.CapturedStats | None,
+    ) -> tuple[DistKFACState, dict[str, torch.Tensor]]:
+        """One KAISA step, the dense engine's pipeline: the factor update on
+        its cadence (``stats`` this rank's, None to skip), the refresh on
+        its cadence, then preconditioning of the global mean ``grads``."""
+        cfg = self.config
+        step = state.step
+        if stats is not None and step % resolve(cfg.factor_update_steps, step) == 0:
+            state = self.update_factors(state, stats)
+        if step % resolve(cfg.inv_update_steps, step) == 0:
+            state = self.update_inverses(state)
+        new_grads = self.precondition(state, grads)
+        return dataclasses.replace(state, step=step + 1), new_grads
+
+    def rematerialize(self, state: DistKFACState) -> DistKFACState:
+        """Recompute the decompositions from the factors, as after a
+        checkpoint load: :meth:`update_inverses`."""
+        return self.update_inverses(state)
+
+    # ---------------------------------------------------------- utilities
+
+    def extract_factors(self, state: DistKFACState) -> dict[str, dict[str, torch.Tensor]]:
+        """Every layer's true-dim factors, ``{name: {'a': A, 'g': G}}``,
+        gathered from every rank's factor blocks."""
+        out: dict[str, dict[str, torch.Tensor]] = {}
+        for side, store, fac in (('a', self.a_store, state.a), ('g', self.g_store, state.g)):
+            for sb in store:
+                stack = self._gather_blocks(fac[sb.key])
+                for i, name in enumerate(sb.layers):
+                    d = sb.dims[i]
+                    out.setdefault(name, {})[side] = stack[i, :d, :d]
+        return out
+
+    def insert_factors(
+        self, state: DistKFACState, factors: dict[str, dict[str, Any]]
+    ) -> DistKFACState:
+        """Write per-layer factors (tensors or arrays, true dims) into this
+        rank's factor blocks; layers absent from ``factors`` keep theirs.
+        Call :meth:`rematerialize` afterwards."""
+        new = {}
+        for side, store, fac in (('a', self.a_store, state.a), ('g', self.g_store, state.g)):
+            new[side] = {}
+            for sb in store:
+                lo, hi = self._factor_range(sb.padded)
+                block = fac[sb.key].clone()
+                for s in range(lo, min(hi, len(sb.layers))):
+                    name = sb.layers[s]
+                    if name in factors:
+                        m = torch.as_tensor(factors[name][side]).to(self.device, torch.float32)
+                        block[s - lo] = pad_factor(m, sb.d)
+                new[side][sb.key] = block
+        return dataclasses.replace(state, a=new['a'], g=new['g'])
+
+    def slot_device(self, side: str, name: str) -> int:
+        """The rank that stores and decomposes ``name``'s A or G factor."""
+        slot_map, store = (self._a_slot, self.a_store) if side == 'a' else (self._g_slot, self.g_store)
+        key, i = slot_map[name]
+        padded = next(sb.padded for sb in store if sb.key == key)
+        return self._block_owner[i // (padded // self.world)]
+
+    def describe(self) -> str:
+        """Registration and placement: strategy, buckets, each store's
+        padding, the rank of each layer's factor slots, and the KAISA
+        greedy assignment (the cost model's view)."""
+        lines = [
+            f'DistributedKFAC: {len(self.registry.layers)} layers over '
+            f'{self.world} ranks '
+            f'(grid {self.grad_workers}x{self.mesh.n_cols}), '
+            f'strategy={self.strategy.name}, colocate={self.colocate}, '
+            f'method={self.config.compute_method.name}',
+            self.config.describe(),
+            'stat transport buckets (stacked batched decompositions):',
+        ]
+        for b in self.buckets:
+            lines.append(
+                f'  bucket da={b.da} dg={b.dg}: {len(b.layers)} layers, {b.padded} padded slots'
+            )
+        lines.append('factor storage fill (resident vs padding bytes per size class):')
+        for key, p in comms_lib.padding_report(self).items():
+            lines.append(
+                f'  {key}: {p["layers"]} layers in {p["slots"]} slots, '
+                f'resident {p["resident_bytes"]} B, '
+                f'identity-pad {p["identity_pad_bytes"]} B, '
+                f'slot-pad {p["slot_pad_bytes"]} B, '
+                f'fill {p["fill"]:.0%}'
+            )
+        lines.append(
+            'executed placement (a rank stores and decomposes one block of '
+            'each stack; the decompositions then live on its column):'
+        )
+        for name in self.registry.names():
+            a_key, a_i = self._a_slot[name]
+            g_key, g_i = self._g_slot[name]
+            a_rank = self.slot_device('a', name)
+            g_rank = self.slot_device('g', name)
+            lines.append(
+                f'  {name}: A slot {a_key}[{a_i}] -> rank {a_rank} '
+                f'({self.mesh.device_at(a_rank)}), '
+                f'G slot {g_key}[{g_i}] -> rank {g_rank} ({self.mesh.device_at(g_rank)})'
+            )
+        lines.append(
+            'inverse workers, cost-model view (KAISA greedy assignment — '
+            'reference-parity diagnostic, NOT the executed placement above):'
+        )
+        for layer in self.assignment.get_layers():
+            workers = {
+                f: self.assignment.inv_worker(layer, f) for f in self.assignment.get_factors(layer)
+            }
+            lines.append(f'  {layer}: {workers}')
+        return '\n'.join(lines)
+
+    def topology(self) -> dict[str, Any]:
+        """The process group's size and backend and the grid's shape."""
+        return {
+            'process_count': self.world,
+            'device_count': self.world,
+            'backend': dist.get_backend(self.mesh.group),
+            'mesh_axes': ['kfac_gw', 'kfac_col'],
+            'mesh_shape': [self.grad_workers, self.mesh.n_cols],
+        }
+
+    def comms_report(self) -> dict[str, Any]:
+        """Host-side bytes of each flow and each store's padding
+        (:func:`kfac_tpu_torch.observability.comms.comms_summary`)."""
+        return comms_lib.comms_summary(self)
+
+    def memory_usage(self, state: DistKFACState) -> dict[str, Any]:
+        """This rank's bytes by category, read from the tensors it holds;
+        ``total`` sums the four; ``padding_waste`` (global bytes) splits
+        the resident factor bytes from the size-class and slot padding."""
+
+        def nbytes(d: dict[str, torch.Tensor]) -> int:
+            return int(sum(v.numel() * v.element_size() for v in d.values()))
+
+        sizes: dict[str, Any] = {
+            'a_factors': nbytes(state.a),
+            'g_factors': nbytes(state.g),
+            'a_inverses': nbytes(state.qa) + nbytes(state.da) + nbytes(state.a_inv),
+            'g_inverses': (
+                nbytes(state.qg) + nbytes(state.dg) + nbytes(state.dgda) + nbytes(state.g_inv)
+            ),
+        }
+        sizes['total'] = sum(sizes.values())
+        padding = comms_lib.padding_report(self)
+        sizes['padding_waste'] = {
+            'per_class': padding,
+            **{
+                key: sum(p[key] for p in padding.values())
+                for key in ('resident_bytes', 'identity_pad_bytes', 'slot_pad_bytes')
+            },
+        }
+        return sizes

@@ -118,6 +118,13 @@ class KFACPreconditioner:
     from the registry (:func:`~kfac_tpu_torch.layers.registry.
     masked_registry`). ``device`` is where the state lives, ``'cuda'``
     unless the caller passes another.
+
+    Read only by :class:`~kfac_tpu_torch.parallel.DistributedKFAC`:
+    ``bucket_granularity`` (the size classes of its factor stacks; None
+    resolves to 1, exact dims, as the JAX package resolves it off a TPU),
+    ``colocate_factors`` (a layer's A and G in one slot), and the stat
+    transport's ``allreduce_method`` and ``allreduce_bucket_cap_mb`` (the
+    byte cap of each packed buffer, in MB; None for one buffer).
     """
 
     registry: registry_lib.Registry
@@ -141,6 +148,10 @@ class KFACPreconditioner:
     stat_compression: Any = None
     compile_watch: Any = None
     mask: Any = None
+    bucket_granularity: int | None = None
+    colocate_factors: bool = True
+    allreduce_method: enums.AllreduceMethod | str = enums.AllreduceMethod.ALLREDUCE
+    allreduce_bucket_cap_mb: float | None = 25.0
 
     def __post_init__(self) -> None:
         self.device = resolve_device(self.device)
@@ -180,6 +191,7 @@ class KFACPreconditioner:
                 "solve); pass compute_method='inverse' to use it",
                 stacklevel=2,
             )
+        self._normalize_distributed()
         for name in ('factor_update_steps', 'inv_update_steps'):
             value = getattr(self, name)
             if not callable(value) and value < 1:
@@ -219,6 +231,30 @@ class KFACPreconditioner:
             n = min(self._async_n_steps, acfg.max_slices or len(units))
             self._async_slices = async_slots.plan_slices(units, n)
             self._async_n_slices = len(self._async_slices)
+
+    def _normalize_distributed(self) -> None:
+        """The distributed engine's fields, validated as the JAX config
+        validates them; ``bucket_granularity=None`` becomes 1."""
+        if self.bucket_granularity is None:
+            self.bucket_granularity = 1
+        elif self.bucket_granularity < 1:
+            raise ValueError(
+                f'bucket_granularity must be >= 1 (or None for the '
+                f'platform default), got {self.bucket_granularity}'
+            )
+        if isinstance(self.allreduce_method, str):
+            try:
+                self.allreduce_method = enums.AllreduceMethod[self.allreduce_method.upper()]
+            except KeyError:
+                raise ValueError(
+                    f'unknown allreduce_method {self.allreduce_method!r}; '
+                    f'expected one of {[m.name.lower() for m in enums.AllreduceMethod]}'
+                ) from None
+        if self.allreduce_bucket_cap_mb is not None and self.allreduce_bucket_cap_mb <= 0:
+            raise ValueError(
+                f'allreduce_bucket_cap_mb must be > 0 (or None for '
+                f'unbounded), got {self.allreduce_bucket_cap_mb}'
+            )
 
     def _normalize_observability(self) -> None:
         """``metrics``, ``flight`` and ``health`` to a config or None, as the

@@ -15,6 +15,13 @@ manager (``checkpoints``) adds none on a step that does not save. Under
 ``async_inverse='host'`` every step path pumps the engine's refresh worker
 where the JAX Trainer does (:meth:`Trainer._drive_async`).
 
+With a :class:`~kfac_tpu_torch.parallel.DistributedKFAC` every rank runs
+the Trainer on the same global batch: each step takes the rank's row
+block of it (the JAX package's ``batch_sharding``), and before the
+engine's step the grads and the loss are mean-reduced across the ranks
+(what pjit does implicitly), so the loss a step returns and the
+parameters every rank updates are the global ones.
+
 Knobs of the JAX Trainer whose slice comes later (``auto_layout``,
 ``fleet``) raise ``NotImplementedError``.
 """
@@ -81,9 +88,11 @@ class Trainer:
             runs ``model`` inside, so capture's hooks see its layers.
         kfac: a :class:`kfac_tpu_torch.KFACPreconditioner` (anything with
             its ``registry``, ``factor_update_steps``, ``init`` and
-            ``step``), or None for a first-order baseline. Its registry's
-            model must be ``model``; its ``factor_update_steps`` sets the
-            capture cadence.
+            ``step``), a :class:`kfac_tpu_torch.parallel.DistributedKFAC`
+            (data-parallel over its grid's ranks; no ``checkpoints`` yet),
+            or None for a first-order baseline. Its registry's model must
+            be ``model``; its ``factor_update_steps`` sets the capture
+            cadence.
         checkpoints: a :class:`kfac_tpu_torch.resilience.CheckpointManager`.
             Every step entry (:meth:`step`, :meth:`scan_steps`,
             :meth:`apply_accumulated`, :meth:`step_accumulate` and
@@ -132,6 +141,11 @@ class Trainer:
         if self.kfac is not None:
             self._bind_capture()
         if self.checkpoints is not None:
+            if self._distributed():
+                raise NotImplementedError(
+                    'Trainer(checkpoints=...) with a DistributedKFAC is not ported to '
+                    'kfac_tpu_torch yet'
+                )
             if self.kfac is None:
                 raise ValueError(
                     'Trainer(checkpoints=...) requires a kfac preconditioner: '
@@ -140,6 +154,20 @@ class Trainer:
             self.checkpoints.extras_of = self.checkpoint_extras
             if self.checkpoints.engine is None:
                 self.checkpoints.engine = self.kfac
+
+    def _distributed(self) -> bool:
+        """Whether the engine is data-parallel over a grid of ranks."""
+        return hasattr(self.kfac, 'average_grads')
+
+    def _local(self, batch):
+        """This rank's row block of a global batch (the batch itself
+        without a distributed engine)."""
+        return self.kfac.mesh.local_rows(batch) if self._distributed() else batch
+
+    def _reduce(self, grads, loss):
+        """The mean grads and loss over the ranks (as they are without a
+        distributed engine)."""
+        return self.kfac.average_grads(grads, loss) if self._distributed() else (grads, loss)
 
     def _bind_capture(self) -> None:
         if self.kfac.registry.model is not self.model:
@@ -308,11 +336,13 @@ class Trainer:
 
     def _step(self, state: TrainState, batch) -> tuple[TrainState, torch.Tensor]:
         self._sync_step_count(state)
+        batch = self._local(batch)
         if self.kfac is not None and self._capture_now():
             (loss, new_ms), grads, stats = self._run_stats(state.model_state, batch)
         else:
             (loss, new_ms), grads = self._run_plain(state.model_state, batch)
             stats = None
+        grads, loss = self._reduce(grads, loss)
         new_state = self._finish_step(state, grads, stats, new_ms, loss)
         self._step_count += 1
         return new_state, loss
@@ -367,6 +397,7 @@ class Trainer:
                 'model_state': state.model_state,
                 'capture': self._capture_now(),
             }
+        microbatch = self._local(microbatch)
         if acc['capture']:
             (loss, model_state), grads, stats = self._run_stats(acc['model_state'], microbatch)
             acc['stats'] = capture_lib.accumulate_stats(acc['stats'], stats)
@@ -396,6 +427,7 @@ class Trainer:
         grads = {k: g / n for k, g in acc['grads'].items()}
         stats = capture_lib.average_stats(acc['stats'], n) if acc['capture'] else None
         loss = acc['loss'] / n
+        grads, loss = self._reduce(grads, loss)
         state = self._drive_async(state, self._step_count)
         new_state = self._finish_step(state, grads, stats, acc['model_state'], loss)
         self._accum = None

@@ -50,6 +50,8 @@ def test_port_file_imports_no_jax_and_no_kfac_tpu(path):
     'resilience/manager.py', 'resilience/worker.py', 'parallel/multihost.py',
     'async_inverse/__init__.py', 'async_inverse/config.py', 'async_inverse/slots.py',
     'async_inverse/sliced.py', 'async_inverse/host.py', 'hyperparams.py', 'layers/registry.py',
+    'assignment.py', 'enums.py', 'parallel/__init__.py', 'parallel/collectives.py',
+    'parallel/mesh.py', 'parallel/kaisa.py', 'parallel/launch.py', 'observability/comms.py',
 ])
 def test_checkpoint_and_resilience_modules_are_covered(rel):
     path = ROOT / 'kfac_tpu_torch' / rel

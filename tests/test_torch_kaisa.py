@@ -1,0 +1,644 @@
+"""The port's KAISA engine against the JAX package's ``DistributedKFAC``.
+
+Worlds of W = 1, 2 and 4 gloo ranks on the CPU (``spawn_world``; each
+world runs once per test process, every case in it, and each assertion
+below is its own test). The JAX engine runs on ``kaisa_mesh(frac,
+devices=jax.devices()[:W])`` over the 8 virtual CPU devices of
+``tests/conftest.py``, on the global batch; each rank of the port takes
+its own row block of it (the rank bodies, ``tests/torch_kaisa_ranks.py``,
+import no JAX). Weights and batches are drawn with numpy (or by flax's
+``init``) and carried over with ``convert.from_flax_params``.
+
+The cases are the port's of ``tests/parallel/test_kaisa_distributed.py``
+at every fraction each world allows. Tolerances:
+
+- preconditioned grads against the JAX engine's and the port's dense
+  engine's: rtol 1e-4 with atol 1e-5 x the largest (f32 sums in another
+  order through a refresh and kl-clip); the same on every rank, bitwise;
+- factor stacks (the G scale under a sharded batch) against the JAX
+  engine's: rtol 1e-5 with atol 1e-6 x max; inverses and eigenvalues:
+  rtol 1e-4 with atol 1e-5 x max; inverse residuals: atol 1e-6, and
+  below ``NS_FALLBACK_RESIDUAL``;
+- the layout (resident slots per rank, buckets, stores, memory, comms):
+  exact;
+- engine-internal comparisons, the JAX test's: transports rtol 1e-6
+  (atol 1e-7), solvers Newton-Schulz/Cholesky rtol 5e-3 (atol 5e-5),
+  'auto'/Newton-Schulz and prediv rtol 1e-4 (atol 1e-6), size classes
+  rtol 2e-4 (atol 1e-6);
+- Trainer.step against the JAX Trainer: losses rtol 1e-5; parameter
+  updates rtol 1e-4 with atol 1e-4 x the largest update.
+"""
+
+import fcntl
+import functools
+import os
+import pickle
+import tempfile
+import warnings
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+import kfac_tpu
+import torch_kaisa_ranks as ranks
+from kfac_tpu import training as jtraining
+from kfac_tpu.models import MLP as JaxMLP
+from kfac_tpu.models import TransformerLM as JaxLM
+from kfac_tpu.models import lm_loss as jax_lm_loss
+from kfac_tpu.ops import factors as jfactors
+from kfac_tpu.parallel import DistributedKFAC as JaxDistributedKFAC
+from kfac_tpu.parallel import kaisa_mesh as jax_kaisa_mesh
+from kfac_tpu.parallel import mesh as jmesh
+from kfac_tpu.parallel.kaisa import size_class as jax_size_class
+from kfac_tpu_torch import assignment, convert
+from kfac_tpu_torch.ops import factors
+from kfac_tpu_torch.parallel import spawn_world
+from kfac_tpu_torch.parallel.kaisa import size_class
+
+NS = dict(compute_method='inverse', inverse_solver='newton_schulz')
+# the Trainer paths held against the JAX Trainer's, by world
+TRAINER_PATHS = {1: ('step',), 2: ('step', 'scan_steps', 'step_accumulate'), 4: ('step',)}
+EIGEN = dict(compute_method='eigen')
+
+
+def rng(seed):
+    return np.random.default_rng(seed)
+
+
+@functools.cache
+def flax_models():
+    """The flax twins of the rank bodies' models: {name: (module,
+    registry, loss_fn(params, batch), params, global batch)}."""
+    import flax.linen as nn
+
+    class Wide(nn.Module):
+        @nn.compact
+        def __call__(self, x):
+            x = nn.relu(nn.Dense(16, name='p')(x))
+            x = nn.relu(nn.Dense(16, name='q')(x))
+            return nn.Dense(4, name='r')(x)
+
+    class Hetero(nn.Module):
+        @nn.compact
+        def __call__(self, x):
+            for i, f in enumerate((19, 23, 21)):
+                x = nn.relu(nn.Dense(f, name=f'l{i}')(x))
+            return nn.Dense(5, name='l3')(x)
+
+    out = {}
+    for name, module, batch in (
+        ('mlp', JaxMLP(features=(16, 12), num_classes=5),
+         (rng(1).normal(size=(32, 6)), rng(2).normal(size=(32, 5)))),
+        ('wide', Wide(), (rng(3).normal(size=(16, 16)), rng(4).normal(size=(16, 4)))),
+        ('hetero', Hetero(), (rng(5).normal(size=(16, 13)), rng(6).normal(size=(16, 5)))),
+    ):
+        batch = tuple(b.astype(np.float32) for b in batch)
+        params = module.init(jax.random.PRNGKey(0), jnp.asarray(batch[0]))['params']
+        reg = kfac_tpu.register_model(module, jnp.asarray(batch[0]))
+
+        def loss(p, b, module=module):
+            return jnp.mean((module.apply({'params': p}, b[0]) - b[1]) ** 2)
+
+        out[name] = (module, reg, loss, jax.device_get(params), batch)
+    lm = JaxLM(**ranks.LM_CFG)
+    tokens = rng(7).integers(0, ranks.LM_CFG['vocab_size'], (8, 16)).astype(np.int32)
+    batch = (tokens, np.roll(tokens, -1, axis=1))
+    params = lm.init(jax.random.PRNGKey(1), jnp.asarray(tokens))['params']
+    reg = kfac_tpu.register_model(lm, jnp.asarray(tokens), skip_layers=['lm_head'])
+    out['lm'] = (lm, reg, jax_lm_loss(lm), jax.device_get(params), batch)
+    return out
+
+
+def lm_batches(n):
+    out = []
+    for i in range(n):
+        t = rng(20 + i).integers(0, ranks.LM_CFG['vocab_size'], (8, 16)).astype(np.int32)
+        out.append((t, np.roll(t, -1, axis=1)))
+    return out
+
+
+def jax_cfg(reg, **kw):
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore')
+        return kfac_tpu.KFACPreconditioner(registry=reg, **kw)
+
+
+def host(state):
+    """A JAX DistKFACState's fields as numpy global stacks."""
+    return {
+        f: {k: np.asarray(v) for k, v in getattr(state, f).items()}
+        for f in ('a', 'g', 'qa', 'qg', 'da', 'dg', 'dgda', 'a_inv', 'g_inv')
+    } | {'step': int(state.step), 'inv_damping': float(state.inv_damping)}
+
+
+def torch_grads(jgrads):
+    """A flax grads pytree in the port's ``named_parameters`` names."""
+    return {k: v.numpy() for k, v in convert.from_flax_params(jax.device_get(jgrads)).items()}
+
+
+def middle(fracs):
+    return fracs[len(fracs) // 2]
+
+
+def colocate_frac(world):
+    """The smallest fraction that is not MEM-OPT (colocate_factors=False
+    needs two gradient workers or one rank)."""
+    fracs = assignment.candidate_fractions(world)
+    return next(f for f in reversed(fracs) if world == 1 or world * f > 1)
+
+
+def run_world(world):
+    """The JAX references and the port world's results for ``world``."""
+    models = flax_models()
+    devices = jax.devices()[:world]
+    fracs = assignment.candidate_fractions(world)
+    ref = {'mesh': {}, 'step': {}}
+    spec = {
+        'weights': {
+            n: {k: v.numpy() for k, v in convert.from_flax_params(m[3]).items()}
+            for n, m in models.items()
+        },
+        'batches': {n: m[4] for n, m in models.items()},
+        'train_batches': {'mlp': [models['mlp'][4]] * 12, 'lm': lm_batches(3)},
+        'cases': [('multihost', 'multihost', {})],
+    }
+
+    def capture(name):
+        _, reg, loss, params, batch = models[name]
+        run = kfac_tpu.CurvatureCapture(reg).value_stats_and_grad(
+            lambda p, b: (loss(p, b), None), has_aux=True
+        )
+        (_, _), grads, stats = run(params, tuple(jnp.asarray(b) for b in batch))
+        return grads, stats
+
+    mlp_grads, mlp_stats = capture('mlp')
+    for frac in fracs:
+        mesh = jax_kaisa_mesh(frac, devices=devices)
+        ref['mesh'][frac] = (jmesh.grad_workers(mesh), jmesh.n_cols(mesh))
+        for method, kw in (('eigen', EIGEN), ('inverse', NS)):
+            dk = JaxDistributedKFAC(config=jax_cfg(models['mlp'][1], **kw, **ranks.STEP_KW), mesh=mesh)
+            step = jax.jit(dk.step)
+            s1, g1 = step(dk.init(), mlp_grads, mlp_stats)
+            entry = {
+                'grads': torch_grads(g1),
+                'state': host(s1),
+                'memory': dk.memory_usage(s1),
+                'comms': dk.comms_report(),
+                'buckets': [tuple(b) for b in dk.buckets],
+                'stores': ([tuple(sb) for sb in dk.a_store], [tuple(sb) for sb in dk.g_store]),
+                'resident': {
+                    key: {
+                        d.id: (idx[0].start or 0, idx[0].stop or arr.shape[0])
+                        for d, idx in arr.sharding.devices_indices_map(arr.shape).items()
+                    }
+                    for key, arr in (s1.qa if method == 'eigen' else s1.a_inv).items()
+                },
+            }
+            if method == 'inverse':
+                entry['residuals'] = jax.tree_util.tree_map(np.asarray, dk.inverse_residuals(s1))
+                if frac == fracs[-1]:
+                    s2, g2 = step(s1, mlp_grads, mlp_stats)
+                    ref['convert'] = {'grads': torch_grads(g2), 'state': host(s2)}
+            ref['step'][method, frac] = entry
+            spec['cases'].append(
+                (f'{method}-{frac}', 'step', dict(frac=frac, **kw, **ranks.STEP_KW))
+            )
+    low, mid = fracs[-1], middle(fracs)
+    spec['cases'].append((
+        'convert', 'convert',
+        dict(frac=low, jax_state=ref['step']['inverse', low]['state'], **NS, **ranks.STEP_KW),
+    ))
+    spec['cases'].append(('lm-step', 'step', dict(frac=low, model='lm', **EIGEN, **ranks.STEP_KW)))
+    spec['cases'].append(('solvers', 'variants', dict(frac=mid, model='mlp', variants={
+        'newton_schulz': dict(NS, damping=0.01, kl_clip=None),
+        'cholesky': dict(compute_method='inverse', inverse_solver='cholesky', damping=0.01, kl_clip=None),
+        'auto': dict(compute_method='inverse', inverse_solver='auto', damping=0.01, kl_clip=None),
+        'eigen': dict(EIGEN, damping=0.01, kl_clip=None),
+        'prediv': dict(EIGEN, damping=0.01, kl_clip=None, prediv_eigenvalues=True),
+    })))
+    # colocate_factors=False on the Wide model, against the JAX engine
+    cfrac = colocate_frac(world)
+    wgrads, wstats = capture('wide')
+    ref['colocate'] = {}
+    for method, kw in (('eigen', EIGEN), ('inverse', NS)):
+        dk = JaxDistributedKFAC(
+            config=jax_cfg(models['wide'][1], **kw, **ranks.STEP_KW, colocate_factors=False),
+            mesh=jax_kaisa_mesh(cfrac, devices=devices),
+        )
+        _, g = jax.jit(dk.step)(dk.init(), wgrads, wstats)
+        ref['colocate'][method] = torch_grads(g)
+    spec['cases'].append(('colocate', 'variants', dict(frac=cfrac, model='wide', variants={
+        m: dict(kw, colocate_factors=False, **ranks.STEP_KW) for m, kw in (('eigen', EIGEN), ('inverse', NS))
+    })))
+    if world > 1:
+        spec['cases'].append(('memopt', 'variants', dict(frac=fracs[-1], model='mlp', variants={
+            'not_colocated': dict(colocate_factors=False),
+        })))
+    spec['cases'].append(('classes', 'variants', dict(frac=1.0, model='hetero', variants={
+        f'g{g}': dict(damping=0.01, kl_clip=0.001, bucket_granularity=g) for g in (128, 1)
+    })))
+    spec['cases'].append(('unexecuted', 'unexecuted', dict(frac=mid)))
+    for name, kw in (
+        ('allreduce', dict(allreduce_method='allreduce')),
+        ('bucketed', dict(allreduce_method='allreduce_bucketed')),
+        ('chunked', dict(allreduce_method='allreduce_bucketed', allreduce_bucket_cap_mb=1e-4)),
+    ):
+        spec['cases'].append((
+            f'transport-{name}', 'train',
+            dict(frac=mid, model='mlp', steps=4, kw=dict(ranks.STEP_KW, **kw)),
+        ))
+    for frac in fracs:
+        spec['cases'].append((
+            f'loss-{frac}', 'train',
+            dict(frac=frac, model='mlp', steps=12, kw=dict(damping=0.003, lr=0.05)),
+        ))
+    # three steps of the LM through the Trainer against the JAX Trainer:
+    # Trainer.step on every world; on two ranks also scan_steps and
+    # step_accumulate (each batch in two micro-batches)
+    lm, reg, loss, params, _ = models['lm']
+    paths = TRAINER_PATHS[world]
+    ref['trainer'] = {'init': spec['weights']['lm']}
+    for path in paths:
+        dk = JaxDistributedKFAC(
+            config=jax_cfg(reg, **ranks.TRAINER_KW), mesh=jax_kaisa_mesh(low, devices=devices)
+        )
+        trainer = jtraining.Trainer(
+            loss_fn=lambda p, ms, b: (loss(p, b), ms), optimizer=optax.sgd(0.1, momentum=0.9),
+            kfac=dk,
+        )
+        state, losses = trainer.init(params), []
+        batches = [tuple(jnp.asarray(x) for x in b) for b in spec['train_batches']['lm']]
+        if path == 'step':
+            for b in batches:
+                state, value = trainer.step(state, b)
+                losses.append(float(value))
+        elif path == 'scan_steps':
+            state, values = trainer.scan_steps(state, tuple(jnp.stack(x) for x in zip(*batches)))
+            losses = [float(v) for v in values]
+        else:
+            for b in batches:
+                micro = [tuple(x[:4] for x in b), tuple(x[4:] for x in b)]
+                state, value = trainer.step_accumulate(state, micro)
+                losses.append(float(value))
+        ref['trainer'][path] = {
+            'losses': losses,
+            'params': {
+                k: v.numpy()
+                for k, v in convert.from_flax_params(jax.device_get(state.params)).items()
+            },
+        }
+    spec['cases'].append((
+        'trainer', 'train', dict(frac=low, model='lm', steps=3, kw=ranks.TRAINER_KW, paths=paths),
+    ))
+    results = spawn_world(ranks.run_cases, world, 'gloo', 'cpu', args=(spec,), timeout_s=300)
+    return ref, results, fracs
+
+
+_WORLDS: dict[int, tuple] = {}
+
+
+def world_run(world):
+    """:func:`run_world` once per test run: under pytest-xdist the first
+    worker to need a world computes it under a file lock and leaves it in
+    the temporary directory, keyed by the run's id, for the others."""
+    if world in _WORLDS:
+        return _WORLDS[world]
+    uid = os.environ.get('PYTEST_XDIST_TESTRUNUID')
+    if uid is None:
+        _WORLDS[world] = run_world(world)
+        return _WORLDS[world]
+    path = os.path.join(tempfile.gettempdir(), f'kfac_torch_kaisa_{uid}_w{world}.pkl')
+    with open(path + '.lock', 'w') as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(path):
+            with open(path, 'rb') as f:
+                _WORLDS[world] = pickle.load(f)
+        else:
+            _WORLDS[world] = run_world(world)
+            with open(path + '.tmp', 'wb') as f:
+                pickle.dump(_WORLDS[world], f)
+            os.replace(path + '.tmp', path)
+    return _WORLDS[world]
+
+
+def pytest_generate_tests(metafunc):
+    if 'frac' in metafunc.fixturenames:
+        metafunc.parametrize('frac', assignment.candidate_fractions(metafunc.cls.W))
+
+
+def close(got, want, rtol=1e-4, atol_rel=1e-5, msg=''):
+    got, want = np.asarray(got), np.asarray(want)
+    np.testing.assert_allclose(
+        got, want, rtol=rtol, atol=atol_rel * float(np.max(np.abs(want))), err_msg=msg
+    )
+
+
+def close_grads(got, want, rtol=1e-4, atol_rel=1e-5):
+    assert set(got) == set(want)
+    scale = max(float(np.max(np.abs(w))) for w in want.values())
+    for n, w in want.items():
+        np.testing.assert_allclose(got[n], w, rtol=rtol, atol=atol_rel * scale, err_msg=n)
+
+
+def test_size_class_matches_jax():
+    for g in (1, 100, 128, 256):
+        for d in range(0, 700):
+            assert size_class(d, g) == jax_size_class(d, g)
+    assert size_class(65, 100) == 100 and size_class(513, 256) == 768
+
+
+def test_kaisa_mesh_needs_a_process_group():
+    from kfac_tpu_torch.parallel import kaisa_mesh
+
+    with pytest.raises(RuntimeError, match='init_process_group'):
+        kaisa_mesh(1.0, device='cpu')
+
+
+@pytest.mark.parametrize('knob', ['health', 'metrics', 'flight', 'async_inverse', 'auto_layout'])
+def test_later_slice_knobs_raise(knob):
+    from kfac_tpu_torch.layers import registry
+    from kfac_tpu_torch.parallel import DistributedKFAC
+    from kfac_tpu_torch.preconditioner import KFACPreconditioner
+
+    reg = registry.register_model(torch.nn.Sequential(torch.nn.Linear(3, 2)), device='cpu')
+    kw = {} if knob == 'auto_layout' else {knob: 'sliced' if knob == 'async_inverse' else True}
+    cfg = KFACPreconditioner(reg, device='cpu', inv_update_steps=2, factor_update_steps=2, **kw)
+    with pytest.raises(NotImplementedError, match='not ported'):
+        DistributedKFAC(cfg, auto_layout='plan.json' if knob == 'auto_layout' else None)
+
+
+class WorldCases:
+    W = 0
+
+    @pytest.fixture(scope='class')
+    def run(self):
+        return world_run(self.W)
+
+    def test_mesh_shape_matches_jax(self, run, frac):
+        ref, results, _ = run
+        topo = results[0][f'eigen-{frac}']['topology']
+        assert tuple(topo['mesh_shape']) == ref['mesh'][frac]
+        assert topo['process_count'] == self.W and topo['backend'] == 'gloo'
+
+    def test_buckets_and_stores_pad_to_the_world(self, run, frac):
+        ref, results, _ = run
+        got = results[0][f'eigen-{frac}']
+        want = ref['step']['eigen', frac]
+        assert got['buckets'] == want['buckets'] and got['stores'] == want['stores']
+        for b in got['buckets']:
+            assert b[4] % self.W == 0
+
+    @pytest.mark.parametrize('method', ['eigen', 'inverse'])
+    def test_grads_match_jax_and_dense(self, run, frac, method):
+        ref, results, _ = run
+        got = [r[f'{method}-{frac}']['grads'] for r in results]
+        close_grads(got[0], ref['step'][method, frac]['grads'])
+        close_grads(got[0], results[0][f'{method}-{frac}']['dense_grads'])
+        for other in got[1:]:  # every rank preconditions the same grads
+            assert all(np.array_equal(other[n], got[0][n]) for n in got[0])
+
+    @pytest.mark.parametrize('method', ['eigen', 'inverse'])
+    def test_factor_stacks_match_jax(self, run, frac, method):
+        # the G scale under a sharded batch: each rank's G is world^2 the
+        # global one's, and the engine's reduction divides it out
+        ref, results, _ = run
+        got = results[0][f'{method}-{frac}']['state']
+        want = ref['step'][method, frac]['state']
+        for side in ('a', 'g'):
+            assert set(got[side]) == set(want[side])
+            for key, w in want[side].items():
+                close(got[side][key], w, rtol=1e-5, atol_rel=1e-6, msg=f'{side} {key}')
+
+    @pytest.mark.parametrize('method', ['eigen', 'inverse'])
+    def test_decompositions_match_jax(self, run, frac, method):
+        ref, results, _ = run
+        got = results[0][f'{method}-{frac}']['state']
+        want = ref['step'][method, frac]['state']
+        fields = ('da', 'dg') if method == 'eigen' else ('a_inv', 'g_inv')
+        for field in fields:
+            for key, w in want[field].items():
+                close(got[field][key], w, msg=f'{field} {key}')
+
+    @pytest.mark.parametrize('method', ['eigen', 'inverse'])
+    def test_resident_layout_matches_jax(self, run, frac, method):
+        # which rank holds which slots of each decomposition
+        ref, results, _ = run
+        want = ref['step'][method, frac]['resident']
+        field = 'qa' if method == 'eigen' else 'a_inv'
+        for rank, res in enumerate(results):
+            r = res[f'{method}-{frac}']
+            for key, by_device in want.items():
+                assert r['column_range'][key] == by_device[rank]
+                lo, hi = by_device[rank]
+                assert r['local_shapes'][field][key][0] == hi - lo
+
+    def test_memory_usage_matches_jax(self, run, frac):
+        ref, results, _ = run
+        for method in ('eigen', 'inverse'):
+            want = ref['step'][method, frac]['memory']
+            for res in results:
+                assert res[f'{method}-{frac}']['memory'] == want
+
+    def test_describe_names_the_rank_that_holds_each_slot(self, run, frac):
+        _, results, _ = run
+        r0 = results[0][f'eigen-{frac}']
+        dump = r0['describe']
+        assert 'NOT the executed placement' in dump and 'executed placement' in dump
+        placement = dump.split('executed placement')[1].split('cost-model view')[0]
+        slots = {}
+        for sb in r0['stores'][0]:
+            slots['a', sb[0]] = sb
+        for sb in r0['stores'][1]:
+            slots['g', sb[0]] = sb
+        for side in ('a', 'g'):
+            for sb in r0['stores'][0 if side == 'a' else 1]:
+                key, layers = sb[0], sb[1]
+                for i, name in enumerate(layers):
+                    claimed = r0['slot_device'][side][name]
+                    lo, hi = results[claimed][f'eigen-{frac}']['factor_range'][key]
+                    assert lo <= i < hi, (name, side, claimed)
+                    line = next(
+                        ln for ln in placement.splitlines() if ln.strip().startswith(name + ':')
+                    )
+                    assert f'{side.upper()} slot {key}[{i}] -> rank {claimed}' in line
+
+    def test_comms_report_matches_jax(self, run, frac):
+        ref, results, _ = run
+        assert results[0][f'eigen-{frac}']['comms'] == ref['step']['eigen', frac]['comms']
+
+    def test_inverse_residuals_match_jax(self, run, frac):
+        ref, results, _ = run
+        want = ref['step']['inverse', frac]['residuals']
+        got = results[0][f'inverse-{frac}']['residuals']
+        for side in ('a', 'g'):
+            for key, w in want[side].items():
+                np.testing.assert_allclose(got[side][key], w, atol=1e-6)
+                assert np.all(got[side][key] < jfactors.NS_FALLBACK_RESIDUAL)
+        assert 'INVERSE' in results[0][f'eigen-{frac}']['residuals_raise']
+
+    def test_convert_round_trip_and_a_warm_step(self, run):
+        ref, results, fracs = run
+        jstate = ref['step']['inverse', fracs[-1]]['state']
+        for res in results:
+            back = res['convert']['roundtrip']
+            for field in ('a', 'g', 'a_inv', 'g_inv'):
+                for key, w in jstate[field].items():
+                    assert np.array_equal(back[field][key], w)
+        got = results[0]['convert']
+        close_grads(got['grads'], ref['convert']['grads'])
+        for field in ('a', 'g'):
+            for key, w in ref['convert']['state'][field].items():
+                close(got['state'][field][key], w, rtol=1e-5, atol_rel=1e-6)
+        for field in ('a_inv', 'g_inv'):
+            for key, w in ref['convert']['state'][field].items():
+                close(got['state'][field][key], w)
+        for side in got['residuals'].values():
+            for r in side.values():
+                assert np.all(r < jfactors.NS_FALLBACK_RESIDUAL)
+
+    def test_lm_step_matches_dense(self, run):
+        _, results, _ = run
+        got = results[0]['lm-step']
+        close_grads(got['grads'], got['dense_grads'])
+        assert len(got['buckets']) == 3  # q/k/v/out, mlp_up, mlp_down
+
+    def test_newton_schulz_matches_cholesky_and_auto_takes_one_branch(self, run):
+        _, results, _ = run
+        v = results[0]['solvers']
+        close_grads(v['newton_schulz']['grads'], v['cholesky']['grads'], rtol=5e-3, atol_rel=5e-5)
+        close_grads(v['auto']['grads'], v['newton_schulz']['grads'], rtol=1e-4, atol_rel=1e-6)
+        assert v['auto']['cholesky_fallbacks'] == 0
+
+    def test_prediv_matches_plain_and_is_accounted(self, run):
+        _, results, _ = run
+        v = results[0]['solvers']
+        close_grads(v['prediv']['grads'], v['eigen']['grads'], rtol=1e-4, atol_rel=1e-6)
+        assert v['prediv']['fields']['dgda'] and not v['prediv']['fields']['da']
+        # the fused grid is counted with the G side, as in the JAX engine
+        dgda = sum(v['prediv']['local_bytes']['dgda'].values())
+        qg = sum(v['prediv']['local_bytes']['qg'].values())
+        assert dgda > 0 and v['prediv']['memory']['g_inverses'] == qg + dgda
+
+    def test_colocate_factors_false_placement_and_numerics(self, run):
+        ref, results, _ = run
+        v = results[0]['colocate']
+        for method in ('eigen', 'inverse'):
+            a_keys, g_keys = v[method]['stores']
+            assert a_keys == ['a17'] and sorted(g_keys) == ['g16', 'g4']
+            assert v[method]['slots']['a']['r'] == ('a17', 2)
+            assert v[method]['slots']['g']['r'] == ('g4', 0)
+            close_grads(v[method]['grads'], ref['colocate'][method])
+            for other in results[1:]:
+                g = other['colocate'][method]['grads']
+                assert all(np.array_equal(g[n], v[method]['grads'][n]) for n in g)
+
+    def test_size_classes_collapse_shapes_exactly(self, run):
+        _, results, _ = run
+        v = results[0]['classes']
+        assert v['g128']['buckets'] < v['g1']['buckets']
+        close_grads(v['g128']['grads'], v['g1']['grads'], rtol=2e-4, atol_rel=1e-6)
+
+    def test_unexecuted_layer_keeps_its_factors(self, run):
+        _, results, _ = run
+        factors_after = results[0]['unexecuted']
+        np.testing.assert_allclose(factors_after['dense1']['a'], np.eye(17), atol=1e-6)
+        np.testing.assert_allclose(factors_after['dense1']['g'], np.eye(12), atol=1e-6)
+        assert np.abs(factors_after['dense0']['a'] - np.eye(7)).max() > 0
+
+    @pytest.mark.parametrize('transport', ['bucketed', 'chunked'])
+    def test_bucketed_transport_matches_the_default(self, run, transport):
+        _, results, _ = run
+        want = results[0]['transport-allreduce']['step']
+        got = results[0][f'transport-{transport}']['step']
+        np.testing.assert_allclose(got['losses'], want['losses'], rtol=1e-6)
+        for n, w in want['params'].items():
+            np.testing.assert_allclose(got['params'][n], w, rtol=1e-6, atol=1e-7)
+
+    def test_loss_decreases(self, run, frac):
+        _, results, _ = run
+        losses = results[0][f'loss-{frac}']['step']['losses']
+        assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+        for other in results[1:]:  # every rank updates the same parameters
+            theirs = other[f'loss-{frac}']['step']
+            assert theirs['losses'] == losses
+            assert all(
+                np.array_equal(theirs['params'][n], p)
+                for n, p in results[0][f'loss-{frac}']['step']['params'].items()
+            )
+
+    def test_trainer_step_matches_jax(self, run):
+        self.check_trainer_path(run, 'step')
+
+    def check_trainer_path(self, run, path):
+        ref, results, _ = run
+        got = results[0]['trainer'][path]
+        want = ref['trainer'][path]
+        np.testing.assert_allclose(got['losses'], want['losses'], rtol=1e-5)
+        init = ref['trainer']['init']
+        delta = {n: want['params'][n] - init[n] for n in want['params']}
+        scale = max(float(np.max(np.abs(d))) for d in delta.values())
+        for n, d in delta.items():
+            np.testing.assert_allclose(
+                got['params'][n] - init[n], d, rtol=1e-4, atol=1e-4 * scale, err_msg=n
+            )
+        for other in results[1:]:
+            theirs = other['trainer'][path]['params']
+            assert all(np.array_equal(theirs[n], got['params'][n]) for n in theirs)
+
+
+    def test_multihost_helpers_read_the_group(self, run):
+        # the world's size, each rank's index, and the gathered array in
+        # rank order on every rank (exact)
+        _, results, _ = run
+        want = np.array([[r, 10.0 * r + 0.5] for r in range(self.W)], np.float32)
+        for rank, res in enumerate(results):
+            got = res['multihost']
+            assert (got['count'], got['index']) == (self.W, rank)
+            np.testing.assert_array_equal(got['gathered'], want)
+
+    def test_multihost_votes_agree_on_every_rank(self, run):
+        # rank r votes code r % 2 + 1 at step 100 - r: the max of each;
+        # a decision holds only when every rank votes True
+        _, results, _ = run
+        for res in results:
+            got = res['multihost']
+            assert tuple(got['emergency']) == (min(self.W, 2), 100)
+            assert got['all_true'] is True and got['last_false'] is False
+
+    def test_assert_same_step_raises_only_on_a_mismatch(self, run):
+        # each rank reports its own rank as the step: every rank raises,
+        # naming all the steps, once there are two
+        _, results, _ = run
+        for res in results:
+            mismatch = res['multihost']['mismatch']
+            if self.W == 1:
+                assert mismatch is None
+            else:
+                assert mismatch is not None and str(list(range(self.W))) in mismatch
+
+
+class TestWorld1(WorldCases):
+    W = 1
+
+
+class MultiRankCases(WorldCases):
+    def test_mem_opt_requires_colocated_factors(self, run):
+        _, results, _ = run
+        for res in results:
+            assert 'MEM-OPT' in res['memopt']['not_colocated']['raises']
+
+
+class TestWorld2(MultiRankCases):
+    W = 2
+
+    @pytest.mark.parametrize('path', ['scan_steps', 'step_accumulate'])
+    def test_trainer_paths_match_jax(self, run, path):
+        self.check_trainer_path(run, path)
+
+
+class TestWorld4(MultiRankCases):
+    W = 4

@@ -364,3 +364,62 @@ def test_async_checkpoint_snapshot_precedes_in_place_updates_on_card(cuda_device
     assert torch.equal(payload['kfac']['a']['l'], before)
     assert torch.equal(payload['kfac']['g']['l'], before[:64, :64])
     assert payload['kfac']['step'] == 3
+
+
+def ns_stack(device, slots, d, seed):
+    """(m, x, mx) of a stack as the stacked solver meets it: damped
+    factors, the Gershgorin starts and two plain iterations."""
+    g = torch.Generator(device).manual_seed(seed)
+    a = torch.randn(slots, d, d, generator=g, device=device)
+    eye = torch.eye(d, device=device)
+    m = a.mT @ a / d + 0.003 * eye
+    lam_max = m.abs().sum(-1).amax(-1)[:, None, None]
+    x, mx = eye / lam_max, m / lam_max
+    for _ in range(2):
+        x, mx, _ = ns_lib.fused_ns_step_plain(m, x, mx)
+    return m.contiguous(), x.contiguous(), mx.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('slots,d', [(8, 513), (2, 2049), (8, 512), (3, 7), (5, 130)])
+def test_ns_stacked_kernel_matches_plain_on_card(cuda_device, slots, d):
+    # each slot within 3e-5 x max of its x_new and mx_new and 3e-5 of its
+    # residual; one launch for the stack; repeatable bit for bit
+    m, x, mx = ns_stack(cuda_device, slots, d, 11)
+    before = ns_lib.fused_ns_step_stacked.launches
+    got = ns_lib.fused_ns_step_stacked(m, x, mx)
+    assert ns_lib.fused_ns_step_stacked.launches == before + 1
+    want = ns_lib.fused_ns_step_plain(m, x, mx)
+    for i in range(slots):
+        for o, w in zip(got[:2], want[:2]):
+            assert (o[i] - w[i]).abs().max() <= 3e-5 * w[i].abs().max()
+        assert abs(float(got[2][i]) - float(want[2][i])) <= 3e-5 * float(want[2][i])
+    again = ns_lib.fused_ns_step_stacked(m, x, mx)
+    assert all(torch.equal(o, p) for o, p in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('tile', [(128, 128), (128, 144), (64, 32)])
+@pytest.mark.parametrize('d', [129, 513])
+def test_ns_stacked_kernel_is_the_2d_launch_slot_by_slot_on_card(cuda_device, d, tile):
+    # at one tile, each slot of the stack bitwise the 2-D launch on it
+    m, x, mx = ns_stack(cuda_device, 3, d, 12)
+    got = ns_lib.fused_ns_step_stacked(m, x, mx, tile=tile)
+    for i in range(3):
+        one = ns_lib.fused_ns_step(m[i].contiguous(), x[i].contiguous(), mx[i].contiguous(), tile=tile)
+        assert torch.equal(got[0][i], one[0]) and torch.equal(got[1][i], one[1])
+        assert torch.equal(got[2][i], one[2])
+
+
+@pytest.mark.cuda
+def test_ns_stacked_kernel_skips_inactive_slots_on_card(cuda_device):
+    # the active slots bitwise the all-active launch's; the others' CTAs
+    # return at once (their outputs are the caller's to keep)
+    m, x, mx = ns_stack(cuda_device, 4, 130, 13)
+    full = ns_lib.fused_ns_step_stacked(m, x, mx)
+    active = torch.tensor([True, False, True, False], device=cuda_device)
+    part = ns_lib.fused_ns_step_stacked(m, x, mx, active)
+    for i in (0, 2):
+        assert all(torch.equal(p[i], f[i]) for p, f in zip(part, full))
+    with pytest.raises(ValueError):  # a CUDA tensor never takes the plain version
+        ns_lib.fused_ns_step_stacked(m.double(), x.double(), mx.double())

@@ -10,6 +10,7 @@ against their plain versions on the card in ``test_torch_kernels.py``.
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -777,3 +778,155 @@ def test_vocab_parallel_nll_matches_jax_with_grads():
     ct = rand(42, 2, 8)
     (gx,) = torch.autograd.grad(got, tl, t(ct))
     close(gx, pull(jnp.asarray(ct))[0])
+
+
+# ------------------------------------------------- stacked Newton-Schulz
+
+
+def test_fused_ns_step_stacked_plain_matches_jax_body_per_slot():
+    # the stacked step's plain version against the JAX loop body vmapped
+    # over slots: x and mx within rtol 1e-5, atol 1e-6 x max; residuals
+    # rtol 1e-5; and the 2-D plain step of each slot
+    slots = [ns_start(70 + i, 48) for i in range(3)]
+    m = np.stack([s[0] for s in slots])
+    x = np.stack([s[1] for s in slots])
+    mx = m @ x
+    eye = jnp.eye(48, dtype=jnp.float32)
+
+    def body(mm, xx, mmx):
+        x_new = xx @ (2.0 * eye - mmx)
+        mx_new = mm @ x_new
+        return x_new, mx_new, jnp.linalg.norm(eye - mx_new) / jnp.sqrt(48.0)
+
+    want = jax.vmap(body)(jnp.asarray(m), jnp.asarray(x), jnp.asarray(mx))
+    got = ns_lib.fused_ns_step_stacked(t(m), t(x), t(mx))
+    assert got[2].shape == (3,) and got[2].dtype == torch.float32
+    close(got[0], want[0])
+    close(got[1], want[1])
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]), rtol=1e-5)
+    for i in range(3):
+        one = ns_lib.fused_ns_step_plain(t(m[i]), t(x[i]), t(mx[i]))
+        close(got[0][i], one[0])
+        np.testing.assert_allclose(float(got[2][i]), float(one[2]), rtol=1e-6)
+
+
+def test_fused_ns_step_stacked_checks_shapes_and_does_not_launch_on_cpu():
+    m, x = ns_start(75, 8)
+    ms, xs = t(np.stack([m, m])), t(np.stack([x, x]))
+    before = ns_lib.fused_ns_step_stacked.launches
+    ns_lib.fused_ns_step_stacked(ms, xs, ms @ xs, torch.tensor([True, False]))
+    assert ns_lib.fused_ns_step_stacked.launches == before
+    with pytest.raises(ValueError):
+        ns_lib.fused_ns_step_stacked(t(m), t(x), t(m @ x))  # 2-D
+    with pytest.raises(ValueError):
+        ns_lib.fused_ns_step_stacked(ms, xs[:1], ms @ xs)
+    with pytest.raises(ValueError):
+        ns_lib.fused_ns_step_stacked(ms, xs, ms @ xs, torch.tensor([1, 0]))
+
+
+@pytest.mark.parametrize('sms', [132, 114])
+def test_ns_stacked_plan_counts_every_slot(sms):
+    # one slot plans as the 2-D launch; a stack fills the card sooner
+    for d in (7, 130, 512, 513, 2048, 2049):
+        assert ns_lib.plan(d, sms, 1) == ns_lib.plan(d, sms)
+    assert ns_lib.plan(513, sms) == (64, 32)
+    tile = ns_lib.plan(513, sms, 8)
+    assert tile != (64, 32) and 8 * math.prod(ns_lib.grid(513, tile)) >= sms
+
+
+def stacked_case():
+    """(factors, x0, damping, live) of five slots: a cold start (x0 = 0,
+    the fresh state's), a warm start that passes, a warm start outside the
+    convergence region (the port's restart), an identity padding slot and
+    a NaN factor."""
+    d = 32
+    f = [spd(80 + i, d) for i in range(3)]
+    x0 = [np.zeros((d, d), np.float32)]
+    x0.append(np.asarray(jfactors.compute_inverse(jnp.asarray(1.05 * f[1]), 0.004)))
+    m = f[2].astype(np.float64) + 0.005 * np.eye(d)
+    mu, v = np.linalg.eigh(m)
+    c = np.full(d, 1.1)
+    c[-1] = 2.8
+    x0.append(((v * (c / mu)) @ v.T).astype(np.float32))
+    f.append(np.eye(d, dtype=np.float32))
+    x0.append(np.eye(d, dtype=np.float32) / 1.006)
+    bad = spd(84, d)
+    bad[3, 3] = np.nan
+    f.append(bad)
+    x0.append(np.zeros((d, d), np.float32))
+    damping = np.asarray([0.003, 0.004, 0.005, 0.006, 0.007], np.float32)
+    return np.stack(f), np.stack(x0), damping, np.asarray([True, True, True, False, True])
+
+
+def test_newton_schulz_inverse_stacked_matches_vmapped_jax_solver_per_slot():
+    f, x0, damping, live = stacked_case()
+    want = jax.vmap(
+        lambda m, w, dm: jfactors.newton_schulz_inverse_info(m, dm, x0=w)
+    )(jnp.asarray(f), jnp.asarray(x0), jnp.asarray(damping))
+    cold = jfactors.newton_schulz_inverse_info(jnp.asarray(f[2]), float(damping[2]))
+    starts = dict(factors.newton_schulz_inverse_info.starts)
+    launches = ns_lib.fused_ns_step_stacked.launches
+    got = factors.newton_schulz_inverse_stacked(
+        t(f), t(damping), x0=t(x0), live=t(live)
+    )
+    assert ns_lib.fused_ns_step_stacked.launches == launches  # CPU: the plain version
+    # the safeguard's verdicts: slot 0 (zeros) rejected, 1 and 2 kept;
+    # slot 2 restarts cold; the padding slot is not live
+    assert got.warm.tolist() == [False, True, True, False, False]
+    assert got.restarted.tolist() == [False, False, True, False, False]
+    moved = {k: factors.newton_schulz_inverse_info.starts[k] - v for k, v in starts.items()}
+    assert moved == {'warm': 1, 'cold': 2, 'warm_restarted': 1}
+    iters, resid = np.asarray(want.iterations), np.asarray(want.residual)
+    assert float(resid[2]) > factors.NS_FALLBACK_RESIDUAL  # the reference's iterate
+    for i in (0, 1):
+        assert int(got.iterations[i]) == int(iters[i])
+        assert float(got.residual[i]) <= 1e-6 and float(resid[i]) <= 1e-6
+        close(got.inverse[i], want.inverse[i], rtol=1e-4, atol_rel=1e-5)
+    assert int(got.iterations[1]) < 5  # warm: the cold start takes 8 or more
+    # the restarted slot: both runs counted, the JAX cold solve returned
+    assert int(got.iterations[2]) == int(iters[2]) + int(cold.iterations)
+    close(got.inverse[2], cold.inverse, rtol=1e-4, atol_rel=1e-5)
+    # padding: never iterates, and its start is already its inverse
+    assert int(got.iterations[3]) == 0 == int(iters[3])
+    close(got.inverse[3], want.inverse[3])
+    # the NaN slot stops at once, NaN in its result, as in JAX
+    assert int(got.iterations[4]) == 0 == int(iters[4])
+    assert np.isnan(float(got.residual[4])) and np.isnan(float(resid[4]))
+    assert torch.isnan(got.inverse[4]).all()
+
+
+@pytest.mark.parametrize('case', ['well-conditioned', 'one-slot-to-cholesky'])
+def test_batched_damped_inverse_auto_matches_jax(case):
+    f = np.stack([spd(90, 32), spd(91, 32)])
+    damping = 0.01
+    if case == 'one-slot-to-cholesky':
+        f[1] = np.diag(np.logspace(0, -14, 32)).astype(np.float32)
+        damping = 0.0
+    before = factors.damped_inverse.cholesky_fallbacks
+    got = factors.batched_damped_inverse_auto(t(f), damping)
+    want = jfactors.batched_damped_inverse_auto(jnp.asarray(f), damping)
+    assert factors.damped_inverse.cholesky_fallbacks - before == (case != 'well-conditioned')
+    close(got, want, rtol=1e-4, atol_rel=1e-5)
+
+
+def test_batched_compute_inverse_and_preconditioning_match_per_slot():
+    fa = np.stack([spd(92, 9), spd(93, 9)])
+    fg = np.stack([spd(94, 6), spd(95, 6)])
+    grad = np.stack([rand(96, 6, 9), rand(97, 6, 9)])
+    damping = t(np.asarray([0.003, 0.03], np.float32))
+    inv = factors.compute_inverse(t(fa), damping)
+    for i in range(2):
+        close(inv[i], jfactors.compute_inverse(jnp.asarray(fa[i]), float(damping[i])))
+    ea = factors.compute_eigh(t(fa))
+    eg = factors.compute_eigh(t(fg))
+    got = factors.eigen_preconditioned_grad(t(grad), ea, eg, damping)
+    for i in range(2):
+        ja = jfactors.EigenDecomp(jnp.asarray(ea.q[i].numpy()), jnp.asarray(ea.d[i].numpy()))
+        jg = jfactors.EigenDecomp(jnp.asarray(eg.q[i].numpy()), jnp.asarray(eg.d[i].numpy()))
+        close(got[i], jfactors.eigen_preconditioned_grad(
+            jnp.asarray(grad[i]), ja, jg, float(damping[i])))
+    ginv = factors.compute_inverse(t(fg), 0.01)
+    got = factors.inverse_preconditioned_grad(t(grad), inv, ginv)
+    for i in range(2):
+        close(got[i], jfactors.inverse_preconditioned_grad(
+            jnp.asarray(grad[i]), jnp.asarray(inv[i].numpy()), jnp.asarray(ginv[i].numpy())))
