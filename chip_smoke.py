@@ -141,7 +141,31 @@ Phases, one JSON line each:
    its step ms by kind (plain median, capture + refresh, the refresh
    alone), each rank's peak memory beside ``memory_usage()``'s
    decomposition bytes, and ``comms_report()``'s bytes per collective.
-12. ``bench_lm``: the bench's LM stage (``kfac_tpu_torch.bench_lm``) in
+12. ``kaisa_ops``: the sentinel, metrics, flight recorder and checkpoints
+   of the KAISA engine, over NCCL on one rank a visible card, the flagship
+   through ``Trainer.step`` with a ``DistributedKFAC`` (COMM-OPT, cadence
+   10/100). (a) ``observed``'s loop with the sentinel (``warn=False,
+   skip_nonfinite=False``), metrics and flight on, in turns with the loop
+   without them, counts over the observed steps: launches exact (the
+   kl-clip dot once a step, in its norm instantiation), no host sync on a
+   plain or capture step, each rank's plain-step median with and without,
+   the drains; then ``observed``'s three faults, the counters bitwise
+   equal on every rank and equal to the dense engine's after the same
+   faults. (b) ``Trainer(checkpoints=CheckpointManager(save_interval_steps=
+   10, keep=2, async_save=True))``: rank 0 sends itself a real SIGTERM
+   after step 13, every rank saves the one agreed emergency checkpoint at
+   step 15 (one rotation entry beside step 10's, one ``LATEST``) and
+   raises ``Preempted``; no host sync on a step that neither saves nor
+   captures; a restore at the same world continues 5 steps bitwise (losses,
+   parameters, factors) as the interrupted run continued in memory after
+   ``rematerialize``; each rank's blocking, async-return and wait ms of a
+   save, its restore ms and its shard's bytes (rank 0's extras beside).
+   (c) Migrations of that checkpoint: into the dense engine, a dense
+   checkpoint back into the ``DistributedKFAC``, and into bucket
+   granularity 128, each with the ``migrating`` warning and its
+   preconditioned grads within 1e-3 of the largest of the source engine's;
+   with four cards also W = 4 -> 2 -> 4 (two more worlds).
+13. ``bench_lm``: the bench's LM stage (``kfac_tpu_torch.bench_lm``) in
    process for ``tiny`` and then ``flagship``, at a quarter of the bench's
    own window (25 timed steps, 25 ``scan_steps``), counts set to 0 before each
    and read after: every rate finite and positive, every fused-kernel
@@ -205,6 +229,20 @@ NORM_RTOL = 1e-6
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+    if isinstance(obj, dict) and obj.get('passed') is False:
+        print(f'chip_smoke: {obj.get("phase")} failed at {failed_parts(obj)}', file=sys.stderr, flush=True)
+
+
+def failed_parts(obj, path='') -> list[str]:
+    """The paths in ``obj`` whose ``passed`` is False or that hold an
+    ``error`` or ``trace_error``, with the error's text."""
+    if isinstance(obj, list):
+        return [p for i, v in enumerate(obj) for p in failed_parts(v, f'{path}[{i}]')]
+    if not isinstance(obj, dict):
+        return []
+    out = [path or '.'] if obj.get('passed') is False else []
+    out += [f'{path}.{k}: {str(obj[k])[:300]}' for k in ('error', 'trace_error') if k in obj]
+    return out + [p for k, v in obj.items() for p in failed_parts(v, f'{path}.{k}')]
 
 
 def nvidia_smi() -> str:
@@ -836,11 +874,13 @@ class LMRun:
         )
         loss = lm_loss(model)
 
+        self.config = self.kfac
+
         def loss_fn(ms, batch):
-            # a batch may carry a third element, a weight of the loss: the
-            # observed phase's poisoned batch weighs it by NaN
+            # a batch may carry a third element, a weight a row: the
+            # observed phase's poisoned batch weighs its loss by NaN
             if len(batch) == 3:
-                return loss(batch[:2]) * batch[2], ms
+                return loss(batch[:2]) * batch[2][0], ms
             return loss(batch), ms
 
         self.trainer = Trainer(
@@ -1272,11 +1312,12 @@ def step_kinds(seconds, syncs, capture_every, inv_every) -> dict:
 
 
 def fault_checks(run, layer) -> dict:
-    """The three injected faults on the flagship run, after its counted
-    steps; each checked on the sentinel's counters."""
+    """The three injected faults on a flagship run (``LMRun`` or
+    ``DistLMRun``), after its counted steps; each checked on the
+    sentinel's counters (every rank holds them)."""
     import dataclasses as dc
 
-    kfac, trainer = run.kfac, run.trainer
+    kfac, trainer, config = run.kfac, run.trainer, run.config
     names = list(run.registry.layers)
     li = names.index(layer)
     out = {}
@@ -1285,25 +1326,24 @@ def fault_checks(run, layer) -> dict:
         return {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
 
     # 1. a batch whose loss weight is NaN: skipped, nothing moves
-    kfac.health = dc.replace(kfac.health, skip_nonfinite=True)
-    before, kbefore = params(), run.kstate
-    step0 = kbefore.step
-    nan = torch.full((), float('nan'), device=run.device)
+    config.health = dc.replace(config.health, skip_nonfinite=True)
+    before, a_before = params(), {k: v.clone() for k, v in run.kstate.a.items()}
+    step0 = run.kstate.step
+    nan = torch.full((run.batch[0].shape[0],), float('nan'), device=run.device)
     run.state, _ = trainer.step(run.state, (*run.batch, nan))
     after = params()
-    h = run.kstate.health
     out['nan_batch'] = dict(
-        skipped_steps=int(h.skipped_steps), step_advanced=run.kstate.step == step0 + 1,
+        skipped_steps=int(run.kstate.health.skipped_steps), step_advanced=run.kstate.step == step0 + 1,
         params_unchanged=all(torch.equal(before[n], after[n]) for n in before),
-        factors_unchanged=all(torch.equal(kbefore.a[n], run.kstate.a[n]) for n in names),
+        factors_unchanged=all(torch.equal(a_before[k], run.kstate.a[k]) for k in a_before),
     )
-    out['nan_batch']['passed'] = (
-        out['nan_batch']['skipped_steps'] == 1 and out['nan_batch']['step_advanced']
-        and out['nan_batch']['params_unchanged'] and out['nan_batch']['factors_unchanged']
-    )
+    f = out['nan_batch']
+    f['passed'] = (f['skipped_steps'] == 1 and f['step_advanced'] and f['params_unchanged']
+                   and f['factors_unchanged'])
 
-    # 2. one capture of the layer's A statistic scaled by 1e12: its factor
-    # update passes the quarantine threshold and rolls back
+    # 2. one capture of the layer's A statistic scaled by 1e12 (each
+    # rank's, so the reduced one too): its factor update passes the
+    # quarantine threshold and rolls back
     engine_update = kfac.update_factors
 
     def poisoned(state, stats):
@@ -1311,15 +1351,14 @@ def fault_checks(run, layer) -> dict:
         return engine_update(state, stats)
 
     kfac.update_factors = poisoned
-    kfac.factor_update_steps = 1  # capture on every step from here
+    config.factor_update_steps = 1  # capture on every step from here
     mult0 = float(run.kstate.health.damping_mult[li])
-    a0 = run.kstate.a[layer].clone()
+    a0 = kfac.extract_factors(run.kstate)[layer]['a'].clone()
     run.state, _ = trainer.step(run.state, run.batch)
     h = run.kstate.health
-    mult = h.damping_mult.tolist()
     out['quarantine'] = dict(
-        layer=layer, rolled_back=torch.equal(run.kstate.a[layer], a0),
-        damping_mult_before=mult0, damping_mult=mult[li],
+        layer=layer, rolled_back=torch.equal(kfac.extract_factors(run.kstate)[layer]['a'], a0),
+        damping_mult_before=mult0, damping_mult=float(h.damping_mult[li]),
         quarantined=int(h.quarantined[li]), quarantine_events=int(h.quarantine_events[li]),
         other_layers_quarantined=int(h.quarantined.sum()) - int(h.quarantined[li]),
     )
@@ -1331,9 +1370,8 @@ def fault_checks(run, layer) -> dict:
 
     # 3. quarantined captures and a refresh on every step until the layer
     # degrades: its grads then leave as the raw gradient times the scale
-    kfac.inv_update_steps = 1
-    engine_step = kfac.step
-    seen = {}
+    config.inv_update_steps = 1
+    engine_step, seen = kfac.step, {}
 
     def recording(state, grads, stats, loss=None):
         seen['grads'] = {n: g.clone() for n, g in grads.items()}
@@ -1341,7 +1379,7 @@ def fault_checks(run, layer) -> dict:
 
     kfac.step = recording
     refreshes = 0
-    while int(run.kstate.health.bad_inv[li]) < kfac.health.degrade_after and refreshes < 10:
+    while int(run.kstate.health.bad_inv[li]) < config.health.degrade_after and refreshes < 10:
         run.state, _ = trainer.step(run.state, run.batch)
         refreshes += 1
     ms = run.kstate.metrics
@@ -1355,7 +1393,7 @@ def fault_checks(run, layer) -> dict:
     del kfac.step, kfac.update_factors  # the engine's own methods again
     out['degrade'] = dict(
         layer=layer, refreshes=refreshes, bad_inv=int(run.kstate.health.bad_inv[li]),
-        degrade_after=kfac.health.degrade_after,
+        degrade_after=config.health.degrade_after,
         grads_are_raw_times_scale=bypassed[layer],
         other_layers_bypassed=sum(v for n, v in bypassed.items() if n != layer),
         weight=f'{prefix}.weight',
@@ -1368,13 +1406,15 @@ def fault_checks(run, layer) -> dict:
     return out
 
 
-def run_observed(launches, main_losses) -> bool:
+def run_observed(launches, main_losses, health_after) -> bool:
     """The flagship EIGEN loop of ``main_path`` with the health sentinel
     (``warn=False, skip_nonfinite=False``), metrics and the flight recorder
     on, in turns with the same loop without them: losses against
     ``main_path``'s, launch counts, host syncs of each step, the drains,
     the step ms of each kind with and without; then three injected
-    faults."""
+    faults, after which the counters go into ``health_after`` (the
+    ``kaisa_ops`` phase's reference)."""
+    from kfac_tpu_torch import tracing
     from kfac_tpu_torch.health import HealthConfig
     from kfac_tpu_torch.observability import flight_recorder, metrics
 
@@ -1419,6 +1459,7 @@ def run_observed(launches, main_losses) -> bool:
         profiles[f'without_{i}'] = profile_step(plain_run, i)
         profiles[f'with_{i}'] = profile_step(run, i)
     faults = fault_checks(run, 'block2/mlp_up')
+    health_after.update(tracing.health_counters(run.kstate))
     passed = (
         loss_err <= 1e-6 and launches == expected and zero_syncs and drained
         and all(f['passed'] for f in faults.values())
@@ -2276,6 +2317,388 @@ def run_kaisa(launches) -> bool:
     return ok
 
 
+# --------------------------------------------------------------- kaisa_ops
+
+KAISA_OPS_EXTRA = 2  # uncounted steps after the counted ones, as observed's profiled pair
+KAISA_OPS_TAIL = 5  # steps after the restore, and of the in-memory oracle
+KAISA_MIGRATIONS = ('to_dense', 'from_dense', 'granularity')
+
+
+class DistLMRun:
+    """``LMRun``'s loop with a ``DistributedKFAC`` at the gradient-worker
+    fraction ``frac`` (COMM-OPT by default) on this rank's row block of
+    the global batch."""
+
+    def __init__(self, device, capture_every, inv_every, frac=1.0, checkpoints=None,
+                 granularity=None, **kfac_kw):
+        import kfac_tpu_torch as kt
+        from kfac_tpu_torch.models import TransformerLM, lm_loss
+        from kfac_tpu_torch.parallel import DistributedKFAC, kaisa_mesh
+        from kfac_tpu_torch.training import Trainer
+
+        cfg = FLAGSHIP
+        self.device, self.capture_every = device, capture_every
+        model = TransformerLM(
+            vocab_size=cfg['vocab'], d_model=cfg['d_model'], num_heads=cfg['heads'],
+            num_layers=cfg['layers'], max_len=cfg['seq'], seed=1, device=device,
+        )
+        gen = torch.Generator().manual_seed(0)
+        tokens = torch.randint(0, cfg['vocab'], (cfg['batch'], cfg['seq']), generator=gen)
+        self.batch = (tokens.to(device), torch.roll(tokens, -1, dims=1).to(device))
+        self.registry = kt.register_model(model, skip_layers=['lm_head'], device=device)
+        self.config = kt.KFACPreconditioner(
+            self.registry, damping=0.003, lr=0.1, factor_update_steps=capture_every,
+            inv_update_steps=inv_every, device=device, bucket_granularity=granularity, **kfac_kw,
+        )
+        self.kfac = DistributedKFAC(self.config, kaisa_mesh(frac, device=device))
+        loss = lm_loss(model)
+        self.loss = loss
+
+        def loss_fn(ms, batch):
+            if len(batch) == 3:  # LMRun's weight a row (fault_checks)
+                return loss(batch[:2]) * batch[2][0], ms
+            return loss(batch), ms
+
+        self.trainer = Trainer(
+            model, torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
+            loss_fn, kfac=self.kfac, checkpoints=checkpoints, device=device,
+        )
+        self.state = self.trainer.init()
+
+    @property
+    def kstate(self):
+        return self.state.kfac_state
+
+    def mean_grads(self) -> dict:
+        """The global mean grads of the current weights on the batch."""
+        from kfac_tpu_torch.layers import capture
+
+        run = capture.value_and_grad(self.trainer.model, lambda b: self.loss(b))
+        _, grads = run(self.kfac.mesh.local_rows(self.batch))
+        return self.kfac.average_grads(grads, torch.zeros((), device=self.device))[0]
+
+
+def kaisa_observed(rank, device, wrappers) -> dict:
+    """(a): the sentinel, metrics and flight on, in turns with the same
+    loop without them, counts over the observed run's steps; the drains;
+    then the three faults."""
+    from kfac_tpu_torch import tracing
+    from kfac_tpu_torch.health import HealthConfig
+    from kfac_tpu_torch.observability import flight_recorder, metrics
+
+    plain = DistLMRun(device, 10, 100)
+    run = DistLMRun(device, 10, 100, health=HealthConfig(**OBSERVED_HEALTH), metrics=True, flight=True)
+    for w in wrappers.values():
+        w.launches = 0
+    counted, launches = {}, {}
+    losses, seconds, syncs, plain_seconds, plain_syncs = [], [], [], [], []
+    for _ in range(STEPS):
+        _, sec, n = counted_step(plain)
+        plain_seconds.append(sec)
+        plain_syncs.append(n)
+        for w in wrappers.values():
+            counted[w] = w.launches
+        loss, sec, n = counted_step(run)
+        for name, w in wrappers.items():
+            launches[name] = launches.get(name, 0) + w.launches - counted[w]
+        losses.append(loss)
+        seconds.append(sec)
+        syncs.append(n)
+    record = metrics.MetricsCollector().drain(run.state)
+    ring = flight_recorder.drain_flight(run.state)  # every rank: the skew columns gather
+    for _ in range(KAISA_OPS_EXTRA):
+        run.state, _ = run.trainer.step(run.state, run.batch)
+    faults = fault_checks(run, 'block2/mlp_up')
+    return dict(
+        losses=losses, launches=launches,
+        with_obs=step_kinds(seconds, syncs, 10, 100),
+        without=step_kinds(plain_seconds, plain_syncs, 10, 100),
+        drain=dict(
+            keys=len(record), step=record.get('step'),
+            finite=all(math.isfinite(v) for v in record.values() if isinstance(v, float)),
+            flight_records=len(ring), skew_columns=sum(k.startswith('skew_') for k in ring[-1]) if ring else 0,
+        ),
+        faults=faults, health=tracing.health_counters(run.kstate),
+        health_tensors=[host_copy(getattr(run.kstate.health, f)) for f in (
+            'skipped_steps', 'damping_mult', 'quarantined', 'bad_inv', 'quarantine_events')],
+    )
+
+
+def kaisa_resume(rank, world, device, root, wrappers) -> dict:
+    """(b): a Trainer with a CheckpointManager, a real SIGTERM to rank 0
+    after step ``RESUME_SIGNAL_AFTER``; the restore at the same world
+    beside the interrupted run continued in memory; then save and restore
+    times and the bytes of this rank's files."""
+    from kfac_tpu_torch import checkpoint
+    from kfac_tpu_torch.resilience import CheckpointManager, Preempted
+
+    mgr = CheckpointManager(root, save_interval_steps=RESUME_INTERVAL, keep=2, async_save=True)
+    run = DistLMRun(device, 10, 100, checkpoints=mgr)
+    on_step, seen = mgr.on_step, {}
+
+    def recording(state, step=None):
+        seen['state'] = state  # the state a Preempted leaves behind
+        return on_step(state, step=step)
+
+    mgr.on_step = recording
+    steps, preempted = [], None
+    for i in range(STEPS):
+        if i == RESUME_SIGNAL_AFTER + 1 and rank == 0:
+            os.kill(os.getpid(), signal.SIGTERM)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            torch.cuda.set_sync_debug_mode('warn')
+            try:
+                run.state, _ = run.trainer.step(run.state, run.batch)
+            except Preempted as exc:
+                preempted = exc
+            finally:
+                torch.cuda.set_sync_debug_mode('default')
+        torch.cuda.synchronize()
+        steps.append(dict(step=i, ms=(time.perf_counter() - t0) * 1e3,
+                          syncs=sum('synchroniz' in str(w.message) for w in caught),
+                          saved=os.path.isdir(mgr.step_dir(i + 1))))
+        if preempted is not None:
+            break
+    out = dict(
+        preempted=None if preempted is None else dict(
+            signal=preempted.signal_name, step=preempted.step, path=preempted.path),
+        steps=steps, rotation=mgr.rotation_steps(), latest=mgr.latest_step(),
+    )
+    mgr.close()
+    quiet = [s for s in steps if s['step'] % 10 and not s['saved'] and s is not steps[-1]]
+    out['syncs_max_quiet_steps'] = max(s['syncs'] for s in quiet)
+
+    # the restore at the same world, and the oracle
+    mgr2 = CheckpointManager(root, install_signals=())
+    resumed = DistLMRun(device, 10, 100, checkpoints=mgr2)
+    resumed.state, restore_s = synced(resumed.trainer.restore_latest)
+    out['restore_ms'] = restore_s * 1e3
+    resumed.trainer.checkpoints = None
+    run.trainer.checkpoints = None
+    run.state = dataclasses.replace(
+        seen['state'], kfac_state=run.kfac.rematerialize(seen['state'].kfac_state))
+    r_losses, o_losses = [], []
+    for _ in range(KAISA_OPS_TAIL):
+        resumed.state, loss = resumed.trainer.step(resumed.state, resumed.batch)
+        r_losses.append(float(loss))
+        run.state, loss = run.trainer.step(run.state, run.batch)
+        o_losses.append(float(loss))
+    out['continuity'] = dict(
+        restored_step=resumed.kstate.step - KAISA_OPS_TAIL, losses=r_losses, oracle_losses=o_losses,
+        losses_bitwise=r_losses == o_losses,
+        params_bitwise=all(torch.equal(p, q) for p, q in zip(
+            resumed.trainer.model.parameters(), run.trainer.model.parameters())),
+        factors_bitwise=all(torch.equal(resumed.kstate.a[k], v) for k, v in run.kstate.a.items())
+        and all(torch.equal(resumed.kstate.g[k], v) for k, v in run.kstate.g.items()),
+        param_digest=param_digest(resumed.trainer.model),
+    )
+
+    # save and restore times, bytes on disk
+    extra = resumed.trainer.checkpoint_extras(resumed.state)
+    block = os.path.join(root, 'blocking')
+    _, blocking_s = synced(lambda: checkpoint.save(block, resumed.kstate, extra=extra, engine=resumed.kfac))
+    handle, return_s = synced(lambda: checkpoint.save(
+        os.path.join(root, 'async'), resumed.kstate, extra=extra, engine=resumed.kfac, wait=False))
+    _, wait_s = synced(handle.wait_until_finished)
+    fresh = DistLMRun(device, 10, 100)
+    (state, _), read_s = synced(lambda: checkpoint.restore(block, fresh.kfac))
+    shard = os.path.join(block, checkpoint.shard_name(rank, world))
+    out['save'] = dict(
+        blocking_save_ms=blocking_s * 1e3, async_return_ms=return_s * 1e3, async_wait_ms=wait_s * 1e3,
+        restore_ms=read_s * 1e3, shard_bytes=os.path.getsize(shard),
+        extra_bytes=os.path.getsize(os.path.join(block, checkpoint.EXTRA)) if rank == 0 else 0,
+    )
+    out['source'] = resumed
+    out['block'] = block
+    return out
+
+
+def pgrad_err(got: dict, want: dict) -> float:
+    """The largest preconditioned-grad difference relative to the largest
+    |grad| of ``want``."""
+    scale = max(float(g.abs().max()) for g in want.values())
+    return max(float((got[n] - g).abs().max()) for n, g in want.items()) / scale
+
+
+def kaisa_migrations(rank, world, device, root, source, block) -> dict:
+    """(c) on this world: the (b) checkpoint into the dense engine, a dense
+    checkpoint into the distributed engine, and into bucket granularity
+    128; each restore's preconditioned grads against the source engine's
+    on the same weights and batch."""
+    from kfac_tpu_torch import checkpoint
+    from kfac_tpu_torch.layers import capture
+
+    grads = source.mean_grads()
+    want = source.kfac.precondition(source.kstate, grads)
+    model = source.trainer.model
+    out = {}
+
+    def dense_engine():
+        import kfac_tpu_torch as kt
+
+        return kt.KFACPreconditioner(source.registry, damping=0.003, lr=0.1, factor_update_steps=10,
+                                     inv_update_steps=100, device=device)
+
+    def checked(name, engine, path, global_grads):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            (state, _), sec = synced(lambda: checkpoint.restore(path, engine))
+        got = engine.precondition(state, global_grads)
+        err = pgrad_err(got, want)
+        out[name] = dict(
+            migrated=any('migrating through per-layer factors' in str(w.message) for w in caught),
+            step=state.step, restore_ms=sec * 1e3, pgrad_err_rel_to_max=err, pgrad_tol=1e-3,
+            passed=err <= 1e-3 and state.step == source.kstate.step,
+        )
+        out[name]['passed'] &= out[name]['migrated']
+        return state
+
+    dense = dense_engine()
+    _, global_grads = capture.value_and_grad(model, lambda b: source.loss(b))(source.batch)
+    dstate = checked('to_dense', dense, block, global_grads)
+    dpath = os.path.join(root, 'dense')
+    checkpoint.save(dpath, dstate, engine=dense)
+    checked('from_dense', source.kfac, dpath, grads)
+    g128 = DistLMRun(device, 10, 100, granularity=128)
+    checked('granularity', g128.kfac, block, grads)
+    return out
+
+
+def kaisa_ops_rank(rank: int, world: int, device: torch.device, root: str) -> dict:
+    """One NCCL rank of the kaisa_ops phase: (a), (b), (c)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    wrappers = main_path_wrappers()
+    t0 = time.perf_counter()
+    observed = kaisa_observed(rank, device, wrappers)
+    t1 = time.perf_counter()
+    resume = kaisa_resume(rank, world, device, os.path.join(root, 'rot'), wrappers)
+    t2 = time.perf_counter()
+    migrations = kaisa_migrations(rank, world, device, root, resume.pop('source'), resume['block'])
+    t3 = time.perf_counter()
+    return dict(rank=rank, observed=observed, resume=resume, migrations=migrations,
+                seconds=dict(observed=t1 - t0, resume=t2 - t1, migrations=t3 - t2))
+
+
+def elastic_rank(rank: int, world: int, device: torch.device, path: str, out_path: str) -> dict:
+    """A restore of ``path`` onto this world (W = 4 -> 2 -> 4 on four
+    cards): its migration warning, the preconditioned grads of the
+    restored state beside those of the state it saves to ``out_path``."""
+    from kfac_tpu_torch import checkpoint
+
+    run = DistLMRun(device, 10, 100)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        state, extra = checkpoint.restore(path, run.kfac, extra_template={'model': None})
+    run.trainer.model.load_state_dict(extra['model'])
+    pg = run.kfac.precondition(state, run.mean_grads())
+    if out_path:
+        checkpoint.save(out_path, state, extra=extra, engine=run.kfac)
+    return dict(
+        step=state.step, migrated=any('migrating' in str(w.message) for w in caught),
+        grads={n: g.cpu() for n, g in pg.items()} if rank == 0 else None,
+    )
+
+
+def run_kaisa_ops(launches, dense_health) -> bool:
+    """The sentinel, metrics, flight and checkpoints of the KAISA engine over
+    NCCL (see the module's docstring, phase 12); ``dense_health`` is the
+    observed phase's counters after its faults."""
+    from kfac_tpu_torch.parallel import spawn_world
+
+    world = torch.cuda.device_count()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build', 'chip_smoke_kaisa_ops')
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        results = spawn_world(kaisa_ops_rank, world, 'nccl', 'cuda', args=(root,), timeout_s=600)
+        seconds = time.perf_counter() - t0
+        elastic = None
+        if world == 4:
+            block = os.path.join(root, 'rot', 'blocking')
+            half = os.path.join(root, 'elastic2')
+            t1 = time.perf_counter()
+            two = spawn_world(elastic_rank, 2, 'nccl', 'cuda', args=(block, half), timeout_s=300)
+            four = spawn_world(elastic_rank, 4, 'nccl', 'cuda', args=(half, ''), timeout_s=300)
+            elastic = dict(
+                seconds=time.perf_counter() - t1,
+                steps=[two[0]['step'], four[0]['step']],
+                migrated=[two[0]['migrated'], four[0]['migrated']],
+                pgrad_err_rel_to_max=pgrad_err(four[0]['grads'], two[0]['grads']),
+                pgrad_tol=1e-3,
+            )
+            elastic['passed'] = elastic['pgrad_err_rel_to_max'] <= 1e-3 and elastic['steps'] == [RESUME_STEP + KAISA_OPS_TAIL] * 2
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    r0 = results[0]
+    obs = [r['observed'] for r in results]
+    expected = kaisa_expected(STEPS)
+    expected['klclip_dot_norms'], expected['klclip_dot'] = expected['klclip_dot'], 0
+    launches_exact = all({n: o['launches'][n] for n in expected} == expected for o in obs)
+    for name, count in r0['observed']['launches'].items():
+        launches[name] = launches.get(name, 0) + count
+    zero_syncs = all(
+        o['with_obs']['capture']['syncs_max'] == 0 and o['with_obs']['plain']['syncs_max'] == 0
+        for o in obs
+    )
+    counters_equal_on_ranks = all(
+        all(torch.equal(a, b) for a, b in zip(o['health_tensors'], obs[0]['health_tensors']))
+        for o in obs
+    )
+    faults_ok = all(f['passed'] for o in obs for f in o['faults'].values())
+    drained = all(o['drain']['step'] == STEPS and o['drain']['finite']
+                  and o['drain']['flight_records'] == STEPS for o in obs)
+    observed = dict(
+        losses_rank0=obs[0]['losses'],
+        step_kinds_with_by_rank=[o['with_obs'] for o in obs],
+        step_kinds_without_by_rank=[o['without'] for o in obs],
+        plain_median_ms_by_rank=[
+            dict(rank=r['rank'], with_obs=r['observed']['with_obs']['plain']['ms_median'],
+                 without=r['observed']['without']['plain']['ms_median']) for r in results],
+        launches_by_rank=[o['launches'] for o in obs], expected_launches=expected,
+        zero_syncs=zero_syncs, drain=obs[0]['drain'], faults_rank0=obs[0]['faults'],
+        counters_bitwise_on_every_rank=counters_equal_on_ranks,
+        counters_equal_dense=obs[0]['health'] == dense_health, faults_passed=faults_ok,
+    )
+    observed['passed'] = (launches_exact and zero_syncs and counters_equal_on_ranks
+                          and observed['counters_equal_dense'] and faults_ok and drained)
+    res = [r['resume'] for r in results]
+    cont = [r['continuity'] for r in res]
+    resume = dict(
+        preempted_by_rank=[r['preempted'] for r in res],
+        rotation_rank0=res[0]['rotation'], latest_rank0=res[0]['latest'],
+        step_ms_rank0=[s['ms'] for s in res[0]['steps']],
+        syncs_max_quiet_steps_by_rank=[r['syncs_max_quiet_steps'] for r in res],
+        continuity_rank0={k: v for k, v in cont[0].items() if k != 'param_digest'},
+        params_identical_on_every_rank=len({c['param_digest'] for c in cont}) == 1,
+        save_by_rank=[dict(rank=i, restore_latest_ms=r['restore_ms'], **r['save'])
+                      for i, r in enumerate(res)],
+    )
+    resume['passed'] = (
+        all(r['preempted'] is not None and r['preempted']['signal'] == 'SIGTERM'
+            and r['preempted']['step'] == RESUME_STEP for r in res)
+        and res[0]['latest'] == RESUME_STEP and res[0]['rotation'] == [RESUME_STEP, RESUME_INTERVAL]
+        and all(c['losses_bitwise'] and c['params_bitwise'] and c['factors_bitwise']
+                and c['restored_step'] == RESUME_STEP for c in cont)
+        and resume['params_identical_on_every_rank']
+        and all(x == 0 for x in resume['syncs_max_quiet_steps_by_rank'])
+    )
+    migrations = dict(by_rank0=r0['migrations'], elastic_4_2_4=elastic)
+    migrations['passed'] = all(m['passed'] for r in results for m in r['migrations'].values()) and (
+        elastic is None or elastic['passed'])
+    passed = observed['passed'] and resume['passed'] and migrations['passed']
+    emit(dict(
+        phase='kaisa_ops', world=world, backend='nccl', config=FLAGSHIP, cadence=[10, 100],
+        health=OBSERVED_HEALTH, metrics=True, flight=True, spawn_seconds=seconds,
+        seconds_by_part_rank0=r0['seconds'], observed=observed, resume=resume,
+        migrations=migrations, passed=passed,
+    ))
+    return passed
+
+
 # a quarter of the bench's own window, to keep the script within its time
 BENCH_WINDOW = dict(warmup=5, iters=25, scan_steps=25)
 # the probe's warm call and its 9 timed calls, before its profiled passes
@@ -2458,9 +2881,10 @@ def main() -> int:
     launches: dict[str, dict[str, int]] = {
         path: {} for path in (
             'main_path', 'main_path_ns', 'digits_mlp', 'observed', 'resume',
-            'async_refresh', 'kaisa', 'bench_lm_tiny', 'bench_lm_flagship',
+            'async_refresh', 'kaisa', 'kaisa_ops', 'bench_lm_tiny', 'bench_lm_flagship',
         )
     }
+    observed_health: dict = {}
     eigen_summary: dict = {}
     main_losses: list[float] = []
     main_snaps: dict = {}
@@ -2491,10 +2915,11 @@ def main() -> int:
     phase('main_path', run_main_path, launches['main_path'], eigen_summary, main_losses, main_snaps)
     phase('main_path_ns', run_main_path_ns, launches['main_path_ns'], eigen_summary)
     phase('digits_mlp', run_digits, launches['digits_mlp'])
-    phase('observed', run_observed, launches['observed'], main_losses)
+    phase('observed', run_observed, launches['observed'], main_losses, observed_health)
     phase('resume', run_resume, launches['resume'], main_losses, main_snaps)
     phase('async_refresh', run_async_refresh, launches['async_refresh'])
     phase('kaisa', run_kaisa, launches['kaisa'])
+    phase('kaisa_ops', run_kaisa_ops, launches['kaisa_ops'], observed_health)
     phase('bench_lm', run_bench_lm, launches)
     emit(dict(phase='timing', seconds=seconds, total_seconds=time.perf_counter() - start))
     print(smi, flush=True)

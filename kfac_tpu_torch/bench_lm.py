@@ -207,16 +207,16 @@ def split_device_runs(events: list[tuple[float, float, str]], scopes: list[str])
     """``{'device_ms': {scope: ms}, 'device_events': {scope: n}}`` from
     device events ``(start_us, end_us, name)`` of one stream: in time
     order, the events between two marker kernels are one scope's, and those
-    before the first marker are none's. ``trace_error`` unless there are
-    ``len(scopes) + 1`` markers, the last event is one, and no scope's run
-    is empty."""
+    before the first marker or after the last are none's. ``trace_error``
+    unless there are ``len(scopes) + 1`` markers and no scope's run is
+    empty."""
     runs: list[list[float]] = []
     for start, end, name in sorted(events):
         if MARKER_KERNEL in name:
             runs.append([])
         elif runs:
             runs[-1].append(end - start)
-    if len(runs) != len(scopes) + 1 or runs[-1] or not all(runs[:-1]):
+    if len(runs) != len(scopes) + 1 or not all(runs[:-1]):
         return {'trace_error': (
             f'{len(runs)} markers for {len(scopes)} scopes; device events after '
             f'each: {[len(r) for r in runs]}'
@@ -232,8 +232,11 @@ def split_device_runs(events: list[tuple[float, float, str]], scopes: list[str])
 # can lack device records, so two passes in a row must agree
 DEVICE_PASSES = 4
 # kernels launched at the start of a pass's active cycle, before its first
-# marker: on the card a trace has lacked its first few device records
-LEAD_KERNELS = 100
+# marker, and at its end, after its last, each after or before this many
+# idle seconds: on the card a trace has lacked its first device records
+# (more than a hundred) and its last few
+PAD_KERNELS = 100
+PAD_SECONDS = 0.01
 
 
 def _device_ms(variants: dict, device: torch.device) -> dict[str, Any]:
@@ -245,9 +248,11 @@ def _device_ms(variants: dict, device: torch.device) -> dict[str, Any]:
     kernel comes before the first variant and after each, on the same
     stream, and the device's own timeline is split at the markers
     (:func:`split_device_runs`). Traces on the card have lacked their
-    first device records (the first marker and the first scope's kernels):
-    each pass starts with ``LEAD_KERNELS`` kernels of no scope's, and counts
-    only when the pass before it found as many kernels in every scope.
+    first device records (the first marker and the first scope's kernels)
+    and their last (from within the last scopes on): each pass starts and
+    ends with ``PAD_SECONDS`` idle and ``PAD_KERNELS`` kernels of no
+    scope's, and counts only when the pass before it found as many kernels
+    in every scope.
     ``device_passes`` says how many passes ran.
     """
     last: dict[str, Any] = {}
@@ -265,15 +270,18 @@ def _device_ms(variants: dict, device: torch.device) -> dict[str, Any]:
     }
 
 
-def _profiled_pass(variants: dict, device: torch.device) -> list[tuple[float, float, str]]:
+def _profiled_pass(
+    variants: dict, device: torch.device, pad_seconds: float = PAD_SECONDS
+) -> list[tuple[float, float, str]]:
     """Device events ``(start_us, end_us, name)`` of one call of each
     variant in its ``record_function`` scope, a marker kernel before the
     first and after each. A warm-up cycle of the profiler and
-    ``LEAD_KERNELS`` kernels come first."""
+    ``pad_seconds`` idle and ``PAD_KERNELS`` kernels come first, and
+    ``PAD_KERNELS`` kernels and ``pad_seconds`` idle last."""
     from torch.profiler import ProfilerActivity, profile, record_function, schedule
 
     marker = torch.zeros(1, dtype=torch.int32, device=device)
-    lead = torch.zeros(1, device=device)
+    pad = torch.zeros(1, device=device)
     events: list[tuple[float, float, str]] = []
 
     def keep(prof) -> None:  # the active cycle's device activity, less the
@@ -292,15 +300,19 @@ def _profiled_pass(variants: dict, device: torch.device) -> list[tuple[float, fl
         marker.bitwise_not_()
         _sync(device)
         prof.step()  # the warm-up cycle ends
-        for _ in range(LEAD_KERNELS):
-            lead.add_(1.0)
+        time.sleep(pad_seconds)
+        for _ in range(PAD_KERNELS):
+            pad.add_(1.0)
         _sync(device)
         marker.bitwise_not_()
         for name, (fn, args) in variants.items():
             with record_function(name):
                 fn(*args)
             marker.bitwise_not_()
+        for _ in range(PAD_KERNELS):
+            pad.add_(1.0)
         _sync(device)
+        time.sleep(pad_seconds)
         prof.step()  # the active cycle ends and ``keep`` reads it
     return events
 

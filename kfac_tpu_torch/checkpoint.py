@@ -1,5 +1,5 @@
 """Checkpoint and resume of the K-FAC state (counterpart of
-``kfac_tpu/checkpoint.py``, dense engine).
+``kfac_tpu/checkpoint.py``).
 
 As in the JAX package, only the step counter, the factors A and G and, with
 the health sentinel on, its counters are durable; the decompositions are
@@ -7,18 +7,27 @@ derived state, recomputed on load by ``engine.rematerialize``.
 
 The on-disk format is the port's own (the JAX package writes orbax):
 
-- :func:`save` writes a directory holding ``state.pt``, a ``torch.save`` of
-  CPU tensors and plain Python values read back with
-  ``torch.load(..., weights_only=True)``, and the commit marker
-  ``COMMITTED``, written last. The directory is written as a temporary
-  sibling, fsynced, and renamed onto ``path``, so a torn write never looks
-  committed.
+- :func:`save` writes a directory and its commit marker ``COMMITTED``,
+  last. Every file is a ``torch.save`` of CPU tensors and plain Python
+  values, read back with ``torch.load(..., weights_only=True)``. The
+  directory is written as a temporary sibling, fsynced, and renamed onto
+  ``path``, so a torn write never looks committed. The dense engine's
+  state and the extras go into one ``state.pt``. A
+  :class:`~kfac_tpu_torch.parallel.DistributedKFAC`'s state is sharded:
+  each rank writes its own ``shard-<rank>-of-<world>.pt`` (the step, its
+  factor blocks and the health counters), rank 0 writes the extras
+  (``extra.pt``), and rank 0 commits only once a barrier has shown every
+  shard durable (the JAX package's single-writer ``SAVE_PROTOCOL``). A
+  shared filesystem is assumed, as orbax assumes.
 - :func:`save_factors` writes one ``.npz`` of layer-named true-dim factors
   (``factors/<layer>/a``, ``factors/<layer>/g``) and ``step``, which any
   numpy reads.
 
 Both carry the JAX package's JSON layout-manifest sidecar,
 ``<path>.manifest.json``, written only once the checkpoint is durable.
+:func:`restore` reads a checkpoint into another layout too (another bucket
+granularity or colocation, another world, dense and distributed in either
+direction), migrating through per-layer factors as the JAX package does.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ from kfac_tpu_torch.parallel import multihost
 from kfac_tpu_torch.warnings import CheckpointResilienceWarning
 
 PAYLOAD = 'state.pt'
+EXTRA = 'extra.pt'
 COMMIT_MARKER = 'COMMITTED'
 _FORMAT = 1
 _HEALTH_FIELDS = ('damping_mult', 'quarantined', 'bad_inv', 'quarantine_events')
@@ -48,9 +58,12 @@ _HEALTH_FIELDS = ('damping_mult', 'quarantined', 'bad_inv', 'quarantine_events')
 
 def layout_manifest(engine: Any) -> dict[str, Any]:
     """JSON description of an engine's durable-state layout, with the JAX
-    package's keys: ``format``, ``engine``, ``compute_method`` and, for
-    information only, ``topology``. The dense engine has no stacked stores,
-    so its layout is its class name."""
+    package's keys: ``format``, ``engine``, ``compute_method``, for
+    information only ``topology`` and, for the stacked engine,
+    ``bucket_granularity``, ``colocate_factors`` and each ``a_store`` and
+    ``g_store`` entry's ``key``, ``layers``, ``d``, ``padded`` and
+    ``dims``. The dense engine has no stacked stores, so its layout is its
+    class name."""
     man: dict[str, Any] = {'format': 1, 'engine': type(engine).__name__}
     cfg = getattr(engine, 'config', engine)
     cm = getattr(cfg, 'compute_method', None)
@@ -58,7 +71,27 @@ def layout_manifest(engine: Any) -> dict[str, Any]:
     topo = getattr(engine, 'topology', None)
     if callable(topo):
         man['topology'] = topo()
+    if _stacked(engine):
+        man['bucket_granularity'] = int(cfg.bucket_granularity)
+        man['colocate_factors'] = bool(cfg.colocate_factors)
+        man['a_store'] = [_bucket_entry(sb) for sb in engine.a_store]
+        man['g_store'] = [_bucket_entry(sb) for sb in engine.g_store]
     return man
+
+
+def _stacked(engine: Any) -> bool:
+    """Whether ``engine`` keeps the stacked, sharded state."""
+    return hasattr(engine, 'a_store')
+
+
+def _bucket_entry(sb: Any) -> dict[str, Any]:
+    return {
+        'key': str(sb.key),
+        'layers': list(sb.layers),
+        'd': int(sb.d),
+        'padded': int(sb.padded),
+        'dims': [int(d) for d in sb.dims],
+    }
 
 
 # Manifest keys that determine the shape and keying of the durable payload
@@ -100,8 +133,9 @@ def is_committed(path: str) -> bool:
 
 def durable_state(state: Any) -> dict[str, Any]:
     """The persistent slice of a K-FAC state: ``step`` (an int), ``a`` and
-    ``g`` (layer-keyed tensors) and, when the sentinel is on, ``health``:
-    its counters with the layer ``names`` they are ordered by."""
+    ``g`` (layer-keyed tensors, or a distributed state's store-keyed
+    blocks) and, when the sentinel is on, ``health``: its counters with the
+    layer ``names`` they are ordered by."""
     out: dict[str, Any] = {'step': int(state.step), 'a': dict(state.a), 'g': dict(state.g)}
     health = getattr(state, 'health', None)
     if health is not None:
@@ -110,6 +144,28 @@ def durable_state(state: Any) -> dict[str, Any]:
             **{f: getattr(health, f) for f in _HEALTH_FIELDS},
         }
     return out
+
+
+def shard_name(rank: int, world: int) -> str:
+    """The file of rank ``rank``'s shard in a ``world``-rank checkpoint."""
+    return f'shard-{rank:05d}-of-{world:05d}.pt'
+
+
+def durable_shard(engine: Any, state: Any) -> dict[str, Any]:
+    """This rank's shard of a distributed state's durable slice:
+    :func:`durable_state` of its factor blocks, with the ``world``, its
+    ``rank`` and the slot range ``[lo, hi)`` of each store's block
+    (``ranges``), so a restore onto another world can reassemble the
+    stacks."""
+    return {
+        **durable_state(state),
+        'world': engine.world,
+        'rank': engine.mesh.rank,
+        'ranges': {
+            side: {sb.key: list(engine._factor_range(sb.padded)) for sb in store}
+            for side, store in (('a', engine.a_store), ('g', engine.g_store))
+        },
+    }
 
 
 def _health_from_saved(saved: dict[str, Any], template: health_lib.HealthState) -> health_lib.HealthState:
@@ -142,9 +198,9 @@ def _health_from_saved(saved: dict[str, Any], template: health_lib.HealthState) 
     )
 
 
-def _with_durable(engine: Any, state: Any, loaded: dict[str, Any]) -> Any:
-    """``state`` with the loaded step and factors and, where both the
-    engine and the checkpoint have them, the health counters.
+def _with_health(state: Any, loaded: dict[str, Any]) -> Any:
+    """``state`` with the loaded step and, where both the engine and the
+    checkpoint have them, the loaded health counters.
 
     The counterpart of the JAX package's ``_retry_health_mismatch``:
     toggling the sentinel between save and restore is configuration, not
@@ -152,14 +208,18 @@ def _with_durable(engine: Any, state: Any, loaded: dict[str, Any]) -> Any:
     dropped; an engine with a sentinel restoring a checkpoint without
     counters keeps ``init()``'s fresh ones.
     """
-    factors = {n: {'a': loaded['a'][n], 'g': loaded['g'][n]} for n in loaded['a']}
-    state = engine.insert_factors(state, factors)
     state = dataclasses.replace(state, step=int(np.asarray(loaded['step'])))
     if 'health' in loaded and getattr(state, 'health', None) is not None:
         state = dataclasses.replace(
             state, health=_health_from_saved(loaded['health'], state.health)
         )
     return state
+
+
+def _with_durable(engine: Any, state: Any, loaded: dict[str, Any]) -> Any:
+    """``state`` with the loaded per-layer factors, step and health."""
+    factors = {n: {'a': loaded['a'][n], 'g': loaded['g'][n]} for n in loaded['a']}
+    return _with_health(engine.insert_factors(state, factors), loaded)
 
 
 def _validate_restored_factors(path: str, engine: Any, loaded: dict[str, Any]) -> None:
@@ -178,15 +238,7 @@ def _validate_restored_factors(path: str, engine: Any, loaded: dict[str, Any]) -
     for name, helper in reg.layers.items():
         for side, exp in (('a', helper.a_factor_shape), ('g', helper.g_factor_shape)):
             arr = torch.as_tensor(loaded[side][name])
-            finite = torch.isfinite(arr)
-            if not bool(finite.all()):
-                bad = int(arr.numel() - int(finite.sum()))
-                raise ValueError(
-                    f'checkpoint at {path!r}: restored {side.upper()} factor for '
-                    f'layer {name!r} contains {bad} non-finite values — the '
-                    'checkpoint is corrupt (saved from a diverged run?); restore '
-                    'a different one or reinitialize the preconditioner state.'
-                )
+            _check_finite(path, side, name, arr)
             if tuple(arr.shape) != tuple(exp):
                 raise ValueError(
                     f'checkpoint at {path!r}: restored {side.upper()} factor for '
@@ -196,15 +248,52 @@ def _validate_restored_factors(path: str, engine: Any, loaded: dict[str, Any]) -
                 )
 
 
+def _check_finite(path: str, side: str, name: str, arr: torch.Tensor) -> None:
+    finite = torch.isfinite(arr)
+    if not bool(finite.all()):
+        bad = int(arr.numel() - int(finite.sum()))
+        raise ValueError(
+            f'checkpoint at {path!r}: restored {side.upper()} factor for '
+            f'layer {name!r} contains {bad} non-finite values — the '
+            'checkpoint is corrupt (saved from a diverged run?); restore '
+            'a different one or reinitialize the preconditioner state.'
+        )
+
+
+def _validate_blocks(path: str, engine: Any, loaded: dict[str, Any]) -> None:
+    """:func:`_validate_restored_factors` for a distributed engine's own
+    factor blocks: each store's block of the engine's shape, and every
+    layer slot finite (the error names the layer)."""
+    for side, store in (('a', engine.a_store), ('g', engine.g_store)):
+        for sb in store:
+            lo, hi = engine._factor_range(sb.padded)
+            block = loaded[side].get(sb.key)
+            if block is None or tuple(block.shape) != (hi - lo, sb.d, sb.d):
+                raise ValueError(
+                    f'checkpoint at {path!r}: its {side.upper()} store {sb.key!r} does not '
+                    f"hold this rank's block of {hi - lo} slots of {sb.d} x {sb.d}; "
+                    'restore into the layout it was saved from, or save with engine= so '
+                    'the layout manifest lets it migrate.'
+                )
+            for s in range(lo, min(hi, len(sb.layers))):
+                _check_finite(path, side, sb.layers[s], block[s - lo])
+
+
 def from_durable(engine: Any, loaded: dict[str, Any], path: str) -> Any:
     """A rematerialized engine state from a durable dict (``step``, ``a``,
-    ``g``, maybe ``health``; tensors or arrays): validated, inserted into
-    ``engine.init()``, decompositions recomputed. The loaded health
-    counters are kept over the ones ``rematerialize`` ticks, as the JAX
-    package's restore keeps them: they are the durable truth of the run."""
+    ``g`` per layer, maybe ``health``; tensors or arrays): validated,
+    inserted into ``engine.init()``, decompositions recomputed. The loaded
+    health counters are kept over the ones ``rematerialize`` ticks, as the
+    JAX package's restore keeps them: they are the durable truth of the
+    run."""
     _validate_restored_factors(path, engine, loaded)
-    state = _with_durable(engine, engine.init(), loaded)
-    loaded_health = state.health
+    return _rematerialized(engine, _with_durable(engine, engine.init(), loaded))
+
+
+def _rematerialized(engine: Any, state: Any) -> Any:
+    """``engine.rematerialize(state)`` with the state's health counters
+    (the loaded ones) put back after it."""
+    loaded_health = getattr(state, 'health', None)
     state = engine.rematerialize(state)
     if loaded_health is not None:
         state = dataclasses.replace(state, health=loaded_health)
@@ -263,34 +352,48 @@ def _fsync_dir(path: str) -> None:
         os.close(fd)
 
 
+def _write_file(path: str, payload: Any) -> int:
+    """``torch.save`` of ``payload`` to ``path``, fsynced; its bytes."""
+    with open(path, 'wb') as f:
+        torch.save(payload, f)
+        f.flush()
+        os.fsync(f.fileno())
+        return f.tell()
+
+
+def _commit_dir(tmp: str, path: str, marker: dict[str, Any]) -> None:
+    """Write the commit ``marker`` into the written directory ``tmp``,
+    fsync it, and rename it onto ``path`` (an existing ``path`` is moved
+    aside first and removed after)."""
+    with open(os.path.join(tmp, COMMIT_MARKER), 'w') as f:
+        json.dump({'format': _FORMAT, **marker}, f)
+        f.flush()
+        os.fsync(f.fileno())
+    _fsync_dir(tmp)
+    old = None
+    if os.path.exists(path):  # overwrite=True, checked by save
+        old = f'{path}.old-{os.path.basename(tmp).rsplit("-", 1)[-1]}'
+        os.replace(path, old)
+    os.replace(tmp, path)
+    _fsync_dir(os.path.dirname(os.path.abspath(path)))
+    if old is not None:
+        shutil.rmtree(old, ignore_errors=True)
+
+
+def _tmp_dir(path: str, tag: str) -> str:
+    return f'{path}.tmp-{tag}'
+
+
 def _write_committed(path: str, payload: Any) -> None:
-    """Write ``payload`` as a committed :func:`save` directory at ``path``:
-    a temporary sibling, fsynced, its marker last, renamed into place (an
-    existing ``path`` is moved aside first and removed after)."""
-    parent = os.path.dirname(os.path.abspath(path))
-    os.makedirs(parent, exist_ok=True)
-    tag = f'{os.getpid()}-{uuid.uuid4().hex[:8]}'
-    tmp = f'{path}.tmp-{tag}'
+    """Write ``payload`` as a committed one-file :func:`save` directory at
+    ``path``: a temporary sibling, fsynced, its marker last, renamed into
+    place."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = _tmp_dir(path, f'{os.getpid()}-{uuid.uuid4().hex[:8]}')
     os.makedirs(tmp)
     try:
-        with open(os.path.join(tmp, PAYLOAD), 'wb') as f:
-            torch.save(payload, f)
-            f.flush()
-            os.fsync(f.fileno())
-            nbytes = f.tell()
-        with open(os.path.join(tmp, COMMIT_MARKER), 'w') as f:
-            json.dump({'format': _FORMAT, 'payload': PAYLOAD, 'bytes': nbytes}, f)
-            f.flush()
-            os.fsync(f.fileno())
-        _fsync_dir(tmp)
-        old = None
-        if os.path.exists(path):  # overwrite=True, checked by save
-            old = f'{path}.old-{tag}'
-            os.replace(path, old)
-        os.replace(tmp, path)
-        _fsync_dir(parent)
-        if old is not None:
-            shutil.rmtree(old, ignore_errors=True)
+        nbytes = _write_file(os.path.join(tmp, PAYLOAD), payload)
+        _commit_dir(tmp, path, {'payload': PAYLOAD, 'bytes': nbytes})
     except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
@@ -306,56 +409,66 @@ def _write_json(path: str, obj: Any) -> None:
 
 
 class _Writer(threading.Thread):
-    """Writes one snapshot after its copies finish; keeps any error for the
-    handle to raise."""
+    """Runs one ``write`` after the snapshot's copies finish; keeps any
+    error for the handle to raise."""
 
-    def __init__(self, path: str, payload: Any, ready: torch.cuda.Event | None) -> None:
+    def __init__(self, write, ready: torch.cuda.Event | None) -> None:
         super().__init__(name='kfac-checkpoint-writer')
-        self.path, self.payload, self.ready = path, payload, ready
+        self.write, self.ready = write, ready
         self.error: BaseException | None = None
 
     def run(self) -> None:
         try:
             if self.ready is not None:
                 self.ready.synchronize()
-            _write_committed(self.path, self.payload)
+            self.write()
         except BaseException as exc:  # raised by the handle's wait
             self.error = exc
 
 
 class _AsyncSaveHandle:
     """Returned by :func:`save`: ``wait_until_finished()`` joins the writer,
-    raises its error, and then writes the manifest sidecar, so a manifest
-    on disk implies a durable checkpoint. After an error, the next wait
-    writes the same snapshot again (a caller's retry).
+    raises its error, and then finalizes (the sharded commit and the
+    manifest sidecar), so a manifest on disk implies a durable checkpoint.
+    After an error, the next wait writes the same snapshot again (a
+    caller's retry). A sharded save's wait is a collective: every rank
+    learns whether every shard landed, and all raise (``OSError``) or all
+    commit.
 
     Usable as a context manager (``with save(..., wait=False):`` waits on
     exit). Dropping the handle without waiting warns: the write may still
     commit, but its manifest is never written.
     """
 
-    def __init__(self, writer: _Writer, finalize) -> None:
+    def __init__(self, writer: _Writer, finalize, agree=None) -> None:
         self._writer = writer
         self._finalize = finalize
+        self._agree = agree  # a sharded save's vote over its ranks
         self._done = False
         self._failed = False
 
     def done(self) -> bool:
-        """Whether the write has ended (no wait, no device sync)."""
+        """Whether this process's write has ended (no wait, no device
+        sync)."""
         return not self._writer.is_alive()
 
     def wait_until_finished(self) -> None:
         if self._done:
             return
         if self._failed:
-            w = self._writer
-            self._writer = _Writer(w.path, w.payload, None)
+            self._writer = _Writer(self._writer.write, None)
             self._writer.start()
             self._failed = False
         self._writer.join()
-        if self._writer.error is not None:
+        error = self._writer.error
+        if self._agree is not None and not self._agree(error is None):
             self._failed = True
-            raise self._writer.error
+            raise OSError(
+                f'a checkpoint shard write failed ({"here: " + repr(error) if error else "on another process"})'
+            ) from error
+        if error is not None:
+            self._failed = True
+            raise error
         self._done = True
         self._finalize()
 
@@ -393,14 +506,20 @@ def save(
     and an optimizer's ``state_dict()``), to the directory ``path``.
 
     Pass ``engine`` to also write the layout manifest sidecar
-    (``<path>.manifest.json``), once the checkpoint is durable.
+    (``<path>.manifest.json``), once the checkpoint is durable. A
+    :class:`~kfac_tpu_torch.parallel.DistributedKFAC`'s state needs its
+    engine (its blocks' slot ranges go into each shard), and every rank of
+    its grid calls: each writes its shard, rank 0 the extras, the manifest
+    and, after a barrier shows every shard durable, the commit marker; the
+    ranks pass each ``extra`` (only rank 0's is written).
 
     ``wait=False`` returns once the snapshot is enqueued (device-to-host
     copies into pinned memory on the current stream, a CUDA event behind
     them); a thread writes it. Training can go on at once: the copies
     precede anything enqueued after this call, in-place updates included.
     Call the handle's ``wait_until_finished()`` before relying on the
-    files. ``wait=True`` returns a finished handle.
+    files (every rank, for a sharded save). ``wait=True`` returns a
+    finished handle.
 
     ``overwrite`` is the policy for an existing ``path``: the default
     refuses up front; ``overwrite=True`` replaces it. A stale sidecar is
@@ -416,26 +535,99 @@ def save(
             'step-numbered directory (kfac_tpu_torch.resilience.CheckpointManager '
             'manages such a rotation with an atomic LATEST pointer)'
         )
-    payload = {'kfac': durable_state(state)}
-    if extra:
-        if 'kfac' in extra:
-            raise ValueError("'kfac' is the K-FAC state's key; name the extra otherwise")
-        payload.update(extra)
-    host_payload, ready = snapshot(payload)
+    if extra and 'kfac' in extra:
+        raise ValueError("'kfac' is the K-FAC state's key; name the extra otherwise")
+    if hasattr(state, 'inv_damping') and not _stacked(engine):
+        raise ValueError(
+            'a DistributedKFAC state is saved with its engine: pass engine=<the DistributedKFAC>'
+        )
+    rank0 = (engine.mesh.rank if _stacked(engine) else multihost.process_index()) == 0
     mpath = _manifest_path(path)
-    if multihost.process_index() == 0 and os.path.exists(mpath):
-        os.remove(mpath)
 
     def finalize_manifest() -> None:
-        if engine is not None and multihost.process_index() == 0:
+        if engine is not None and rank0:
             _write_json(mpath, layout_manifest(engine))
 
-    writer = _Writer(path, host_payload, ready)
-    writer.start()
-    handle = _AsyncSaveHandle(writer, finalize_manifest)
+    if not _stacked(engine):
+        # one replicated state: process 0 writes it, the others wait on it
+        handle = _save_replicated(path, state, extra, rank0, mpath, finalize_manifest)
+    else:
+        handle = _save_sharded(path, state, extra, engine, rank0, mpath, finalize_manifest)
+    handle._writer.start()
     if wait:
         handle.wait_until_finished()
     return handle
+
+
+def _save_replicated(path, state, extra, rank0, mpath, finalize_manifest) -> _AsyncSaveHandle:
+    """The one-file save of a dense state; with several processes, process
+    0 writes and the handle's wait is a collective (every process returns
+    once the checkpoint is committed)."""
+    if multihost.process_count() > 1:
+        multihost.barrier('kfac-checkpoint-check')  # every process checked the path
+    if not rank0:
+        return _AsyncSaveHandle(
+            _Writer(lambda: None, None), lambda: multihost.barrier('kfac-checkpoint-commit'),
+            multihost.agree_decision,
+        )
+    host_payload, ready = snapshot({'kfac': durable_state(state), **(extra or {})})
+    if os.path.exists(mpath):
+        os.remove(mpath)
+    if multihost.process_count() == 1:
+        return _AsyncSaveHandle(
+            _Writer(lambda: _write_committed(path, host_payload), ready), finalize_manifest
+        )
+
+    def finalize() -> None:
+        finalize_manifest()
+        multihost.barrier('kfac-checkpoint-commit')
+
+    return _AsyncSaveHandle(
+        _Writer(lambda: _write_committed(path, host_payload), ready), finalize,
+        multihost.agree_decision,
+    )
+
+
+def _save_sharded(path, state, extra, engine, rank0, mpath, finalize_manifest) -> _AsyncSaveHandle:
+    """The sharded save of a distributed state (every rank of its grid):
+    rank 0 makes the temporary directory, each rank's writer writes its
+    shard (and rank 0's the extras) into it, and the handle's wait commits
+    once every rank has its shard durable."""
+    world, group = engine.world, engine.mesh.group
+    name = shard_name(engine.mesh.rank, world)
+    tmp = _tmp_dir(path, multihost.from_process_zero(f'{os.getpid()}-{uuid.uuid4().hex[:8]}', group))
+    files = {name: durable_shard(engine, state)}
+    if rank0:
+        files[EXTRA] = dict(extra or {})
+        if os.path.exists(mpath):
+            os.remove(mpath)
+        os.makedirs(tmp)
+    # a pinned buffer a file (a file saves the whole storage of its views);
+    # the last event marks every copy, all on one stream
+    host_files, ready = {}, None
+    for fname, payload in files.items():
+        host_files[fname], event = snapshot(payload)
+        ready = event or ready
+    multihost.barrier('kfac-checkpoint-mkdir', group)
+
+    def write() -> None:
+        for fname, payload in host_files.items():
+            _write_file(os.path.join(tmp, fname), payload)
+
+    def finalize() -> None:
+        # every shard is durable (the wait's agreement): rank 0 commits
+        if rank0:
+            sizes = {n: os.path.getsize(os.path.join(tmp, n)) for n in os.listdir(tmp)}
+            _commit_dir(tmp, path, {
+                'world': world, 'shards': [shard_name(r, world) for r in range(world)],
+                'extra': EXTRA, 'bytes': sizes,
+            })
+            finalize_manifest()
+        multihost.barrier('kfac-checkpoint-commit', group)
+
+    return _AsyncSaveHandle(
+        _Writer(write, ready), finalize, lambda ok: multihost.agree_decision(ok, group)
+    )
 
 
 # ---------------------------------------------------------------- restore
@@ -456,6 +648,122 @@ def _read_manifest(path: str) -> dict[str, Any] | None:
     return None
 
 
+def _load(path: str, name: str) -> Any:
+    return torch.load(os.path.join(path, name), map_location='cpu', weights_only=True)
+
+
+def _full_stacks(path: str, marker: dict[str, Any]) -> dict[str, Any]:
+    """A sharded checkpoint's durable state with each store's stack
+    reassembled from every shard's block: ``{'step', 'a': {key: (L, d,
+    d)}, 'g', 'health'?}``."""
+    shards = [_load(path, n) for n in marker['shards']]
+    out = {k: v for k, v in shards[0].items() if k in ('step', 'health')}
+    for side in ('a', 'g'):
+        out[side] = {
+            key: torch.cat([
+                sh[side][key] for sh in sorted(shards, key=lambda sh: sh['ranges'][side][key][0])
+            ])
+            for key in shards[0][side]
+        }
+    return out
+
+
+def _factors_from_saved(durable: dict[str, Any], saved_man: dict[str, Any]) -> dict[str, Any]:
+    """Per-layer true-dim factors from a saved durable state and the
+    manifest it was written with (the JAX package's function): a stacked
+    payload's slots sliced out by each store entry, or a dense payload's
+    layer-keyed factors as they are. Returns ``{'step', 'a': {layer: A},
+    'g': {layer: G}, 'health'?}``."""
+    out = {k: v for k, v in durable.items() if k in ('step', 'health')}
+    out['a'], out['g'] = {}, {}
+    if 'a_store' not in saved_man:
+        out['a'], out['g'] = dict(durable['a']), dict(durable['g'])
+        return out
+    for side in ('a', 'g'):
+        for entry in saved_man[f'{side}_store']:
+            stack = durable[side][entry['key']]
+            for i, name in enumerate(entry['layers']):
+                d = entry['dims'][i]
+                out[side][name] = stack[i, :d, :d]
+    return out
+
+
+def _check_migration(path: str, engine: Any, loaded: dict[str, Any]) -> None:
+    """The JAX package's refusals of a migration: another layer set, or a
+    layer of another width."""
+    reg = engine.registry
+    saved = set(loaded['a'])
+    if saved != set(reg.names()):
+        raise ValueError(
+            f'checkpoint at {path!r} stores factors for layers {sorted(saved)} '
+            f'but the restoring engine registers {sorted(reg.names())}; factor '
+            'migration requires identical layer sets.'
+        )
+    for name, h in reg.layers.items():
+        exp = (tuple(h.a_factor_shape), tuple(h.g_factor_shape))
+        got = (tuple(loaded['a'][name].shape), tuple(loaded['g'][name].shape))
+        if exp != got:
+            raise ValueError(
+                f'checkpoint at {path!r}: layer {name!r} stores factor shapes {got} '
+                f'but the restoring engine expects {exp} — the model architecture '
+                'changed between save and restore; factors cannot migrate across '
+                'layer widths.'
+            )
+
+
+def _load_durable(
+    path: str, engine: Any, marker: dict[str, Any]
+) -> tuple[str, dict[str, Any], dict[str, Any] | None]:
+    """Read and validate a checkpoint's durable state for ``engine`` (no
+    device work): ``('layers', per-layer durable dict, ...)`` for the
+    dense engine or a migration, ``('blocks', the engine's own factor
+    blocks, ...)`` for a distributed engine restoring its own layout; the
+    third item is a one-file checkpoint's whole payload (its extras), else
+    None."""
+    saved_man = _read_manifest(path)
+    sharded = 'shards' in marker
+    cur = layout_manifest(engine)
+    if saved_man is not None and _layout_view(saved_man) != _layout_view(cur):
+        diff = [k for k in _LAYOUT_KEYS if saved_man.get(k) != cur.get(k)]
+        payload = None if sharded else _load(path, PAYLOAD)
+        durable = _full_stacks(path, marker) if sharded else payload['kfac']
+        loaded = _factors_from_saved(durable, saved_man)
+        _check_migration(path, engine, loaded)
+        _validate_restored_factors(path, engine, loaded)
+        _warnings.warn(
+            f'checkpoint at {path!r} was saved under a different state layout '
+            f'(differing fields: {diff}); migrating through per-layer factors '
+            '(slower than a layout-exact restore, numerically identical)',
+            stacklevel=4,
+        )
+        return 'layers', loaded, payload
+    if not sharded:
+        payload = _load(path, PAYLOAD)
+        if not isinstance(payload, dict) or 'kfac' not in payload:
+            raise ValueError(f'checkpoint at {path!r} holds no K-FAC state')
+        _validate_restored_factors(path, engine, payload['kfac'])
+        return 'layers', payload['kfac'], payload
+    if not _stacked(engine):
+        raise ValueError(
+            f'checkpoint at {path!r} holds a distributed state and has no layout '
+            'manifest to migrate it by'
+        )
+    # the same layout: this rank's own shard, or the stacks reassembled
+    # from every shard when the world changed
+    own = shard_name(engine.mesh.rank, engine.world)
+    if marker['world'] == engine.world and own in marker['shards']:
+        loaded = _load(path, own)
+    else:
+        loaded = _full_stacks(path, marker)
+        for side, store in (('a', engine.a_store), ('g', engine.g_store)):
+            for sb in store:
+                lo, hi = engine._factor_range(sb.padded)
+                if sb.key in loaded[side]:
+                    loaded[side][sb.key] = loaded[side][sb.key][lo:hi]
+    _validate_blocks(path, engine, loaded)
+    return 'blocks', loaded, None
+
+
 def restore(
     path: str,
     engine: Any,
@@ -464,51 +772,64 @@ def restore(
     """Load a :func:`save` directory into a fresh ``engine.init()`` state
     and recompute its decompositions with ``engine.rematerialize``.
     Returns ``(state, extra)``; the extras are host tensors and values as
-    saved.
+    saved (a sharded checkpoint's, written by rank 0, read on every rank).
 
     ``extra_template``: its keys name the extras the caller needs; a
     checkpoint without one of them is rejected, and only those are
     returned (the payload carries its own structure, so the values are not
     read).
 
-    A manifest whose layout differs from the engine's raises
-    ``ValueError``: the JAX package's cross-layout migration waits for the
-    port's distributed engine. A checkpoint without the commit marker, or
-    with a corrupt payload, raises as well.
+    The layout cases, as in the JAX package: a manifest whose layout keys
+    match the engine's restores directly (a distributed engine's ranks each
+    read their own shard, or reassemble the stacks without a warning when
+    the world changed); a manifest whose layout keys differ (bucket
+    granularity, colocation, dense and distributed either way, a world that
+    changes the padding) migrates through per-layer true-dim factors with
+    the JAX package's ``migrating`` warning, refusing another layer set or
+    another layer width with its messages, the health counters carried
+    verbatim. A checkpoint without the commit marker, or with a corrupt
+    payload, raises ``ValueError``. With a distributed engine every rank
+    calls, and all of them raise, or none does.
     """
     path = _local(path)
-    if not is_committed(path):
-        raise ValueError(
-            f'checkpoint at {path!r} is not committed (no {COMMIT_MARKER} '
-            'marker: a torn or in-flight write)'
-        )
-    saved_man = _read_manifest(path)
-    if saved_man is not None:
-        cur = layout_manifest(engine)
-        if _layout_view(saved_man) != _layout_view(cur):
-            diff = [k for k in _LAYOUT_KEYS if saved_man.get(k) != cur.get(k)]
+    try:
+        if not is_committed(path):
             raise ValueError(
-                f'checkpoint at {path!r} was saved under a different state '
-                f'layout (differing fields: {diff}; saved engine '
-                f"{saved_man.get('engine')}, restoring into {cur.get('engine')}). "
-                'Cross-layout factor migration is not ported to kfac_tpu_torch '
-                'yet; restore into the engine it was saved from, or move the '
-                'factors with save_factors / load_factors.'
+                f'checkpoint at {path!r} is not committed (no {COMMIT_MARKER} '
+                'marker: a torn or in-flight write)'
             )
-    payload = torch.load(os.path.join(path, PAYLOAD), map_location='cpu', weights_only=True)
-    if not isinstance(payload, dict) or 'kfac' not in payload:
-        raise ValueError(f'checkpoint at {path!r} holds no K-FAC state')
-    state = from_durable(engine, payload['kfac'], path)
-    extra = {k: v for k, v in payload.items() if k != 'kfac'}
-    if extra_template is not None:
-        missing = sorted(set(extra_template) - set(extra))
-        if missing:
-            raise ValueError(
-                f'checkpoint at {path!r} lacks the extras {missing} (it holds '
-                f'{sorted(extra)})'
-            )
-        extra = {k: extra[k] for k in extra_template}
-    return state, extra
+        with open(os.path.join(path, COMMIT_MARKER)) as f:
+            marker = json.load(f)
+        kind, loaded, payload = _load_durable(path, engine, marker)
+        extra = payload if payload is not None else _load(path, marker['extra'])
+        if not isinstance(extra, dict):
+            raise ValueError(f'checkpoint at {path!r} holds no extras dict')
+        extra = {k: v for k, v in extra.items() if k != 'kfac'}
+        if extra_template is not None:
+            missing = sorted(set(extra_template) - set(extra))
+            if missing:
+                raise ValueError(
+                    f'checkpoint at {path!r} lacks the extras {missing} (it holds '
+                    f'{sorted(extra)})'
+                )
+            extra = {k: extra[k] for k in extra_template}
+        error = None
+    except Exception as exc:  # agreed across the ranks below
+        error = exc
+    if _stacked(engine) and not multihost.agree_decision(error is None, engine.mesh.group):
+        if error is None:
+            raise ValueError(f'checkpoint at {path!r} was rejected on another process')
+    if error is not None:
+        raise error
+    if kind == 'layers':
+        state = _with_durable(engine, engine.init(), loaded)
+    else:
+        state = _with_health(dataclasses.replace(
+            engine.init(),
+            a={k: v.to(engine.device) for k, v in loaded['a'].items()},
+            g={k: v.to(engine.device) for k, v in loaded['g'].items()},
+        ), loaded)
+    return _rematerialized(engine, state), extra
 
 
 # ------------------------------------------------------- portable factors
@@ -523,29 +844,34 @@ def save_factors(path: str, engine: Any, state: Any) -> None:
     file ``path`` (keys ``step`` and ``factors/<layer>/a``, ``.../g``),
     atomically, with the layout manifest sidecar. Any numpy reads it; the
     JAX package's factors written in this layout load with
-    :func:`load_factors`."""
+    :func:`load_factors`. With a distributed engine every rank calls (the
+    factors are gathered) and rank 0 writes."""
     path = _local(path)
     arrays = {'step': np.asarray(int(state.step), np.int64)}
     for name, fg in engine.extract_factors(state).items():
         for side in ('a', 'g'):
             arrays[_factor_key(name, side)] = fg[side].detach().cpu().numpy()
-    mpath = _manifest_path(path)
-    if os.path.exists(mpath):
-        os.remove(mpath)
-    tmp = f'{path}.tmp-{os.getpid()}'
-    with open(tmp, 'wb') as f:
-        np.savez(f, **arrays)
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(tmp, path)
-    _fsync_dir(os.path.dirname(os.path.abspath(path)))
-    _write_json(mpath, layout_manifest(engine))
+    if (engine.mesh.rank if _stacked(engine) else multihost.process_index()) == 0:
+        mpath = _manifest_path(path)
+        if os.path.exists(mpath):
+            os.remove(mpath)
+        tmp = f'{path}.tmp-{os.getpid()}'
+        with open(tmp, 'wb') as f:
+            np.savez(f, **arrays)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+        _fsync_dir(os.path.dirname(os.path.abspath(path)))
+        _write_json(mpath, layout_manifest(engine))
+    if _stacked(engine):
+        multihost.barrier('kfac-save-factors', engine.mesh.group)
 
 
 def load_factors(path: str, engine: Any) -> Any:
     """A fresh ``engine`` state holding a :func:`save_factors` file's
     factors and step, decompositions rematerialized. The engine must
-    register exactly the stored layers at the stored dims."""
+    register exactly the stored layers at the stored dims; with a
+    distributed engine every rank calls."""
     path = _local(path)
     with np.load(path) as z:
         step = int(z['step'])

@@ -51,6 +51,51 @@ def _tensor(value: Any, dtype: torch.dtype, device: torch.device) -> torch.Tenso
     return torch.from_numpy(np.array(value)).to(dtype).to(device)
 
 
+def _observability_from_jax(
+    state: Any, jax_state: Any, dev: torch.device, flight: bool
+) -> dict[str, Any]:
+    """The JAX state's health counters (its per-layer dicts packed in
+    registry order), metrics (scalars and step trackers) and, with
+    ``flight``, flight ring, for each that both sides have: the
+    ``health``, ``metrics`` and ``flight`` fields of a
+    ``dataclasses.replace`` of ``state``."""
+    out: dict[str, Any] = {}
+    jh = getattr(jax_state, 'health', None)
+    if state.health is not None and jh is not None:
+        names = state.health.names
+        out['health'] = dataclasses.replace(
+            state.health,
+            skipped_steps=_tensor(jh.skipped_steps, torch.int32, dev),
+            damping_mult=_tensor([jh.damping_mult[n] for n in names], torch.float32, dev),
+            **{
+                field: _tensor([getattr(jh, field)[n] for n in names], torch.int32, dev)
+                for field in ('quarantined', 'bad_inv', 'quarantine_events')
+            },
+        )
+    jm = getattr(jax_state, 'metrics', None)
+    if state.metrics is not None and jm is not None:
+        if tuple(jm.keys) != state.metrics.keys:
+            raise ValueError('the JAX state\'s metric keys differ from the engine\'s')
+        out['metrics'] = dataclasses.replace(
+            state.metrics,
+            last_factor_step=_tensor(jm.last_factor_step, torch.int32, dev),
+            last_inv_step=_tensor(jm.last_inv_step, torch.int32, dev),
+            scalars=_tensor(jm.scalars, torch.float32, dev),
+        )
+    jf = getattr(jax_state, 'flight', None) if flight else None
+    if state.flight is not None and jf is not None:
+        if tuple(jf.keys) != state.flight.keys or jf.steps.shape[0] != state.flight.capacity:
+            raise ValueError('the JAX state\'s flight ring differs from the engine\'s')
+        out['flight'] = dataclasses.replace(state.flight, **{
+            field: _tensor(getattr(jf, field), dtype, dev)
+            for field, dtype in (
+                ('steps', torch.int32), ('loss', torch.float32), ('loss_valid', torch.bool),
+                ('grad_norm', torch.float32), ('scalars', torch.float32),
+            )
+        })
+    return out
+
+
 def from_jax_kfac_state(jax_state: Any, kfac: KFACPreconditioner) -> KFACState:
     """The port's :class:`KFACState` holding the JAX state's step, factors
     and decompositions, on ``kfac.device``; with health and metrics on both
@@ -73,28 +118,7 @@ def from_jax_kfac_state(jax_state: Any, kfac: KFACPreconditioner) -> KFACState:
             n: torch.from_numpy(np.array(theirs[n], np.float32)).to(dev)
             for n in ours
         }
-    jh = getattr(jax_state, 'health', None)
-    if state.health is not None and jh is not None:
-        names = state.health.names
-        updates['health'] = dataclasses.replace(
-            state.health,
-            skipped_steps=_tensor(jh.skipped_steps, torch.int32, dev),
-            damping_mult=_tensor([jh.damping_mult[n] for n in names], torch.float32, dev),
-            **{
-                field: _tensor([getattr(jh, field)[n] for n in names], torch.int32, dev)
-                for field in ('quarantined', 'bad_inv', 'quarantine_events')
-            },
-        )
-    jm = getattr(jax_state, 'metrics', None)
-    if state.metrics is not None and jm is not None:
-        if tuple(jm.keys) != state.metrics.keys:
-            raise ValueError('the JAX state\'s metric keys differ from the engine\'s')
-        updates['metrics'] = dataclasses.replace(
-            state.metrics,
-            last_factor_step=_tensor(jm.last_factor_step, torch.int32, dev),
-            last_inv_step=_tensor(jm.last_inv_step, torch.int32, dev),
-            scalars=_tensor(jm.scalars, torch.float32, dev),
-        )
+    updates.update(_observability_from_jax(state, jax_state, dev, flight=False))
     js = getattr(jax_state, 'shadow', None)
     if state.shadow is not None and js is not None:
         updates['shadow'] = dataclasses.replace(
@@ -137,7 +161,9 @@ def from_jax_dist_state(jax_state: Any, engine: Any) -> Any:
     dict of its fields that :func:`gather_dist_state` returns, its stacks
     as numpy (``numpy.asarray`` of the global arrays): the rank's factor
     block of each store and its column's block of each decomposition, on
-    ``engine.device``. The step and ``inv_damping`` are carried over."""
+    ``engine.device``. The step and ``inv_damping`` are carried over, and
+    the health counters, metrics and flight ring where the JAX state and
+    the engine both have them (replicated: the same on every rank)."""
     def field_of(name):
         return jax_state[name] if isinstance(jax_state, Mapping) else getattr(jax_state, name)
 
@@ -158,6 +184,8 @@ def from_jax_dist_state(jax_state: Any, engine: Any) -> Any:
             )
             blocks[key] = torch.from_numpy(np.array(full[lo:hi])).to(dev)
         updates[field] = blocks
+    if not isinstance(jax_state, Mapping):
+        updates.update(_observability_from_jax(state, jax_state, dev, flight=True))
     return dataclasses.replace(state, **updates)
 
 

@@ -191,6 +191,32 @@ def factors_ok(
     return torch.stack(out)
 
 
+# ------------------------------------------------------------- stacked slots
+# The distributed engine's stores hold layers along a slot axis, padded.
+
+
+def slot_mults(mult: torch.Tensor, index: torch.Tensor, padded: int) -> torch.Tensor:
+    """(padded,) per-slot damping multipliers of a store whose live slots
+    hold the layers at ``index`` (positions in ``mult``'s registry order);
+    the padding slots get 1."""
+    return torch.cat([mult[index], mult.new_ones((padded - index.numel(),))])
+
+
+def slot_mask(flags: torch.Tensor, index: torch.Tensor, padded: int) -> torch.Tensor:
+    """(padded,) bool per slot from per-layer ``flags`` (registry order):
+    the live slots' layers' flags, False for the padding slots."""
+    return torch.cat([flags[index], flags.new_zeros((padded - index.numel(),))])
+
+
+def positions(touched: list[int], count: int, device: torch.device) -> torch.Tensor | None:
+    """Index vector of the ``touched`` layers on ``device``, or None when
+    every layer of ``count`` is touched (the common case, which copies
+    nothing)."""
+    if len(touched) == count:
+        return None
+    return torch.tensor(touched, device=device)
+
+
 # ---------------------------------------------------------------- transitions
 # Broadcast over a 0-d layer or an (L,) vector of layers alike.
 

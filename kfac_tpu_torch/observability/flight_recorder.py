@@ -11,8 +11,9 @@ postmortem bundles (counterpart of
   place: the ring is the engine's own buffer.
 - :func:`drain_flight`: the ring's records, oldest first, in one copy from
   the device, with cross-process ``skew_*`` columns of a few headline keys
-  (through :mod:`kfac_tpu_torch.parallel.multihost`; with one process they
-  equal the local value).
+  (through :mod:`kfac_tpu_torch.parallel.multihost`: a collective, so
+  every rank of a distributed run drains; with one process they equal the
+  local value).
 - :class:`PostmortemWriter`: a drain-time sink that writes a bundle
   directory when the health counters or the latest record show an event,
   in the JAX package's layout, which ``tools/kfac_inspect.py`` reads.
@@ -226,11 +227,11 @@ def skew_ratio(record: dict[str, Any], key: str) -> float:
 
 
 def fingerprint(engine: Any = None) -> dict[str, Any]:
-    """Library versions and device topology, for offline triage."""
-    del engine  # the dense engine has no mesh
+    """Library versions and device topology, for offline triage; with a
+    distributed engine, its grid's axes and shape too."""
     cuda = torch.cuda.is_available()
     count = torch.cuda.device_count() if cuda else 0
-    return {
+    info = {
         'torch': torch.__version__,
         'cuda': torch.version.cuda,
         'numpy': np.__version__,
@@ -240,6 +241,13 @@ def fingerprint(engine: Any = None) -> dict[str, Any]:
         'process_count': multihost.process_count(),
         'process_index': multihost.process_index(),
     }
+    mesh = getattr(engine, 'mesh', None)
+    if mesh is not None:
+        info['mesh'] = {
+            'axis_names': ['kfac_gw', 'kfac_col'],
+            'shape': [mesh.grad_workers, mesh.n_cols],
+        }
+    return info
 
 
 def _config_snapshot(cfg: Any) -> dict[str, Any]:
@@ -300,12 +308,16 @@ class PostmortemWriter:
     A bundle holds ``history.npz`` and ``history.jsonl`` (the ring),
     ``factors.json`` (per-layer Gershgorin bounds, norms, staleness),
     ``health.json``, ``describe.txt``, ``config.json``,
-    ``fingerprint.json`` and ``MANIFEST.json``. With a
+    ``fingerprint.json``, ``comms.json`` (a distributed engine's
+    ``comms_report()``) and ``MANIFEST.json``. With a
     ``checkpoint_manager`` (a :class:`kfac_tpu_torch.resilience.
     CheckpointManager`), a degrade event first flushes one emergency
     checkpoint of the observed state, and ``MANIFEST.json`` records its
     path as ``emergency_checkpoint`` (else None). Only process 0 writes
-    unless ``all_processes``.
+    unless ``all_processes``. With a
+    :class:`~kfac_tpu_torch.parallel.DistributedKFAC` every rank calls
+    :meth:`observe` (and :meth:`write_bundle`): the drain and the factors
+    are gathered, and every rank enters the emergency save.
     """
 
     def __init__(
@@ -414,13 +426,15 @@ class PostmortemWriter:
             # every process enters the blocking save, once per degrade event
             # (the trigger above dedupes against _seen_degraded)
             emergency_ckpt = self.checkpoint_manager.save_emergency(state, reason='degrade')
+        # the factors of a distributed state are gathered: every rank
+        factors = self._factor_summaries(kstate, record)
         if not self.all_processes and multihost.process_index() != 0:
             return None
         if len(self.bundles) >= self.max_bundles:
             return None
         return self.write_bundle(
             kstate, '-'.join(reasons), record=record, history=history, step=step,
-            emergency_checkpoint=emergency_ckpt,
+            emergency_checkpoint=emergency_ckpt, factors=factors,
         )
 
     # ---------------------------------------------------------- the bundle
@@ -433,8 +447,10 @@ class PostmortemWriter:
         history: list[dict[str, Any]] | None = None,
         step: int | None = None,
         emergency_checkpoint: str | None = None,
+        factors: dict[str, Any] | None = None,
     ) -> str:
-        """Write one bundle directory now; returns its path."""
+        """Write one bundle directory now; returns its path. ``factors``:
+        the per-layer summaries, when the caller has them."""
         kstate = getattr(state, 'kfac_state', state)
         if record is None:
             record = self.collector.drain(kstate)
@@ -466,8 +482,9 @@ class PostmortemWriter:
                     f.write(json.dumps(rec, sort_keys=True) + '\n')
             files.append('history.jsonl')
 
-        _json_dump(os.path.join(bdir, 'factors.json'),
-                   self._factor_summaries(kstate, record))
+        if factors is None:
+            factors = self._factor_summaries(kstate, record)
+        _json_dump(os.path.join(bdir, 'factors.json'), factors)
         files.append('factors.json')
         _json_dump(os.path.join(bdir, 'health.json'),
                    self._health_snapshot(kstate, record))
@@ -477,6 +494,10 @@ class PostmortemWriter:
             with open(os.path.join(bdir, 'describe.txt'), 'w') as f:
                 f.write(describe() + '\n')
             files.append('describe.txt')
+        comms_report = getattr(self.engine, 'comms_report', None)
+        if callable(comms_report):
+            _json_dump(os.path.join(bdir, 'comms.json'), comms_report())
+            files.append('comms.json')
         _json_dump(os.path.join(bdir, 'config.json'), _config_snapshot(self._config()))
         files.append('config.json')
         _json_dump(os.path.join(bdir, 'fingerprint.json'), fingerprint(self.engine))

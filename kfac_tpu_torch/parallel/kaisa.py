@@ -30,10 +30,18 @@ devices. The resident decompositions, which ``memory_usage`` counts and
 
 The steps take this rank's statistics, from a mean loss over its own row
 block of the global batch, and the global mean gradients (the
-``Trainer`` reduces them, :meth:`DistributedKFAC.average_grads`). The
-health sentinel, metrics, flight recorder, async refresh, stat
-compression, offload, compile watch and ``auto_layout`` of the JAX engine
-come in a later slice and raise ``NotImplementedError``.
+``Trainer`` reduces them, :meth:`DistributedKFAC.average_grads`).
+
+The health sentinel, the metrics and the flight recorder ride in the state
+as the JAX engine's do, replicated: bitwise equal on every rank. Each rank
+judges only the slots of its own factor block (a factor update's
+quarantine verdict, a refresh's finiteness, the factor phase's Gershgorin
+bounds), and the verdicts reach every rank through one ``all_reduce`` of
+an (L,)-sized vector that is zero outside the rank's block, so the sum is
+exact and no value is read on the host.
+
+The async refresh, stat compression, offload, compile watch and
+``auto_layout`` of the JAX engine raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -47,10 +55,13 @@ import torch.distributed as dist
 
 from kfac_tpu_torch import assignment as assignment_lib
 from kfac_tpu_torch import enums
+from kfac_tpu_torch import health as health_lib
 from kfac_tpu_torch.hyperparams import resolve
 from kfac_tpu_torch.layers import capture as capture_lib
 from kfac_tpu_torch.layers import registry as registry_lib
 from kfac_tpu_torch.observability import comms as comms_lib
+from kfac_tpu_torch.observability import flight_recorder as flight_lib
+from kfac_tpu_torch.observability import metrics as metrics_lib
 from kfac_tpu_torch.ops import factors as factors_lib
 from kfac_tpu_torch.ops import klclip
 from kfac_tpu_torch.parallel import collectives
@@ -210,12 +221,12 @@ class DistKFACState:
     a_inv: dict[str, torch.Tensor]
     g_inv: dict[str, torch.Tensor]
     inv_damping: float
+    health: health_lib.HealthState | None = None
+    metrics: metrics_lib.MetricsState | None = None
+    flight: flight_lib.FlightRecorderState | None = None
 
 
-_LATER_SLICE_KNOBS = (
-    'health', 'metrics', 'flight', 'async_inverse', 'offload', 'stat_compression',
-    'compile_watch',
-)
+_LATER_SLICE_KNOBS = ('async_inverse', 'offload', 'stat_compression', 'compile_watch')
 
 
 @dataclasses.dataclass
@@ -292,6 +303,35 @@ class DistributedKFAC:
         # factor block k lives on the rank at (row, col) = (k % gw, k // gw)
         self._block = self.mesh.col * gw + self.mesh.row
         self._block_owner = [(k % gw) * nc + k // gw for k in range(self.world)]
+        # positions in registry order (the health and metrics vectors' order)
+        names = list(self.registry.layers)
+        pos = {n: i for i, n in enumerate(names)}
+
+        def index(layers):
+            return torch.tensor([pos[n] for n in layers], dtype=torch.long, device=self.device)
+
+        self._index = {
+            (side, sb.key): index(sb.layers)
+            for side, store in (('a', self.a_store), ('g', self.g_store)) for sb in store
+        }
+        self._bucket_index = {b.key: index(b.layers) for b in self.buckets}
+        order = [n for b in self.buckets for n in b.layers]
+        # a bucket-ordered per-layer vector, taken in registry order
+        self._to_registry = torch.tensor(
+            [order.index(n) for n in names], dtype=torch.long, device=self.device
+        )
+
+    @property
+    def health(self) -> health_lib.HealthConfig | None:
+        return self.config.health
+
+    @property
+    def metrics(self) -> metrics_lib.MetricsConfig | None:
+        return self.config.metrics
+
+    @property
+    def flight(self) -> flight_lib.FlightRecorderConfig | None:
+        return self.config.flight
 
     # ------------------------------------------------------------- layout
 
@@ -324,7 +364,8 @@ class DistributedKFAC:
     # --------------------------------------------------------------- init
 
     def init(self) -> DistKFACState:
-        """This rank's shards: identity factors, zero decompositions."""
+        """This rank's shards: identity factors, zero decompositions; fresh
+        health counters, metrics and flight ring where they are on."""
         dev = self.device
         state = DistKFACState(
             0, {}, {}, {}, {}, {}, {}, {}, {}, {},
@@ -348,7 +389,44 @@ class DistributedKFAC:
             for b in self.buckets:
                 clo, chi = self._column_range(b.padded)
                 state.dgda[b.key] = torch.zeros((chi - clo, b.dg, b.da), device=dev)
+        names = list(self.registry.layers)
+        if self.health is not None:
+            state.health = health_lib.init_health(names, dev)
+        if self.metrics is not None:
+            state.metrics = metrics_lib.init_metrics(self.metrics, names, dev)
+        if self.flight is not None:
+            state.flight = flight_lib.init_flight(
+                self.flight, metrics_lib.metric_keys(self.metrics, names), dev
+            )
         return state
+
+    # ------------------------------------------------------------- health
+
+    def _block_mults(self, state: DistKFACState, side: str, sb: StorageBucket) -> torch.Tensor:
+        """(L / world,) damping multipliers of this rank's factor block of a
+        side store (padding slots at 1)."""
+        lo, hi = self._factor_range(sb.padded)
+        return health_lib.slot_mults(
+            state.health.damping_mult, self._index[side, sb.key], sb.padded
+        )[lo:hi]
+
+    def _exchange(self, parts: list[tuple[int, str, StorageBucket, torch.Tensor]], width: int) -> torch.Tensor:
+        """Per-layer values judged on the ranks that own them, on every
+        rank: each part ``(offset, side, store, values)`` gives the (L /
+        world,) values of this rank's factor block of a store, which land at
+        ``offset`` + the layer positions of its live slots in a zero vector
+        of ``width`` (parts that share positions add up); one
+        ``all_reduce`` sums the ranks' vectors. Every position has one
+        owner, so the sum is the owner's bits exactly."""
+        out = torch.zeros((width,), dtype=torch.float32, device=self.device)
+        for offset, side, sb, values in parts:
+            lo, hi = self._factor_range(sb.padded)
+            live = max(0, min(hi, len(sb.layers)) - lo)
+            if live:
+                out.index_add_(
+                    0, offset + self._index[side, sb.key][lo:lo + live], values[:live].float()
+                )
+        return collectives.all_reduce_sum([out], self.mesh.group)[0]
 
     # ------------------------------------------------------------ factors
 
@@ -407,7 +485,14 @@ class DistributedKFAC:
         """EMA update of this rank's factor blocks from the world's
         statistics (:meth:`_reduce_stats`: every rank passes its own, from
         the mean loss over its own equal row block). Registered layers
-        absent from ``stats`` keep their factors, as in the JAX engine."""
+        absent from ``stats`` keep their factors, as in the JAX engine.
+
+        With health, each rank judges its block's slots (finite, and the
+        Gershgorin condition bound at the slot's effective damping), the
+        verdicts reach every rank in one ``all_reduce``, and a layer whose A
+        or G slot failed rolls both back (``torch.where`` per slot) and
+        escalates its damping, as the JAX engine's stacked sentinel does.
+        """
         alpha = resolve(self.config.factor_decay, state.step)
         red_a, red_g = self._reduce_stats(stats)
         new = {}
@@ -424,7 +509,96 @@ class DistributedKFAC:
                     else:
                         rows.append(red.get(sb.layers[s], fac[sb.key][s - lo]))
                 new[side][sb.key] = alpha * fac[sb.key] + (1 - alpha) * torch.stack(rows)
-        return dataclasses.replace(state, a=new['a'], g=new['g'])
+        names = list(self.registry.layers)
+        touched = [i for i, n in enumerate(names) if n in stats.a or n in stats.g]
+        ok = None  # (L,) layer verdicts, with health
+        health = state.health
+        if self.health is not None and touched:
+            hc = self.health
+            damping = resolve(self.config.damping, state.step)
+            n = len(names)
+            bad = self._exchange([
+                (k * n, side, sb, ~health_lib.factor_ok(
+                    new[side][sb.key], damping * self._block_mults(state, side, sb),
+                    hc.quarantine_threshold,
+                ))
+                for k, (side, store) in enumerate((('a', self.a_store), ('g', self.g_store)))
+                for sb in store
+            ], 2 * n)
+            ok = (bad[:n] + bad[n:]) == 0
+            idx = health_lib.positions(touched, n, self.device)
+            roll = ~ok
+            if idx is not None:  # only the touched layers roll back
+                roll = roll & torch.zeros_like(roll).index_fill_(0, idx, True)
+            for side, store, old in (('a', self.a_store, state.a), ('g', self.g_store, state.g)):
+                for sb in store:
+                    lo, hi = self._factor_range(sb.padded)
+                    mask = health_lib.slot_mask(roll, self._index[side, sb.key], sb.padded)[lo:hi]
+                    new[side][sb.key] = torch.where(
+                        mask[:, None, None], old[sb.key], new[side][sb.key]
+                    )
+            fields = (health.damping_mult, health.quarantined, health.quarantine_events)
+            moved = health_lib.quarantine_update(
+                hc, ok if idx is None else ok[idx], *(f if idx is None else f[idx] for f in fields)
+            )
+            mult, quarantined, events = (
+                m if idx is None else f.index_copy(0, idx, m) for f, m in zip(fields, moved)
+            )
+            health = dataclasses.replace(
+                health, damping_mult=mult, quarantined=quarantined, quarantine_events=events
+            )
+        state = dataclasses.replace(state, a=new['a'], g=new['g'], health=health)
+        if self.metrics is not None and state.metrics is not None and touched:
+            state = dataclasses.replace(
+                state, metrics=self._record_factor_metrics(state, touched, ok)
+            )
+        return state
+
+    def _record_factor_metrics(
+        self, state: DistKFACState, touched: list[int], ok: torch.Tensor | None
+    ) -> metrics_lib.MetricsState:
+        """The factor phase's metrics on the factors after any rollback:
+        the Gershgorin bounds of each layer's true-dim block, computed by
+        the rank that owns its slot and exchanged in one ``all_reduce``,
+        and ``last_factor_step`` advanced for the ``touched`` layers where
+        ``ok`` (None: every one)."""
+        ms = state.metrics
+        names = list(self.registry.layers)
+        n = len(names)
+        if self.metrics.factor_bounds:
+            parts = []
+            for k, (side, store, fac) in enumerate(
+                (('a', self.a_store, state.a), ('g', self.g_store, state.g))
+            ):
+                for sb in store:
+                    lo, hi = self._factor_range(sb.padded)
+                    live = range(lo, min(hi, len(sb.layers)))
+                    if not live:
+                        continue
+                    block = fac[sb.key]
+                    lmin, lmax = metrics_lib.gershgorin_bounds_each(
+                        [block[s - lo, :sb.dims[s], :sb.dims[s]] for s in live]
+                    )
+                    parts += [(2 * k * n, side, sb, lmin), ((2 * k + 1) * n, side, sb, lmax)]
+            bounds = self._exchange(parts, 4 * n)
+            values = dict(zip(
+                ('factor_lmin/a', 'factor_lmax/a', 'factor_lmin/g', 'factor_lmax/g'),
+                bounds.view(4, n),
+            ))
+            if len(touched) == n:
+                ms = metrics_lib.set_families(ms, values)
+            else:
+                ms = metrics_lib.update_scalars(ms, {
+                    f'{f}/{names[i]}': v[i] for f, v in values.items() for i in touched
+                })
+        if len(touched) == n:
+            last = metrics_lib.advance_all(ms.last_factor_step, ok, state.step)
+        else:
+            last = metrics_lib.advance_last(
+                ms.last_factor_step, ms.names,
+                {names[i]: None if ok is None else ok[i] for i in touched}, state.step,
+            )
+        return dataclasses.replace(ms, last_factor_step=last)
 
     # ----------------------------------------------------------- inverses
 
@@ -449,50 +623,98 @@ class DistributedKFAC:
     def update_inverses(self, state: DistKFACState) -> DistKFACState:
         """Decompose (EIGEN) or invert (INVERSE) this rank's factor blocks,
         then gather each column's blocks on every rank of the column (the
-        inverse broadcast: one all-gather a stack and field)."""
+        inverse broadcast: one all-gather a stack and field).
+
+        With health, the INVERSE and prediv refreshes run at each slot's
+        effective damping; each rank judges its block's outputs (a slot
+        that is not finite keeps its previous decomposition) and the
+        verdicts reach every rank in one ``all_reduce``, so ``bad_inv``
+        counts a layer up when its A or G refresh failed or ran from a
+        quarantined factor, as in the JAX engine."""
         cfg = self.config
+        hc = self.health
         damping = float(resolve(cfg.damping, state.step))
         col = self.mesh.col_group
         sub = self.mesh.row  # this rank's block within its column's
+        verdicts = []  # with health: (offset, side, store, bad slots)
+        n = len(self.registry.layers)
+
+        def damping_of(side, sb):
+            return damping if hc is None else damping * self._block_mults(state, side, sb)
+
+        def checked(side, sb, cand, judged=()):
+            """``cand`` (this block's outputs, field -> tensor) with health:
+            each slot kept where its outputs (and ``judged``) are finite,
+            else the resident decomposition of the same slot."""
+            if hc is None:
+                return cand
+            ok = torch.stack([
+                torch.isfinite(v).flatten(1).all(dim=1) for v in (*cand.values(), *judged)
+            ]).all(dim=0)
+            verdicts.append((0 if side == 'a' else n, side, sb, ~ok))
+            lo, hi = self._factor_range(sb.padded)
+            per = hi - lo
+            return {
+                f: torch.where(
+                    ok.view((-1,) + (1,) * (v.ndim - 1)), v,
+                    getattr(state, f)[sb.key][sub * per:(sub + 1) * per],
+                )
+                for f, v in cand.items()
+            }
+
         updates: dict[str, dict[str, torch.Tensor]] = {}
         if self._eigen:
             eig: dict[tuple[str, str], torch.Tensor] = {}
             for side, store, fac in (('a', self.a_store, state.a), ('g', self.g_store, state.g)):
-                q_out = updates.setdefault('q' + side, {})
                 for sb in store:
                     d_, q_ = factors_lib.batched_eigh(fac[sb.key], cfg.eigh_impl)
                     d_ = torch.clamp(d_, min=0.0)
-                    q_out[sb.key] = collectives.all_gather_cat(q_, col)
+                    cand = {'q' + side: q_}
+                    if not self._prediv:
+                        cand['d' + side] = d_
+                    for f, v in checked(side, sb, cand, (d_,) if self._prediv else ()).items():
+                        updates.setdefault(f, {})[sb.key] = collectives.all_gather_cat(v, col)
                     if self._prediv:
                         eig[side, sb.key] = d_
-                    else:
-                        updates.setdefault('d' + side, {})[sb.key] = collectives.all_gather_cat(d_, col)
             if self._prediv:
-                updates['dgda'] = {
-                    b.key: collectives.all_gather_cat(
-                        factors_lib.prediv_eigenvalues(
-                            factors_lib.EigenDecomp(None, eig['a', b.key]),
-                            factors_lib.EigenDecomp(None, eig['g', b.key]),
-                            damping,
-                        ),
-                        col,
+                updates['dgda'] = {}
+                for b, sb in zip(self.buckets, self.a_store):
+                    fused = factors_lib.prediv_eigenvalues(
+                        factors_lib.EigenDecomp(None, eig['a', b.key]),
+                        factors_lib.EigenDecomp(None, eig['g', b.key]),
+                        damping_of('a', sb),
                     )
-                    for b in self.buckets
-                }
+                    fused = checked('a', sb, {'dgda': fused})['dgda']
+                    updates['dgda'][b.key] = collectives.all_gather_cat(fused, col)
         else:
             for side, store, fac, prev in (
                 ('a', self.a_store, state.a, state.a_inv), ('g', self.g_store, state.g, state.g_inv),
             ):
-                out = updates.setdefault(side + '_inv', {})
+                field = side + '_inv'
                 for sb in store:
                     lo, hi = self._factor_range(sb.padded)
                     per = hi - lo
                     cand = self._sharded_inv(
-                        fac[sb.key], damping, prev[sb.key][sub * per:(sub + 1) * per],
+                        fac[sb.key], damping_of(side, sb), prev[sb.key][sub * per:(sub + 1) * per],
                         self._live(sb.layers, lo, hi),
                     )
-                    out[sb.key] = collectives.all_gather_cat(cand, col)
-        return dataclasses.replace(state, **updates, inv_damping=damping)
+                    cand = checked(side, sb, {field: cand})[field]
+                    updates.setdefault(field, {})[sb.key] = collectives.all_gather_cat(cand, col)
+        state = dataclasses.replace(state, **updates, inv_damping=damping)
+        ok = None
+        if hc is not None:
+            bad = self._exchange(verdicts, 2 * n)
+            ok = (bad[:n] + bad[n:]) == 0
+            h = state.health
+            state = dataclasses.replace(state, health=dataclasses.replace(
+                h, bad_inv=health_lib.inversion_update(hc, ok, h.quarantined, h.bad_inv)
+            ))
+        if self.metrics is not None and state.metrics is not None:
+            ms = state.metrics
+            state = dataclasses.replace(state, metrics=dataclasses.replace(
+                ms, last_inv_step=metrics_lib.advance_all(ms.last_inv_step, ok, state.step)
+            ))
+        return state
 
     def inverse_residuals(self, state: DistKFACState) -> dict[str, dict[str, torch.Tensor]]:
         """Per slot, the relative identity residual ``||I - (F + damping I)
@@ -524,7 +746,10 @@ class DistributedKFAC:
     # ------------------------------------------------------- precondition
 
     def precondition(
-        self, state: DistKFACState, grads: dict[str, torch.Tensor]
+        self,
+        state: DistKFACState,
+        grads: dict[str, torch.Tensor],
+        metrics_out: dict[str, torch.Tensor] | None = None,
     ) -> dict[str, torch.Tensor]:
         """Precondition the global mean grads (a ``named_parameters``-keyed
         dict, the same on every rank): each rank preconditions its
@@ -537,7 +762,17 @@ class DistributedKFAC:
         With ``colocate_factors=False`` a pair bucket's rows of the side
         stores are assembled from the full side stacks, gathered within
         the row first (the decomposition exchange non-colocation pays
-        for)."""
+        for).
+
+        With health, the EIGEN path preconditions each slot at its
+        effective damping (INVERSE and prediv bake it into the refresh),
+        and a degraded layer's slot carries its raw gradient (still
+        kl-clipped with the rest). ``metrics_out``, when given, gets the
+        dense engine's metric families in registry order: ``damping_eff``,
+        ``kl_clip_scale`` and, with ``grad_norms``, ``grad_norm`` and
+        ``precond_grad_norm`` from the norm instantiation of the kl-clip
+        dot (still one launch).
+        """
         cfg = self.config
         damping = resolve(cfg.damping, state.step)
         row = self.mesh.row_group
@@ -546,6 +781,10 @@ class DistributedKFAC:
             n: h.grads_to_matrix(layer_grads[n]).float()
             for n, h in self.registry.layers.items()
         }
+        degraded = (
+            None if self.health is None
+            else health_lib.is_degraded(self.health, state.health.bad_inv)
+        )
         full: dict[str, dict[str, torch.Tensor]] = {}
         if not self.colocate:
             # every side stack, gathered within the row in one order on
@@ -584,6 +823,9 @@ class DistributedKFAC:
                 qa, qg = state.qa[b.key], state.qg[b.key]
                 pstack = qg @ ((qg.mT @ gstack @ qa) * state.dgda[b.key]) @ qa.mT
             elif self._eigen:
+                dmp = damping if self.health is None else damping * health_lib.slot_mults(
+                    state.health.damping_mult, self._bucket_index[b.key], b.padded
+                )[lo:hi]
                 pstack = factors_lib.eigen_preconditioned_grad(
                     gstack,
                     factors_lib.EigenDecomp(
@@ -592,7 +834,7 @@ class DistributedKFAC:
                     factors_lib.EigenDecomp(
                         dec('qg', self._g_slot, (b.dg, b.dg)), dec('dg', self._g_slot, (b.dg,))
                     ),
-                    damping,
+                    dmp,
                 )
             else:
                 pstack = factors_lib.inverse_preconditioned_grad(
@@ -600,6 +842,11 @@ class DistributedKFAC:
                     dec('a_inv', self._a_slot, (b.da, b.da)),
                     dec('g_inv', self._g_slot, (b.dg, b.dg)),
                 )
+            if degraded is not None:
+                # graceful degradation: the slot's raw gradient (its
+                # padding is zero, so the true-dim block is the gradient)
+                mask = health_lib.slot_mask(degraded, self._bucket_index[b.key], b.padded)[lo:hi]
+                pstack = torch.where(mask[:, None, None], gstack, pstack)
             # the gradient broadcast: every column's block on every rank
             pfull = collectives.all_gather_cat(pstack, row)
             for i, name in enumerate(b.layers):
@@ -608,11 +855,34 @@ class DistributedKFAC:
 
         names = [n for b in self.buckets for n in b.layers]
         pm = [pmats[n] for n in names]
-        if pm and cfg.kl_clip is not None:
+        norms = metrics_out is not None and self.metrics.grad_norms and bool(pm)
+        scale = None
+        if pm and (cfg.kl_clip is not None or norms):
             lr = resolve(cfg.lr, state.step)
-            kl_clip = resolve(cfg.kl_clip, state.step)
-            _, _, scale = klclip.klclip_dot_many(pm, [gmats[n] for n in names], lr, kl_clip)
-            pm = factors_lib.kl_clip_apply_many_(pm, scale)
+            kl_clip = 1.0 if cfg.kl_clip is None else resolve(cfg.kl_clip, state.step)
+            gm = [gmats[n] for n in names]
+            if norms:
+                _, _, scale, g_sq, p_sq = klclip.klclip_dot_norms_many(pm, gm, lr, kl_clip)
+            else:
+                _, _, scale = klclip.klclip_dot_many(pm, gm, lr, kl_clip)
+            if cfg.kl_clip is None:
+                scale = None
+            else:
+                pm = factors_lib.kl_clip_apply_many_(pm, scale)
+        if metrics_out is not None:
+            dev = self.device
+            metrics_out['kl_clip_scale'] = torch.ones((), device=dev) if scale is None else scale
+            if norms:
+                # the kernel's order is the buckets'; the families' the registry's
+                p_norm = torch.sqrt(p_sq)[self._to_registry]
+                metrics_out['grad_norm'] = torch.sqrt(g_sq)[self._to_registry]
+                metrics_out['precond_grad_norm'] = (
+                    p_norm if scale is None else p_norm * torch.abs(scale)
+                )
+            metrics_out['damping_eff'] = (
+                damping * state.health.damping_mult if self.health is not None
+                else torch.full((len(names),), damping, device=dev)
+            )
         out = {
             n: self.registry.layers[n].matrix_to_grads(p.to(layer_grads[n]['weight'].dtype))
             for n, p in zip(names, pm)
@@ -640,22 +910,42 @@ class DistributedKFAC:
         state: DistKFACState,
         grads: dict[str, torch.Tensor],
         stats: capture_lib.CapturedStats | None,
+        loss: torch.Tensor | None = None,
     ) -> tuple[DistKFACState, dict[str, torch.Tensor]]:
         """One KAISA step, the dense engine's pipeline: the factor update on
         its cadence (``stats`` this rank's, None to skip), the refresh on
-        its cadence, then preconditioning of the global mean ``grads``."""
+        its cadence, then preconditioning of the global mean ``grads``.
+        With metrics, the step's scalars and staleness go into
+        ``state.metrics``; with the flight recorder, one ring row then
+        records them beside ``loss`` (when given) and the grads' global
+        norm, the same row on every rank."""
         cfg = self.config
         step = state.step
         if stats is not None and step % resolve(cfg.factor_update_steps, step) == 0:
             state = self.update_factors(state, stats)
         if step % resolve(cfg.inv_update_steps, step) == 0:
             state = self.update_inverses(state)
-        new_grads = self.precondition(state, grads)
+        if self.metrics is not None and state.metrics is not None:
+            families: dict[str, torch.Tensor] = {}
+            new_grads = self.precondition(state, grads, metrics_out=families)
+            ms = metrics_lib.set_families(state.metrics, families)
+            state = dataclasses.replace(
+                state, metrics=metrics_lib.finalize(ms, self.metrics, step)
+            )
+        else:
+            new_grads = self.precondition(state, grads)
+        if self.flight is not None and state.flight is not None:
+            state = dataclasses.replace(state, flight=flight_lib.record(
+                state.flight, step, state.metrics.scalars, loss=loss,
+                grad_norm=flight_lib.global_grad_norm(grads),
+            ))
         return dataclasses.replace(state, step=step + 1), new_grads
 
     def rematerialize(self, state: DistKFACState) -> DistKFACState:
         """Recompute the decompositions from the factors, as after a
-        checkpoint load: :meth:`update_inverses`."""
+        checkpoint load: :meth:`update_inverses`, with health and metrics as
+        a refresh ticks them (a restore then puts the loaded health
+        counters back: they are the run's durable truth)."""
         return self.update_inverses(state)
 
     # ---------------------------------------------------------- utilities

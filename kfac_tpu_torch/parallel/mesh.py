@@ -110,12 +110,13 @@ def kaisa_mesh(
     grad_worker_fraction: float = 1.0,
     group: Any = None,
     device: str | torch.device = 'cuda',
-) -> KaisaGrid:
+) -> KaisaGrid | None:
     """The KAISA grid over ``group`` (None: the default process group,
     which must be initialized), ``grad_workers = world *
     grad_worker_fraction`` rows. Every rank must call it, in the same
     order as its other ``new_group`` calls: it creates one process group
-    for each column and each row. ``device='cuda'`` places this rank on
+    for each column and each row. A process outside ``group`` calls too
+    and gets None. ``device='cuda'`` places this rank on
     ``cuda:<local rank>`` (``LOCAL_RANK``, else its rank modulo the cards);
     ``'cpu'`` on the CPU."""
     if not (dist.is_available() and dist.is_initialized()):
@@ -129,7 +130,6 @@ def kaisa_mesh(
     world = len(ranks)
     workers = assignment_lib.grad_worker_count(world, grad_worker_fraction)
     n_cols = world // workers
-    rank = ranks.index(dist.get_rank())
     col_groups = [
         dist.new_group([ranks[i] for i in cols])
         for cols in assignment_lib.partition_grad_workers(world, workers)
@@ -138,6 +138,9 @@ def kaisa_mesh(
         dist.new_group([ranks[i] for i in rows])
         for rows in assignment_lib.partition_grad_receivers(world, workers)
     ]
+    if dist.get_rank() not in ranks:
+        return None
+    rank = ranks.index(dist.get_rank())
     dev = resolve_device(device)
     if dev.type == 'cuda' and dev.index is None:
         dev = torch.device('cuda', _local_rank(dist.get_rank()))

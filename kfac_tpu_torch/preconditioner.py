@@ -385,7 +385,7 @@ class KFACPreconditioner:
                 n = names[i]
                 new_a[n] = torch.where(ok[k], new_a[n], state.a[n])
                 new_g[n] = torch.where(ok[k], new_g[n], state.g[n])
-            idx = _positions(touched, len(names), ok.device)
+            idx = health_lib.positions(touched, len(names), ok.device)
             fields = (health.damping_mult, health.quarantined, health.quarantine_events)
             moved = health_lib.quarantine_update(
                 cfg, ok, *(f if idx is None else f[idx] for f in fields)
@@ -741,16 +741,6 @@ class KFACPreconditioner:
         }
         sizes['total'] = sum(sizes.values())
         return sizes
-
-
-def _positions(
-    touched: list[int], count: int, device: torch.device
-) -> torch.Tensor | None:
-    """Index vector of the ``touched`` layers on ``device``, or None when
-    every layer is touched (the common case, which copies nothing)."""
-    if len(touched) == count:
-        return None
-    return torch.tensor(touched, device=device)
 
 
 def set_grads(model: torch.nn.Module, grads: dict[str, torch.Tensor]) -> None:

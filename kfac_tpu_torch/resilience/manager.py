@@ -1,6 +1,6 @@
 """Checkpoint autopilot: keep-N rotation, atomic LATEST pointer, periodic
 async saves, emergency flush on preemption, last-good fallback restore
-(counterpart of ``kfac_tpu/resilience/manager.py``, dense engine).
+(counterpart of ``kfac_tpu/resilience/manager.py``).
 
 The primitives live in :mod:`kfac_tpu_torch.checkpoint`; this module
 composes them into a loop that survives SIGTERM in the middle of an async
@@ -20,13 +20,22 @@ package:
   validating each candidate, and falls back to the last good one with a
   rate-limited warning.
 
-The manager runs in one process: agreement across processes (a common
-emergency step, a barrier before each save) comes with the distributed
-engine.
+Across processes (a :class:`~kfac_tpu_torch.parallel.DistributedKFAC`
+run, one manager a rank over one shared rotation), the JAX package's
+protocol: rank 0 alone clears a stale entry, then a barrier, then every
+rank writes its shard; rank 0 alone points ``LATEST`` and prunes. Every
+``coordinate_every`` steps the ranks gather their signal flags
+(:func:`~kfac_tpu_torch.parallel.multihost.agree_emergency`), so one
+rank's SIGTERM becomes one emergency checkpoint at one agreed step on
+every rank; a signal seen between those steps waits for the next.
+``restore_latest`` walks the candidates in the same order on every rank
+and ends in ``assert_same_step``.
 
 Only the host is involved between saves: a step that does not save reads
 a flag, compares host integers and asks whether the writer thread has
-ended, with no device sync.
+ended, with no device sync; across processes it joins no collective
+outside the coordination cadence, and those collectives move host values
+over gloo.
 """
 
 from __future__ import annotations
@@ -39,12 +48,15 @@ import warnings as _warnings
 from typing import Any, Callable, NamedTuple
 
 from kfac_tpu_torch import checkpoint as checkpoint_lib
+from kfac_tpu_torch.parallel import multihost
 from kfac_tpu_torch.resilience import signals as signals_lib
 from kfac_tpu_torch.warnings import CheckpointResilienceWarning
 
 _STEP_PREFIX = 'step_'
 _LATEST = 'LATEST'
 _CKPT_NAME = 'ckpt'
+# agreed emergency codes: none, continue (SIGUSR1), exit (SIGTERM)
+_CODE_NONE, _CODE_CONTINUE, _CODE_EXIT = 0, 1, 2
 
 #: The JAX package's save-protocol table, copied as data for the lint
 #: tiers' pod rules (not yet ported). Step order is the logical commit
@@ -119,6 +131,11 @@ class CheckpointManager:
             :mod:`kfac_tpu_torch.resilience.signals` for these names at
             construction (``()`` to manage handlers yourself); only from
             the main thread.
+        coordinate_every: with several processes, every this many steps
+            :meth:`on_step` gathers the ranks' signal flags, so one rank's
+            signal reaches every rank (the pod's reaction latency; a
+            signal seen between those steps stays pending). Identical on
+            every rank.
         max_retries / backoff_base / backoff_max: each failed I/O attempt
             retries after ``min(backoff_max, backoff_base * 2**attempt)``
             seconds.
@@ -139,6 +156,7 @@ class CheckpointManager:
         keep: int = 3,
         async_save: bool = True,
         install_signals: tuple[str, ...] = ('SIGTERM', 'SIGUSR1'),
+        coordinate_every: int = 1,
         max_retries: int = 3,
         backoff_base: float = 0.5,
         backoff_max: float = 8.0,
@@ -151,12 +169,15 @@ class CheckpointManager:
                 'save_interval_steps must be >= 1 or None, got '
                 f'{save_interval_steps}'
             )
+        if coordinate_every < 1:
+            raise ValueError(f'coordinate_every must be >= 1, got {coordinate_every}')
         self.directory = os.fspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.engine = engine
         self.save_interval_steps = save_interval_steps
         self.keep = int(keep)
         self.async_save = bool(async_save)
+        self.coordinate_every = int(coordinate_every)
         self.max_retries = int(max_retries)
         self.backoff_base = float(backoff_base)
         self.backoff_max = float(backoff_max)
@@ -216,9 +237,12 @@ class CheckpointManager:
         return checkpoint_lib.is_committed(self.checkpoint_path(step))
 
     def _commit(self, step: int) -> None:
-        """Atomically point ``LATEST`` at ``step`` and prune; called only
-        after the step's write has finished."""
+        """Atomically point ``LATEST`` at ``step`` and prune, on rank 0
+        only (the rotation lives on a shared filesystem); called only after
+        the step's write has finished."""
         self._last_saved_step = step
+        if multihost.process_index() != 0:
+            return
         latest = self._latest_path()
         tmp = f'{latest}.tmp.{os.getpid()}'
         with open(tmp, 'w') as f:
@@ -305,13 +329,17 @@ class CheckpointManager:
             step = int(kstate.step)
         block = (not self.async_save) if block is None else block
         sdir = self.step_dir(step)
-        if os.path.exists(sdir):
+        if multihost.process_index() == 0 and os.path.exists(sdir):
             # a dead earlier attempt at this step, or a re-save after a
-            # restore: the rotation never reuses bytes
+            # restore: the rotation never reuses bytes. Rank 0 only:
+            # concurrent removals on a shared filesystem race each other
             self._with_retries(
                 f'clearing stale rotation entry for step {step}',
                 lambda: shutil.rmtree(sdir),
             )
+        if multihost.process_count() > 1:
+            # no rank writes until rank 0's clear has finished
+            multihost.barrier(f'kfac-resilience-save-{step}')
         path = self.checkpoint_path(step)
 
         def attempt():
@@ -332,6 +360,10 @@ class CheckpointManager:
         extra: dict[str, Any] | None = None,
     ) -> str:
         """Blocking save and commit for preemption and health events.
+
+        ``step`` defaults to the state's own counter; with several
+        processes every rank must pass the same value (:meth:`on_step`
+        passes the agreed one).
 
         Idempotent per step: a step already durable in the rotation is
         pointed at, not written again. A signal-driven save runs under
@@ -362,6 +394,33 @@ class CheckpointManager:
 
     # -------------------------------------------------------------- driving
 
+    def _poll_emergency(self, step: int) -> tuple[int, int]:
+        """The local signal flag as the ranks' agreed ``(code, step)``.
+        With several processes the gather runs only on the coordination
+        cadence, which every rank computes alike, so it always pairs up; a
+        flag raised on another step stays pending until then."""
+        local = signals_lib.preemption_requested()
+        code = _CODE_NONE
+        if local is not None:
+            code = _CODE_EXIT if signals_lib.exits(local) else _CODE_CONTINUE
+        if multihost.process_count() > 1:
+            if step % self.coordinate_every != 0:
+                return _CODE_NONE, step
+            code, step = multihost.agree_emergency(code, step)
+        return code, step
+
+    def _pending_done(self, step: int) -> bool:
+        """Whether the pending async save has ended on every rank: this
+        process's writer alone in one process; with several, agreed on the
+        coordination cadence only (never otherwise)."""
+        if self._pending is None:
+            return False
+        if multihost.process_count() == 1:
+            return self._pending.handle.done()
+        if step % self.coordinate_every != 0:
+            return False
+        return multihost.agree_decision(self._pending.handle.done())
+
     def on_step(self, state: Any, step: int | None = None) -> str | None:
         """Drive the autopilot once per step: commit a finished async save,
         flush an emergency blocking save when a signal is pending (then
@@ -369,16 +428,25 @@ class CheckpointManager:
         start the periodic save on cadence. Returns the path saved by this
         call, or None. ``Trainer`` calls it after every step when
         constructed with ``checkpoints=<manager>``.
+
+        With several processes the signal is agreed on the coordination
+        cadence: every rank saves one emergency checkpoint at the agreed
+        (largest) step, and an exit on any rank is a SIGTERM on all.
         """
         if step is None:
             step = int(getattr(state, 'kfac_state', state).step)
-        if self._pending is not None and self._pending.handle.done():
+        if self._pending_done(step):
             self._flush_pending()
-        name = signals_lib.consume()
-        if name is not None:
-            path = self.save_emergency(state, reason=name, step=step)
-            if signals_lib.exits(name):
-                raise Preempted(name, step, path)
+        code, agreed = self._poll_emergency(step)
+        if code != _CODE_NONE:
+            local = signals_lib.consume()
+            if code == _CODE_EXIT and (local is None or not signals_lib.exits(local)):
+                name = 'SIGTERM'  # another rank saw the exit signal
+            else:
+                name = local or 'SIGUSR1'
+            path = self.save_emergency(state, reason=name, step=agreed)
+            if code == _CODE_EXIT:
+                raise Preempted(name, agreed, path)
             return path
         if (
             self.save_interval_steps is not None
@@ -404,7 +472,9 @@ class CheckpointManager:
         mis-shaped factors, missing extras, another layout), falls back to
         the next with a :class:`CheckpointResilienceWarning`, once per
         path. Returns None when nothing restores. ``engine`` defaults to
-        the manager's.
+        the manager's. With several processes every rank walks the same
+        candidates in the same order (a distributed restore agrees on
+        each), and the ranks check that they restored the same step.
         """
         engine = self.engine if engine is None else engine
         if engine is None:
@@ -434,6 +504,7 @@ class CheckpointManager:
                 self._warn_fallback(path, f'{type(exc).__name__}: {exc}')
                 continue
             restored_step = int(state.step)
+            multihost.assert_same_step(restored_step)
             self._last_saved_step = restored_step
             return RestoreResult(state, extra, restored_step, path)
         return None

@@ -20,7 +20,11 @@ the Trainer on the same global batch: each step takes the rank's row
 block of it (the JAX package's ``batch_sharding``), and before the
 engine's step the grads and the loss are mean-reduced across the ranks
 (what pjit does implicitly), so the loss a step returns and the
-parameters every rank updates are the global ones.
+parameters every rank updates are the global ones; the health sentinel's
+``skip_nonfinite`` judges those reduced values, so its verdict is the same
+on every rank. Its checkpoints are sharded: every rank saves its factor
+blocks, rank 0 the extras, and every rank loads the extras on a restore,
+so the parameters are bitwise equal on every rank after it.
 
 Knobs of the JAX Trainer whose slice comes later (``auto_layout``,
 ``fleet``) raise ``NotImplementedError``.
@@ -89,8 +93,8 @@ class Trainer:
         kfac: a :class:`kfac_tpu_torch.KFACPreconditioner` (anything with
             its ``registry``, ``factor_update_steps``, ``init`` and
             ``step``), a :class:`kfac_tpu_torch.parallel.DistributedKFAC`
-            (data-parallel over its grid's ranks; no ``checkpoints`` yet),
-            or None for a first-order baseline. Its registry's model must
+            (data-parallel over its grid's ranks, each rank running its own
+            Trainer and manager over one shared rotation), or None for a first-order baseline. Its registry's model must
             be ``model``; its ``factor_update_steps`` sets the capture
             cadence.
         checkpoints: a :class:`kfac_tpu_torch.resilience.CheckpointManager`.
@@ -141,11 +145,6 @@ class Trainer:
         if self.kfac is not None:
             self._bind_capture()
         if self.checkpoints is not None:
-            if self._distributed():
-                raise NotImplementedError(
-                    'Trainer(checkpoints=...) with a DistributedKFAC is not ported to '
-                    'kfac_tpu_torch yet'
-                )
             if self.kfac is None:
                 raise ValueError(
                     'Trainer(checkpoints=...) requires a kfac preconditioner: '
@@ -237,9 +236,12 @@ class Trainer:
             self.resume(state)
 
     def rebind_engine(self, engine: Any) -> None:
-        """Swap in a rebuilt preconditioner over the same model: the capture
-        is rebuilt from its registry, the step mirror resyncs from the next
-        state, and the checkpoint manager saves and restores with it."""
+        """Swap in a rebuilt preconditioner over the same model (another
+        configuration, or a dense engine for a distributed one and back):
+        the capture is rebuilt from its registry, the step mirror resyncs
+        from the next state, and the checkpoint manager saves and restores
+        with it, so :meth:`restore_latest` then migrates the rotation's
+        checkpoint into its layout."""
         self.kfac = engine
         self._kfac_takes_loss = 'loss' in inspect.signature(engine.step).parameters
         self._bind_capture()
@@ -252,7 +254,9 @@ class Trainer:
     def checkpoint_extras(self, state: TrainState) -> dict[str, Any]:
         """What a checkpoint holds beside the K-FAC state: the module's and
         the optimizer's ``state_dict()`` (aliases of the live tensors; the
-        save snapshots them) and the ``model_state`` when there is one."""
+        save snapshots them) and the ``model_state`` when there is one.
+        With a distributed engine every rank passes them and rank 0's are
+        written."""
         extra = {'model': self.model.state_dict(), 'optimizer': self.optimizer.state_dict()}
         if state.model_state is not None:
             extra['model_state'] = state.model_state

@@ -111,6 +111,31 @@ def test_device_runs_split_at_marker_kernels():
     assert 'trace_error' in bench_lm.split_device_runs(events[:4] + events[5:], ['a', 'b'])
 
 
+def test_device_runs_leave_out_the_pad_after_the_last_marker():
+    """Kernels after the last marker are the pass's end pad, no scope's;
+    a pass that lost its last marker is still refused."""
+    mark, pad = 'bitwise_not_kernel_cuda', 'vectorized_elementwise_kernel'
+    events = [(0.0, 1.0, pad), (2.0, 3.0, mark), (4.0, 6.0, 'gemm'), (7.0, 8.0, mark),
+              (9.0, 10.0, pad), (11.0, 12.0, pad)]
+    out = bench_lm.split_device_runs(events, ['a'])
+    assert out == {'device_ms': {'a': 0.002}, 'device_events': {'a': 1}}
+    assert 'trace_error' in bench_lm.split_device_runs(events[:3] + events[4:], ['a'])
+
+
+def test_trace_check_counts_the_records_a_pass_lost():
+    from kfac_tpu_torch import trace_check
+
+    mark, pad, n = 'bitwise_not_kernel_cuda', 'add_kernel', bench_lm.PAD_KERNELS
+    body = [(1000.0, 1001.0, mark), (1002.0, 1004.0, 'gemm'), (1005.0, 1006.0, mark)]
+    whole = [(float(i), i + 0.5, pad) for i in range(n)] + body + [
+        (2000.0 + i, 2000.5 + i, pad) for i in range(n)]
+    assert trace_check.pass_losses(whole, ['a']) == dict(
+        records=2 * n + 3, lost_before=0, lost_after=0, splits=True)
+    assert trace_check.pass_losses(whole[7:-2], ['a']) == dict(
+        records=2 * n - 6, lost_before=7, lost_after=2, splits=True)
+    assert trace_check.pass_losses(whole[n + 1:], ['a'])['splits'] is False
+
+
 def test_device_ms_takes_two_passes_in_a_row_that_agree(monkeypatch):
     mark = 'bitwise_not_kernel_cuda'
     full = [(0.0, 1.0, mark), (2.0, 4.0, 'gemm'), (5.0, 6.0, 'add'), (7.0, 8.0, mark)]

@@ -206,8 +206,11 @@ def test_restore_rejects_another_layout_corrupt_factors_and_torn_writes(tmp_path
     man = json.load(open(path + '.manifest.json'))
     with open(path + '.manifest.json', 'w') as f:
         json.dump(dict(man, engine='DistributedKFAC', bucket_granularity=128), f)
-    with pytest.raises(ValueError, match='migration is not ported'):
-        checkpoint.restore(path, pair.tk)
+    # another layout migrates through per-layer factors, with the JAX
+    # package's warning (its refusals: tests/test_torch_kaisa.py)
+    with pytest.warns(UserWarning, match='migrating through per-layer factors'):
+        migrated, _ = checkpoint.restore(path, pair.tk)
+    assert all(torch.equal(migrated.a[n], pair.ts.a[n]) for n in pair.ts.a)
     # a non-finite factor is named by its layer
     bad = checkpoint.durable_state(pair.ts)
     bad['a'] = dict(bad['a'], head=bad['a']['head'].clone())

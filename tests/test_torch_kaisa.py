@@ -27,6 +27,23 @@ at every fraction each world allows. Tolerances:
   rtol 2e-4 (atol 1e-6);
 - Trainer.step against the JAX Trainer: losses rtol 1e-5; parameter
   updates rtol 1e-4 with atol 1e-4 x the largest update.
+
+The sentinel, metrics and flight recorder (the port's of
+``tests/test_health.py``'s stacked cases, ``tests/test_observability.py``'s
+and ``tests/test_flight_recorder.py``'s distributed ones) at every fraction,
+EIGEN on ALLREDUCE and INVERSE on ALLREDUCE_BUCKETED: health counters
+exact against the JAX engine and the port's dense engine; metric scalars
+and flight rows rtol 1e-4 with atol 1e-6; the observability tensors
+bitwise equal on every rank. Checkpoints (``tests/test_aux.py``'s and
+``tests/test_resilience.py``'s distributed cases): layout manifests exact
+against the JAX engine's; a restore's factors bitwise (its own layout) or
+rtol 1e-6 (a migration); its preconditioned grads against the saved
+engine's and against the JAX oracle (``checkpoint._factors_from_saved`` of
+the port's stacks, ``insert_factors``, ``rematerialize``) with the
+preconditioned-grads tolerance; a resumed run's losses and parameters
+bitwise its interrupted run's continued in memory. The JAX package's
+``_migrate_restore`` itself is not called: its raw read fails under the
+installed orbax (ROADMAP queue 3).
 """
 
 import fcntl
@@ -45,10 +62,15 @@ import torch
 
 import kfac_tpu
 import torch_kaisa_ranks as ranks
+from kfac_tpu import checkpoint as jcheckpoint
+from kfac_tpu import health as jhealth
+from kfac_tpu import tracing as jtracing
 from kfac_tpu import training as jtraining
 from kfac_tpu.models import MLP as JaxMLP
 from kfac_tpu.models import TransformerLM as JaxLM
 from kfac_tpu.models import lm_loss as jax_lm_loss
+from kfac_tpu.observability import flight_recorder as jflight
+from kfac_tpu.observability import metrics as jmetrics
 from kfac_tpu.ops import factors as jfactors
 from kfac_tpu.parallel import DistributedKFAC as JaxDistributedKFAC
 from kfac_tpu.parallel import kaisa_mesh as jax_kaisa_mesh
@@ -60,6 +82,11 @@ from kfac_tpu_torch.parallel import spawn_world
 from kfac_tpu_torch.parallel.kaisa import size_class
 
 NS = dict(compute_method='inverse', inverse_solver='newton_schulz')
+# the observed engine's variants at every fraction: both methods, both transports
+OBSERVE_VARIANTS = (
+    ('eigen', dict(compute_method='eigen', allreduce_method='allreduce')),
+    ('inverse', dict(NS, allreduce_method='allreduce_bucketed')),
+)
 # the Trainer paths held against the JAX Trainer's, by world
 TRAINER_PATHS = {1: ('step',), 2: ('step', 'scan_steps', 'step_accumulate'), 4: ('step',)}
 EIGEN = dict(compute_method='eigen')
@@ -135,6 +162,13 @@ def host(state):
     } | {'step': int(state.step), 'inv_damping': float(state.inv_damping)}
 
 
+def jax_poisoned(stats, layer=ranks.POISON):
+    """``testing/faults.poison_stats(stats, layer, side='a', kind='nan')``."""
+    a = dict(stats.a)
+    a[layer] = a[layer] + jnp.float32(np.nan)
+    return kfac_tpu.CapturedStats(a=a, g=dict(stats.g), w=dict(stats.w))
+
+
 def torch_grads(jgrads):
     """A flax grads pytree in the port's ``named_parameters`` names."""
     return {k: v.numpy() for k, v in convert.from_flax_params(jax.device_get(jgrads)).items()}
@@ -172,7 +206,8 @@ def run_world(world):
         run = kfac_tpu.CurvatureCapture(reg).value_stats_and_grad(
             lambda p, b: (loss(p, b), None), has_aux=True
         )
-        (_, _), grads, stats = run(params, tuple(jnp.asarray(b) for b in batch))
+        (value, _), grads, stats = run(params, tuple(jnp.asarray(b) for b in batch))
+        ref.setdefault('loss', {})[name] = np.float32(value)
         return grads, stats
 
     mlp_grads, mlp_stats = capture('mlp')
@@ -294,8 +329,69 @@ def run_world(world):
     spec['cases'].append((
         'trainer', 'train', dict(frac=low, model='lm', steps=3, kw=ranks.TRAINER_KW, paths=paths),
     ))
+    # the sentinel, metrics and flight recorder against the JAX engine
+    root = tempfile.mkdtemp(prefix=f'kfac_torch_kaisa_w{world}_')
+    ref['observe'] = {}
+    for frac in fracs:
+        for method, kw in OBSERVE_VARIANTS:
+            dk = JaxDistributedKFAC(
+                config=jax_cfg(models['mlp'][1], health=jhealth.HealthConfig(**ranks.OBS_HEALTH),
+                               **ranks.OBS_KW, **kw),
+                mesh=jax_kaisa_mesh(frac, devices=devices),
+            )
+            step, state, steps = jax.jit(dk.step), dk.init(), []
+            for i in range(ranks.OBS_STEPS):
+                st = jax_poisoned(mlp_stats) if i == 1 else mlp_stats
+                state, g = step(state, mlp_grads, st, loss=ref['loss']['mlp'])
+                steps.append({'grads': torch_grads(g), 'health': jtracing.health_counters(state)})
+            ref['observe'][frac, method] = {
+                'steps': steps,
+                'drain': jmetrics.MetricsCollector(include_health=False).drain(state),
+                'ring': jflight.drain_flight(state),
+            }
+            spec['cases'].append((f'observe-{method}-{frac}', 'observe', dict(frac=frac, **kw)))
+    spec['cases'][-1][2]['root'] = os.path.join(root, 'observe')
+    # checkpoints: the manifests of the engines the port saves and restores
+    ref['manifest'] = {}
+    for name, frac_, kw in (('mid', mid, {}), ('mid128', mid, dict(bucket_granularity=128))):
+        dk = JaxDistributedKFAC(
+            config=jax_cfg(models['mlp'][1], **ranks.CKPT_KW, **kw),
+            mesh=jax_kaisa_mesh(frac_, devices=devices),
+        )
+        ref['manifest'][name] = jcheckpoint.layout_manifest(dk)
+    ref['mlp_grads'] = jax.device_get(mlp_grads)
+    spec['cases'].append(('checkpoint', 'checkpoint', dict(frac=mid, root=os.path.join(root, 'ckpt'))))
+    spec['cases'].append(('manager', 'manager', dict(frac=mid, root=os.path.join(root, 'mgr'))))
     results = spawn_world(ranks.run_cases, world, 'gloo', 'cpu', args=(spec,), timeout_s=300)
     return ref, results, fracs
+
+
+def jax_oracle(world, target, factors, step, health):
+    """The JAX engine's preconditioned grads after ``insert_factors`` of
+    ``factors``, the step, ``rematerialize`` and the port's health
+    counters: the dense engine for ``'to_dense'``, else the
+    ``DistributedKFAC`` the port restored into."""
+    _, reg, _, _, _ = flax_models()['mlp']
+    kw = dict(ranks.CKPT_KW, health=jhealth.HealthConfig(warn=False))
+    if target == 'granularity':
+        kw['bucket_granularity'] = 128
+    engine = jax_cfg(reg, **kw)
+    if target != 'to_dense':
+        fracs = assignment.candidate_fractions(world)
+        engine = JaxDistributedKFAC(
+            config=engine, mesh=jax_kaisa_mesh(middle(fracs), devices=jax.devices()[:world])
+        )
+    state = engine.insert_factors(engine.init(), factors)
+    state = engine.rematerialize(state._replace(step=jnp.asarray(step, jnp.int32)))
+    names = list(reg.layers)
+    state = state._replace(health=jhealth.HealthState(
+        skipped_steps=jnp.int32(health['health/skipped_steps']),
+        damping_mult={n: jnp.float32(health[f'health/{n}/damping_mult']) for n in names},
+        **{f: {n: jnp.int32(health[f'health/{n}/{f}']) for n in names}
+           for f in ('quarantined', 'bad_inv', 'quarantine_events')},
+    ))
+    mlp_grads = world_run(world)[0]['mlp_grads']
+    return torch_grads(engine.precondition(state, mlp_grads))
 
 
 _WORLDS: dict[int, tuple] = {}
@@ -358,16 +454,20 @@ def test_kaisa_mesh_needs_a_process_group():
         kaisa_mesh(1.0, device='cpu')
 
 
-@pytest.mark.parametrize('knob', ['health', 'metrics', 'flight', 'async_inverse', 'auto_layout'])
+@pytest.mark.parametrize(
+    'knob', ['async_inverse', 'auto_layout', 'offload', 'stat_compression', 'compile_watch']
+)
 def test_later_slice_knobs_raise(knob):
+    # offload, stat_compression and compile_watch raise in the config
+    # already; health, metrics and flight are ported (WorldCases below)
     from kfac_tpu_torch.layers import registry
     from kfac_tpu_torch.parallel import DistributedKFAC
     from kfac_tpu_torch.preconditioner import KFACPreconditioner
 
     reg = registry.register_model(torch.nn.Sequential(torch.nn.Linear(3, 2)), device='cpu')
     kw = {} if knob == 'auto_layout' else {knob: 'sliced' if knob == 'async_inverse' else True}
-    cfg = KFACPreconditioner(reg, device='cpu', inv_update_steps=2, factor_update_steps=2, **kw)
     with pytest.raises(NotImplementedError, match='not ported'):
+        cfg = KFACPreconditioner(reg, device='cpu', inv_update_steps=2, factor_update_steps=2, **kw)
         DistributedKFAC(cfg, auto_layout='plan.json' if knob == 'auto_layout' else None)
 
 
@@ -589,6 +689,209 @@ class WorldCases:
             theirs = other['trainer'][path]['params']
             assert all(np.array_equal(theirs[n], got['params'][n]) for n in theirs)
 
+    # ---------------------------------------- sentinel, metrics, flight
+
+    @pytest.mark.parametrize('method', ['eigen', 'inverse'])
+    def test_health_counters_match_jax_exactly(self, run, frac, method):
+        ref, results, _ = run
+        want = ref['observe'][frac, method]['steps']
+        for res in results:
+            got = res[f'observe-{method}-{frac}']['steps']
+            for i, (g, w) in enumerate(zip(got, want)):
+                assert g['health'] == w['health'], (i, g['health'], w['health'])
+
+    @pytest.mark.parametrize('method', ['eigen', 'inverse'])
+    def test_quarantine_rolls_back_and_the_degraded_layer_bypasses(self, run, frac, method):
+        # tests/test_health.py's stacked rollback and degradation bypass:
+        # the poisoned factor keeps its step-0 value, its damping goes 10x
+        # then decays to 5x, its layer is degraded (raw gradient) on step 1
+        # only; every step's grads as the JAX engine's
+        ref, results, _ = run
+        got = results[0][f'observe-{method}-{frac}']['steps']
+        np.testing.assert_array_equal(got[1]['poisoned_a'], got[0]['poisoned_a'])
+        assert np.abs(got[2]['poisoned_a'] - got[1]['poisoned_a']).max() > 0
+        h = [s['health'] for s in got]
+        p = ranks.POISON
+        assert [x[f'health/{p}/damping_mult'] for x in h] == [1.0, 10.0, 5.0]
+        assert [x[f'health/{p}/quarantined'] for x in h] == [0, 1, 0]
+        assert [x[f'health/{p}/bad_inv'] for x in h] == [0, 1, 0]
+        assert h[2][f'health/{p}/quarantine_events'] == 1
+        for i, w in enumerate(ref['observe'][frac, method]['steps']):
+            close_grads(got[i]['grads'], w['grads'])
+
+    @pytest.mark.parametrize('method', ['eigen', 'inverse'])
+    def test_metrics_and_flight_ring_match_jax_and_dense(self, run, frac, method):
+        ref, results, _ = run
+        got = results[0][f'observe-{method}-{frac}']
+        for want in (ref['observe'][frac, method], got['dense']):
+            assert set(got['drain']) == set(want['drain'])
+            for k, w in want['drain'].items():
+                np.testing.assert_allclose(got['drain'][k], w, rtol=1e-4, atol=1e-6, err_msg=k)
+            assert [r['step'] for r in got['ring']] == [r['step'] for r in want['ring']]
+            for g, w in zip(got['ring'], want['ring']):
+                assert set(g) == set(w)
+                for k, v in w.items():
+                    np.testing.assert_allclose(g[k], v, rtol=1e-4, atol=1e-6, err_msg=k)
+        for g, w in zip(got['steps'], got['dense']['steps']):
+            assert g['health'] == w['health']
+
+    @pytest.mark.parametrize('method', ['eigen', 'inverse'])
+    def test_observability_state_is_bitwise_equal_on_every_rank(self, run, frac, method):
+        _, results, _ = run
+        want = results[0][f'observe-{method}-{frac}']['tensors']
+        for res in results[1:]:
+            got = res[f'observe-{method}-{frac}']['tensors']
+            for field, tensors in want.items():
+                for name, w in tensors.items():
+                    assert np.array_equal(got[field][name], w, equal_nan=True), (field, name)
+        assert 'health: skip_nonfinite' in results[0][f'observe-{method}-{frac}']['describe']
+
+    def test_postmortem_on_a_degrade_saves_one_emergency_checkpoint(self, run):
+        # tests/test_flight_recorder.py's distributed postmortem: on the
+        # degrade every rank enters the emergency save (one rotation
+        # entry), and rank 0 alone writes the bundle, comms.json included
+        _, results, fracs = run
+        case = f'observe-inverse-{fracs[-1]}'
+        for rank, res in enumerate(results):
+            assert res[case]['rotation'] == [2]  # the state after step 1
+            bundles = res[case]['bundles']
+            if rank:
+                assert bundles == []
+                continue
+            names = [b[0] for b in bundles]
+            assert len(names) == 1 and 'quarantine-degrade' in names[0]
+            assert {'comms.json', 'factors.json', 'health.json', 'MANIFEST.json'} <= set(bundles[0][1])
+
+    # ------------------------------------------------------ checkpoints
+
+    def test_checkpoint_manifests_match_jax(self, run):
+        ref, results, _ = run
+        for res in results:
+            got = res['checkpoint']
+            for mine, theirs in ((got['manifest'], ref['manifest']['mid']),
+                                 (got['granularity']['manifest'], ref['manifest']['mid128'])):
+                assert jcheckpoint._layout_view(mine) == jcheckpoint._layout_view(theirs)
+                assert mine['compute_method'] == theirs['compute_method']
+
+    def test_checkpoint_round_trip_restores_its_own_layout(self, run):
+        # tests/test_aux.py's distributed round trip: no warning, the
+        # blocks bitwise, the counters verbatim, the extras rank 0 wrote
+        _, results, _ = run
+        for res in results:
+            got, src = res['checkpoint']['same'], res['checkpoint']['source']
+            assert got['warnings'] == [] and got['blocks_equal']
+            assert got['step'] == src['step'] == 2 and got['health'] == src['health']
+            assert got['health'][f'health/{ranks.POISON}/quarantine_events'] == 1
+            np.testing.assert_array_equal(got['extra']['w'], np.arange(3.0))
+            close_grads(got['grads'], src['grads'])
+
+    @pytest.mark.parametrize('target', ['granularity', 'to_dense', 'from_dense'])
+    def test_checkpoint_migrates_and_matches_the_jax_oracle(self, run, target):
+        # tests/test_aux.py's migrations: the JAX warning, the factors and
+        # counters carried, the preconditioned grads as the saved engine's
+        # and as the JAX engine's insert_factors + rematerialize
+        ref, results, _ = run
+        got = results[0]['checkpoint'][target]
+        assert any('migrating through per-layer factors' in w for w in got['warnings'])
+        if target == 'from_dense':
+            src_factors, src_health = got['source'], got['source_health']
+            durable, saved_man = {'a': {n: f['a'] for n, f in src_factors.items()},
+                                  'g': {n: f['g'] for n, f in src_factors.items()}}, got['source_manifest']
+        else:
+            src = results[0]['checkpoint']['source']
+            src_factors, src_health = src['factors'], src['health']
+            durable, saved_man = src['stacks'], results[0]['checkpoint']['manifest']
+            if target == 'granularity':
+                close_grads(got['grads'], src['grads'])
+        assert got['health'] == src_health
+        for n, f in src_factors.items():
+            for side in ('a', 'g'):
+                np.testing.assert_allclose(got['factors'][n][side], f[side], rtol=1e-6)
+        factors = jcheckpoint._factors_from_saved(durable, saved_man)
+        want = jax_oracle(self.W, target, factors, got['step'], got['health'])
+        close_grads(got['grads'], want)
+
+    def test_checkpoint_migration_refusals_name_the_cause(self, run):
+        _, results, _ = run
+        for res in results:
+            assert 'factor migration requires identical layer sets' in res['checkpoint']['layer_set']
+            assert 'factors cannot migrate across layer widths' in res['checkpoint']['width']
+
+    def test_save_factors_loads_into_another_layout(self, run):
+        _, results, _ = run
+        got = results[0]['checkpoint']
+        # the file holds factors and the step only: the counters start fresh
+        loaded = got['factors_file']
+        for n, f in got['source']['factors'].items():
+            for side in ('a', 'g'):
+                np.testing.assert_array_equal(loaded['factors'][n][side], f[side])
+        assert loaded['step'] == 2
+        assert loaded['health'][f'health/{ranks.POISON}/damping_mult'] == 1.0
+        assert all(np.isfinite(g).all() for g in loaded['grads'].values())
+
+    # ----------------------------------------------------------- manager
+
+    def test_trainer_sigterm_on_one_rank_preempts_every_rank_and_resumes_bitwise(self, run):
+        # the last rank signals itself before step 3: every rank saves one
+        # emergency checkpoint at step 4 (LATEST on it), the restore gives
+        # every rank the saved parameters bitwise, and two more steps are
+        # bitwise the interrupted run's continued in memory
+        _, results, _ = run
+        for res in results:
+            got = res['manager']
+            assert got['preempted'][:2] == ('SIGTERM', 4)
+            assert got['losses'] and len(got['losses']) == 3
+            assert got['restored_step'] == 4 and got['rotation'][0] == 4
+            assert got['resumed'] == got['oracle'] and got['resumed_params_equal']
+            # rebind_engine to the dense engine restores the same checkpoint
+            assert got['rebound']['step'] == 4 and got['rebound']['engine'] == 'KFACPreconditioner'
+            assert got['rebound']['params_equal']
+            assert any('migrating' in w for w in got['rebound']['warnings'])
+            for n, p in got['saved_params'].items():
+                assert np.array_equal(got['restored_params'][n], p)
+                assert np.array_equal(results[0]['manager']['restored_params'][n], p)
+        assert results[0]['manager']['latest'] == 4
+
+    def test_coordination_defers_off_cadence_and_agrees_on_the_step(self, run):
+        # tests/test_resilience.py's deferred and agreed step, on real
+        # ranks: rank 0's SIGUSR1 waits for the cadence (one process acts
+        # at once), then every rank saves at the largest step; the last
+        # rank's SIGTERM preempts every rank as SIGTERM
+        _, results, _ = run
+        for rank, res in enumerate(results):
+            got = res['manager']['agree']
+            if self.W == 1:
+                assert got['off_cadence'].endswith('step_00000003/ckpt') and got['pending'] is None
+                assert got['agreed_path'] is None
+            else:
+                assert got['off_cadence'] is None
+                assert got['pending'] == ('SIGUSR1' if rank == 0 else None)
+                assert got['agreed_path'].endswith('step_00000008/ckpt')
+            assert got['preempted'][:2] == ('SIGTERM', 12)
+            assert got['preempted'][2].endswith('step_00000012/ckpt')
+        assert results[0]['manager']['agree']['latest'] == (3 if self.W == 1 else 8)
+
+    def test_elastic_restore_dense_and_stacked_via_manager(self, run):
+        _, results, _ = run
+        for res in results:
+            got = res['manager']['elastic']
+            assert got['step'] == got['back_step'] == 2
+            assert any('migrating' in w for w in got['warnings'])
+            assert any('migrating' in w for w in got['back_warnings'])
+            for n, f in got['source'].items():
+                for side in ('a', 'g'):
+                    np.testing.assert_allclose(got['stacked'][n][side], f[side], rtol=1e-6)
+                    np.testing.assert_allclose(got['back'][n][side], f[side], rtol=1e-6)
+
+    def test_restore_engine_overrides_the_manager_granularity(self, run):
+        _, results, _ = run
+        got = results[0]['manager']['override']
+        assert got['step'] == 2 and got['binding_kept']
+        assert any('migrating' in w for w in got['warnings'])
+        for n, f in got['source'].items():
+            for side in ('a', 'g'):
+                np.testing.assert_allclose(got['restored'][n][side], f[side], rtol=1e-6)
+
 
     def test_multihost_helpers_read_the_group(self, run):
         # the world's size, each rank's index, and the gathered array in
@@ -626,6 +929,20 @@ class TestWorld1(WorldCases):
 
 
 class MultiRankCases(WorldCases):
+    def test_elastic_restore_onto_half_the_world_and_back(self, run):
+        # tests/test_aux.py's elastic restart: the checkpoint of W ranks
+        # onto a subgroup of W / 2 and, after a step there, back onto W;
+        # each leg preconditions as the engine it came from
+        _, results, _ = run
+        shrunk = results[0]['checkpoint']['shrunk']
+        close_grads(shrunk['grads'], results[0]['checkpoint']['source']['grads'])
+        assert shrunk['step'] == 2 and results[0]['checkpoint']['shrunk_stepped']['step'] == 3
+        for res in results:
+            grown = res['checkpoint']['grown']
+            assert grown['step'] == 3
+            assert grown['health'] == results[0]['checkpoint']['shrunk_stepped']['health']
+            close_grads(grown['grads'], results[0]['checkpoint']['shrunk_stepped']['grads'])
+
     def test_mem_opt_requires_colocated_factors(self, run):
         _, results, _ = run
         for res in results:

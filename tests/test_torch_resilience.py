@@ -669,3 +669,46 @@ def test_subprocess_sigterm_leaves_resumable_checkpoint(tmp_path):
     # one of the two extra steps hit the interval-2 cadence, and its
     # finalized periodic save moved the pointer past the emergency one
     assert done['latest'] > saved
+
+
+def test_subprocess_sigterm_to_one_rank_preempts_the_distributed_worker(tmp_path):
+    """A real ``kill -TERM`` of one rank of a two-rank gloo world
+    (``worker --world 2``, a ``DistributedKFAC`` at fraction 0.5): every
+    rank saves the one agreed emergency checkpoint and exits, and a second
+    world resumes from its step. Each world has 120 s."""
+    ckpt_dir = str(tmp_path / 'rot')
+    cmd, env = _worker(ckpt_dir, '1000', '2', '0.05')
+    cmd += ['--world', '2', '--frac', '0.5']
+    err_path = tmp_path / 'worker.err'
+    with open(err_path, 'w') as errf:
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=errf, text=True, env=env,
+                                cwd=str(tmp_path))
+        events = []
+        try:
+            for line in proc.stdout:
+                events.extend(_events(line))
+                pids = {e['rank']: e['pid'] for e in events if e.get('event') == 'start'}
+                steps = [e['step'] for e in events if e.get('event') == 'step']
+                if len(pids) == 2 and steps and steps[-1] >= 3:
+                    os.kill(pids[1], signal_mod.SIGTERM)
+                    break
+            out, _ = proc.communicate(timeout=120)
+        finally:
+            proc.kill()
+    events.extend(_events(out))
+    assert proc.returncode == 0, err_path.read_text()[-4000:]
+    pre = sorted((e for e in events if e.get('event') == 'preempted'), key=lambda e: e['rank'])
+    assert [e['rank'] for e in pre] == [0, 1], events
+    assert {e['signal'] for e in pre} == {'SIGTERM'}
+    saved = pre[0]['saved_step']
+    assert pre[1]['saved_step'] == saved and pre[0]['latest'] == saved
+
+    cmd, env = _worker(ckpt_dir, str(saved + 2), '2')
+    cmd += ['--world', '2', '--frac', '0.5']
+    done_run = subprocess.run(cmd, capture_output=True, text=True, env=env, cwd=str(tmp_path),
+                              timeout=120)
+    assert done_run.returncode == 0, done_run.stderr[-4000:]
+    ev2 = _events(done_run.stdout)
+    assert sorted(e['resumed_step'] for e in ev2 if e['event'] == 'start') == [saved, saved]
+    done = [e for e in ev2 if e['event'] == 'done']
+    assert len(done) == 2 and {e['final_step'] for e in done} == {saved + 2}

@@ -9,17 +9,25 @@ engine in the parent process.
 
 from __future__ import annotations
 
+import dataclasses
+import os
+import signal
 import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from kfac_tpu_torch import convert
+from kfac_tpu_torch import checkpoint, convert, tracing
+from kfac_tpu_torch.health import HealthConfig
 from kfac_tpu_torch.layers import capture, registry
 from kfac_tpu_torch.models import MLP, TransformerLM, lm_loss
+from kfac_tpu_torch.observability.flight_recorder import PostmortemWriter, drain_flight
+from kfac_tpu_torch.observability.metrics import MetricsCollector
 from kfac_tpu_torch.ops import factors
 from kfac_tpu_torch.parallel import DistributedKFAC, kaisa_mesh, multihost
 from kfac_tpu_torch.preconditioner import KFACPreconditioner
+from kfac_tpu_torch.resilience import CheckpointManager, Preempted, signals
 from kfac_tpu_torch.training import Trainer
 
 MLP_CFG = dict(in_features=6, features=(16, 12), num_classes=5)
@@ -27,6 +35,15 @@ LM_CFG = dict(vocab_size=64, d_model=32, num_heads=4, num_layers=2, max_len=16)
 # the engine of the one-step cases, as tests/parallel/test_kaisa_distributed.py
 STEP_KW = dict(damping=0.01, kl_clip=0.001, lr=0.1)
 TRAINER_KW = dict(damping=0.003, lr=0.1, factor_update_steps=1, inv_update_steps=2)
+# the observed engine: the sentinel (a degrade on the first quarantined
+# refresh), metrics and a flight ring of 4, as tests/test_health.py's
+# stacked cases and tests/test_observability.py's distributed ones
+OBS_KW = dict(damping=0.01, kl_clip=0.001, lr=0.1, metrics=True, flight=4)
+OBS_HEALTH = dict(warn=False, degrade_after=1)
+POISON = 'dense0'  # its A statistic is NaN on the observed run's step 1
+OBS_STEPS = 3
+# the checkpoint cases' engine (tests/test_aux.py's, with the sentinel)
+CKPT_KW = dict(damping=0.01, kl_clip=None, lr=0.1)
 
 
 def numpy_tree(tree):
@@ -250,6 +267,328 @@ def case_train(spec, rank, frac, model, steps, kw, paths=('step',)):
     return out
 
 
+def poisoned(stats, layer=POISON, side='a'):
+    """``stats`` with ``layer``'s ``side`` statistic NaN (``faults.poison_stats``)."""
+    a, g = dict(stats.a), dict(stats.g)
+    tgt = a if side == 'a' else g
+    tgt[layer] = tgt[layer] + float('nan')
+    return capture.CapturedStats(a=a, g=g)
+
+
+def observability_tensors(state):
+    """The state's health, metrics and flight tensors, as numpy."""
+    out = {}
+    for field in ('health', 'metrics', 'flight'):
+        obj = getattr(state, field)
+        out[field] = {
+            f.name: numpy_tree(getattr(obj, f.name)) for f in dataclasses.fields(obj)
+            if isinstance(getattr(obj, f.name), torch.Tensor)
+        }
+    return out
+
+
+def case_observe(spec, rank, frac, root=None, **kw):
+    """``OBS_STEPS`` engine steps of the MLP with the sentinel, metrics and
+    the flight recorder on, step 1's statistics poisoned: each step's
+    preconditioned grads and health counters, ``POISON``'s A factor after
+    each step, the drains, and the state's observability tensors (held
+    bitwise across the ranks). The dense engine goes through the same
+    steps on the global batch beside it (on every rank: the ring's drain
+    gathers); rank 0 returns it. With ``root``, a ``PostmortemWriter``
+    with a checkpoint manager observes each step: its bundles (rank 0's)
+    and the rotation."""
+    _, reg, loss, batch = build(spec, 'mlp')
+    cfg = config(reg, health=HealthConfig(**OBS_HEALTH), **OBS_KW, **kw)
+    dk = DistributedKFAC(cfg, kaisa_mesh(frac, device='cpu'))
+    grads, stats, value = local_grads_stats(dk, reg, loss, batch)
+    pm = None
+    if root is not None:
+        mgr = CheckpointManager(os.path.join(root, 'rot'), engine=dk, install_signals=(),
+                                async_save=False, save_interval_steps=None)
+        pm = PostmortemWriter(os.path.join(root, 'pm'), engine=dk, checkpoint_manager=mgr)
+    state, steps, bundles = dk.init(), [], []
+    for i in range(OBS_STEPS):
+        state, pg = dk.step(state, grads, poisoned(stats) if i == 1 else stats, loss=value)
+        steps.append({
+            'grads': numpy_tree(pg), 'health': tracing.health_counters(state),
+            'poisoned_a': numpy_tree(dk.extract_factors(state)[POISON]['a']),
+        })
+        if pm is not None:
+            with warnings.catch_warnings():
+                warnings.simplefilter('ignore')
+                bundle = pm.observe(state)
+            if bundle is not None:
+                bundles.append((os.path.basename(bundle), sorted(os.listdir(bundle))))
+    out = {
+        'steps': steps,
+        'drain': MetricsCollector(include_health=False).drain(state),
+        'ring': drain_flight(state),
+        'tensors': observability_tensors(state),
+        'describe': dk.describe(),
+        'bundles': bundles,
+        'rotation': None if pm is None else pm.checkpoint_manager.rotation_steps(),
+    }
+    run = capture.CurvatureCapture(reg).value_stats_and_grad(loss)
+    (dense_value, _), g_all, s_all = run(batch)
+    ds, dense_steps = cfg.init(), []
+    for i in range(OBS_STEPS):
+        ds, pg = cfg.step(ds, g_all, poisoned(s_all) if i == 1 else s_all, loss=dense_value)
+        dense_steps.append({'grads': numpy_tree(pg), 'health': tracing.health_counters(ds)})
+    dense = {
+        'steps': dense_steps,
+        'drain': MetricsCollector(include_health=False).drain(ds),
+        'ring': drain_flight(ds),
+    }
+    if rank == 0:
+        out['dense'] = dense
+    return out
+
+
+def caught(fn):
+    """``(fn(), the messages of the warnings it raised)``."""
+    with warnings.catch_warnings(record=True) as ws:
+        warnings.simplefilter('always')
+        result = fn()
+    return result, [str(w.message) for w in ws]
+
+
+def raised(fn):
+    """The message of the ``ValueError`` ``fn`` raises (None if none)."""
+    try:
+        fn()
+    except ValueError as err:
+        return str(err)
+    return None
+
+
+def trained(engine, reg, loss, batch, steps=2, local=True):
+    """``steps`` engine steps from ``init`` (step 1's statistics poisoned,
+    so the health counters move) and the grads they took."""
+    if local:
+        grads, stats, _ = local_grads_stats(engine, reg, loss, batch)
+    else:
+        _, grads, stats = capture.CurvatureCapture(reg).value_stats_and_grad(loss)(batch)
+    state = engine.init()
+    for i in range(steps):
+        state, _ = engine.step(state, grads, poisoned(stats) if i == 1 else stats)
+    return state, grads
+
+
+def case_checkpoint(spec, rank, frac, root):
+    """``checkpoint.save`` of a ``DistributedKFAC`` state and its restores:
+    the same layout, another bucket granularity, the dense engine (and a
+    dense checkpoint into the distributed engine), the JAX package's
+    refusals, ``save_factors`` / ``load_factors``, and, on more than one
+    rank, a restore onto a world of half the ranks (a subgroup) and back.
+    Each restore: its warnings, step, health counters, per-layer factors
+    and the grads it preconditions."""
+    net, reg, loss, batch = build(spec, 'mlp')
+    kw = dict(CKPT_KW, health=HealthConfig(warn=False))
+
+    def engine(mesh_frac=frac, group=None, **over):
+        mesh = kaisa_mesh(mesh_frac, group=group, device='cpu')
+        return None if mesh is None else DistributedKFAC(config(reg, **kw, **over), mesh)
+
+    def summary(eng, state, grads, warned):
+        return {
+            'warnings': warned, 'step': state.step, 'health': tracing.health_counters(state),
+            'factors': numpy_tree(eng.extract_factors(state)),
+            'grads': numpy_tree(eng.precondition(state, grads)),
+        }
+
+    out = {}
+    dk = engine()
+    state, grads = trained(dk, reg, loss, batch)
+    path = os.path.join(root, 'dist')
+    extra = {'w': torch.arange(3.0) + rank}
+    checkpoint.save(path, state, extra=extra, engine=dk)
+    out['source'] = summary(dk, state, grads, [])
+    gathered = convert.gather_dist_state(state, dk)
+    out['source']['stacks'] = {side: gathered[side] for side in ('a', 'g')}
+    out['manifest'] = checkpoint.layout_manifest(dk)
+    (same, got_extra), warned = caught(lambda: checkpoint.restore(path, engine()))
+    out['same'] = dict(summary(dk, same, grads, warned), extra=numpy_tree(got_extra), blocks_equal=all(
+        torch.equal(getattr(same, f)[k], v) for f in ('a', 'g') for k, v in getattr(state, f).items()
+    ))
+    dk128 = engine(bucket_granularity=128)
+    (g128, _), warned = caught(lambda: checkpoint.restore(path, dk128))
+    out['granularity'] = summary(dk128, g128, grads, warned)
+    dense = config(reg, **kw)
+    _, g_all, _ = capture.CurvatureCapture(reg).value_stats_and_grad(loss)(batch)
+    (ds, _), warned = caught(lambda: checkpoint.restore(path, dense))
+    out['to_dense'] = summary(dense, ds, g_all, warned)
+    dense_state, _ = trained(dense, reg, loss, batch, local=False)
+    dpath = os.path.join(root, 'dense')
+    checkpoint.save(dpath, dense_state, engine=dense)
+    (fd, _), warned = caught(lambda: checkpoint.restore(dpath, dk))
+    out['from_dense'] = dict(
+        summary(dk, fd, grads, warned), source=numpy_tree(dense.extract_factors(dense_state)),
+        source_health=tracing.health_counters(dense_state),
+        source_manifest=checkpoint.layout_manifest(dense),
+    )
+    out['granularity']['manifest'] = checkpoint.layout_manifest(dk128)
+    partial = registry.register_model(net, skip_layers=['head'], device='cpu')
+    out['layer_set'] = raised(lambda: checkpoint.restore(
+        dpath, DistributedKFAC(config(partial, **kw), kaisa_mesh(frac, device='cpu'))
+    ))
+    wide = MLP(MLP_CFG['in_features'], (20, 12), MLP_CFG['num_classes'], device='cpu')
+    out['width'] = raised(lambda: checkpoint.restore(path, DistributedKFAC(
+        config(registry.register_model(wide, device='cpu'), **kw, bucket_granularity=128),
+        kaisa_mesh(frac, device='cpu'),
+    )))
+    fpath = os.path.join(root, 'factors.npz')
+    checkpoint.save_factors(fpath, dk, state)
+    out['factors_file'] = summary(dk128, checkpoint.load_factors(fpath, dk128), grads, [])
+    world = dist.get_world_size()
+    if world > 1:
+        half = world // 2
+        sub = dist.new_group(list(range(half)))
+        small = engine(0.5 if half > 1 else 1.0, group=sub)
+        epath = os.path.join(root, 'elastic')
+        if small is not None:
+            (es, _), warned = caught(lambda: checkpoint.restore(path, small))
+            sgrads, sstats, _ = local_grads_stats(small, reg, loss, batch)
+            out['shrunk'] = summary(small, es, sgrads, warned)
+            es, _ = small.step(es, sgrads, sstats)
+            out['shrunk_stepped'] = summary(small, es, sgrads, [])
+            checkpoint.save(epath, es, engine=small)
+        multihost.barrier('elastic')
+        (gs, _), warned = caught(lambda: checkpoint.restore(epath, dk))
+        out['grown'] = summary(dk, gs, grads, warned)
+    return out
+
+
+def case_manager(spec, rank, frac, root):
+    """The manager across the ranks: a ``Trainer(checkpoints=)`` run that
+    the last rank sends itself a real SIGTERM in, its restore beside the
+    interrupted run continued in memory; the coordination cadence (a
+    SIGUSR1 on rank 0 deferred off the cadence, then agreed at the largest
+    step; a SIGTERM on the last rank preempting every rank); elastic
+    restores through the manager (dense into the stacked engine at another
+    granularity and back; the stacked engine at granularity 64 restored
+    into 128)."""
+    world = dist.get_world_size()
+    out = {}
+
+    def trainer(directory, **mgr_kw):
+        net, reg, loss, _ = build(spec, 'mlp')
+        dk = DistributedKFAC(config(reg, **CKPT_KW), kaisa_mesh(frac, device='cpu'))
+        mgr = CheckpointManager(directory, **mgr_kw)
+        t = Trainer(
+            net, torch.optim.SGD(net.parameters(), lr=0.05, momentum=0.9),
+            lambda ms, b: (loss(b), ms), kfac=dk, checkpoints=mgr, device='cpu',
+        )
+        return t, net, dk, mgr
+
+    batch = tensors(spec['batches']['mlp'])
+    t, net, dk, mgr = trainer(os.path.join(root, 'rot'), save_interval_steps=2, keep=2)
+    on_step, seen = mgr.on_step, {}
+
+    def recording(train_state, step=None):
+        seen['state'] = train_state  # the state a Preempted leaves behind
+        return on_step(train_state, step=step)
+
+    mgr.on_step = recording
+    state, losses = t.init(), []
+    try:
+        for i in range(10):
+            if i == 3 and rank == world - 1:
+                os.kill(os.getpid(), signal.SIGTERM)
+            state, value = t.step(state, batch)
+            losses.append(float(value))
+        out['preempted'] = None
+    except Preempted as exc:
+        out['preempted'] = (exc.signal_name, exc.step, exc.path)
+    out['losses'] = losses
+    out['rotation'] = mgr.rotation_steps()
+    out['latest'] = mgr.latest_step()
+    mgr.close()
+    t2, net2, _, mgr2 = trainer(os.path.join(root, 'rot'), install_signals=())
+    restored = t2.restore_latest()
+    out['restored_step'] = restored.kfac_state.step
+    out['restored_params'] = {n: p.detach().numpy().copy() for n, p in net2.named_parameters()}
+    out['saved_params'] = {n: p.detach().numpy().copy() for n, p in net.named_parameters()}
+    resumed = []
+    for _ in range(2):
+        restored, value = t2.step(restored, batch)
+        resumed.append(float(value))
+    resumed_params = [p.detach().clone() for p in net2.parameters()]
+    # rebind_engine: the rotation's sharded checkpoint into the dense engine
+    t2.rebind_engine(config(t2.kfac.registry, **CKPT_KW))
+    rebound, warned = caught(t2.restore_latest)
+    out['rebound'] = dict(
+        step=rebound.kfac_state.step, warnings=warned, engine=type(t2.kfac).__name__,
+        params_equal=all(torch.equal(p, q) for p, q in zip(net.parameters(), net2.parameters())),
+    )
+    mgr2.close()
+    # the oracle: the interrupted run, rematerialized in memory, stepped on
+    t.checkpoints = None
+    state = seen['state']
+    state = dataclasses.replace(state, kfac_state=dk.rematerialize(state.kfac_state))
+    oracle = []
+    for _ in range(2):
+        state, value = t.step(state, batch)
+        oracle.append(float(value))
+    out['resumed'], out['oracle'] = resumed, oracle
+    out['resumed_params_equal'] = all(
+        torch.equal(p, q) for p, q in zip(net.parameters(), resumed_params)
+    )
+
+    # the coordination cadence
+    kstate = state.kfac_state
+    mgr = CheckpointManager(
+        os.path.join(root, 'agree'), engine=dk, save_interval_steps=None, coordinate_every=4,
+        async_save=False,
+    )
+    if rank == 0:
+        os.kill(os.getpid(), signal.SIGUSR1)
+    agree = {'off_cadence': mgr.on_step(kstate, step=3), 'pending': signals.preemption_requested()}
+    agree['agreed_path'] = mgr.on_step(kstate, step=4 if rank == 0 else 8)
+    agree['latest'] = mgr.latest_step()
+    if rank == world - 1:
+        os.kill(os.getpid(), signal.SIGTERM)
+    try:
+        mgr.on_step(kstate, step=12)
+        agree['preempted'] = None
+    except Preempted as exc:
+        agree['preempted'] = (exc.signal_name, exc.step, exc.path)
+    agree['rotation'] = mgr.rotation_steps()
+    mgr.close()
+    out['agree'] = agree
+
+    # elastic restores through the manager (with the sentinel: the
+    # trained states' counters move)
+    _, reg, loss, _ = build(spec, 'mlp')
+    kw = dict(CKPT_KW, health=HealthConfig(warn=False))
+    dense = config(reg, **kw)
+    dense_state, _ = trained(dense, reg, loss, batch, local=False)
+    fwd = CheckpointManager(os.path.join(root, 'fwd'), engine=dense, install_signals=(), async_save=False)
+    fwd.save(dense_state)
+    dk128 = DistributedKFAC(config(reg, **kw, bucket_granularity=128), kaisa_mesh(frac, device='cpu'))
+    result, warned = caught(lambda: fwd.restore_latest(engine=dk128))
+    back = CheckpointManager(os.path.join(root, 'back'), engine=dk128, install_signals=(), async_save=False)
+    back.save(result.state)
+    dense2 = config(reg, **kw)
+    home, warned_back = caught(lambda: back.restore_latest(engine=dense2))
+    out['elastic'] = {
+        'source': numpy_tree(dense.extract_factors(dense_state)),
+        'stacked': numpy_tree(dk128.extract_factors(result.state)), 'step': result.step,
+        'warnings': warned, 'back': numpy_tree(dense2.extract_factors(home.state)),
+        'back_step': home.step, 'back_warnings': warned_back,
+    }
+    dk64 = DistributedKFAC(config(reg, **kw, bucket_granularity=64), kaisa_mesh(frac, device='cpu'))
+    s64, _ = trained(dk64, reg, loss, batch)
+    gran = CheckpointManager(os.path.join(root, 'gran'), engine=dk64, install_signals=(), async_save=False)
+    gran.save(s64)
+    result, warned = caught(lambda: gran.restore_latest(engine=dk128))
+    out['override'] = {
+        'source': numpy_tree(dk64.extract_factors(s64)),
+        'restored': numpy_tree(dk128.extract_factors(result.state)), 'step': result.step,
+        'warnings': warned, 'binding_kept': gran.engine is dk64,
+    }
+    return out
+
+
 def case_multihost(spec, rank):
     """The cross-process helpers on this world: the counts, a gathered
     array, the votes, and the step check on equal and on differing
@@ -281,6 +620,9 @@ CASES = {
     'variants': case_variants,
     'unexecuted': case_unexecuted,
     'train': case_train,
+    'observe': case_observe,
+    'checkpoint': case_checkpoint,
+    'manager': case_manager,
 }
 
 
