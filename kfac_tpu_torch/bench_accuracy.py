@@ -1,24 +1,37 @@
 """Time to target quality, K-FAC against the same first-order baseline:
-the ``digits_mlp`` task of ``tools/bench_accuracy.py``, on the port.
+the ``digits_mlp``, ``digits_cnn`` and ``cifar_resnet20`` tasks of
+``tools/bench_accuracy.py``, on the port.
 
 Protocol (the JAX tool's): SGD with momentum, and the same optimizer with
 its gradients preconditioned by K-FAC, from the same initial weights, with
-the same learning rate and batches; the test accuracy every
-``eval_every`` steps. The target is the worse of the two final accuracies,
-so both runs reach it and no hand-set threshold favours either; a run
-whose final value is not finite cannot set it and never counts as reaching
-it. Reported: steps and seconds to the target (the clock starts after a
-warm-up on a scratch model and stops during evaluation), their K-FAC/SGD
-ratios, and both curves.
+the same learning rate and batches; the test metric every ``eval_every``
+steps. The target is the worse of the two final values, so both runs
+reach it and no hand-set threshold favours either; a run whose final value
+is not finite cannot set it and never counts as reaching it. Reported:
+steps and seconds to the target (the clock starts after a warm-up on a
+scratch model and stops during evaluation), their K-FAC/SGD ratios, and
+both curves.
+
+The tasks (the JAX tool's, uncut):
+
+- ``digits_mlp``: an MLP with one hidden layer of 64, batch 100, lr 0.1,
+  600 steps, damping 0.003, cadence 5/25;
+- ``digits_cnn``: ``SmallCNN`` (two SAME convs, 16 and 32 filters, the
+  second of stride 2, and a dense head) on the 8x8 digits, batch 100,
+  lr 0.02, 600 steps, damping 0.01, cadence 5/25;
+- ``cifar_resnet20``: ResNet-20 with its BatchNorm statistics in the
+  Trainer's ``model_state``, on 12,800 synthetic CIFAR-10 images (the JAX
+  package's class-conditional set; real CIFAR is not in the repository),
+  2,000 test images, batch 128, lr 0.02, 400 steps, an evaluation every
+  20, damping 0.1, cadence 5/25.
 
 Usage::
 
-    python -m kfac_tpu_torch.bench_accuracy            # on the card
-    python -m kfac_tpu_torch.bench_accuracy --device cpu
+    python -m kfac_tpu_torch.bench_accuracy                  # digits_mlp, on the card
+    python -m kfac_tpu_torch.bench_accuracy --task digits_cnn --device cpu
 
 Prints one JSON line per curve and one with the result, whose keys are the
-JAX tool's. ``digits_cnn``, ``char_lm`` and ``cifar_resnet20`` wait for the
-port's convolution helper and models.
+JAX tool's. ``char_lm`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -37,6 +50,8 @@ from kfac_tpu_torch import data
 from kfac_tpu_torch.device import resolve_device
 from kfac_tpu_torch.layers.registry import register_model
 from kfac_tpu_torch.models import MLP
+from kfac_tpu_torch.models import layers as layers_lib
+from kfac_tpu_torch.models import resnet
 from kfac_tpu_torch.preconditioner import KFACPreconditioner
 from kfac_tpu_torch.training import Trainer
 
@@ -58,28 +73,103 @@ def nll_loss(model: torch.nn.Module):
     return loss_fn
 
 
-def task_digits_mlp(device: str | torch.device = 'cuda') -> dict[str, Any]:
-    """``_task_digits('mlp')``: the digits on ``device``, an MLP with one
-    hidden layer of 64, batch 100, lr 0.1, 600 steps, an evaluation every
-    17, K-FAC damping 0.003 and cadence 5/25."""
+class SmallCNN(torch.nn.Module):
+    """The JAX tool's ``SmallCNN`` on (N, 1, 8, 8): a 3x3 SAME conv of 16,
+    ReLU, a 3x3 SAME stride-2 conv of 32, ReLU, a dense head over the
+    (h, w, c)-ordered features (flax's NHWC flatten), flax's auto-names
+    (``Conv_0``, ``Conv_1``, ``Dense_0``) and initializers from ``seed``."""
+
+    def __init__(self, num_classes: int = 10, seed: int = 0, device: str | torch.device = 'cuda'):
+        super().__init__()
+        self.Conv_0 = layers_lib.SameConv2d(1, 16, 3)
+        self.Conv_1 = layers_lib.SameConv2d(16, 32, 3, 2)
+        self.Dense_0 = torch.nn.Linear(32 * 4 * 4, num_classes)
+        resnet.reset_parameters(self, torch.Generator().manual_seed(seed))
+        self.to(resolve_device(device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = torch.relu(self.Conv_1(torch.relu(self.Conv_0(x))))
+        return self.Dense_0(x.permute(0, 2, 3, 1).reshape(x.shape[0], -1))
+
+
+def _accuracy(logits: torch.Tensor, y: torch.Tensor) -> float:
+    return float((torch.argmax(logits, -1) == y).float().mean())
+
+
+def task_digits(arch: str = 'mlp', device: str | torch.device = 'cuda') -> dict[str, Any]:
+    """``_task_digits(arch)``: the digits on ``device``, batch 100, 600
+    steps, an evaluation every 17, cadence 5/25; ``'mlp'``: an MLP with
+    one hidden layer of 64, lr 0.1, damping 0.003; ``'cnn'``:
+    :class:`SmallCNN` on the 8x8 images, lr 0.02, damping 0.01."""
     device = resolve_device(device)
     (xtr, ytr), (xte, yte) = data.digits()
+    if arch == 'cnn':
+        xtr, xte = xtr.reshape(-1, 1, 8, 8), xte.reshape(-1, 1, 8, 8)
+        model = lambda seed: SmallCNN(10, seed=seed, device=device)  # noqa: E731
+        lr, damping = 0.02, 0.01
+    else:
+        model = lambda seed: MLP(64, features=(64,), num_classes=10, seed=seed, device=device)  # noqa: E731
+        lr, damping = 0.1, 0.003
     xte_t = torch.from_numpy(xte).to(device)
     yte_t = torch.from_numpy(yte).to(device)
 
     @torch.no_grad()
-    def evaluate(model) -> float:
-        return float((torch.argmax(model(xte_t), -1) == yte_t).float().mean())
+    def evaluate(model, model_state) -> float:
+        return _accuracy(model(xte_t), yte_t)
 
     return dict(
-        name='digits_mlp', device=device,
-        model=lambda seed: MLP(64, features=(64,), num_classes=10, seed=seed, device=device),
+        name=f'digits_{arch}', device=device, model=model, model_state=lambda model: None,
         loss=nll_loss, evaluate=evaluate,
         data=(torch.from_numpy(xtr).to(device), torch.from_numpy(ytr).to(device)),
-        batch=100, lr=0.1, higher_better=True, metric='test_acc',
+        batch=100, lr=lr, higher_better=True, metric='test_acc',
         max_steps=600, eval_every=17,
-        kfac_kwargs=dict(damping=0.003, factor_update_steps=5, inv_update_steps=25),
+        kfac_kwargs=dict(damping=damping, factor_update_steps=5, inv_update_steps=25),
     )
+
+
+def task_digits_mlp(device: str | torch.device = 'cuda') -> dict[str, Any]:
+    return task_digits('mlp', device)
+
+
+def task_digits_cnn(device: str | torch.device = 'cuda') -> dict[str, Any]:
+    return task_digits('cnn', device)
+
+
+def task_cifar_resnet20(device: str | torch.device = 'cuda') -> dict[str, Any]:
+    """``_task_cifar_resnet20`` on its synthetic branch: ResNet-20 on
+    12,800 synthetic CIFAR-10 training images and 2,000 test images
+    (NCHW), batch 128, lr 0.02, 400 steps, an evaluation every 20 (with the
+    running statistics), damping 0.1, cadence 5/25."""
+    device = resolve_device(device)
+    (xtr, ytr), (xte, yte) = data.cifar10(n_train=12800, n_test=2000)
+
+    def nchw(x):
+        return torch.from_numpy(x.transpose(0, 3, 1, 2).copy()).to(device)
+
+    xte_t, yte_t = nchw(xte), torch.from_numpy(yte).to(device)
+
+    @torch.no_grad()
+    def evaluate(model, model_state) -> float:
+        logits, _ = model(xte_t, model_state, train=False)
+        return _accuracy(logits, yte_t)
+
+    return dict(
+        name='cifar_resnet20', device=device,
+        model=lambda seed: resnet.resnet20(num_classes=10, seed=seed, device=device),
+        model_state=lambda model: layers_lib.initial_model_state(model, device),
+        loss=resnet.classification_loss, evaluate=evaluate,
+        data=(nchw(xtr), torch.from_numpy(ytr).to(device)),
+        batch=128, lr=0.02, higher_better=True, metric='test_acc',
+        max_steps=400, eval_every=20,
+        kfac_kwargs=dict(damping=0.1, factor_update_steps=5, inv_update_steps=25),
+    )
+
+
+TASKS = {
+    'digits_mlp': task_digits_mlp,
+    'digits_cnn': task_digits_cnn,
+    'cifar_resnet20': task_cifar_resnet20,
+}
 
 
 def build_trainer(task: dict[str, Any], use_kfac: bool, seed: int = 0, model=None) -> Trainer:
@@ -117,14 +207,14 @@ def run_one(task: dict[str, Any], use_kfac: bool, seed: int = 0) -> list[tuple]:
     and an evaluation first run on a scratch model, so kernel builds and
     library set-up stay off the clock, as XLA compiles do in the JAX tool."""
     scratch = build_trainer(task, use_kfac, seed)
-    state = scratch.init()
+    state = scratch.init(task['model_state'](scratch.model))
     for i in range(2):
         state, _ = scratch.step(state, batch_at(task, i))
-    task['evaluate'](scratch.model)
+    task['evaluate'](scratch.model, state.model_state)
     del scratch, state
 
     trainer = build_trainer(task, use_kfac, seed)
-    state = trainer.init()
+    state = trainer.init(task['model_state'](trainer.model))
     device = task['device']
     curve = []
     _sync(device)
@@ -135,7 +225,7 @@ def run_one(task: dict[str, Any], use_kfac: bool, seed: int = 0) -> list[tuple]:
             _sync(device)
             wall = time.perf_counter() - t0
             te0 = time.perf_counter()
-            m = task['evaluate'](trainer.model)
+            m = task['evaluate'](trainer.model, state.model_state)
             t0 += time.perf_counter() - te0  # evaluation off the clock
             curve.append((i + 1, round(wall, 3), round(m, 4)))
     return curve
@@ -149,10 +239,12 @@ def steps_to_target(curve, target, higher_better):
     return None, None
 
 
-def run_task(device: str | torch.device = 'cuda', seed: int = 0) -> dict[str, Any]:
-    """Both runs of the ``digits_mlp`` task, the self-calibrating target and
-    the ratios; prints the curves and the result as JSON lines."""
-    task = task_digits_mlp(device)
+def run_task(
+    device: str | torch.device = 'cuda', seed: int = 0, name: str = 'digits_mlp'
+) -> dict[str, Any]:
+    """Both runs of task ``name``, the self-calibrating target and the
+    ratios; prints the curves and the result as JSON lines."""
+    task = TASKS[name](device)
     name = task['name']
     _log(f'{name}: SGD run')
     sgd_curve = run_one(task, use_kfac=False, seed=seed)
@@ -207,13 +299,16 @@ def summarize(task: dict[str, Any], sgd_curve, kfac_curve) -> dict[str, Any]:
 
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    p.add_argument('--task', default='digits_mlp', choices=sorted(TASKS))
     p.add_argument('--device', default='cuda', help="'cuda' (default) or 'cpu'")
     p.add_argument('--seed', type=int, default=0)
     args = p.parse_args(argv)
     device = resolve_device(args.device)
     kind = torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'
     _log(f'device: {device} ({kind})')
-    run_task(device, args.seed)
+    if device.type == 'cuda':
+        torch.backends.cudnn.allow_tf32 = False  # f32 convolutions, as matmuls
+    run_task(device, args.seed, args.task)
     return 0
 
 

@@ -26,21 +26,42 @@ def _flatten(tree: Mapping[str, Any], prefix: tuple[str, ...] = ()):
 def from_flax_params(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """A ``state_dict`` for the port's module of the same structure.
 
-    Dense ``kernel`` (d_in, d_out) becomes ``weight`` (d_out, d_in);
-    ``Embed.embedding`` and LayerNorm ``scale`` become ``weight``; ``bias``
-    and raw params (``pos_embed``) keep their names. Paths join with '.'.
+    Dense ``kernel`` (d_in, d_out) becomes ``weight`` (d_out, d_in); a
+    conv ``kernel`` (kh, kw, C_in, C_out) becomes ``weight`` (C_out, C_in,
+    kh, kw); ``Embed.embedding`` and LayerNorm and BatchNorm ``scale``
+    become ``weight``; ``bias`` and raw params (``pos_embed``) keep their
+    names. Paths join with '.'.
     """
     out: dict[str, torch.Tensor] = {}
     for path, value in _flatten(params):
         *mod, leaf = path
         arr = np.asarray(value)
         if leaf == 'kernel':
-            if arr.ndim != 2:
-                raise ValueError(f'only dense kernels convert, got {path} {arr.shape}')
-            leaf, arr = 'weight', arr.T
+            if arr.ndim == 2:
+                arr = arr.T
+            elif arr.ndim == 4:
+                arr = arr.transpose(3, 2, 0, 1)
+            else:
+                raise ValueError(f'only dense and 2-D conv kernels convert, got {path} {arr.shape}')
+            leaf = 'weight'
         elif leaf in ('embedding', 'scale'):
             leaf = 'weight'
         out['.'.join((*mod, leaf))] = torch.from_numpy(np.array(arr, copy=True))
+    return out
+
+
+def from_flax_batch_stats(
+    batch_stats: Mapping[str, Any], device: str | torch.device = 'cpu'
+) -> dict[str, dict[str, torch.Tensor]]:
+    """The port's ``model_state`` from a flax ``batch_stats`` collection
+    (numpy): ``{'stage0_block0/bn1': {'mean': ..., 'var': ...}}``, each
+    BatchNorm's statistics under its module path joined with '/', on
+    ``device``."""
+    out: dict[str, dict[str, torch.Tensor]] = {}
+    for path, value in _flatten(batch_stats):
+        *mod, leaf = path
+        tensor = torch.from_numpy(np.array(value, np.float32)).to(device)
+        out.setdefault('/'.join(mod), {})[leaf] = tensor
     return out
 
 

@@ -1,9 +1,12 @@
-"""Datasets of the port's accuracy gate (counterpart of the ``digits``
-loader of ``examples/data.py``).
+"""Datasets of the port's accuracy gates and bench (counterpart of the
+``digits`` loader, ``synthetic_classification`` and the synthetic branch
+of ``cifar10`` in ``examples/data.py``: the same seeds, the same arrays).
 
 The digits come from a copy of scikit-learn's ``digits.csv.gz`` kept in
 ``kfac_tpu_torch/datasets/`` (origin and citation in its ``README.md``),
-so no machine needs scikit-learn or a network to run the gate.
+so no machine needs scikit-learn or a network to run the gate. CIFAR-10 is
+the JAX package's shape-faithful class-conditional synthetic set; real
+images are not in the repository.
 """
 
 from __future__ import annotations
@@ -29,3 +32,33 @@ def digits() -> tuple[tuple[np.ndarray, np.ndarray], tuple[np.ndarray, np.ndarra
     x, y = x[idx], y[idx].astype(np.int32)
     split = int(0.8 * len(x))
     return (x[:split], y[:split]), (x[split:], y[split:])
+
+
+def synthetic_classification(
+    n: int,
+    shape: tuple[int, ...],
+    num_classes: int,
+    seed: int = 0,
+    center_seed: int = 0,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Gaussian class-conditional images ``(x f32 (n, *shape), labels
+    int32)``: ``seed`` draws the labels and the per-sample noise,
+    ``center_seed`` the class centres from a stream of its own, so splits
+    of other seeds share one problem."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, num_classes, size=n)
+    centers = (
+        np.random.default_rng([center_seed, 0xCE27E5])
+        .normal(size=(num_classes,) + shape)
+        .astype(np.float32)
+    )
+    x = 0.5 * centers[labels] + rng.normal(size=(n,) + shape).astype(np.float32)
+    return x.astype(np.float32), labels.astype(np.int32)
+
+
+def cifar10(n_train: int = 50000, n_test: int = 10000):
+    """``((x_train, y_train), (x_test, y_test))``: (32, 32, 3) NHWC images
+    of 10 classes, the synthetic set (train seed 0, test seed 1)."""
+    train = synthetic_classification(n_train, (32, 32, 3), 10, seed=0)
+    test = synthetic_classification(n_test, (32, 32, 3), 10, seed=1)
+    return train, test

@@ -1,6 +1,6 @@
 """Model analysis: discover the supported layers of a module tree
-(counterpart of ``kfac_tpu/layers/registry.py``; ``nn.Linear`` only in
-this slice).
+(counterpart of ``kfac_tpu/layers/registry.py``): ``nn.Linear``, and 2-D
+convolutions (``nn.Conv2d`` and the port's flax-padded ``SameConv2d``).
 
 Layers are named by their module path joined with '/', which for the
 port's models equals the flax module path of the JAX package's
@@ -18,6 +18,7 @@ import torch.nn as nn
 
 from kfac_tpu_torch.device import resolve_device
 from kfac_tpu_torch.layers import helpers
+from kfac_tpu_torch.models.layers import SameConv2d
 
 
 def path_name(path: Iterable[str]) -> str:
@@ -33,14 +34,14 @@ def any_match(query: str, patterns: list[re.Pattern[str]]) -> bool:
 class Registry:
     """Result of model analysis.
 
-    ``layers`` maps registry name -> DenseHelper; ``modules`` maps it to the
+    ``layers`` maps registry name -> its LayerHelper; ``modules`` maps it to the
     registered ``nn.Module``; ``param_paths`` maps it to the module's
     parameter-name prefix in ``model.named_parameters()`` (``block0.attn.
     q_proj``). ``model`` is the analysed module tree.
     """
 
     model: nn.Module
-    layers: dict[str, helpers.DenseHelper]
+    layers: dict[str, helpers.LayerHelper]
     modules: dict[str, nn.Module]
     param_paths: dict[str, str]
 
@@ -51,14 +52,43 @@ class Registry:
         return list(self.layers)
 
 
-def make_helper(module: nn.Module, name: str) -> helpers.DenseHelper | None:
-    """A helper for a supported module, else None."""
+def _conv_padding(module: nn.Conv2d) -> Any:
+    """The padding a conv applies, in the helper's form; None for a
+    padding the patches do not reproduce (a mode other than zeros)."""
+    if isinstance(module, SameConv2d):
+        return 'SAME'
+    if module.padding_mode != 'zeros':
+        return None  # flax's CIRCULAR and REFLECT, likewise left out
+    if isinstance(module.padding, str):  # torch's 'same' (stride 1) is flax's rule
+        return module.padding.upper()
+    ph, pw = module.padding
+    return ((ph, ph), (pw, pw))
+
+
+def make_helper(module: nn.Module, name: str) -> helpers.LayerHelper | None:
+    """A helper for a supported module, else None. As the JAX package, it
+    leaves out grouped and dilated convolutions, and those whose padding
+    its patches cannot reproduce; ``nn.Conv1d`` and ``nn.Conv3d`` are not
+    2-D."""
     if isinstance(module, nn.Linear):
         return helpers.DenseHelper(
             name=name,
             has_bias=module.bias is not None,
             in_features=module.in_features,
             out_features=module.out_features,
+        )
+    if isinstance(module, nn.Conv2d):
+        padding = _conv_padding(module)
+        if module.groups != 1 or tuple(module.dilation) != (1, 1) or padding is None:
+            return None
+        return helpers.Conv2dHelper(
+            name=name,
+            has_bias=module.bias is not None,
+            in_channels=module.in_channels,
+            out_channels=module.out_channels,
+            kernel_size=tuple(module.kernel_size),
+            strides=tuple(module.stride),
+            padding=padding,
         )
     return None
 
@@ -151,7 +181,7 @@ def register_model(
                 f'model parameters are on {p.device}, not on {device}'
             )
     skip_patterns = [re.compile(p) for p in (skip_layers or [])]
-    layers: dict[str, helpers.DenseHelper] = {}
+    layers: dict[str, helpers.LayerHelper] = {}
     modules: dict[str, nn.Module] = {}
     param_paths: dict[str, str] = {}
     for prefix, mod in model.named_modules():

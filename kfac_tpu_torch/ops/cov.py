@@ -1,11 +1,19 @@
 """Covariance (Kronecker factor) numerics (counterpart of
-``kfac_tpu/ops/cov.py``, dense layers only; conv and routed factors come
-in a later slice).
+``kfac_tpu/ops/cov.py``: dense and 2-D convolution factors; routed
+factors come in a later slice).
+
+Convolutions are NCHW here, as PyTorch keeps them, where the JAX package
+is NHWC. Their patches come out with the JAX package's feature order,
+channel-major (c, kh, kw), and their rows in its (n, h, w) order, so the
+A and G factors are the JAX package's element for element.
 """
 
 from __future__ import annotations
 
+from typing import Sequence, Union
+
 import torch
+import torch.nn.functional as F
 
 from kfac_tpu_torch.ops import sym_cov as sym_cov_lib
 
@@ -54,3 +62,91 @@ def linear_g_factor(g: torch.Tensor) -> torch.Tensor:
     """G factor of a dense layer from the loss gradient w.r.t. its output."""
     g = g.reshape(-1, g.shape[-1])
     return get_cov(g)
+
+
+# ((top, bottom), (left, right)) zero padding of an image's two spatial dims
+Pads = tuple[tuple[int, int], tuple[int, int]]
+# 'SAME', 'VALID' or explicit pairs, as flax's ``nn.Conv`` takes them
+Padding = Union[str, Sequence[Sequence[int]]]
+
+
+def same_padding(
+    in_hw: Sequence[int], kernel_size: Sequence[int], strides: Sequence[int]
+) -> Pads:
+    """Flax's (XLA's) SAME padding of an undilated conv: the output keeps
+    ``ceil(in / stride)`` positions, and of the ``total`` pad a dim needs
+    ``total // 2`` goes before and the rest after. Under stride 2 an even
+    input is padded (0, 1) by a 3x3 kernel, not (1, 1)."""
+    pads = []
+    for size, k, s in zip(in_hw, kernel_size, strides):
+        out = -(-size // s)
+        total = max((out - 1) * s + k - size, 0)
+        pads.append((total // 2, total - total // 2))
+    return tuple(pads)
+
+
+def resolve_padding(
+    padding: Padding,
+    in_hw: Sequence[int],
+    kernel_size: Sequence[int],
+    strides: Sequence[int],
+) -> Pads:
+    """Explicit pairs for ``padding`` on an input of spatial size
+    ``in_hw``."""
+    if isinstance(padding, str):
+        mode = padding.upper()
+        if mode == 'SAME':
+            return same_padding(in_hw, kernel_size, strides)
+        if mode == 'VALID':
+            return ((0, 0), (0, 0))
+        raise ValueError(f'padding {padding!r} is not SAME, VALID or pairs')
+    (t, b), (l, r) = padding
+    return ((int(t), int(b)), (int(l), int(r)))
+
+
+def extract_patches(
+    x: torch.Tensor,
+    kernel_size: Sequence[int],
+    strides: Sequence[int],
+    padding: Padding,
+) -> torch.Tensor:
+    """im2col of an NCHW image -> (batch, out_h, out_w, c * kh * kw), the
+    layout of ``kfac_tpu.ops.cov.extract_patches_nhwc``: features
+    channel-major (c, kh, kw), as ``lax.conv_general_dilated_patches``
+    gives them. The windows are a strided view of the padded image, copied
+    once into that layout (``F.unfold`` on a CUDA tensor launches one
+    im2col kernel an image: 256 a layer at the bench's ResNet batch)."""
+    (t, b), (l, r) = resolve_padding(padding, x.shape[-2:], kernel_size, strides)
+    (kh, kw), (sh, sw) = kernel_size, strides
+    windows = F.pad(x, (l, r, t, b)).unfold(2, kh, sh).unfold(3, kw, sw)  # (n, c, oh, ow, kh, kw)
+    n, c, oh, ow = windows.shape[:4]
+    return windows.permute(0, 2, 3, 1, 4, 5).reshape(n, oh, ow, c * kh * kw)
+
+
+def conv2d_a_factor(
+    a: torch.Tensor,
+    kernel_size: Sequence[int],
+    strides: Sequence[int],
+    padding: Padding,
+    has_bias: bool,
+) -> torch.Tensor:
+    """A factor of a 2-D conv from its NCHW input (before any padding):
+    patch rows, with a bias column of ones, divided by the spatial output
+    size before the covariance, as the JAX package divides them (the
+    factor then carries 1 / spatial^2)."""
+    patches = extract_patches(a, kernel_size, strides, padding)
+    spatial_size = patches.shape[1] * patches.shape[2]
+    rows = patches.reshape(-1, patches.shape[-1])
+    if has_bias:
+        rows = append_bias_ones(rows)
+    rows = rows / spatial_size
+    return get_cov(rows)
+
+
+def conv2d_g_factor(g: torch.Tensor) -> torch.Tensor:
+    """G factor of a 2-D conv from the loss gradient w.r.t. its NCHW
+    output: rows in (n, h, w) order, divided by h * w."""
+    spatial_size = g.shape[2] * g.shape[3]
+    rows = g.permute(0, 2, 3, 1).reshape(-1, g.shape[1])
+    rows = rows / spatial_size
+    return get_cov(rows)

@@ -57,16 +57,30 @@ def batched_eigh(factor: torch.Tensor, impl: str = 'device') -> tuple[torch.Tens
     factors that drift non-symmetric (a robustness corner; the factors here
     are symmetric by construction). A half-precision factor is upcast to
     f32 first; a non-float one raises.
+
+    A matrix of the stack with a non-finite entry decomposes to all NaN, as
+    the JAX eigh leaves it NaN, chosen on the device (no host read): it is
+    replaced by the identity before the solver, which on the card raises
+    on a NaN matrix (cuSOLVER's error 65), and its outputs by NaN after.
     """
     if not factor.dtype.is_floating_point:
         raise TypeError(
             f'batched_eigh requires a real floating factor stack; got {factor.dtype}'
         )
-    f = factor.float()
-    if impl == 'device':
-        return torch.linalg.eigh(f)
     if impl not in EIGH_IMPLS:
         raise ValueError(f"unknown eigh impl {impl!r}: 'device', 'host', or 'eig_host'")
+    f = factor.float()
+    finite = torch.isfinite(f).all(dim=-1).all(dim=-1)[..., None]
+    eye = torch.eye(f.shape[-1], dtype=f.dtype, device=f.device)
+    w, v = _eigh(torch.where(finite[..., None], f, eye), impl)
+    nan = float('nan')
+    return torch.where(finite, w, nan), torch.where(finite[..., None], v, nan)
+
+
+def _eigh(f: torch.Tensor, impl: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`batched_eigh` of a finite f32 stack."""
+    if impl == 'device':
+        return torch.linalg.eigh(f)
     m = f.detach().cpu().numpy()
     if impl == 'host':
         w, v = np.linalg.eigh(m)
@@ -77,7 +91,7 @@ def batched_eigh(factor: torch.Tensor, impl: str = 'device') -> tuple[torch.Tens
         w = np.take_along_axis(w, order, -1)
         v = np.take_along_axis(v, order[..., None, :], -1)
     return tuple(
-        torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(factor.device) for x in (w, v)
+        torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(f.device) for x in (w, v)
     )
 
 

@@ -20,7 +20,9 @@ the Trainer on the same global batch: each step takes the rank's row
 block of it (the JAX package's ``batch_sharding``), and before the
 engine's step the grads and the loss are mean-reduced across the ranks
 (what pjit does implicitly), so the loss a step returns and the
-parameters every rank updates are the global ones; the health sentinel's
+parameters every rank updates are the global ones; the port's BatchNorm
+layers take their batch moments over the global batch, as pjit's do
+(``models.layers.sync_batch_norms``); the health sentinel's
 ``skip_nonfinite`` judges those reduced values, so its verdict is the same
 on every rank. Its checkpoints are sharded: every rank saves its factor
 blocks, rank 0 the extras, and every rank loads the extras on a restore,
@@ -45,6 +47,7 @@ from kfac_tpu_torch import tracing
 from kfac_tpu_torch.async_inverse import host as async_host_lib
 from kfac_tpu_torch.device import resolve_device
 from kfac_tpu_torch.layers import capture as capture_lib
+from kfac_tpu_torch.models import layers as layers_lib
 from kfac_tpu_torch.observability import ledger as ledger_lib
 from kfac_tpu_torch.preconditioner import set_grads
 
@@ -174,6 +177,7 @@ class Trainer:
         self._run_stats = capture_lib.CurvatureCapture(self.kfac.registry).value_stats_and_grad(
             self.loss_fn, has_aux=True
         )
+        layers_lib.sync_batch_norms(self.model, self.kfac.mesh if self._distributed() else None)
 
     # ------------------------------------------------------------- builders
 

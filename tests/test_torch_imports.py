@@ -52,6 +52,8 @@ def test_port_file_imports_no_jax_and_no_kfac_tpu(path):
     'async_inverse/sliced.py', 'async_inverse/host.py', 'hyperparams.py', 'layers/registry.py',
     'assignment.py', 'enums.py', 'parallel/__init__.py', 'parallel/collectives.py',
     'parallel/mesh.py', 'parallel/kaisa.py', 'parallel/launch.py', 'observability/comms.py',
+    'ops/cov.py', 'layers/helpers.py', 'models/layers.py', 'models/resnet.py', 'data.py',
+    'bench_accuracy.py', 'bench_resnet.py', 'training.py',
 ])
 def test_checkpoint_and_resilience_modules_are_covered(rel):
     path = ROOT / 'kfac_tpu_torch' / rel
@@ -110,6 +112,20 @@ def test_entry_points_default_to_cuda_and_raise_without_gpu(no_gpu):
     # the bench entry runs with --device cpu (tests/test_torch_bench_lm.py)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         bench_lm.main(['--config', 'tiny'])
+
+
+def test_conv_entry_points_default_to_cuda_and_raise_without_gpu(no_gpu):
+    from kfac_tpu_torch import bench_accuracy, bench_resnet
+    from kfac_tpu_torch.models import resnet
+
+    for make in (resnet.resnet20, resnet.resnet50, bench_accuracy.SmallCNN):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert next(resnet.resnet20(device='cpu').parameters()).device.type == 'cpu'
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench_resnet.main(['--config', 'resnet32_cifar'])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench_accuracy.task_digits_cnn()
 
 
 def test_register_model_rejects_a_model_on_another_device():

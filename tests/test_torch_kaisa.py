@@ -77,6 +77,7 @@ from kfac_tpu.parallel import kaisa_mesh as jax_kaisa_mesh
 from kfac_tpu.parallel import mesh as jmesh
 from kfac_tpu.parallel.kaisa import size_class as jax_size_class
 from kfac_tpu_torch import assignment, convert
+from kfac_tpu_torch.models import resnet
 from kfac_tpu_torch.ops import factors
 from kfac_tpu_torch.parallel import spawn_world
 from kfac_tpu_torch.parallel.kaisa import size_class
@@ -90,6 +91,7 @@ OBSERVE_VARIANTS = (
 # the Trainer paths held against the JAX Trainer's, by world
 TRAINER_PATHS = {1: ('step',), 2: ('step', 'scan_steps', 'step_accumulate'), 4: ('step',)}
 EIGEN = dict(compute_method='eigen')
+RESNET_STEPS = 3
 
 
 def rng(seed):
@@ -329,6 +331,20 @@ def run_world(world):
     spec['cases'].append((
         'trainer', 'train', dict(frac=low, model='lm', steps=3, kw=ranks.TRAINER_KW, paths=paths),
     ))
+    if world == 2:
+        # the ResNet through the Trainer against the port's dense engine
+        # (BatchNorm moments over the global batch: 2 images a rank)
+        g = rng(11)
+        spec['resnet'] = {
+            'weights': {
+                k: v.numpy() for k, v in resnet.CifarResNet(depth=8, seed=3, device='cpu').state_dict().items()
+            },
+            'batches': [
+                (g.standard_normal((4, 3, 8, 8)).astype(np.float32), g.integers(0, 10, 4).astype(np.int64))
+                for _ in range(RESNET_STEPS)
+            ],
+        }
+        spec['cases'].append(('resnet', 'resnet', dict(frac=low, steps=RESNET_STEPS)))
     # the sentinel, metrics and flight recorder against the JAX engine
     root = tempfile.mkdtemp(prefix=f'kfac_torch_kaisa_w{world}_')
     ref['observe'] = {}
@@ -955,6 +971,39 @@ class TestWorld2(MultiRankCases):
     @pytest.mark.parametrize('path', ['scan_steps', 'step_accumulate'])
     def test_trainer_paths_match_jax(self, run, path):
         self.check_trainer_path(run, path)
+
+    def test_resnet_trainer_matches_the_dense_engine(self, run):
+        # CifarResNet(depth=8) through the Trainer, 3 steps at cadence 1/2
+        # on 2 ranks (2 images each, BatchNorm over the global 4): losses
+        # rtol 1e-5 of the dense engine's on the global batch, parameter
+        # updates rtol 1e-4 with atol 1e-4 x the largest, running
+        # statistics rtol 1e-5 with atol 1e-6 x max; every rank's
+        # parameters and statistics bitwise rank 0's
+        _, results, _ = run
+        dense, kaisa = results[0]['resnet']['dense'], results[0]['resnet']['kaisa']
+        assert kaisa['layers'] == 8 and all(np.isfinite(kaisa['losses']))
+        np.testing.assert_allclose(kaisa['losses'], dense['losses'], rtol=1e-5)
+        weights = resnet.CifarResNet(depth=8, seed=3, device='cpu').state_dict()
+        delta = {n: dense['params'][n] - weights[n].numpy() for n in dense['params']}
+        scale = max(float(np.max(np.abs(d))) for d in delta.values())
+        for n, d in delta.items():
+            np.testing.assert_allclose(
+                kaisa['params'][n] - weights[n].numpy(), d, rtol=1e-4, atol=1e-4 * scale, err_msg=n
+            )
+        for key, stats in dense['model_state'].items():
+            for f, v in stats.items():
+                np.testing.assert_allclose(
+                    kaisa['model_state'][key][f], v, rtol=1e-5, atol=1e-6 * np.max(np.abs(v)),
+                    err_msg=f'{key}/{f}',
+                )
+        for other in results[1:]:
+            theirs = other['resnet']['kaisa']
+            assert theirs['losses'] == kaisa['losses']
+            assert all(np.array_equal(theirs['params'][n], p) for n, p in kaisa['params'].items())
+            assert all(
+                np.array_equal(theirs['model_state'][k][f], v)
+                for k, s in kaisa['model_state'].items() for f, v in s.items()
+            )
 
 
 class TestWorld4(MultiRankCases):

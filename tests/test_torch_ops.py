@@ -417,6 +417,43 @@ def test_compute_eigh_matches_jax_through_reconstruction():
     close(rec, wrec, rtol=1e-4, atol_rel=1e-5)
 
 
+def nonfinite_factor(kind):
+    f = spd(33, 64)
+    if kind == 'nan_pair':
+        f[3, 5] = f[5, 3] = np.nan
+    elif kind == 'all_nan':
+        f[:] = np.nan
+    else:
+        f[7, 7] = np.inf
+    return f
+
+
+@pytest.mark.parametrize('impl', ['device', 'host', 'eig_host'])
+@pytest.mark.parametrize('kind', ['nan_pair', 'all_nan', 'inf'])
+def test_compute_eigh_of_a_nonfinite_factor_is_nan_where_jax_is(kind, impl):
+    # The JAX eigh returns NaN eigenvalues for a factor with one NaN pair
+    # (63 of 64; one finite), all NaN or one inf (64), and NaN eigenvectors
+    # but for one row, and does not raise. The port decomposes such a factor
+    # to all NaN, chosen on the device (the card's eigh raises on it), so
+    # every eigenvalue NaN in JAX's is NaN in the port's and the damped
+    # inverse is all NaN in both: a refresh of such a factor poisons that
+    # layer alike. A finite slot of the same stack is untouched.
+    f = nonfinite_factor(kind)
+    got = factors.compute_eigh(t(f), impl)
+    want = jfactors.compute_eigh(jnp.asarray(f))
+    jd, jq = np.asarray(want.d), np.asarray(want.q)
+    assert int(np.isnan(jd).sum()) == (63 if kind == 'nan_pair' else 64)
+    assert int(np.isnan(jq).sum()) >= 63 * 64
+    assert bool(torch.isnan(got.d).all()) and bool(torch.isnan(got.q).all())
+    assert bool(torch.isnan((got.q / (got.d + 0.01)) @ got.q.T).all())
+    assert np.isnan((jq / (jd + 0.01)) @ jq.T).all()
+    stack = torch.stack([t(f), t(spd(34, 64))])
+    d, q = factors.batched_eigh(stack, impl)
+    jd1, _ = jfactors.batched_eigh(jnp.asarray(spd(34, 64))[None], 'xla')
+    assert bool(torch.isnan(d[0]).all()) and bool(torch.isfinite(d[1]).all() and torch.isfinite(q[1]).all())
+    close(d[1], np.asarray(jd1)[0], rtol=1e-4, atol_rel=1e-5)
+
+
 @pytest.mark.parametrize('impl,jimpl', [('device', 'xla'), ('host', 'host'), ('eig_host', 'eig_host')])
 def test_batched_eigh_matches_jax(impl, jimpl):
     """Each ``impl`` on a (3, 12, 12) stack against the JAX function's: the

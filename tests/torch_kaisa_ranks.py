@@ -22,6 +22,8 @@ from kfac_tpu_torch import checkpoint, convert, tracing
 from kfac_tpu_torch.health import HealthConfig
 from kfac_tpu_torch.layers import capture, registry
 from kfac_tpu_torch.models import MLP, TransformerLM, lm_loss
+from kfac_tpu_torch.models import layers as layers_lib
+from kfac_tpu_torch.models import resnet
 from kfac_tpu_torch.observability.flight_recorder import PostmortemWriter, drain_flight
 from kfac_tpu_torch.observability.metrics import MetricsCollector
 from kfac_tpu_torch.ops import factors
@@ -44,6 +46,9 @@ POISON = 'dense0'  # its A statistic is NaN on the observed run's step 1
 OBS_STEPS = 3
 # the checkpoint cases' engine (tests/test_aux.py's, with the sentinel)
 CKPT_KW = dict(damping=0.01, kl_clip=None, lr=0.1)
+# the ResNet case: CifarResNet(depth=8) at 8x8, cadence 1/2, as
+# tests/test_torch_resnet.py's Trainer steps
+RESNET_KW = dict(damping=0.01, lr=0.1, factor_update_steps=1, inv_update_steps=2)
 
 
 def numpy_tree(tree):
@@ -263,6 +268,38 @@ def case_train(spec, rank, frac, model, steps, kw, paths=('step',)):
         out[path] = {
             'losses': losses,
             'params': {n: p.detach().numpy().copy() for n, p in net.named_parameters()},
+        }
+    return out
+
+
+def case_resnet(spec, rank, frac, steps):
+    """``steps`` Trainer steps of ``CifarResNet(depth=8)`` with a
+    ``DistributedKFAC`` on the global batches of ``spec['resnet']``
+    (each rank its row block; BatchNorm moments over the global batch):
+    the losses, the parameters and the running statistics; rank 0 also runs
+    the dense engine on the global batches beside it."""
+    out = {}
+    for kind in ('kaisa', 'dense') if rank == 0 else ('kaisa',):
+        net = resnet.CifarResNet(depth=8, device='cpu')
+        net.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in spec['resnet']['weights'].items()})
+        reg = registry.register_model(net, device='cpu')
+        engine = config(reg, **RESNET_KW)
+        if kind == 'kaisa':
+            engine = DistributedKFAC(engine, kaisa_mesh(frac, device='cpu'))
+        trainer = Trainer(
+            net, torch.optim.SGD(net.parameters(), lr=0.1, momentum=0.9),
+            resnet.classification_loss(net), kfac=engine, device='cpu',
+        )
+        state = trainer.init(layers_lib.initial_model_state(net, 'cpu'))
+        losses = []
+        for x, y in spec['resnet']['batches'][:steps]:
+            state, value = trainer.step(state, (torch.from_numpy(x), torch.from_numpy(y)))
+            losses.append(float(value))
+        out[kind] = {
+            'losses': losses,
+            'params': {n: p.detach().numpy().copy() for n, p in net.named_parameters()},
+            'model_state': numpy_tree(state.model_state),
+            'layers': len(reg),
         }
     return out
 
@@ -620,6 +657,7 @@ CASES = {
     'variants': case_variants,
     'unexecuted': case_unexecuted,
     'train': case_train,
+    'resnet': case_resnet,
     'observe': case_observe,
     'checkpoint': case_checkpoint,
     'manager': case_manager,
