@@ -198,9 +198,46 @@ Phases, one JSON line each:
    process for ``tiny`` and then ``flagship``, at a quarter of the bench's
    own window (25 timed steps, 25 ``scan_steps``), counts set to 0 before each
    and read after: every rate finite and positive, every fused-kernel
-   probe family timed without error, the async spike probe's keys, and
+   probe family timed without error, the async spike probe's keys, the
+   compression probe's (its int8 wire ratio >= 3, its offload's
+   ``prefetch_hit_rate`` 1.0), and
    every kernel launched exactly as often as the configuration says
    (``sym_cov_ema`` by the fused-kernel probe).
+15. ``engine_knobs``: the engines' last knobs. (d) first, in this
+   process: the flagship on the dense engine (EIGEN, cadence 10/100,
+   ``OffloadConfig(min_cold_steps=4, prefetch_lead=1)``), 21 steps, and
+   the same without offload: losses bitwise ``main_path``'s (its 20
+   counted steps and its profiled step 20) and the run's without,
+   ``memory_allocated`` after each step (a spilled step's drop at least
+   the factors' 264,462,480 bytes, less what the run without offload
+   itself moves across those steps), the counters (``prefetch_hit_rate``
+   1.0), the ms and host syncs (none) of the spill, prefetch and restore
+   steps against the same steps without. Then one NCCL rank a visible card
+   (``spawn_world``), each run's counts set to 0 just before and read just
+   after on every rank: (a) the flagship on a ``DistributedKFAC``, EIGEN,
+   cadence 10/10, ``async_inverse='sliced'``, 31 steps (COMM-OPT; four
+   cards also MEM-OPT at 0.25): the decompositions after the swaps at 20
+   and 30 bit for bit the same engine's synchronous refresh of its factors
+   after 10 and 20, the step ms over steps 11-30 beside ``async_refresh``'s
+   dense ones, host syncs by kind of step, peak memory; then 11 steps of
+   INVERSE + Newton-Schulz, sliced: ``fused_ns_step_stacked`` inside the
+   range the refreshes give, the swapped inverses' residuals against the
+   factors they came from <= 5e-2. (b) The async spike probe's MLP on a
+   ``DistributedKFAC``, EIGEN, ``'host'``: each rank's boundary wait in the
+   pump, and after each swap the preconditioned grads within rtol 5e-3,
+   atol 1e-4 of the synchronous engine's refresh of the factors a window
+   back. (c) The flagship at cadence 10/10 on ALLREDUCE_BUCKETED, 21
+   steps at the f32, int8 and fp8 wires: losses finite and falling, int8's
+   final loss within 5 % of f32's, parameters bitwise on every rank,
+   ``comms_report()``'s ``wire_bytes`` x 3 <= ``raw_bytes``, the bytes the
+   transport's collectives moved in capture step 10 (on more than one card
+   the int8 ring bytes below the f32 all-reduce's), the capture and plain
+   step ms of each wire, and capture step 20 under torch.profiler with the
+   quantize and dequantize scopes' device ms. (e) The flagship on a
+   ``DistributedKFAC`` (COMM-OPT on one card, MEM-OPT on more), cadence
+   10/10, 11 steps with offload and without: losses bitwise, each rank's
+   ``memory_allocated`` drop at a spilled step at least its shard's factor
+   bytes, less what the run without offload moves across those steps.
 
 Then each phase's seconds and the script's (``timing``), the card's name
 and power limit as nvidia-smi prints them, the
@@ -1014,12 +1051,17 @@ def device_profile(fn) -> dict:
     )
 
 
-def profile_step(run, i) -> dict:
+def profile_step(run, i, losses=None) -> dict:
     """Device time by kernel over the run's next step, ``i``, from
-    torch.profiler."""
+    torch.profiler; its loss appended to ``losses`` when given."""
+    def stepping():
+        loss, _ = run.step()
+        if losses is not None:
+            losses.append(loss)
+
     return dict(
         step=i, kind='capture' if i % run.capture_every == 0 else 'plain',
-        **device_profile(run.step),
+        **device_profile(stepping),
     )
 
 
@@ -1141,9 +1183,10 @@ def step_summary(seconds) -> dict:
     )
 
 
-def run_main_path(launches, summary, main_losses, snaps) -> bool:
+def run_main_path(launches, summary, main_losses, snaps, tail=None) -> bool:
     """The flagship's 20 steps; ``snaps`` takes host copies of its state
-    after steps ``RESUME_INTERVAL`` and ``RESUME_STEP``, off the clock."""
+    after steps ``RESUME_INTERVAL`` and ``RESUME_STEP``, off the clock;
+    ``tail`` the losses of the two profiled steps after them."""
     wrappers = main_path_wrappers()
     torch.cuda.reset_peak_memory_stats()
     for w in wrappers.values():
@@ -1175,7 +1218,7 @@ def run_main_path(launches, summary, main_losses, snaps) -> bool:
     ))
     # after the counted run: one more capture step and one plain step
     emit(dict(phase='profile', steps=[
-        profile_step(run, STEPS), profile_step(run, STEPS + 1),
+        profile_step(run, STEPS, tail), profile_step(run, STEPS + 1, tail),
     ]))
     return passed
 
@@ -2117,8 +2160,9 @@ def async_probe_host(launches, device) -> dict:
     return out
 
 
-def run_async_refresh(launches, device=torch.device('cuda')) -> bool:
-    """The async refresh (see the module's docstring, phase 10)."""
+def run_async_refresh(launches, device=torch.device('cuda'), summary=None) -> bool:
+    """The async refresh (see the module's docstring, phase 10);
+    ``summary`` takes (a)'s step ms over steps 11-30 of each mode."""
     out: dict = dict(phase='async_refresh', config=FLAGSHIP, cadence=[ASYNC_EVERY, ASYNC_EVERY])
     runs = {}
     sync, _, sync_decomps = async_flagship_run(None, launches, device)
@@ -2136,6 +2180,8 @@ def run_async_refresh(launches, device=torch.device('cuda')) -> bool:
         not oracle['cusolver_repeatable'] and oracle['d_rel'] <= 1e-5 and oracle['recon_rel'] <= 1e-4
     )
     out.update(flagship=runs, oracle=oracle)
+    if summary is not None:
+        summary.update(sync=sync['steps_11_30'], sliced=sliced['steps_11_30'])
     out['sliced_ns'] = async_probe_ns(launches, device)
     out['host'] = async_probe_host(launches, device)
     out['passed'] = bool(
@@ -3164,11 +3210,664 @@ def run_resnet(launches) -> bool:
     return ok and passed
 
 
+# ------------------------------------------------------------ engine_knobs
+
+KNOBS_EVERY = 10  # the cadence of (a), (c) and (e)
+KNOBS_SLICED_STEPS = 31  # (a): swaps at 10, 20 and 30
+KNOBS_NS_STEPS = 11  # (a)'s INVERSE + Newton-Schulz run: the swap at 10
+KNOBS_COMP_STEPS = 21  # (c): captures and refreshes at 0, 10 and 20
+KNOBS_WIRES = (('f32', None), ('int8', 'int8'), ('fp8', 'fp8'))
+KNOBS_OFFLOAD = dict(min_cold_steps=4, prefetch_lead=1)
+KNOBS_OFFLOAD_STEPS = 21  # (d): spills at 1 and 11, prefetches at 9 and 19, restores at 10 and 20
+KNOBS_KAISA_OFFLOAD_STEPS = 11  # (e): a spill at 1, a prefetch at 9, a restore at 10
+KNOBS_SPILLED_STEP = 5  # a step inside the first spill window
+# (d): the flagship's factor elements (dense), the ISSUE's figure
+FLAGSHIP_FACTOR_ELEMENTS = 66_115_620
+
+
+def knobs_fracs(world: int, part: str) -> list[float]:
+    """(a)'s fractions: COMM-OPT, and on four cards MEM-OPT beside it; (c)
+    COMM-OPT; (e) COMM-OPT on one card, MEM-OPT on more."""
+    mem_opt = 1.0 / world
+    if part == 'sliced':
+        return [1.0] if world == 1 else [1.0, mem_opt]
+    if part == 'offload':
+        return [mem_opt]
+    return [1.0]
+
+
+def knobs_flagship(device, frac, **kfac_kw):
+    """The flagship LM (weights from seed 1, one seeded global batch)
+    through ``Trainer`` with a ``DistributedKFAC`` over ``kaisa_mesh(frac)``
+    (damping 0.003, lr 0.1, cadence 10/10 unless ``kfac_kw`` says else,
+    SGD(0.1, momentum 0.9))."""
+    import kfac_tpu_torch as kt
+    from kfac_tpu_torch.models import TransformerLM, lm_loss
+    from kfac_tpu_torch.parallel import DistributedKFAC, kaisa_mesh
+    from kfac_tpu_torch.training import Trainer
+
+    cfg = FLAGSHIP
+    model = TransformerLM(
+        vocab_size=cfg['vocab'], d_model=cfg['d_model'], num_heads=cfg['heads'],
+        num_layers=cfg['layers'], max_len=cfg['seq'], seed=1, device=device,
+    )
+    gen = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, cfg['vocab'], (cfg['batch'], cfg['seq']), generator=gen)
+    batch = (tokens.to(device), torch.roll(tokens, -1, dims=1).to(device))
+    reg = kt.register_model(model, skip_layers=['lm_head'], device=device)
+    kw = dict(damping=0.003, lr=0.1, factor_update_steps=KNOBS_EVERY, inv_update_steps=KNOBS_EVERY)
+    kw.update(kfac_kw)
+    engine = DistributedKFAC(kt.KFACPreconditioner(reg, device=device, **kw),
+                             kaisa_mesh(frac, device=device))
+    loss = lm_loss(model)
+    trainer = Trainer(model, torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
+                      lambda ms, b: (loss(b), ms), kfac=engine, device=device)
+    return trainer, engine, model, batch
+
+
+class KnobRun:
+    """A Trainer, its engine, model and batch in the shape ``counted_step``
+    drives."""
+
+    def __init__(self, trainer, batch):
+        self.trainer, self.batch = trainer, batch
+        self.kfac = trainer.kfac
+        self.state = trainer.init()
+
+    @property
+    def kstate(self):
+        return self.state.kfac_state
+
+
+def zero_counts(wrappers) -> None:
+    for w in wrappers.values():
+        w.launches = 0
+
+
+def live_solves(engine, units) -> int:
+    """Stacked solves the rank launches over ``units`` ((side, key)): one a
+    store whose factor block holds a live slot."""
+    n = 0
+    for side, key in units:
+        sb = engine._stores[side, key]
+        n += engine._factor_range(sb.padded)[0] < len(sb.layers)
+    return n
+
+
+def knobs_sliced(rank, device, frac, wrappers) -> dict:
+    """(a): the flagship, EIGEN, ``async_inverse='sliced'``, 31 steps; the
+    oracle (the synchronous refresh of its factors a window back, on the
+    same engine, bit for bit); then 11 steps of INVERSE + Newton-Schulz,
+    sliced, with the swapped inverses' residuals against the factors they
+    came from."""
+    from kfac_tpu_torch.ops import factors
+
+    trainer, engine, model, batch = knobs_flagship(device, frac, async_inverse='sliced')
+    run = KnobRun(trainer, batch)
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    zero_counts(wrappers)
+    losses, seconds, syncs, factors_at, decomps_at = [], [], [], {}, {}
+    for i in range(KNOBS_SLICED_STEPS):
+        loss, sec, n = counted_step(run)
+        losses.append(loss)
+        seconds.append(sec)
+        syncs.append(n)
+        if i in (10, 20):
+            factors_at[i] = host_copy({'a': run.kstate.a, 'g': run.kstate.g})
+        if i in (20, 30):
+            decomps_at[i] = host_copy({f: getattr(run.kstate, f) for f in ('qa', 'qg', 'da', 'dg')})
+    counts = {n: w.launches for n, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated(device)
+    bitwise, differing = True, []
+    for swap, src in ASYNC_ORACLE:
+        ref = engine.update_inverses(dataclasses.replace(
+            run.kstate, a={k: v.to(device) for k, v in factors_at[src]['a'].items()},
+            g={k: v.to(device) for k, v in factors_at[src]['g'].items()},
+        ))
+        for f, stacks in decomps_at[swap].items():
+            for k, v in stacks.items():
+                if not torch.equal(getattr(ref, f)[k].cpu(), v):
+                    bitwise = False
+                    differing.append(f'{swap}:{f}:{k}')
+    window_ms = [s * 1e3 for s in seconds[11:]]
+    median = statistics.median(window_ms)
+    out = dict(
+        frac=frac, strategy=engine.strategy.name, losses=losses,
+        step_ms=[s * 1e3 for s in seconds],
+        steps_11_30=dict(ms_median=median, ms_max=max(window_ms),
+                         refresh_spike_ratio=max(window_ms) / median),
+        syncs=sliced_syncs_by_kind(syncs, engine._async_n_slices), peak_memory_bytes=peak,
+        slice_plan=[[list(u) for u in s] for s in engine._async_slices],
+        launches=counts, oracle=dict(bitwise=bitwise, differing=differing[:8]),
+        param_digest=param_digest(model),
+    )
+    del trainer, engine, model, run
+    torch.cuda.empty_cache()
+    # INVERSE + Newton-Schulz, sliced
+    trainer, engine, model, batch = knobs_flagship(device, frac, async_inverse='sliced', **INVERSE_NS)
+    run = KnobRun(trainer, batch)
+    zero_counts(wrappers)
+    ns_losses = []
+    f0 = None
+    for i in range(KNOBS_NS_STEPS):
+        loss, _, _ = counted_step(run)
+        ns_losses.append(loss)
+        if i == 0:  # the window's slices decompose the factors after step 0
+            f0 = {'a': dict(run.kstate.a), 'g': dict(run.kstate.g)}
+            f0 = pytree.tree_map_only(torch.Tensor, torch.clone, f0)
+    ns_counts = {n: w.launches for n, w in wrappers.items()}
+    res = engine.inverse_residuals(dataclasses.replace(run.kstate, **f0))
+    # the swap at 10 promoted them: a residual a slot of each stack
+    from kfac_tpu_torch.async_inverse import sliced
+
+    units = [u for u, _ in sliced.kaisa_units(engine)]
+    slice_units = [u for s in engine._async_slices for u in s]
+    solves = live_solves(engine, units) + live_solves(engine, slice_units) + live_solves(
+        engine, engine._async_slices[0])
+    out['sliced_ns'] = dict(
+        steps=KNOBS_NS_STEPS, losses=ns_losses,
+        max_independent_residual_after_swap=max(float(r.max()) for s in res.values() for r in s.values()),
+        residual_limit=factors.NS_FALLBACK_RESIDUAL, launches=ns_counts,
+        fused_ns_step_stacked_range=[solves, solves * 2 * 40],
+    )
+    del trainer, engine, model, run
+    torch.cuda.empty_cache()
+    return out
+
+
+def sliced_syncs_by_kind(syncs, n_slices) -> dict:
+    """Host syncs of step 0, of the window boundaries (a swap and the
+    first slice), of the other slice steps and of the steps without a
+    slice: each kind's count of steps, max and median."""
+    kinds = {'step_0': [syncs[0]], 'boundary': [], 'slice': [], 'plain': []}
+    for i, n in enumerate(syncs[1:], start=1):
+        phase = i % KNOBS_EVERY
+        kinds['boundary' if phase == 0 else 'slice' if phase < n_slices else 'plain'].append(n)
+    return {k: dict(steps=len(v), syncs_max=max(v), syncs_median=statistics.median(v))
+            for k, v in kinds.items() if v}
+
+
+def knobs_host(rank, device, frac, wrappers) -> dict:
+    """(b): the async spike probe's MLP on a ``DistributedKFAC`` under
+    EIGEN, ``'host'``: each boundary's wait in the pump, and after each
+    swap the preconditioned grads against the synchronous engine's refresh
+    of the factors a window back."""
+    from kfac_tpu_torch import KFACPreconditioner, bench_lm
+    from kfac_tpu_torch.parallel import DistributedKFAC, kaisa_mesh
+
+    trainer, batch = bench_lm.probe_trainer(device, window=PROBE_WINDOW, async_inverse='host')
+    mesh = kaisa_mesh(frac, device=device)
+    engine = DistributedKFAC(trainer.kfac, mesh)
+    trainer.rebind_engine(engine)
+    run = KnobRun(trainer, batch)
+    engine_step, seen = engine.step, {}
+
+    def recording(state, grads, stats, loss=None):
+        if state.step % PROBE_WINDOW == 0:
+            seen[state.step] = {n: g.clone() for n, g in grads.items()}
+        return engine_step(state, grads, stats, loss=loss)
+
+    engine.step = recording
+    zero_counts(wrappers)
+    waits, seconds, syncs, at = [], [], [], {}
+    for i in range(PROBE_STEPS):
+        _, sec, n = counted_step(run)
+        seconds.append(sec)
+        syncs.append(n)
+        if i == 0:
+            take = engine._async_worker.take
+
+            def timed_take(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return take(*args, **kwargs)
+                finally:
+                    waits.append((time.perf_counter() - t0) * 1e3)
+
+            engine._async_worker.take = timed_take
+        if i % PROBE_WINDOW == 0:
+            at[i] = run.kstate
+    del engine.step
+    counts = {n: w.launches for n, w in wrappers.items()}
+    cfg = engine.config
+    sync_engine = DistributedKFAC(KFACPreconditioner(
+        cfg.registry, damping=cfg.damping, lr=cfg.lr, factor_update_steps=PROBE_WINDOW,
+        inv_update_steps=PROBE_WINDOW, device=device,
+    ), mesh)
+    worst = []
+    for b in range(PROBE_WINDOW, PROBE_STEPS, PROBE_WINDOW):
+        prev = at[b - PROBE_WINDOW]
+        ref = sync_engine.update_inverses(dataclasses.replace(at[b], a=prev.a, g=prev.g))
+        want = sync_engine.precondition(ref, seen[b])
+        got = engine.precondition(at[b], seen[b])
+        worst.append(max(
+            float(((got[n] - w).abs() - HOST_RTOL * w.abs() - HOST_ATOL).max()) for n, w in want.items()
+        ))
+    steps_ms = [s * 1e3 for s in seconds]
+    other = [ms for i, ms in enumerate(steps_ms) if i % PROBE_WINDOW]
+    out = dict(
+        frac=frac, boundary_wait_ms=waits, boundary_step_ms=steps_ms[PROBE_WINDOW::PROBE_WINDOW],
+        other_step_ms_median=statistics.median(other), syncs=syncs_by_kind(syncs, PROBE_WINDOW),
+        grads_excess_over_tolerance_by_swap=worst, rtol=HOST_RTOL, atol=HOST_ATOL, launches=counts,
+    )
+    del trainer, engine, sync_engine, run
+    torch.cuda.empty_cache()
+    return out
+
+
+def scope_device_ms(prof, names) -> dict:
+    """Device ms of the kernels launched under each ``record_function``
+    scope of ``names``: each scope event's kernels and its children's, by
+    the profiler's event tree."""
+    def device_us(evt):
+        return sum(k.duration for k in getattr(evt, 'kernels', ())) + sum(
+            device_us(c) for c in evt.cpu_children)
+
+    out = {n: 0.0 for n in names}
+    for evt in prof.events():
+        if evt.name in out:
+            out[evt.name] += device_us(evt) / 1e3
+    return out
+
+
+def device_busy_ms(prof) -> float:
+    """The kernels' device ms of a profile, scope annotations left out (as
+    :func:`device_profile` counts them)."""
+    scopes = {evt.name for evt in prof.events() if str(evt.device_type).endswith('CPU')}
+    return sum(
+        evt.self_device_time_total / 1e3 for evt in prof.key_averages()
+        if str(evt.device_type).endswith('CUDA') and evt.self_device_time_total > 0
+        and evt.key not in scopes
+    )
+
+
+def knobs_compressed(rank, device, frac, wrappers) -> dict:
+    """(c): the flagship at cadence 10/10 on ALLREDUCE_BUCKETED, 21 steps
+    at each wire; the transport's collectives over capture step 10; then
+    the capture step 20 under torch.profiler with the quantize and
+    dequantize scopes' device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for name, comp in KNOBS_WIRES:
+        trainer, engine, model, batch = knobs_flagship(
+            device, frac, allreduce_method='allreduce_bucketed', stat_compression=comp,
+        )
+        run = KnobRun(trainer, batch)
+        zero_counts(wrappers)
+        losses, seconds, syncs, moved = [], [], [], None
+        for i in range(KNOBS_COMP_STEPS - 1):
+            if i == KNOBS_EVERY:
+                engine.transport_counter.update(collectives=0, buffer_bytes=0, ring_bytes=0)
+            loss, sec, n = counted_step(run)
+            if i == KNOBS_EVERY:
+                moved = dict(engine.transport_counter)
+            losses.append(loss)
+            seconds.append(sec)
+            syncs.append(n)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            loss, _, _ = counted_step(run)
+            torch.cuda.synchronize(device)
+            wall = (time.perf_counter() - t0) * 1e3
+        losses.append(loss)
+        counts = {n: w.launches for n, w in wrappers.items()}
+        busy = device_busy_ms(prof)
+        scopes = scope_device_ms(prof, ('kfac.stat_quantize', 'kfac.stat_dequantize'))
+        transport = engine.comms_report()['stat_transport']
+        out[name] = dict(
+            losses=losses, capture_step_ms=[seconds[0] * 1e3, seconds[KNOBS_EVERY] * 1e3],
+            plain_step_ms_median=statistics.median(
+                s * 1e3 for i, s in enumerate(seconds) if i % KNOBS_EVERY),
+            syncs=step_kinds(seconds, syncs, KNOBS_EVERY, KNOBS_EVERY),
+            capture_step_collectives=moved,
+            raw_bytes=transport['raw_bytes'], wire_bytes=transport['wire_bytes'],
+            port_collectives=transport.get('port_collectives'),
+            profiled_capture_step=dict(
+                wall_ms=wall, device_busy_ms=busy, quantize_device_ms=scopes['kfac.stat_quantize'],
+                dequantize_device_ms=scopes['kfac.stat_dequantize'],
+                quant_share_of_wall=(scopes['kfac.stat_quantize'] + scopes['kfac.stat_dequantize']) / wall,
+                quant_share_of_device_busy=(
+                    scopes['kfac.stat_quantize'] + scopes['kfac.stat_dequantize']) / busy,
+            ),
+            launches=counts, param_digest=param_digest(model),
+        )
+        del trainer, engine, model, run, prof
+        torch.cuda.empty_cache()
+    return out
+
+
+def knobs_offload(rank, device, frac, wrappers) -> dict:
+    """(e): the flagship on a ``DistributedKFAC`` (cadence 10/10, EIGEN)
+    for 11 steps with offload off and on: losses, and the rank's
+    ``memory_allocated`` at a spilled step against the same step off."""
+    from kfac_tpu_torch.compression import OffloadConfig
+
+    import gc
+
+    out = {}
+    for name, off in (('off', None), ('on', OffloadConfig(**KNOBS_OFFLOAD))):
+        gc.collect()  # the Trainer's hooks hold cycles: free the last run first
+        torch.cuda.empty_cache()
+        trainer, engine, model, batch = knobs_flagship(device, frac, offload=off)
+        run = KnobRun(trainer, batch)
+        zero_counts(wrappers)
+        losses, memory, syncs, seconds = [], [], [], []
+        for i in range(KNOBS_KAISA_OFFLOAD_STEPS):
+            loss, sec, n = counted_step(run)
+            losses.append(loss)
+            seconds.append(sec * 1e3)
+            syncs.append(n)
+            memory.append(torch.cuda.memory_allocated(device))
+            if i == 0:
+                usage = engine.memory_usage(run.kstate)
+        out[name] = dict(
+            losses=losses, memory_allocated=memory, step_ms=seconds, syncs=syncs,
+            shard_factor_bytes=usage['a_factors'] + usage['g_factors'],
+            launches={n: w.launches for n, w in wrappers.items()},
+            stats=None if off is None else dict(engine._offload_manager.stats),
+        )
+        del trainer, engine, model, run
+        torch.cuda.empty_cache()
+    return out
+
+
+def knobs_rank(rank: int, world: int, device: torch.device, parts: list[str]) -> dict:
+    """One NCCL rank of the engine_knobs phase: (a), (b), (c), (e)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    wrappers = kaisa_wrappers()
+    fns = {'sliced': knobs_sliced, 'host': knobs_host, 'compressed': knobs_compressed,
+           'offload': knobs_offload}
+    out = {}
+    for part in parts:
+        out[part] = [fns[part](rank, device, frac, wrappers) for frac in knobs_fracs(world, part)]
+    return out
+
+
+def knobs_dense_offload(launches, main_losses, main_tail) -> dict:
+    """(d): the flagship on the dense engine (EIGEN, cadence 10/100) with
+    ``OffloadConfig(min_cold_steps=4, prefetch_lead=1)``, 21 steps, and
+    the same without offload: losses bitwise ``main_path``'s and the run's
+    without, ``memory_allocated`` a step, the counters, the ms and host
+    syncs of each kind of step."""
+    from kfac_tpu_torch.compression import OffloadConfig, is_spilled
+
+    import gc
+
+    wrappers = main_path_wrappers()
+    runs = {}
+    for name, off in (('off', None), ('on', OffloadConfig(**KNOBS_OFFLOAD))):
+        gc.collect()  # the Trainer's hooks hold cycles: free the last run first
+        torch.cuda.empty_cache()
+        run = LMRun(FLAGSHIP, torch.device('cuda'), 10, 100, offload=off)
+        zero_counts(wrappers)
+        losses, seconds, syncs, memory, spilled = [], [], [], [], []
+        for i in range(KNOBS_OFFLOAD_STEPS):
+            loss, sec, n = counted_step(run)
+            losses.append(loss)
+            seconds.append(sec * 1e3)
+            syncs.append(n)
+            memory.append(torch.cuda.memory_allocated())
+            spilled.append(is_spilled(run.kstate))
+        counts = count_into(launches, wrappers) if off is not None else {
+            n: w.launches for n, w in wrappers.items()}
+        factor_bytes = sum(
+            t.numel() * t.element_size() for side in ('a', 'g') for t in getattr(run.kstate, side).values()
+        )
+        runs[name] = dict(losses=losses, step_ms=seconds, syncs=syncs, memory=memory,
+                          spilled=spilled, launches=counts, factor_bytes=factor_bytes,
+                          stats=None if off is None else dict(run.kfac._offload_manager.stats))
+        del run
+        torch.cuda.empty_cache()
+    on, off = runs['on'], runs['off']
+    factor_bytes = off['factor_bytes']
+    # the run without offload moves by this much across the same steps:
+    # the drop is read against the factor bytes less it
+    spread = max(off['memory'][1:]) - min(off['memory'][1:])
+    kinds = {'spill': [1, 11], 'prefetch': [9, 19], 'restore': [10, 20]}
+    # a prefetch step ends with the factors back on the device, in flight
+    drop = [o - n for i, (o, n, s) in enumerate(zip(off['memory'], on['memory'], on['spilled']))
+            if s and i not in kinds['prefetch']]
+    stats = on['stats']
+    hits = stats['prefetch_hits'] + stats['prefetch_misses']
+    out = dict(
+        config='flagship, EIGEN, cadence 10/100, OffloadConfig(min_cold_steps=4, prefetch_lead=1)',
+        steps=KNOBS_OFFLOAD_STEPS,
+        # main_path's 20 counted steps and its profiled capture step 20
+        losses_bitwise_main_path=on['losses'] == (main_losses + main_tail)[:KNOBS_OFFLOAD_STEPS],
+        compared_main_path_steps=len((main_losses + main_tail)[:KNOBS_OFFLOAD_STEPS]),
+        losses_bitwise_offload_off=on['losses'] == off['losses'],
+        spilled_steps=[i for i, s in enumerate(on['spilled']) if s],
+        factor_bytes=factor_bytes, factor_elements=factor_bytes // 4,
+        memory_allocated_on_spilled_step=on['memory'][KNOBS_SPILLED_STEP],
+        memory_allocated_offload_off_same_step=off['memory'][KNOBS_SPILLED_STEP],
+        drop_bytes_min=min(drop), drop_bytes_max=max(drop),
+        drop_over_factor_bytes=min(drop) / factor_bytes,
+        offload_off_memory_spread_bytes=spread,
+        memory_allocated_by_step=dict(on=on['memory'], off=off['memory']),
+        counters=dict(stats, prefetch_hit_rate=stats['prefetch_hits'] / hits if hits else None),
+        step_ms={k: dict(on=[on['step_ms'][i] for i in v], off=[off['step_ms'][i] for i in v])
+                 for k, v in kinds.items()},
+        plain_step_ms_median=dict(
+            on=statistics.median(ms for i, ms in enumerate(on['step_ms']) if i > 1 and i % 10 not in (0, 1, 9)),
+            off=statistics.median(ms for i, ms in enumerate(off['step_ms']) if i > 1 and i % 10 not in (0, 1, 9)),
+        ),
+        syncs_by_kind=dict(
+            spill=max(on['syncs'][i] for i in kinds['spill']),
+            prefetch=max(on['syncs'][i] for i in kinds['prefetch']),
+            restore=max(on['syncs'][i] for i in kinds['restore']),
+            spilled_plain=max(on['syncs'][i] for i, s in enumerate(on['spilled']) if s and i not in kinds['spill']),
+        ),
+        launches=on['launches'], launches_offload_off=off['launches'],
+    )
+    out['passed'] = bool(
+        out['losses_bitwise_main_path'] and out['losses_bitwise_offload_off']
+        and out['compared_main_path_steps'] == KNOBS_OFFLOAD_STEPS
+        and max(out['syncs_by_kind'].values()) == 0
+        and factor_bytes == 4 * FLAGSHIP_FACTOR_ELEMENTS
+        and min(drop) >= factor_bytes - spread and max(drop) >= factor_bytes
+        and stats['prefetch_hits'] == 2 and stats['prefetch_misses'] == 0
+        and out['counters']['prefetch_hit_rate'] == 1.0 and on['launches'] == off['launches']
+    )
+    return out
+
+
+def run_engine_knobs(launches, main_losses, main_tail, dense_async) -> bool:
+    """The engines' last knobs (see the module's docstring, phase 15)."""
+    from kfac_tpu_torch.ops import factors
+    from kfac_tpu_torch.parallel import spawn_world
+
+    world = torch.cuda.device_count()
+    ok = True
+    dense = knobs_dense_offload(launches, main_losses, main_tail)
+    emit(dict(phase='engine_knobs', part='d_offload_dense', **dense))
+    ok &= dense['passed']
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    results = spawn_world(knobs_rank, world, 'nccl', 'cuda',
+                          args=(['sliced', 'host', 'compressed', 'offload'],), timeout_s=600)
+    spawn_seconds = time.perf_counter() - t0
+    r0 = results[0]
+    show = range(world) if world > 1 else [0]
+
+    def by_rank(part, j, key):
+        return [results[r][part][j][key] for r in show]
+
+    for j, frac in enumerate(knobs_fracs(world, 'sliced')):
+        a = r0['sliced'][j]
+        steps = KNOBS_SLICED_STEPS
+        expected = kaisa_expected(steps)
+        ns = a['sliced_ns']
+        ns_expected = kaisa_expected(KNOBS_NS_STEPS)
+        launches_ok = all(
+            {n: r['sliced'][j]['launches'][n] for n in expected} == expected
+            and {n: r['sliced'][j]['sliced_ns']['launches'][n] for n in ns_expected} == ns_expected
+            and r['sliced'][j]['launches']['fused_ns_step_stacked'] == 0
+            and (lambda lo, hi, x: lo <= x <= hi)(
+                *r['sliced'][j]['sliced_ns']['fused_ns_step_stacked_range'],
+                r['sliced'][j]['sliced_ns']['launches']['fused_ns_step_stacked'])
+            for r in results
+        )
+        residual_ok = all(
+            r['sliced'][j]['sliced_ns']['max_independent_residual_after_swap'] <= factors.NS_FALLBACK_RESIDUAL
+            for r in results
+        )
+        passed = bool(
+            all(r['sliced'][j]['oracle']['bitwise'] for r in results)
+            and all(math.isfinite(x) for x in a['losses']) and a['losses'][-1] < a['losses'][0]
+            and len({r['sliced'][j]['param_digest'] for r in results}) == 1
+            and launches_ok and residual_ok
+        )
+        for n, c in a['launches'].items():
+            launches[n] = launches.get(n, 0) + c
+        for n, c in ns['launches'].items():
+            launches[n] = launches.get(n, 0) + c
+        emit(dict(
+            phase='engine_knobs', part='a_kaisa_sliced', world=world, frac=frac,
+            strategy=a['strategy'], cadence=[KNOBS_EVERY, KNOBS_EVERY], steps=steps,
+            losses=a['losses'], slice_plan=a['slice_plan'],
+            oracle_by_rank=[results[r]['sliced'][j]['oracle'] for r in show],
+            steps_11_30_by_rank=by_rank('sliced', j, 'steps_11_30'),
+            dense_async_refresh_steps_11_30=dense_async,
+            syncs_by_rank=by_rank('sliced', j, 'syncs'),
+            peak_memory_by_rank=by_rank('sliced', j, 'peak_memory_bytes'),
+            launches_by_rank=by_rank('sliced', j, 'launches'), expected_launches=expected,
+            sliced_ns=dict(
+                steps=KNOBS_NS_STEPS, losses=ns['losses'],
+                max_independent_residual_after_swap_by_rank=[
+                    results[r]['sliced'][j]['sliced_ns']['max_independent_residual_after_swap']
+                    for r in show],
+                residual_limit=factors.NS_FALLBACK_RESIDUAL,
+                fused_ns_step_stacked_by_rank=[
+                    results[r]['sliced'][j]['sliced_ns']['launches']['fused_ns_step_stacked'] for r in show],
+                fused_ns_step_stacked_range_by_rank=[
+                    results[r]['sliced'][j]['sliced_ns']['fused_ns_step_stacked_range'] for r in show],
+            ),
+            passed=passed,
+        ))
+        ok &= passed
+    for j, frac in enumerate(knobs_fracs(world, 'host')):
+        b = r0['host'][j]
+        expected = dict(expected_launches(PROBE_STEPS, len(range(0, PROBE_STEPS, PROBE_WINDOW))),
+                        flash_attention_partials=0, fused_ns_step=0, fused_ns_step_stacked=0)
+        expected.update(sym_cov=2 * PROBE_LAYERS * len(range(0, PROBE_STEPS, PROBE_WINDOW)))
+        passed = bool(
+            all(len(r['host'][j]['grads_excess_over_tolerance_by_swap']) == 4
+                and all(x <= 0 for x in r['host'][j]['grads_excess_over_tolerance_by_swap'])
+                and len(r['host'][j]['boundary_wait_ms']) == 4
+                and r['host'][j]['launches'] == expected for r in results)
+        )
+        for n, c in b['launches'].items():
+            launches[n] = launches.get(n, 0) + c
+        emit(dict(
+            phase='engine_knobs', part='b_kaisa_host', world=world, frac=frac,
+            config='probe MLP d512 b256, EIGEN, host, window 8',
+            boundary_wait_ms_by_rank=by_rank('host', j, 'boundary_wait_ms'),
+            boundary_step_ms=b['boundary_step_ms'], other_step_ms_median=b['other_step_ms_median'],
+            syncs=b['syncs'],
+            grads_excess_over_tolerance_by_swap_by_rank=by_rank(
+                'host', j, 'grads_excess_over_tolerance_by_swap'),
+            rtol=HOST_RTOL, atol=HOST_ATOL, launches_by_rank=by_rank('host', j, 'launches'),
+            expected_launches=expected, passed=passed,
+        ))
+        ok &= passed
+    c = r0['compressed'][0]
+    expected = kaisa_expected(KNOBS_COMP_STEPS)
+    f32_final = c['f32']['losses'][-1]
+    wires = {}
+    for name, _ in KNOBS_WIRES:
+        w = c[name]
+        wires[name] = dict(
+            losses=w['losses'], final_loss=w['losses'][-1],
+            final_rel_to_f32=(w['losses'][-1] - f32_final) / f32_final,
+            capture_step_ms=w['capture_step_ms'], plain_step_ms_median=w['plain_step_ms_median'],
+            capture_step_ms_by_rank=[results[r]['compressed'][0][name]['capture_step_ms'] for r in show],
+            plain_step_ms_median_by_rank=[
+                results[r]['compressed'][0][name]['plain_step_ms_median'] for r in show],
+            syncs=w['syncs'], capture_step_collectives=w['capture_step_collectives'],
+            raw_bytes=w['raw_bytes'], wire_bytes=w['wire_bytes'],
+            port_collectives=w['port_collectives'], profiled_capture_step=w['profiled_capture_step'],
+        )
+    int8, f32 = c['int8'], c['f32']
+    moved_ok = world == 1 or (
+        int8['capture_step_collectives']['ring_bytes'] < f32['capture_step_collectives']['ring_bytes'])
+    passed = bool(
+        all(math.isfinite(x) for name, _ in KNOBS_WIRES for x in c[name]['losses'])
+        and all(c[name]['losses'][-1] < c[name]['losses'][0] for name, _ in KNOBS_WIRES)
+        and abs(int8['losses'][-1] - f32_final) <= 0.05 * abs(f32_final)
+        and all(len({results[r]['compressed'][0][name]['param_digest'] for r in range(world)}) == 1
+                for name, _ in KNOBS_WIRES)
+        and int8['wire_bytes'] * 3 <= int8['raw_bytes'] and moved_ok
+        and all({n: r['compressed'][0][name]['launches'][n] for n in expected} == expected
+                for r in results for name, _ in KNOBS_WIRES)
+        # no host sync of its own: each kind of step as many as the f32 wire's
+        and all(w['syncs'][k]['syncs_max'] == f32['syncs'][k]['syncs_max']
+                for w in (int8, c['fp8']) for k in f32['syncs'])
+        and f32['syncs']['plain']['syncs_max'] == 0
+    )
+    for name, _ in KNOBS_WIRES:
+        for n, cnt in c[name]['launches'].items():
+            launches[n] = launches.get(n, 0) + cnt
+    emit(dict(
+        phase='engine_knobs', part='c_compressed_transport', world=world,
+        cadence=[KNOBS_EVERY, KNOBS_EVERY], steps=KNOBS_COMP_STEPS, wires=wires,
+        int8_within_5pct_of_f32=abs(int8['losses'][-1] - f32_final) <= 0.05 * abs(f32_final),
+        int8_ring_bytes_below_f32=moved_ok, expected_launches=expected, passed=passed,
+    ))
+    ok &= passed
+    for j, frac in enumerate(knobs_fracs(world, 'offload')):
+        rows = [r['offload'][j] for r in results]
+        drops = [
+            r['off']['memory_allocated'][KNOBS_SPILLED_STEP] - r['on']['memory_allocated'][KNOBS_SPILLED_STEP]
+            for r in rows
+        ]
+        # read against the shard less what the run without offload itself
+        # moves across the same steps, as (d)
+        spreads = [max(r['off']['memory_allocated'][1:]) - min(r['off']['memory_allocated'][1:])
+                   for r in rows]
+        passed = bool(
+            all(r['on']['losses'] == r['off']['losses'] for r in rows)
+            and all(d >= r['on']['shard_factor_bytes'] - s for d, s, r in zip(drops, spreads, rows))
+            and all(r['on']['stats']['prefetch_hits'] == 1 and r['on']['stats']['prefetch_misses'] == 0
+                    for r in rows)
+            and all(r['on']['launches'] == r['off']['launches'] for r in rows)
+        )
+        for n, cnt in rows[0]['on']['launches'].items():
+            launches[n] = launches.get(n, 0) + cnt
+        emit(dict(
+            phase='engine_knobs', part='e_offload_kaisa', world=world, frac=frac,
+            steps=KNOBS_KAISA_OFFLOAD_STEPS, losses=rows[0]['on']['losses'],
+            losses_bitwise_offload_off_by_rank=[r['on']['losses'] == r['off']['losses'] for r in rows],
+            spilled_step=KNOBS_SPILLED_STEP, memory_drop_bytes_by_rank=drops,
+            offload_off_memory_spread_by_rank=spreads,
+            shard_factor_bytes_by_rank=[r['on']['shard_factor_bytes'] for r in rows],
+            counters_by_rank=[r['on']['stats'] for r in rows],
+            syncs_by_rank=[r['on']['syncs'] for r in rows],
+            step_ms_on=rows[0]['on']['step_ms'], step_ms_off=rows[0]['off']['step_ms'],
+            passed=passed,
+        ))
+        ok &= passed
+    emit(dict(phase='engine_knobs_world', world=world, spawn_seconds=spawn_seconds, passed=ok))
+    return ok
+
 # a quarter of the bench's own window, to keep the script within its time
 BENCH_WINDOW = dict(warmup=5, iters=25, scan_steps=25)
 # the probe's warm call and its 9 timed calls, before its profiled passes
 PROBE_TIMED_CALLS = 10
 PROBE_FAMILIES = ('cov_ema', 'ns', 'klclip')
+# the compression probe: its MLP's K-FAC layers, the steps of each wire
+# (one untimed and ten timed) and of its offload Trainer
+COMP_PROBE_LAYERS = 3
+COMP_PROBE_STEPS = 11
+COMP_PROBE_OFFLOAD_STEPS = 24
+# the keys of the bench's _compression_probe
+COMP_PROBE_KEYS = {
+    'compression_probe_config', 'wire_ratio_int8', 'stat_wire_bytes_f32', 'stat_wire_bytes_int8',
+    'step_p50_ms_f32_wire', 'step_p50_ms_int8_wire', 'offload',
+}
 # the keys of the bench's _async_spike_probe
 SPIKE_PROBE_KEYS = {'async_probe_config'} | {
     f'{k}{s}' for k in ('step_p50_ms', 'step_p95_ms', 'step_max_ms', 'refresh_spike_ratio')
@@ -3190,12 +3889,17 @@ def expected_bench_launches(cfg: dict, window: dict, probe_calls: int) -> dict:
     kfac_layers = 6 * cfg['layers']
     spike_steps = PROBE_WINDOW * 4 + 1
     spike_captures = len(range(0, spike_steps, PROBE_WINDOW))
+    # the compression probe: its two wires' steps (cadence 1/1) and its
+    # offload Trainer's (cadence 8/8), over its MLP's three layers
+    comp_steps = 2 * COMP_PROBE_STEPS + COMP_PROBE_OFFLOAD_STEPS
+    comp_captures = 2 * COMP_PROBE_STEPS + len(range(0, COMP_PROBE_OFFLOAD_STEPS, 8))
     return {
-        'sym_cov': 2 * kfac_layers * captures + 2 * 2 * PROBE_LAYERS * spike_captures,
+        'sym_cov': (2 * kfac_layers * captures + 2 * 2 * PROBE_LAYERS * spike_captures
+                    + 2 * COMP_PROBE_LAYERS * comp_captures),
         'sym_cov_ema': probe_calls,
-        'klclip_dot': eager + scan + probe_calls + 2 * spike_steps,
+        'klclip_dot': eager + scan + probe_calls + 2 * spike_steps + comp_steps,
         'klclip_dot_norms': 0,
-        'klclip_scale': eager + scan + probe_calls + 2 * spike_steps,
+        'klclip_scale': eager + scan + probe_calls + 2 * spike_steps + comp_steps,
         'flash_attention_partials': cfg['layers'] * (2 * eager + scan),
         'fused_ns_step': probe_calls,
     }
@@ -3242,10 +3946,13 @@ def run_bench_lm(launches) -> bool:
             and set(record['async_spike_probe']) == SPIKE_PROBE_KEYS
             and all(math.isfinite(v) and v > 0 for k, v in record['async_spike_probe'].items()
                     if k != 'async_probe_config')
+            and set(record['compression_probe']) == COMP_PROBE_KEYS
+            and record['compression_probe']['wire_ratio_int8'] >= 3.0
+            and record['compression_probe']['offload']['prefetch_hit_rate'] == 1.0
         )
         emit(dict(
             phase='bench_lm', config=config, async_spike_probe=record['async_spike_probe'],
-            record=record, launches=counts,
+            compression_probe=record['compression_probe'], record=record, launches=counts,
             expected_launches=expected, profile=profiles, passed=passed,
         ))
         ok &= passed
@@ -3332,6 +4039,12 @@ def main() -> int:
         print(f'chip_smoke: the kfac_tpu_torch package is missing: {exc}', file=sys.stderr)
         return 1
 
+    # the spawned ranks share the host's cores: unless set already, each
+    # rank's BLAS and OpenMP pools (numpy's LAPACK in the KAISA host
+    # refresh) get its share, not every core each
+    share = str(max(1, (os.cpu_count() or 1) // torch.cuda.device_count()))
+    for pool in ('OMP_NUM_THREADS', 'OPENBLAS_NUM_THREADS', 'MKL_NUM_THREADS'):
+        os.environ.setdefault(pool, share)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi()
@@ -3348,12 +4061,15 @@ def main() -> int:
         path: {} for path in (
             'main_path', 'main_path_ns', 'digits_mlp', 'digits_cnn', 'observed', 'resume',
             'async_refresh', 'kaisa', 'kaisa_ops', 'resnet', 'bench_lm_tiny', 'bench_lm_flagship',
+            'engine_knobs',
         )
     }
     observed_health: dict = {}
     eigen_summary: dict = {}
     main_losses: list[float] = []
+    main_tail: list[float] = []  # main_path's profiled steps 20 and 21
     main_snaps: dict = {}
+    async_summary: dict = {}
     seconds: dict[str, float] = {}
 
     def phase(name, fn, *args):
@@ -3378,17 +4094,21 @@ def main() -> int:
     phase('build', do_build)
     phase('kernel', run_kernels, results)
     phase('reference', run_reference)
-    phase('main_path', run_main_path, launches['main_path'], eigen_summary, main_losses, main_snaps)
+    phase('main_path', run_main_path, launches['main_path'], eigen_summary, main_losses, main_snaps,
+          main_tail)
     phase('main_path_ns', run_main_path_ns, launches['main_path_ns'], eigen_summary)
     phase('digits_mlp', run_digits, launches['digits_mlp'])
     phase('digits_cnn', run_digits, launches['digits_cnn'], 'digits_cnn')
     phase('observed', run_observed, launches['observed'], main_losses, observed_health)
     phase('resume', run_resume, launches['resume'], main_losses, main_snaps)
-    phase('async_refresh', run_async_refresh, launches['async_refresh'])
+    phase('async_refresh', run_async_refresh, launches['async_refresh'], torch.device('cuda'),
+          async_summary)
     phase('kaisa', run_kaisa, launches['kaisa'])
     phase('kaisa_ops', run_kaisa_ops, launches['kaisa_ops'], observed_health)
     phase('resnet', run_resnet, launches['resnet'])
     phase('bench_lm', run_bench_lm, launches)
+    phase('engine_knobs', run_engine_knobs, launches['engine_knobs'], main_losses, main_tail,
+          async_summary)
     emit(dict(phase='timing', seconds=seconds, total_seconds=time.perf_counter() - start))
     print(smi, flush=True)
     emit(kernels_line(results, launches))

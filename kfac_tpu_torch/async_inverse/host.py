@@ -1,5 +1,5 @@
 """Host-offloaded async refresh: the window's decompositions on a worker
-thread (counterpart of the dense half of ``kfac_tpu/async_inverse/host.py``).
+thread (counterpart of ``kfac_tpu/async_inverse/host.py``).
 
 At each window boundary the engine's step enqueues copies of the freshly
 updated factors and of the layers' effective dampings into pinned host
@@ -17,11 +17,20 @@ The step itself runs no decomposition after the step-0 cold start. Results
 are the synchronous path's maths (LAPACK against the device's eigh: the
 same numbers to rounding, not the same bits), one window staler.
 
+With a :class:`~kfac_tpu_torch.parallel.DistributedKFAC` each rank's
+worker decomposes that rank's own factor blocks (a slot's LAPACK eigh is
+the same whether it sees the block or the gathered stack, as the JAX
+package's worker does). At a boundary every rank waits for its own
+worker, then every rank gathers the blocks within its column and swaps
+through the distributed swap core, so the collectives line up.
+
 Driving: with a step number :func:`pump` swaps only at window boundaries,
 waiting for the refresh in flight; without one (``Trainer.scan_steps``,
 at entry, as the JAX package pumps its ``lax.scan``) it applies a finished
-result, if any, without waiting. An engine stepped without the pump never
-swaps: it keeps applying its last decompositions.
+result, if any, without waiting; a distributed engine waits for the
+refresh in flight there too, since every rank must enter the swap's
+collectives alike. An engine stepped without the pump never swaps: it
+keeps applying its last decompositions.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ from kfac_tpu_torch import checkpoint
 from kfac_tpu_torch import tracing
 from kfac_tpu_torch.async_inverse import sliced as sliced_lib
 from kfac_tpu_torch.hyperparams import resolve
+from kfac_tpu_torch.parallel import collectives as collectives_lib
 
 
 class HostRefreshWorker:
@@ -132,14 +142,10 @@ def reset_worker(engine) -> None:
         w.reset()
 
 
-def _dense_compute(engine) -> Callable[..., dict[str, Any]]:
-    """The worker's refresh, as the JAX package's: numpy LAPACK in f32,
-    eigenvalues clipped at 0, fused prediv ``1 / (outer(dg, da) + eff)``,
-    or INVERSE as ``inv(F + eff I)``. The payload is uploaded to the
-    engine's device on the worker's own stream; ``ready`` is the event
-    behind the upload (None on the CPU)."""
-    fields = sliced_lib.decomp_fields(engine.compute_method, engine.prediv_eigenvalues)
-    device = engine.device
+def _uploader(device: torch.device) -> Callable[[dict], tuple[dict, Any]]:
+    """``upload(out)``: the worker's numpy results as tensors on ``device``,
+    copied on a stream of the worker's own with an event behind them
+    (None on the CPU)."""
     stream = torch.cuda.Stream(device) if device.type == 'cuda' else None
 
     def upload(out: dict[str, dict[str, np.ndarray]]):
@@ -153,6 +159,29 @@ def _dense_compute(engine) -> Callable[..., dict[str, Any]]:
             ready = torch.cuda.Event()
             ready.record(stream)
         return tensors, ready
+
+    return upload
+
+
+def _await_upload(engine, payload: dict[str, Any]) -> None:
+    """Make the current stream wait on a payload's upload and hand its
+    tensors (allocated on the worker's stream) to it."""
+    if payload['ready'] is not None:
+        current = torch.cuda.current_stream(engine.device)
+        current.wait_event(payload['ready'])
+        for d in payload['fields'].values():
+            for t in d.values():
+                t.record_stream(current)
+
+
+def _dense_compute(engine) -> Callable[..., dict[str, Any]]:
+    """The worker's refresh, as the JAX package's: numpy LAPACK in f32,
+    eigenvalues clipped at 0, fused prediv ``1 / (outer(dg, da) + eff)``,
+    or INVERSE as ``inv(F + eff I)``. The payload is uploaded to the
+    engine's device on the worker's own stream; ``ready`` is the event
+    behind the upload (None on the CPU)."""
+    fields = sliced_lib.decomp_fields(engine.compute_method, engine.prediv_eigenvalues)
+    upload = _uploader(engine.device)
 
     def compute(damping: float, effs, a: dict, g: dict) -> dict[str, Any]:
         out: dict[str, dict[str, np.ndarray]] = {f: {} for f in fields}
@@ -204,13 +233,85 @@ def dense_host_step(engine, state: Any):
 def dense_apply(engine, state: Any, payload: dict[str, Any]):
     """Promote a finished host payload through the shared swap core, after
     the current stream has waited on its upload."""
-    if payload['ready'] is not None:
-        current = torch.cuda.current_stream(engine.device)
-        current.wait_event(payload['ready'])
-        for d in payload['fields'].values():
-            for t in d.values():
-                t.record_stream(current)  # allocated on the worker's stream
+    _await_upload(engine, payload)
     return sliced_lib.dense_swap_core(engine, state, payload['fields'], complete=True)
+
+
+def _kaisa_compute(engine) -> Callable[..., dict[str, Any]]:
+    """The distributed worker's refresh of this rank's factor blocks, the
+    JAX package's maths: numpy LAPACK in f32 a slot, eigenvalues clipped
+    at 0, fused prediv ``1 / (dg (x) da + dmp)``, or INVERSE as ``inv(F +
+    dmp I)``, at each slot's damping ``dmp``. The blocks are uploaded as
+    :func:`_dense_compute`'s payload is; the column gather runs at the
+    swap."""
+    fields = sliced_lib.decomp_fields(engine.config.compute_method, engine._prediv)
+    upload = _uploader(engine.device)
+
+    def compute(damping: float, dmp: dict, a: dict, g: dict) -> dict[str, Any]:
+        out: dict[str, dict[str, np.ndarray]] = {f: {} for f in fields}
+        eig: dict[tuple[str, str], np.ndarray] = {}
+        for side, blocks in (('a', a), ('g', g)):
+            for key, block in blocks.items():
+                f32 = block.numpy().astype(np.float32, copy=False)
+                slot_dmp = np.broadcast_to(np.asarray(dmp[side, key], np.float32), (f32.shape[0],))
+                if engine._eigen:
+                    w, v = np.linalg.eigh(f32)
+                    w = np.clip(w, 0.0, None)
+                    out['q' + side][key] = v
+                    if engine._prediv:
+                        eig[side, key] = w
+                        if side == 'a':
+                            eig['dmp', key] = slot_dmp
+                    else:
+                        out['d' + side][key] = w
+                else:
+                    eye = np.eye(f32.shape[-1], dtype=np.float32)
+                    out[side + '_inv'][key] = np.linalg.inv(f32 + slot_dmp[:, None, None] * eye)
+        if engine._prediv:
+            for b in engine.buckets:
+                out['dgda'][b.key] = (1.0 / (
+                    eig['g', b.key][:, :, None] * eig['a', b.key][:, None, :]
+                    + eig['dmp', b.key][:, None, None]
+                )).astype(np.float32)
+        tensors, ready = upload(out)
+        return {'fields': tensors, 'damping': damping, 'ready': ready}
+
+    return compute
+
+
+@tracing.scope('dist_kfac.async_host_launch')
+def kaisa_host_step(engine, state: Any):
+    """The distributed engine's host stage: the step-0 cold start, then at
+    each window boundary the launch of this rank's blocks' refresh from
+    the factors after this step's update, with each slot's damping."""
+    if engine._async_worker is None:
+        engine._async_worker = HostRefreshWorker(_kaisa_compute(engine))
+    if state.step == 0:
+        state = engine.update_inverses(state)
+    if state.step % engine._async_n_steps == 0:
+        damping = float(resolve(engine.config.damping, state.step))
+        dmp = {
+            (side, sb.key): damping if engine.health is None
+            else damping * engine._block_mults(state, side, sb)
+            for side, store in (('a', engine.a_store), ('g', engine.g_store)) for sb in store
+        }
+        (dmp, a, g), ready = checkpoint.snapshot((dmp, state.a, state.g))
+        engine._async_worker.submit(state.step, ready, damping, dmp, a, g)
+    return state
+
+
+def kaisa_apply(engine, state: Any, payload: dict[str, Any]):
+    """Promote a finished payload of this rank's blocks: after the current
+    stream has waited on its upload, each field's blocks are gathered
+    within the column (every rank, in one order) and swapped through the
+    distributed swap core."""
+    _await_upload(engine, payload)
+    col = engine.mesh.col_group
+    cand = {
+        f: {k: collectives_lib.all_gather_cat(v, col) for k, v in d.items()}
+        for f, d in payload['fields'].items()
+    }
+    return sliced_lib.kaisa_swap_core(engine, state, cand, payload['damping'], complete=True)
 
 
 @tracing.trace(name='kfac.async_host_pump')
@@ -228,12 +329,13 @@ def pump(engine, state: Any, step: int | None = None):
     worker = engine._async_worker
     if worker is None or not worker.has_work():
         return state
+    distributed = hasattr(engine, 'a_store')
     if step is not None:
         if step <= 0 or step % engine._async_n_steps != 0:
             return state
         payload = worker.take(wait=True)
     else:
-        payload = worker.take(wait=False)
+        payload = worker.take(wait=distributed)
     if payload is None:
         return state
-    return dense_apply(engine, state, payload)
+    return (kaisa_apply if distributed else dense_apply)(engine, state, payload)

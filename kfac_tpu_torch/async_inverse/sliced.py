@@ -1,5 +1,5 @@
 """Sliced async refresh: the window's decompositions, one slice per step
-(counterpart of the dense half of ``kfac_tpu/async_inverse/sliced.py``).
+(counterpart of ``kfac_tpu/async_inverse/sliced.py``).
 
 Takes the place of the inverse cadence in the engine's ``step``, in three
 stages on the host step counter, in the JAX package's order:
@@ -18,8 +18,12 @@ stages on the host step counter, in the JAX package's order:
    shadow is bit for bit the synchronous refresh one window back. Phases
    at or past ``n_slices`` do nothing.
 
-Units are balanced by their n^3 cost: one per (side, layer), or one per
-layer under fused prediv, where ``dgda`` needs both sides' eigenvalues.
+Units are balanced by their n^3 cost: for the dense engine one per (side,
+layer), or one per layer under fused prediv, where ``dgda`` needs both
+sides' eigenvalues; for ``DistributedKFAC`` one per storage bucket (a pair
+bucket under prediv), each rank decomposing its block and the column
+gathering it into the shadow, as the synchronous refresh does. The
+distributed swap's health verdicts travel in one ``all_reduce``.
 A layer quarantined at the boundary keeps its active decompositions: its
 shadow came from suspect factors. Its ``bad_inv`` counts up as a
 quarantined synchronous refresh's would.
@@ -171,4 +175,136 @@ def dense_async_step(engine, state: Any):
         state = engine.update_inverses(state)
     if phase < engine._async_n_slices:
         state = _dense_slice(engine, state, engine._async_slices[phase])
+    return state
+
+
+# --------------------------------------------------------------- distributed
+
+
+def _kaisa_fields(engine) -> tuple[str, ...]:
+    return decomp_fields(engine.config.compute_method, engine._prediv)
+
+
+def kaisa_units(engine) -> list[tuple[tuple[str, str], float]]:
+    """The distributed engine's units: one storage bucket's batched
+    decomposition, ``(side, key)``, or a pair bucket's, ``('ag', key)``,
+    under fused prediv; the cost is the stack's n^3 over its padded slots,
+    as in the JAX package."""
+    if engine._prediv:
+        return [
+            (('ag', b.key), b.padded * (float(b.da) ** 3 + float(b.dg) ** 3))
+            for b in engine.buckets
+        ]
+    return [
+        ((side, sb.key), sb.padded * float(sb.d) ** 3)
+        for side, store in (('a', engine.a_store), ('g', engine.g_store)) for sb in store
+    ]
+
+
+def kaisa_shadow(engine, state) -> slots_lib.ShadowSlots:
+    """A zeroed shadow mirroring the resident (column) stacks."""
+    return slots_lib.empty_shadow({f: getattr(state, f) for f in _kaisa_fields(engine)})
+
+
+def kaisa_swap_core(engine, state, cand, cand_damping: float, complete: bool):
+    """Promote column-resident candidate stacks ``cand`` (field -> store
+    key -> tensor) into the active slots when ``complete``; ``inv_damping``
+    becomes ``cand_damping``.
+
+    Without health every slot swaps. With health a layer swaps where its
+    A and G candidates (and its fused grid under prediv) are finite and it
+    is not quarantined: each rank judges the slots of its own factor
+    block within its column's candidates, the verdicts reach every rank in
+    one zeros-elsewhere ``all_reduce`` (``_exchange``), and each store takes
+    its per-slot mask by ``torch.where``, nothing read on the host.
+    ``bad_inv`` takes the inversion transition and ``last_inv_step``
+    advances for the layers that swapped. Shared by the sliced swap and
+    the host backend's apply; every rank calls it alike.
+    """
+    if not complete:
+        return state
+    hc = engine.health
+    fields = _kaisa_fields(engine)
+    updates: dict[str, Any] = {}
+    swapped = None  # every layer, when health is off
+    if hc is None:
+        updates = {f: dict(cand[f]) for f in fields}
+    else:
+        n = len(engine.registry.layers)
+        sub = engine.mesh.row
+        parts = []
+        for side, store in (('a', engine.a_store), ('g', engine.g_store)):
+            side_fields = [f for f in fields if f in ('q' + side, 'd' + side, side + '_inv')]
+            if side == 'a' and 'dgda' in fields:
+                side_fields.append('dgda')
+            for sb in store:
+                lo, hi = engine._factor_range(sb.padded)
+                per = hi - lo
+                ok = torch.stack([
+                    torch.isfinite(cand[f][sb.key][sub * per:(sub + 1) * per]).flatten(1).all(dim=1)
+                    for f in side_fields
+                ]).all(dim=0)
+                parts.append((0 if side == 'a' else n, side, sb, ~ok))
+        bad = engine._exchange(parts, 2 * n)
+        ok = (bad[:n] + bad[n:]) == 0
+        h = state.health
+        swapped = ok & (h.quarantined <= 0)
+        for f in fields:
+            side = 'g' if f in ('qg', 'dg', 'g_inv') else 'a'
+            updates[f] = {}
+            for key, c in cand[f].items():
+                sb = engine._stores[side, key]
+                lo, hi = engine._column_range(sb.padded)
+                mask = health_lib.slot_mask(swapped, engine._index[side, key], sb.padded)[lo:hi]
+                updates[f][key] = torch.where(
+                    mask.view((-1,) + (1,) * (c.ndim - 1)), c, getattr(state, f)[key]
+                )
+        updates['health'] = dataclasses.replace(
+            h, bad_inv=health_lib.inversion_update(hc, ok, h.quarantined, h.bad_inv)
+        )
+    if engine.metrics is not None and state.metrics is not None:
+        ms = state.metrics
+        updates['metrics'] = dataclasses.replace(
+            ms, last_inv_step=metrics_lib.advance_all(ms.last_inv_step, swapped, state.step)
+        )
+    return dataclasses.replace(state, **updates, inv_damping=cand_damping)
+
+
+def _kaisa_swap(engine, state):
+    sh = state.shadow
+    state = kaisa_swap_core(
+        engine, state, {f: getattr(sh, f) for f in _kaisa_fields(engine)},
+        sh.damping, sh.progress >= engine._async_n_slices,
+    )
+    return dataclasses.replace(state, shadow=dataclasses.replace(state.shadow, progress=0))
+
+
+def _kaisa_slice(engine, state, units: list[tuple[str, str]]):
+    """Refresh one slice's storage buckets into the shadow from the
+    current factors, with the synchronous refresh's own code
+    (:meth:`DistributedKFAC.refresh_units`: this rank's block, then the
+    column's all-gather), so a swapped shadow is that refresh one window
+    back, bit for bit."""
+    sh = state.shadow
+    damping = float(resolve(engine.config.damping, state.step))
+    upd = {f: dict(getattr(sh, f)) for f in _kaisa_fields(engine)}
+    for f, stacks in engine.refresh_units(state, units, damping).items():
+        upd[f].update(stacks)
+    return dataclasses.replace(state, shadow=dataclasses.replace(
+        sh, progress=sh.progress + 1, damping=damping, **upd,
+    ))
+
+
+@tracing.scope('dist_kfac.async_refresh')
+def kaisa_async_step(engine, state: Any):
+    """The distributed engine's sliced dispatcher: the dense one's three
+    stages on the host step counter, so every rank takes the same branch
+    and enters the same collectives."""
+    phase = state.step % engine._async_n_steps
+    if phase == 0:
+        state = _kaisa_swap(engine, state)
+    if state.step == 0:
+        state = engine.update_inverses(state)
+    if phase < engine._async_n_slices:
+        state = _kaisa_slice(engine, state, engine._async_slices[phase])
     return state

@@ -20,7 +20,10 @@ The step windows are the bench's: 5 warm-up steps, then 100 timed steps
 Newton-Schulz, kl-clip) against the plain expressions they fuse; and the
 async refresh spike probe (``async_spike_probe``, the port of the bench's
 ``_async_spike_probe``): per-step times of an MLP under the synchronous
-refresh and under ``async_inverse='sliced'``.
+refresh and under ``async_inverse='sliced'``; and the compression probe
+(``compression_probe``, the port of the bench's ``_compression_probe``):
+a ``DistributedKFAC`` in a world of one rank at the f32 and the int8 wire,
+and a dense offload Trainer's counters.
 
 Prints the card's name and power limit (``nvidia-smi``) on CUDA, then one
 JSON line. On the CPU the kernels' plain versions run and the record says
@@ -30,16 +33,22 @@ so; its times are the CPU's and no MFU is given.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import datetime
 import json
 import math
+import os
 import subprocess
+import tempfile
 import time
-from typing import Any
+from typing import Any, Iterator
 
 import numpy as np
 import torch
 
+from kfac_tpu_torch.compression import OffloadConfig
 from kfac_tpu_torch.device import resolve_device
+from kfac_tpu_torch.layers.capture import CurvatureCapture
 from kfac_tpu_torch.layers.registry import register_model
 from kfac_tpu_torch.models import MLP, TransformerLM, lm_loss
 from kfac_tpu_torch.ops import cov_ema, klclip, newton_schulz
@@ -387,6 +396,97 @@ def async_spike_probe(
     }
 
 
+@contextlib.contextmanager
+def one_rank_world(device: torch.device) -> Iterator[None]:
+    """A ``torch.distributed`` world of this process alone, joined by a
+    ``file://`` store in a temporary directory as ``spawn_world`` joins
+    its ranks (NCCL on a card, gloo on the CPU), destroyed on exit, so it
+    does not outlive the caller. Refuses to run inside another world."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        raise RuntimeError('one_rank_world needs no torch.distributed world to be running')
+    with tempfile.TemporaryDirectory(prefix='kfac_probe_') as tmp:
+        dist.init_process_group(
+            'nccl' if device.type == 'cuda' else 'gloo',
+            init_method='file://' + os.path.join(tmp, 'rendezvous'), world_size=1, rank=0,
+            timeout=datetime.timedelta(seconds=300),
+        )
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+def compression_probe(device: torch.device, d: int = 256, steps: int = 24) -> dict[str, Any]:
+    """The compressed transport and the cold-factor offload, as the bench's
+    ``_compression_probe``: an MLP with features ``(d, d)`` and 16 classes
+    (weights from seed 8, a batch of 128 from seeds 6 and 7), MSE.
+
+    A ``DistributedKFAC`` (COMM-OPT, ``allreduce_bucketed``, damping 1e-3,
+    lr 0.1, cadence 1/1) in a world of one rank (:func:`one_rank_world`)
+    at the f32 and the int8 wire: the static wire ratio and bytes of
+    ``comms_report()``, and the median of 10 eager steps (capture and
+    engine step, fixed weights) after one untimed. Then a dense offload
+    Trainer (cadence 8/8, ``min_cold_steps=2``, ``prefetch_lead=1``,
+    SGD(0.05)) for ``steps`` steps, and its offload counters with
+    ``prefetch_hit_rate``."""
+    from kfac_tpu_torch.parallel import DistributedKFAC, kaisa_mesh
+
+    model = MLP(d, (d, d), 16, seed=8, device=device)
+    x = torch.randn(128, d, generator=torch.Generator().manual_seed(6)).to(device)
+    y = torch.randn(128, 16, generator=torch.Generator().manual_seed(7)).to(device)
+    reg = register_model(model, device=device)
+
+    def loss_fn(ms, batch):
+        return torch.mean((model(batch[0]) - batch[1]) ** 2), ms
+
+    run = CurvatureCapture(reg).value_stats_and_grad(loss_fn, has_aux=True)
+    out: dict[str, Any] = {'compression_probe_config': f'mlp_d{d}_b128_bucketed'}
+    with one_rank_world(device):
+        mesh = kaisa_mesh(1.0, device=device)
+        series = {}
+        for name, comp in (('f32', None), ('int8', 'int8')):
+            eng = DistributedKFAC(KFACPreconditioner(
+                reg, damping=1e-3, lr=0.1, allreduce_method='allreduce_bucketed',
+                stat_compression=comp, device=device,
+            ), mesh)
+            state = eng.init()
+            times = []
+            for i in range(11):
+                _sync(device)
+                t0 = time.perf_counter()
+                (loss, _), grads, stats = run(None, (x, y))
+                state, pg = eng.step(state, grads, stats, loss=loss)
+                _sync(device)
+                if i:  # the first step is the untimed warm-up
+                    times.append((time.perf_counter() - t0) * 1e3)
+            series[name] = (float(np.median(times)), eng.comms_report()['stat_transport'])
+    out.update(
+        wire_ratio_int8=round(series['int8'][1]['raw_bytes'] / series['int8'][1]['wire_bytes'], 3),
+        stat_wire_bytes_f32=series['f32'][1]['wire_bytes'],
+        stat_wire_bytes_int8=series['int8'][1]['wire_bytes'],
+        step_p50_ms_f32_wire=round(series['f32'][0], 3),
+        step_p50_ms_int8_wire=round(series['int8'][0], 3),
+    )
+    kfac = KFACPreconditioner(
+        reg, damping=1e-3, lr=0.1, factor_update_steps=8, inv_update_steps=8,
+        offload=OffloadConfig(min_cold_steps=2, prefetch_lead=1), device=device,
+    )
+    trainer = Trainer(
+        model, torch.optim.SGD(model.parameters(), lr=0.05), loss_fn, kfac=kfac, device=device,
+    )
+    tstate = trainer.init()
+    for _ in range(steps):
+        tstate, _ = trainer.step(tstate, (x, y))
+    _sync(device)
+    counters = dict(kfac._offload_manager.stats)
+    attempts = counters['prefetch_hits'] + counters['prefetch_misses']
+    counters['prefetch_hit_rate'] = round(counters['prefetch_hits'] / attempts, 3) if attempts else None
+    out['offload'] = counters
+    return out
+
+
 def flops_per_step(model: torch.nn.Module, cfg: dict) -> tuple[int, float]:
     """(parameter count, model FLOPs of one step): 6 per matmul parameter
     per token (forward and backward) plus 12 L d S per token for the
@@ -450,6 +550,7 @@ def run_lm_stage(
     )
     result['fused_kernel_probe'] = fused_kernel_probe(device)
     result['async_spike_probe'] = async_spike_probe(device)
+    result['compression_probe'] = compression_probe(device)
     return result
 
 

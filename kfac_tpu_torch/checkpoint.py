@@ -1,9 +1,13 @@
 """Checkpoint and resume of the K-FAC state (counterpart of
 ``kfac_tpu/checkpoint.py``).
 
-As in the JAX package, only the step counter, the factors A and G and, with
-the health sentinel on, its counters are durable; the decompositions are
-derived state, recomputed on load by ``engine.rematerialize``.
+As in the JAX package, only the step counter, the factors A and G, with
+the health sentinel on its counters, and with the compressed stat
+transport its error-feedback residuals (``comp_ef``) are durable; the
+decompositions are derived state, recomputed on load by
+``engine.rematerialize``. A state whose factors are spilled to host memory
+(the cold-factor offload) is refused: the Trainer saves its manager's
+resident ``host_view`` instead.
 
 The on-disk format is the port's own (the JAX package writes orbax):
 
@@ -134,8 +138,21 @@ def is_committed(path: str) -> bool:
 def durable_state(state: Any) -> dict[str, Any]:
     """The persistent slice of a K-FAC state: ``step`` (an int), ``a`` and
     ``g`` (layer-keyed tensors, or a distributed state's store-keyed
-    blocks) and, when the sentinel is on, ``health``: its counters with the
-    layer ``names`` they are ordered by."""
+    blocks), when the sentinel is on ``health``: its counters with the
+    layer ``names`` they are ordered by, and with error feedback
+    ``comp_ef`` (a distributed state's slices of each chunk's residual).
+
+    Raises on a spilled state (the cold-factor offload's placeholders), as
+    the JAX package does."""
+    from kfac_tpu_torch.compression import offload as offload_lib
+
+    if offload_lib.is_spilled(state):
+        raise ValueError(
+            'cannot checkpoint a spilled K-FAC state: the factor slots are '
+            'cold-offload placeholders (the real factors live in host RAM). '
+            'Use OffloadManager.host_view(state) for a resident view, or '
+            'let the Trainer checkpoint driver handle it.'
+        )
     out: dict[str, Any] = {'step': int(state.step), 'a': dict(state.a), 'g': dict(state.g)}
     health = getattr(state, 'health', None)
     if health is not None:
@@ -143,6 +160,9 @@ def durable_state(state: Any) -> dict[str, Any]:
             'names': list(health.names), 'skipped_steps': health.skipped_steps,
             **{f: getattr(health, f) for f in _HEALTH_FIELDS},
         }
+    comp_ef = getattr(state, 'comp_ef', None)
+    if comp_ef is not None:
+        out['comp_ef'] = dict(comp_ef)
     return out
 
 
@@ -655,9 +675,16 @@ def _load(path: str, name: str) -> Any:
 def _full_stacks(path: str, marker: dict[str, Any]) -> dict[str, Any]:
     """A sharded checkpoint's durable state with each store's stack
     reassembled from every shard's block: ``{'step', 'a': {key: (L, d,
-    d)}, 'g', 'health'?}``."""
+    d)}, 'g', 'health'?, 'comp_ef'?}``; each residual is the ranks'
+    slices in rank order (its first ``elements`` are the JAX package's
+    replicated residual)."""
     shards = [_load(path, n) for n in marker['shards']]
     out = {k: v for k, v in shards[0].items() if k in ('step', 'health')}
+    if 'comp_ef' in shards[0]:
+        by_rank = sorted(shards, key=lambda sh: sh['rank'])
+        out['comp_ef'] = {
+            key: torch.cat([sh['comp_ef'][key] for sh in by_rank]) for key in shards[0]['comp_ef']
+        }
     for side in ('a', 'g'):
         out[side] = {
             key: torch.cat([
@@ -760,8 +787,37 @@ def _load_durable(
                 lo, hi = engine._factor_range(sb.padded)
                 if sb.key in loaded[side]:
                     loaded[side][sb.key] = loaded[side][sb.key][lo:hi]
+        if 'comp_ef' in loaded and getattr(engine, '_comp_plan', None) is not None:
+            loaded['comp_ef'] = {k: engine.ef_slice(k, v) for k, v in loaded['comp_ef'].items()}
     _validate_blocks(path, engine, loaded)
+    _check_comp_ef(path, engine, loaded)
     return 'blocks', loaded, None
+
+
+def _check_comp_ef(path: str, engine: Any, loaded: dict[str, Any]) -> None:
+    """The JAX package's refusal of error-feedback residuals that the
+    engine cannot take: saved under ``stat_compression``, restored into an
+    engine without it (or with another chunking). A checkpoint without
+    residuals restores into a compressed engine with ``init()``'s zeros."""
+    if 'comp_ef' not in loaded:
+        return
+    plan = getattr(engine, '_comp_plan', None)
+    want = None
+    if plan is not None and engine._compression.error_feedback:
+        want = {f'c{i}': (c['padded'] // engine.world,) for i, c in enumerate(plan)}
+    if want != {k: tuple(v.shape) for k, v in loaded['comp_ef'].items()}:
+        raise ValueError(
+            f'checkpoint at {path!r} does not match the engine state '
+            'layout. For DistributedKFAC the stacked bucket keys/shapes '
+            'depend on the config (notably bucket_granularity and '
+            'colocate_factors), and error-feedback residuals saved under '
+            'stat_compression need a compression-enabled engine (or the same '
+            'chunking) to restore into: restore with the SAME values the '
+            'checkpoint was saved under — or write checkpoints with '
+            'save(..., engine=engine) so restore can diagnose and migrate '
+            'layout changes. Original error: the checkpoint holds comp_ef '
+            'residuals the engine has no slot for'
+        )
 
 
 def restore(
@@ -822,6 +878,8 @@ def restore(
     if error is not None:
         raise error
     if kind == 'layers':
+        # a migration's residuals start from init()'s zeros, as the JAX
+        # package's migration leaves them
         state = _with_durable(engine, engine.init(), loaded)
     else:
         state = _with_health(dataclasses.replace(
@@ -829,6 +887,10 @@ def restore(
             a={k: v.to(engine.device) for k, v in loaded['a'].items()},
             g={k: v.to(engine.device) for k, v in loaded['g'].items()},
         ), loaded)
+        if 'comp_ef' in loaded:
+            state = dataclasses.replace(
+                state, comp_ef={k: v.to(engine.device) for k, v in loaded['comp_ef'].items()}
+            )
     return _rematerialized(engine, state), extra
 
 

@@ -127,8 +127,16 @@ def from_jax_kfac_state(jax_state: Any, kfac: KFACPreconditioner) -> KFACState:
     state. The flight ring starts empty.
 
     ``jax_state`` is a ``kfac_tpu.KFACState`` (or anything with its fields);
-    slots the port's configuration does not use are dropped.
+    slots the port's configuration does not use are dropped. An offload
+    engine's state converts while resident; a spilled one (the JAX
+    package's zero-size placeholders) is refused.
     """
+    a0 = next(iter(jax_state.a.values()), None)
+    if a0 is not None and np.ndim(a0) == 1 and np.shape(a0)[0] == 0:
+        raise ValueError(
+            'the JAX state is spilled (cold-offload placeholders in place of '
+            'its factors): convert it while resident, or its host_view'
+        )
     state = kfac.init()
     dev = kfac.device
     updates: dict[str, Any] = {'step': int(np.asarray(jax_state.step))}
@@ -184,7 +192,10 @@ def from_jax_dist_state(jax_state: Any, engine: Any) -> Any:
     block of each store and its column's block of each decomposition, on
     ``engine.device``. The step and ``inv_damping`` are carried over, and
     the health counters, metrics and flight ring where the JAX state and
-    the engine both have them (replicated: the same on every rank)."""
+    the engine both have them (replicated: the same on every rank), the
+    sliced refresh's shadow (its column blocks, ``progress`` and
+    ``damping``) and the compressed transport's residuals (this rank's
+    slice of each replicated chunk, :meth:`DistributedKFAC.ef_slice`)."""
     def field_of(name):
         return jax_state[name] if isinstance(jax_state, Mapping) else getattr(jax_state, name)
 
@@ -207,6 +218,23 @@ def from_jax_dist_state(jax_state: Any, engine: Any) -> Any:
         updates[field] = blocks
     if not isinstance(jax_state, Mapping):
         updates.update(_observability_from_jax(state, jax_state, dev, flight=True))
+        js = getattr(jax_state, 'shadow', None)
+        if state.shadow is not None and js is not None:
+            fields = {}
+            for field, ours in vars(state.shadow).items():
+                if isinstance(ours, dict):
+                    fields[field] = {}
+                    for key in ours:
+                        full = np.asarray(getattr(js, field)[key], np.float32)
+                        lo, hi = engine._column_range(full.shape[0])
+                        fields[field][key] = torch.from_numpy(np.array(full[lo:hi])).to(dev)
+            updates['shadow'] = dataclasses.replace(
+                state.shadow, progress=int(np.asarray(js.progress)),
+                damping=float(np.asarray(js.damping)), **fields,
+            )
+        jef = getattr(jax_state, 'comp_ef', None)
+        if state.comp_ef is not None and jef is not None:
+            updates['comp_ef'] = {k: engine.ef_slice(k, np.asarray(jef[k])) for k in state.comp_ef}
     return dataclasses.replace(state, **updates)
 
 

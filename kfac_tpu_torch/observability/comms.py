@@ -16,8 +16,14 @@ flows its step runs:
   the class dims, and whole slots rounding a stack to the world.
 
 Bytes are global logical bytes a flow moves per occurrence, as in the JAX
-package. The port keeps its state in f32, so every dtype is f32.
-Compression and offload come in a later slice: their entries are None.
+package. The port keeps its state in f32, so every dtype is f32. With
+``stat_compression`` the stat transport's ``wire_bytes`` is the quantized
+payload and its f32 scales (the JAX package's static figure), and
+``collectives`` lists what the port's compressed transport runs per chunk
+(a reduce-scatter of the f32 partials, all-gathers of the payload and the
+scales) with their buffer bytes beside the f32 all-reduce's. With
+``offload`` its entry is the plan (knobs and the bytes a spill moves), to
+which the engine's ``comms_report()`` adds the live counters.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from __future__ import annotations
 from typing import Any
 
 from kfac_tpu_torch import enums
+from kfac_tpu_torch.compression import quant as quant_lib
 from kfac_tpu_torch.parallel import collectives
 
 F32_BYTES = 4
@@ -78,22 +85,62 @@ def transport_report(engine: Any) -> dict[str, Any]:
         for store in stores for sb in store for _ in sb.layers
     ]
     cap = cfg.allreduce_bucket_cap_mb
+    ccfg = cfg.stat_compression
     chunks = []
     for c in collectives.plan_chunks(specs, max_bytes=None if cap is None else cap * 1e6):
-        chunks.append(dict(c, raw_bytes=c['bytes'], wire_bytes=c['bytes'], wire_dtype=c['dtype']))
+        entry = dict(c, raw_bytes=c['bytes'])
+        if ccfg is None:
+            entry.update(wire_bytes=c['bytes'], wire_dtype=c['dtype'])
+        else:
+            wb = quant_lib.wire_bytes(c['elements'], ccfg.dtype, ccfg.block_size)
+            entry.update(wb, wire_dtype=ccfg.dtype, bytes=wb['wire_bytes'])
+        chunks.append(entry)
+    raw = sum(c['raw_bytes'] for c in chunks)
     wire = sum(c['wire_bytes'] for c in chunks)
     dense = sum(sb.d * sb.d * len(sb.layers) for store in stores for sb in store) * F32_BYTES
-    return {
+    out = {
         'method': 'ALLREDUCE_BUCKETED',
         'collectives': len(chunks),
         'bytes': wire,
-        'raw_bytes': wire,
+        'raw_bytes': raw,
         'wire_bytes': wire,
-        'wire_dtype': 'float32',
+        'wire_dtype': 'float32' if ccfg is None else ccfg.dtype,
         'dense_bytes': dense,
         'savings': 1.0 - wire / dense if dense else 0.0,
-        'compression': None,
+        'compression': None if ccfg is None else {
+            'dtype': ccfg.dtype,
+            'block_size': ccfg.block_size,
+            'error_feedback': ccfg.error_feedback,
+            'ratio': raw / wire if wire else 1.0,
+        },
         'chunks': chunks,
+    }
+    if ccfg is not None:
+        # the JAX package's keys above; what the port's collectives move
+        out['port_collectives'] = port_collectives(engine)
+    return out
+
+
+def port_collectives(engine: Any) -> dict[str, Any]:
+    """The collectives the port's compressed stat transport runs on a
+    capture step with more than one rank, per chunk: a ``reduce_scatter``
+    of the f32 chunk padded to ``world * block_size``, an ``all_gather``
+    of the one-byte payload and one of the f32 scales, each with its
+    buffer's bytes. ``buffer_bytes`` sums them; ``f32_all_reduce_bytes``
+    is the f32 all-reduce of the same rows, the uncompressed transport."""
+    ccfg = engine.config.stat_compression
+    ops = []
+    for c in engine._comp_plan if engine.world > 1 else ():
+        ops += [
+            {'op': 'reduce_scatter', 'dtype': 'float32', 'bytes': c['padded'] * F32_BYTES},
+            {'op': 'all_gather', 'dtype': ccfg.dtype, 'bytes': c['padded']},
+            {'op': 'all_gather', 'dtype': 'float32',
+             'bytes': c['padded'] // ccfg.block_size * F32_BYTES},
+        ]
+    return {
+        'ops': ops,
+        'buffer_bytes': sum(o['bytes'] for o in ops),
+        'f32_all_reduce_bytes': sum(c['elements'] for c in engine._comp_plan) * F32_BYTES,
     }
 
 
@@ -120,6 +167,16 @@ def comms_summary(engine: Any) -> dict[str, Any]:
     """The comms and padding accounting of a ``DistributedKFAC``, the keys
     of the JAX package's."""
     padding = padding_report(engine)
+    ocfg = engine.config.offload
+    offload = None if ocfg is None else {
+        'min_cold_steps': int(ocfg.min_cold_steps),
+        'prefetch_lead': int(ocfg.prefetch_lead),
+        # the factor stacks' global bytes a spill moves to the host
+        'spill_bytes': sum(
+            sb.padded * sb.d * sb.d * F32_BYTES
+            for store in (engine.a_store, engine.g_store) for sb in store
+        ),
+    }
     return {
         'strategy': engine.strategy.name,
         'grad_worker_fraction': engine.grad_workers / engine.world,
@@ -129,7 +186,7 @@ def comms_summary(engine: Any) -> dict[str, Any]:
         'stat_transport': transport_report(engine),
         'grad_broadcast_bytes': grad_broadcast_bytes(engine),
         'decomp_reshard_bytes': decomp_reshard_bytes(engine),
-        'offload': None,
+        'offload': offload,
         'padding': padding,
         'padding_totals': {
             key: sum(p[key] for p in padding.values())

@@ -8,9 +8,10 @@ collectives for a few large ones (:func:`concat_flat_chunked`,
 :func:`plan_chunks`, :func:`split_flat_chunked`).
 
 Under XLA the collectives are implicit, placed by sharding constraints;
-here they are explicit ``torch.distributed`` calls. Only ``all_reduce`` and
-``all_gather`` are used, which NCCL and gloo both have, so the CPU tests run
-the path the card runs.
+here they are explicit ``torch.distributed`` calls: ``all_reduce``,
+``all_gather`` and (the compressed stat transport's) ``reduce_scatter``,
+which NCCL and gloo both have, so the CPU tests run the path the card
+runs.
 """
 
 from __future__ import annotations
@@ -197,6 +198,14 @@ def mean_grads(
     summed = all_reduce_sum_flat([grads[n] for n in names] + list(extra), group, max_bytes)
     mean = [t / world for t in summed]
     return dict(zip(names, mean[:len(names)])), mean[len(names):]
+
+
+def reduce_scatter(out: torch.Tensor, full: torch.Tensor, group: Any = None) -> None:
+    """Rank r's ``out`` becomes elements ``[r * n, (r + 1) * n)`` of the
+    sum over the ranks of ``full`` (``n = out.numel()``)."""
+    # reduce_scatter_single is the newer name of reduce_scatter_tensor
+    op = getattr(dist, 'reduce_scatter_single', None) or dist.reduce_scatter_tensor
+    op(out, full, group=group)
 
 
 def all_gather_cat(x: torch.Tensor, group: Any = None) -> torch.Tensor:

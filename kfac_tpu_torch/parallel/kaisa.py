@@ -40,8 +40,22 @@ bounds), and the verdicts reach every rank through one ``all_reduce`` of
 an (L,)-sized vector that is zero outside the rank's block, so the sum is
 exact and no value is read on the host.
 
-The async refresh, stat compression, offload, compile watch and
-``auto_layout`` of the JAX engine raise ``NotImplementedError``.
+The async refresh (``async_inverse``: sliced, or a host worker a rank),
+the compressed stat transport (``stat_compression``) and the cold-factor
+offload (``offload``) are the JAX engine's; its compile watch and
+``auto_layout`` raise ``NotImplementedError``.
+
+The compressed transport quantizes what crosses the wire. For each packed
+chunk of factor triangles, a ``reduce_scatter`` of the f32 partials gives
+each rank a block-aligned slice of the global sum; the rank adds its slice
+of the error-feedback residual, quantizes the slice (int8 or fp8,
+blockwise scales) and keeps its slice of the new residual; an
+``all_gather`` of the payload and the scales then gives every rank the
+whole chunk to dequantize. That is the JAX engine's ``deq(quant(sum +
+ef))`` with ``ef <- (sum + ef) - deq``, quantized after the sum, as there.
+The residual is sharded by rank (``comp_ef``: each rank's slice of each
+chunk), where the JAX engine replicates it; ``convert`` and the
+checkpoints map between the two.
 """
 
 from __future__ import annotations
@@ -56,6 +70,11 @@ import torch.distributed as dist
 from kfac_tpu_torch import assignment as assignment_lib
 from kfac_tpu_torch import enums
 from kfac_tpu_torch import health as health_lib
+from kfac_tpu_torch.async_inverse import host as async_host
+from kfac_tpu_torch.async_inverse import sliced as async_sliced
+from kfac_tpu_torch.async_inverse import slots as async_slots
+from kfac_tpu_torch.compression import offload as offload_lib
+from kfac_tpu_torch.compression import quant as quant_lib
 from kfac_tpu_torch.hyperparams import resolve
 from kfac_tpu_torch.layers import capture as capture_lib
 from kfac_tpu_torch.layers import registry as registry_lib
@@ -207,7 +226,11 @@ class DistKFACState:
     ``a_inv``/``g_inv`` (INVERSE): the resident block of the rank's column,
     (L / n_cols, ...); unused fields hold empty dicts. ``inv_damping``: the
     damping the resident decompositions were built with (read by
-    :meth:`DistributedKFAC.inverse_residuals`).
+    :meth:`DistributedKFAC.inverse_residuals`). ``shadow``: the sliced
+    async refresh's :class:`~kfac_tpu_torch.async_inverse.ShadowSlots` of
+    the resident fields (ephemeral, as in the dense engine). ``comp_ef``:
+    with ``stat_compression`` and error feedback, the rank's slice of each
+    chunk's residual (``'c0'``, ``'c1'``, ...; f32, durable), else None.
     """
 
     step: int
@@ -224,9 +247,11 @@ class DistKFACState:
     health: health_lib.HealthState | None = None
     metrics: metrics_lib.MetricsState | None = None
     flight: flight_lib.FlightRecorderState | None = None
+    shadow: async_slots.ShadowSlots | None = None
+    comp_ef: dict[str, torch.Tensor] | None = None
 
 
-_LATER_SLICE_KNOBS = ('async_inverse', 'offload', 'stat_compression', 'compile_watch')
+_LATER_SLICE_KNOBS = ('compile_watch',)
 
 
 @dataclasses.dataclass
@@ -239,7 +264,8 @@ class DistributedKFAC:
             the cadences, damping, decay, kl-clip, lr, compute method,
             solver and the distributed fields (``bucket_granularity``,
             ``colocate_factors``, ``allreduce_method``,
-            ``allreduce_bucket_cap_mb``).
+            ``allreduce_bucket_cap_mb``) and the knobs ``async_inverse``,
+            ``stat_compression`` and ``offload``.
         mesh: the grid from :func:`~kfac_tpu_torch.parallel.mesh.
             kaisa_mesh`; its shape is the gradient worker fraction. None
             builds the COMM-OPT grid over the default group.
@@ -320,6 +346,73 @@ class DistributedKFAC:
         self._to_registry = torch.tensor(
             [order.index(n) for n in names], dtype=torch.long, device=self.device
         )
+        self._stores = {
+            (side, sb.key): sb
+            for side, store in (('a', self.a_store), ('g', self.g_store)) for sb in store
+        }
+        self._plan_async()
+        self._plan_compression()
+        self._plan_offload()
+
+    def _plan_compression(self) -> None:
+        """The compressed transport's chunk plan, the JAX engine's: the
+        upper triangles of every layer's class-dim row, A stores then G
+        stores, through ``plan_chunks`` at the byte cap. Each chunk's
+        ``padded`` length is a multiple of ``world * block_size``, so each
+        rank's slice of it is whole blocks. ``transport_counter`` adds up
+        the collectives the stat transport runs and the bytes they move
+        (host ints, from the buffers' sizes)."""
+        ccfg = self.config.stat_compression
+        self._compression = ccfg
+        self._comp_plan = None
+        self.transport_counter = {'collectives': 0, 'buffer_bytes': 0, 'ring_bytes': 0}
+        if ccfg is None:
+            return
+        specs = [
+            (sb.d * (sb.d + 1) // 2, 'float32')
+            for store in (self.a_store, self.g_store) for sb in store for _ in sb.layers
+        ]
+        cap = self.config.allreduce_bucket_cap_mb
+        quantum = self.world * ccfg.block_size
+        self._comp_plan = [
+            dict(c, padded=-(-c['elements'] // quantum) * quantum)
+            for c in collectives.plan_chunks(specs, None if cap is None else cap * 1e6)
+        ]
+
+    def ef_slice(self, key: str, full: Any) -> torch.Tensor:
+        """This rank's slice of chunk ``key``'s residual from the whole one
+        (the JAX engine's replicated ``(elements,)`` vector, or a longer one
+        whose tail past ``elements`` is zero): zero-padded to the chunk's
+        ``padded`` length, then rank r's ``[r * per, (r + 1) * per)``."""
+        plan = self._comp_plan[int(key[1:])]
+        n, padded = plan['elements'], plan['padded']
+        full = torch.as_tensor(full).to(self.device, torch.float32)[:n]
+        per = padded // self.world
+        full = torch.nn.functional.pad(full, (0, padded - n))
+        return full[self.mesh.rank * per:(self.mesh.rank + 1) * per].clone()
+
+    def _plan_offload(self) -> None:
+        """This rank's offload manager (host state only; the config checks
+        are the dense engine's)."""
+        self._offload_manager = (
+            None if self.config.offload is None else offload_lib.OffloadManager(self)
+        )
+
+    def _plan_async(self) -> None:
+        """The async refresh's plan over the stacked stores, with the dense
+        engine's attributes: units are storage buckets (a pair bucket under
+        prediv), one batched decomposition a unit."""
+        acfg = self.config.async_inverse
+        self._async_mode = None if acfg is None else acfg.mode
+        self._async_worker = None
+        if acfg is None:
+            return
+        self._async_n_steps = int(self.config.inv_update_steps)
+        if acfg.mode == 'sliced':
+            units = async_sliced.kaisa_units(self)
+            n = min(self._async_n_steps, acfg.max_slices or len(units))
+            self._async_slices = async_slots.plan_slices(units, n)
+            self._async_n_slices = len(self._async_slices)
 
     @property
     def health(self) -> health_lib.HealthConfig | None:
@@ -398,6 +491,13 @@ class DistributedKFAC:
             state.flight = flight_lib.init_flight(
                 self.flight, metrics_lib.metric_keys(self.metrics, names), dev
             )
+        if self._compression is not None and self._compression.error_feedback:
+            state.comp_ef = {
+                f'c{i}': torch.zeros((ch['padded'] // self.world,), device=dev)
+                for i, ch in enumerate(self._comp_plan)
+            }
+        if self._async_mode == 'sliced':
+            state.shadow = async_sliced.kaisa_shadow(self, state)
         return state
 
     # ------------------------------------------------------------- health
@@ -431,15 +531,19 @@ class DistributedKFAC:
     # ------------------------------------------------------------ factors
 
     def _reduce_stats(
-        self, stats: capture_lib.CapturedStats
-    ) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:
-        """The world's statistics from this rank's: ``(a, g)`` name ->
-        class-dim factor, for every captured layer.
+        self, state: DistKFACState, stats: capture_lib.CapturedStats
+    ) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor], dict[str, torch.Tensor] | None]:
+        """The world's statistics from this rank's: ``(a, g, comp_ef)``,
+        name -> class-dim factor for every captured layer (every layer
+        with ``stat_compression``), and the new error-feedback residual
+        (the state's, unchanged, without compression).
 
         ``ALLREDUCE`` sums each true-dim factor in its own all-reduce;
         ``ALLREDUCE_BUCKETED`` packs the upper triangles of the class-dim
         factors, A stores then G stores, into flat buffers of at most
-        ``allreduce_bucket_cap_mb`` and all-reduces each buffer.
+        ``allreduce_bucket_cap_mb`` and all-reduces each buffer. With
+        ``stat_compression`` the buffers hold every layer, as the JAX
+        engine's do (:meth:`_compressed_rows`).
 
         Scale: each rank's A is its rows' ``a^T a / rows``, so the mean
         over equal row blocks is the global one (sum / world). Its G comes
@@ -450,6 +554,8 @@ class DistributedKFAC:
         cotangents.)
         """
         cfg = self.config
+        if self._compression is not None:
+            return self._compressed_rows(state, stats)
         order = [
             (side, n, sb.d)
             for side, store, side_stats in (('a', self.a_store, stats.a), ('g', self.g_store, stats.g))
@@ -459,14 +565,13 @@ class DistributedKFAC:
         if cfg.allreduce_method == enums.AllreduceMethod.ALLREDUCE_BUCKETED:
             cap = cfg.allreduce_bucket_cap_mb
             tris = [collectives.get_triu(pad_factor(m, d)) for m, (_, _, d) in zip(raw, order)]
+            chunks = collectives.concat_flat_chunked(tris, None if cap is None else cap * 1e6)
+            for flat, _ in chunks:
+                self._count('all_reduce', flat)
+                dist.all_reduce(flat, group=self.mesh.group)
             summed = [
                 collectives.fill_triu((d, d), t)
-                for t, (_, _, d) in zip(
-                    collectives.all_reduce_sum_flat(
-                        tris, self.mesh.group, None if cap is None else cap * 1e6
-                    ),
-                    order,
-                )
+                for t, (_, _, d) in zip(collectives.split_flat_chunked(chunks), order)
             ]
         else:
             summed = [
@@ -477,7 +582,100 @@ class DistributedKFAC:
         out: dict[str, dict[str, torch.Tensor]] = {'a': {}, 'g': {}}
         for (side, n, _), m in zip(order, summed):
             out[side][n] = m / scale[side]
-        return out['a'], out['g']
+        return out['a'], out['g'], state.comp_ef
+
+    def _count(self, op: str, buffer: torch.Tensor) -> None:
+        """Add one stat-transport collective to ``transport_counter``: its
+        buffer's bytes (the input of an all-reduce or reduce-scatter, the
+        output of an all-gather) and the bytes a rank sends under ring
+        algorithms (2 (W-1)/W of the buffer for an all-reduce, (W-1)/W for
+        the others)."""
+        b = buffer.numel() * buffer.element_size()
+        w = self.world
+        ring = (2 if op == 'all_reduce' else 1) * b * (w - 1) // w
+        c = self.transport_counter
+        c['collectives'] += 1
+        c['buffer_bytes'] += b
+        c['ring_bytes'] += ring
+
+    def _compressed_rows(
+        self, state: DistKFACState, stats: capture_lib.CapturedStats
+    ) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor], dict[str, torch.Tensor] | None]:
+        """The compressed transport: every layer's class-dim row in the
+        global scale, ``deq(quant(sum + ef))`` chunk by chunk.
+
+        A rank's contribution to a captured layer's row is its statistic
+        over its ``scale`` (a power of two for the usual worlds, so exact),
+        with the identity of the class-dim padding from rank 0 alone; to a
+        layer without statistics, the factor itself from the rank that holds
+        its slot (zeros from the others), as the JAX engine packs the
+        state's row. Sums with zeros are exact, so the global row is the
+        JAX engine's.
+
+        Each chunk, zero-padded to ``padded`` (zeros move no block's
+        scale), is reduce-scattered: rank r holds elements ``[r * per, (r +
+        1) * per)`` of the sum, whole blocks. It adds its residual slice,
+        quantizes, keeps ``carried - deq`` as its new residual slice, and
+        the payload (fp8 as its ``uint8`` bits) and the scales are
+        all-gathered, so every rank dequantizes the same chunk. With one
+        rank no collective runs. The quantization and the dequantization
+        run under the profiler scopes ``kfac.stat_quantize`` and
+        ``kfac.stat_dequantize``.
+        """
+        ccfg = self._compression
+        w, bs = self.world, ccfg.block_size
+        scale = {'a': float(w), 'g': float(w) ** 3}
+        rows = []
+        for side, store, side_stats, fac in (
+            ('a', self.a_store, stats.a, state.a), ('g', self.g_store, stats.g, state.g),
+        ):
+            for sb in store:
+                lo, hi = self._factor_range(sb.padded)
+                for i, n in enumerate(sb.layers):
+                    if n in side_stats:
+                        m = side_stats[n].float() / scale[side]
+                        m = pad_factor(m, sb.d) if self.mesh.rank == 0 else pad_grad(m, sb.d, sb.d)
+                    elif lo <= i < hi:
+                        m = fac[sb.key][i - lo]
+                    else:
+                        m = torch.zeros((sb.d, sb.d), device=self.device)
+                    rows.append((side, n, sb.d, collectives.get_triu(m)))
+        cap = self.config.allreduce_bucket_cap_mb
+        chunks = collectives.concat_flat_chunked(
+            [r[3] for r in rows], None if cap is None else cap * 1e6
+        )
+        ef_in = state.comp_ef
+        ef_out: dict[str, torch.Tensor] = {}
+        deqs = []
+        for i, ((flat, specs), plan) in enumerate(zip(chunks, self._comp_plan)):
+            key = f'c{i}'
+            n, padded = flat.shape[0], plan['padded']
+            per = padded // w
+            full = torch.nn.functional.pad(flat, (0, padded - n))
+            if w == 1:
+                part = full
+            else:
+                part = torch.empty((per,), device=self.device)
+                self._count('reduce_scatter', full)
+                collectives.reduce_scatter(part, full, self.mesh.group)
+            with torch.profiler.record_function('kfac.stat_quantize'):
+                carried = part if ef_in is None else part + ef_in[key]
+                payload, scales = quant_lib.quantize_blockwise(carried, ccfg.dtype, bs)
+                if ef_in is not None:
+                    ef_out[key] = carried - quant_lib.dequantize_blockwise(payload, scales, per, bs)
+            if w > 1:
+                wire = payload.view(torch.uint8) if ccfg.dtype == 'fp8' else payload
+                wire = collectives.all_gather_cat(wire, self.mesh.group)
+                self._count('all_gather', wire)
+                payload = wire.view(payload.dtype)
+                scales = collectives.all_gather_cat(scales, self.mesh.group)
+                self._count('all_gather', scales)
+            with torch.profiler.record_function('kfac.stat_dequantize'):
+                deqs.append((quant_lib.dequantize_blockwise(payload, scales, n, bs), specs))
+        out: dict[str, dict[str, torch.Tensor]] = {'a': {}, 'g': {}}
+        for (side, n, d, _), t in zip(rows, collectives.split_flat_chunked(deqs)):
+            out[side][n] = collectives.fill_triu((d, d), t)
+        return out['a'], out['g'], (ef_out if ef_in is not None else None)
 
     def update_factors(
         self, state: DistKFACState, stats: capture_lib.CapturedStats
@@ -494,7 +692,7 @@ class DistributedKFAC:
         escalates its damping, as the JAX engine's stacked sentinel does.
         """
         alpha = resolve(self.config.factor_decay, state.step)
-        red_a, red_g = self._reduce_stats(stats)
+        red_a, red_g, comp_ef = self._reduce_stats(state, stats)
         new = {}
         for side, store, fac, red in (
             ('a', self.a_store, state.a, red_a), ('g', self.g_store, state.g, red_g),
@@ -547,7 +745,7 @@ class DistributedKFAC:
             health = dataclasses.replace(
                 health, damping_mult=mult, quarantined=quarantined, quarantine_events=events
             )
-        state = dataclasses.replace(state, a=new['a'], g=new['g'], health=health)
+        state = dataclasses.replace(state, a=new['a'], g=new['g'], health=health, comp_ef=comp_ef)
         if self.metrics is not None and state.metrics is not None and touched:
             state = dataclasses.replace(
                 state, metrics=self._record_factor_metrics(state, touched, ok)
@@ -631,16 +829,11 @@ class DistributedKFAC:
         verdicts reach every rank in one ``all_reduce``, so ``bad_inv``
         counts a layer up when its A or G refresh failed or ran from a
         quarantined factor, as in the JAX engine."""
-        cfg = self.config
         hc = self.health
-        damping = float(resolve(cfg.damping, state.step))
-        col = self.mesh.col_group
+        damping = float(resolve(self.config.damping, state.step))
         sub = self.mesh.row  # this rank's block within its column's
         verdicts = []  # with health: (offset, side, store, bad slots)
         n = len(self.registry.layers)
-
-        def damping_of(side, sb):
-            return damping if hc is None else damping * self._block_mults(state, side, sb)
 
         def checked(side, sb, cand, judged=()):
             """``cand`` (this block's outputs, field -> tensor) with health:
@@ -662,44 +855,8 @@ class DistributedKFAC:
                 for f, v in cand.items()
             }
 
-        updates: dict[str, dict[str, torch.Tensor]] = {}
-        if self._eigen:
-            eig: dict[tuple[str, str], torch.Tensor] = {}
-            for side, store, fac in (('a', self.a_store, state.a), ('g', self.g_store, state.g)):
-                for sb in store:
-                    d_, q_ = factors_lib.batched_eigh(fac[sb.key], cfg.eigh_impl)
-                    d_ = torch.clamp(d_, min=0.0)
-                    cand = {'q' + side: q_}
-                    if not self._prediv:
-                        cand['d' + side] = d_
-                    for f, v in checked(side, sb, cand, (d_,) if self._prediv else ()).items():
-                        updates.setdefault(f, {})[sb.key] = collectives.all_gather_cat(v, col)
-                    if self._prediv:
-                        eig[side, sb.key] = d_
-            if self._prediv:
-                updates['dgda'] = {}
-                for b, sb in zip(self.buckets, self.a_store):
-                    fused = factors_lib.prediv_eigenvalues(
-                        factors_lib.EigenDecomp(None, eig['a', b.key]),
-                        factors_lib.EigenDecomp(None, eig['g', b.key]),
-                        damping_of('a', sb),
-                    )
-                    fused = checked('a', sb, {'dgda': fused})['dgda']
-                    updates['dgda'][b.key] = collectives.all_gather_cat(fused, col)
-        else:
-            for side, store, fac, prev in (
-                ('a', self.a_store, state.a, state.a_inv), ('g', self.g_store, state.g, state.g_inv),
-            ):
-                field = side + '_inv'
-                for sb in store:
-                    lo, hi = self._factor_range(sb.padded)
-                    per = hi - lo
-                    cand = self._sharded_inv(
-                        fac[sb.key], damping_of(side, sb), prev[sb.key][sub * per:(sub + 1) * per],
-                        self._live(sb.layers, lo, hi),
-                    )
-                    cand = checked(side, sb, {field: cand})[field]
-                    updates.setdefault(field, {})[sb.key] = collectives.all_gather_cat(cand, col)
+        units = [u for u, _ in async_sliced.kaisa_units(self)]
+        updates = self.refresh_units(state, units, damping, checked)
         state = dataclasses.replace(state, **updates, inv_damping=damping)
         ok = None
         if hc is not None:
@@ -715,6 +872,65 @@ class DistributedKFAC:
                 ms, last_inv_step=metrics_lib.advance_all(ms.last_inv_step, ok, state.step)
             ))
         return state
+
+    def refresh_units(self, state: DistKFACState, units, damping: float, checked=None):
+        """The refresh of some storage buckets: ``units`` are ``(side,
+        key)`` (``'a'``, ``'g'``, or ``'ag'`` for a pair bucket under
+        prediv), in an order every rank shares. This rank decomposes its
+        factor block of each, and each field is all-gathered within the
+        column. Returns ``{field: {key: column block}}``.
+
+        ``checked(side, store, cand, judged)`` filters this rank's
+        outputs before the gather (the synchronous refresh's health); the
+        sliced refresh passes none. With health the INVERSE and prediv
+        outputs are at each slot's effective damping."""
+        cfg = self.config
+        col = self.mesh.col_group
+        sub = self.mesh.row
+        updates: dict[str, dict[str, torch.Tensor]] = {}
+
+        def keep(side, sb, cand, judged=()):
+            return cand if checked is None else checked(side, sb, cand, judged)
+
+        def gather(field, key, v):
+            updates.setdefault(field, {})[key] = collectives.all_gather_cat(v, col)
+
+        def damping_of(side, sb):
+            return damping if self.health is None else damping * self._block_mults(state, side, sb)
+
+        for side, key in units:
+            if self._eigen:
+                eig = {}
+                for s in (('a', 'g') if side == 'ag' else (side,)):
+                    sb = self._stores[s, key]
+                    d_, q_ = factors_lib.batched_eigh(getattr(state, s)[key], cfg.eigh_impl)
+                    d_ = torch.clamp(d_, min=0.0)
+                    cand = {'q' + s: q_}
+                    if not self._prediv:
+                        cand['d' + s] = d_
+                    for f, v in keep(s, sb, cand, (d_,) if self._prediv else ()).items():
+                        gather(f, key, v)
+                    eig[s] = d_
+                if side == 'ag':
+                    sb = self._stores['a', key]
+                    fused = factors_lib.prediv_eigenvalues(
+                        factors_lib.EigenDecomp(None, eig['a']),
+                        factors_lib.EigenDecomp(None, eig['g']),
+                        damping_of('a', sb),
+                    )
+                    gather('dgda', key, keep('a', sb, {'dgda': fused})['dgda'])
+            else:
+                sb = self._stores[side, key]
+                field = side + '_inv'
+                lo, hi = self._factor_range(sb.padded)
+                per = hi - lo
+                cand = self._sharded_inv(
+                    getattr(state, side)[key], damping_of(side, sb),
+                    getattr(state, field)[key][sub * per:(sub + 1) * per],
+                    self._live(sb.layers, lo, hi),
+                )
+                gather(field, key, keep(side, sb, {field: cand})[field])
+        return updates
 
     def inverse_residuals(self, state: DistKFACState) -> dict[str, dict[str, torch.Tensor]]:
         """Per slot, the relative identity residual ``||I - (F + damping I)
@@ -918,12 +1134,27 @@ class DistributedKFAC:
         With metrics, the step's scalars and staleness go into
         ``state.metrics``; with the flight recorder, one ring row then
         records them beside ``loss`` (when given) and the grads' global
-        norm, the same row on every rank."""
+        norm, the same row on every rank.
+
+        Under ``async_inverse`` the sliced or host stage takes the place of
+        the refresh cadence. A spilled state (cold-factor offload) skips
+        the factor and refresh work: the pump restores the factors before
+        every step that would do it, on every rank alike."""
         cfg = self.config
         step = state.step
-        if stats is not None and step % resolve(cfg.factor_update_steps, step) == 0:
+        spilled = offload_lib.is_spilled(state)
+        if (
+            stats is not None and not spilled
+            and step % resolve(cfg.factor_update_steps, step) == 0
+        ):
             state = self.update_factors(state, stats)
-        if step % resolve(cfg.inv_update_steps, step) == 0:
+        if spilled:
+            pass
+        elif self._async_mode == 'sliced':
+            state = async_sliced.kaisa_async_step(self, state)
+        elif self._async_mode == 'host':
+            state = async_host.kaisa_host_step(self, state)
+        elif step % resolve(cfg.inv_update_steps, step) == 0:
             state = self.update_inverses(state)
         if self.metrics is not None and state.metrics is not None:
             families: dict[str, torch.Tensor] = {}
@@ -945,8 +1176,18 @@ class DistributedKFAC:
         """Recompute the decompositions from the factors, as after a
         checkpoint load: :meth:`update_inverses`, with health and metrics as
         a refresh ticks them (a restore then puts the loaded health
-        counters back: they are the run's durable truth)."""
-        return self.update_inverses(state)
+        counters back: they are the run's durable truth). The offload
+        manager forgets its host copies, and under async refresh the
+        shadow (sliced) or the worker (host) is reset: the first boundary
+        after a mid-window restore skips its swap."""
+        if self._offload_manager is not None:
+            self._offload_manager.reset()
+        state = self.update_inverses(state)
+        if self._async_mode == 'sliced':
+            state = dataclasses.replace(state, shadow=async_sliced.kaisa_shadow(self, state))
+        elif self._async_mode == 'host':
+            async_host.reset_worker(self)
+        return state
 
     # ---------------------------------------------------------- utilities
 
@@ -1052,8 +1293,12 @@ class DistributedKFAC:
 
     def comms_report(self) -> dict[str, Any]:
         """Host-side bytes of each flow and each store's padding
-        (:func:`kfac_tpu_torch.observability.comms.comms_summary`)."""
-        return comms_lib.comms_summary(self)
+        (:func:`kfac_tpu_torch.observability.comms.comms_summary`), with the
+        offload manager's live counters merged into ``offload``."""
+        out = comms_lib.comms_summary(self)
+        if self._offload_manager is not None:
+            out['offload'] = dict(out['offload'], **self._offload_manager.stats)
+        return out
 
     def memory_usage(self, state: DistKFACState) -> dict[str, Any]:
         """This rank's bytes by category, read from the tensors it holds;

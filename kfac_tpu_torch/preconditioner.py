@@ -18,8 +18,11 @@ decompositions in a ``shadow`` slot, refreshed in per-step slices
 (``'sliced'``) or by a host worker thread (``'host'``); see
 :mod:`kfac_tpu_torch.async_inverse`.
 
-Knobs of the JAX engine whose slice comes later (offload, stat
-compression, compile watch) raise ``NotImplementedError`` when set.
+The cold-factor offload (``offload``) spills the factors to host memory
+between cadence boundaries (:mod:`kfac_tpu_torch.compression.offload`);
+``stat_compression`` is validated here and read by
+:class:`~kfac_tpu_torch.parallel.DistributedKFAC`. The compile watch of
+the JAX engine raises ``NotImplementedError`` when set.
 """
 
 from __future__ import annotations
@@ -36,6 +39,8 @@ from kfac_tpu_torch.async_inverse import config as async_config_lib
 from kfac_tpu_torch.async_inverse import host as async_host
 from kfac_tpu_torch.async_inverse import sliced as async_sliced
 from kfac_tpu_torch.async_inverse import slots as async_slots
+from kfac_tpu_torch.compression import config as compression_config_lib
+from kfac_tpu_torch.compression import offload as offload_lib
 from kfac_tpu_torch.device import resolve_device
 from kfac_tpu_torch.hyperparams import ScalarOrSchedule, resolve
 from kfac_tpu_torch.layers import capture as capture_lib
@@ -89,7 +94,7 @@ class KFACState:
     shadow: async_slots.ShadowSlots | None = None
 
 
-_LATER_SLICE_KNOBS = ('offload', 'stat_compression', 'compile_watch')
+_LATER_SLICE_KNOBS = ('compile_watch',)
 
 
 @dataclasses.dataclass
@@ -213,7 +218,40 @@ class KFACPreconditioner:
                 'refresh window is planned when the engine is built); got a '
                 'schedule'
             )
+        self.stat_compression = compression_config_lib.as_compression_config(
+            self.stat_compression
+        )
+        if (
+            self.stat_compression is not None
+            and self.allreduce_method != enums.AllreduceMethod.ALLREDUCE_BUCKETED
+        ):
+            raise ValueError(
+                'stat_compression quantizes the bucketed flat-buffer '
+                "transport; set allreduce_method='allreduce_bucketed'"
+            )
+        self.offload = compression_config_lib.as_offload_config(self.offload)
+        if self.offload is not None:
+            if self.async_inverse is not None and self.async_inverse.mode == 'sliced':
+                raise ValueError(
+                    "offload is incompatible with async_inverse='sliced': "
+                    'the sliced refresh reads the factor state every step, '
+                    'so it is never cold'
+                )
+            if callable(self.factor_update_steps) or callable(self.inv_update_steps):
+                raise ValueError(
+                    'offload requires static int factor_update_steps and '
+                    'inv_update_steps (the host-side pump computes cadence '
+                    'boundaries from them); got a schedule'
+                )
         self._plan_async()
+        self._plan_offload()
+
+    def _plan_offload(self) -> None:
+        """The offload manager of the dense engine (its own knob carrier);
+        ``DistributedKFAC`` builds its own."""
+        self._offload_manager = (
+            None if self.offload is None else offload_lib.OffloadManager(self)
+        )
 
     def _plan_async(self) -> None:
         """The async refresh's plan: ``_async_mode`` (None, ``'sliced'`` or
@@ -615,11 +653,21 @@ class KFACPreconditioner:
         takes the place of the inverse cadence. With metrics, the step's
         scalars and staleness go into ``state.metrics``; with the flight
         recorder, one ring row then records them beside ``loss`` (when
-        given) and the raw grads' global norm."""
+        given) and the raw grads' global norm.
+
+        A spilled state (cold-factor offload: placeholders in place of the
+        factors) skips the factor and inverse work: the offload pump
+        restores the factors before every step that would do it."""
         step = state.step
-        if stats is not None and step % resolve(self.factor_update_steps, step) == 0:
+        spilled = offload_lib.is_spilled(state)
+        if (
+            stats is not None and not spilled
+            and step % resolve(self.factor_update_steps, step) == 0
+        ):
             state = self.update_factors(state, stats)
-        if self._async_mode == 'sliced':
+        if spilled:
+            pass
+        elif self._async_mode == 'sliced':
             state = async_sliced.dense_async_step(self, state)
         elif self._async_mode == 'host':
             state = async_host.dense_host_step(self, state)
@@ -670,7 +718,10 @@ class KFACPreconditioner:
         warm-starts, and a non-finite result rolls back under health, as
         in the JAX engine. Under async refresh the shadow (sliced) or the
         worker (host) is reset too: the first boundary after a mid-window
-        restore then skips its swap."""
+        restore then skips its swap. The offload manager forgets its host
+        copies: the state handed in is resident."""
+        if self._offload_manager is not None:
+            self._offload_manager.reset()
         state = self.update_inverses(state)
         if self._async_mode == 'sliced':
             state = dataclasses.replace(state, shadow=async_sliced.dense_shadow(self, state))

@@ -26,6 +26,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 import time
 
 import numpy as np
@@ -33,7 +34,11 @@ import torch
 
 
 def emit(**payload) -> None:
-    print(json.dumps(payload), flush=True)
+    """One JSON line on stdout, in one write: the ranks of a world share
+    the pipe, and under ``PYTHONUNBUFFERED`` ``print`` writes the text and
+    its newline apart, so two ranks' lines could merge."""
+    sys.stdout.write(json.dumps(payload) + '\n')
+    sys.stdout.flush()
 
 
 def _data(dev) -> tuple[torch.Tensor, torch.Tensor]:

@@ -13,7 +13,10 @@ the update with ``lax.cond`` on the device), and ``warn`` reads the health
 counters after each eager step, as the JAX Trainer does. A checkpoint
 manager (``checkpoints``) adds none on a step that does not save. Under
 ``async_inverse='host'`` every step path pumps the engine's refresh worker
-where the JAX Trainer does (:meth:`Trainer._drive_async`).
+where the JAX Trainer does (:meth:`Trainer._drive_async`), and under
+``offload`` every step entry drives the spill, prefetch and restore of the
+factors (:meth:`Trainer._drive_offload`); a save that lands inside a spill
+window writes the offload manager's resident host view.
 
 With a :class:`~kfac_tpu_torch.parallel.DistributedKFAC` every rank runs
 the Trainer on the same global batch: each step takes the rank's row
@@ -45,6 +48,7 @@ from torch.utils import _pytree as pytree
 from kfac_tpu_torch import health as health_lib
 from kfac_tpu_torch import tracing
 from kfac_tpu_torch.async_inverse import host as async_host_lib
+from kfac_tpu_torch.compression import offload as offload_lib
 from kfac_tpu_torch.device import resolve_device
 from kfac_tpu_torch.layers import capture as capture_lib
 from kfac_tpu_torch.models import layers as layers_lib
@@ -269,9 +273,16 @@ class Trainer:
     def _drive_checkpoints(self, state: TrainState) -> None:
         """Tick the checkpoint autopilot after a completed step (host work
         only unless it saves). A ``Preempted`` raised here leaves the step
-        call with the emergency checkpoint already durable."""
-        if self.checkpoints is not None:
-            self.checkpoints.on_step(state, step=self._step_count)
+        call with the emergency checkpoint already durable. Inside a spill
+        window of the cold-factor offload the manager gets a resident view
+        built from the offload manager's host copies, so a checkpoint never
+        holds placeholders."""
+        if self.checkpoints is None:
+            return
+        mgr = getattr(self.kfac, '_offload_manager', None)
+        if mgr is not None and mgr.spilled and state.kfac_state is not None:
+            state = dataclasses.replace(state, kfac_state=mgr.host_view(state.kfac_state))
+        self.checkpoints.on_step(state, step=self._step_count)
 
     def restore_latest(self, model_state: Any = None) -> TrainState | None:
         """Resume from the ``checkpoints`` manager's newest good checkpoint:
@@ -319,10 +330,11 @@ class Trainer:
 
     def _drive_async(self, state: TrainState, step: int | None) -> TrainState:
         """Promote a finished host-offloaded inverse refresh into the K-FAC
-        state (``async_inverse='host'``; a no-op otherwise). With ``step``:
-        only at window boundaries, waiting for the refresh in flight. Without
-        (``scan_steps``, once at entry, as the JAX Trainer pumps its
-        compiled scan): a finished refresh, without waiting."""
+        state (``async_inverse='host'``, on either engine; a no-op
+        otherwise). With ``step``: only at window boundaries, waiting for the
+        refresh in flight. Without (``scan_steps``, once at entry, as the JAX
+        Trainer pumps its compiled scan): a finished refresh, without
+        waiting (a distributed engine waits, so its ranks swap alike)."""
         if (
             self.kfac is None
             or state.kfac_state is None
@@ -330,6 +342,23 @@ class Trainer:
         ):  # as the JAX Trainer: the traced pump runs in host mode only
             return state
         ks = async_host_lib.pump(self.kfac, state.kfac_state, step=step)
+        if ks is state.kfac_state:
+            return state
+        return dataclasses.replace(state, kfac_state=ks)
+
+    def _drive_offload(self, state: TrainState, step: int | None) -> TrainState:
+        """Tick the cold-factor offload (``offload``; a no-op otherwise):
+        with ``step``, spill, prefetch and restore on the cadence; without
+        (``scan_steps``, as the JAX Trainer's scan), restore the factors and
+        keep them resident for the whole run
+        (:func:`kfac_tpu_torch.compression.offload.pump`)."""
+        if (
+            self.kfac is None
+            or state.kfac_state is None
+            or getattr(self.kfac, '_offload_manager', None) is None
+        ):
+            return state
+        ks = offload_lib.pump(self.kfac, state.kfac_state, step=step)
         if ks is state.kfac_state:
             return state
         return dataclasses.replace(state, kfac_state=ks)
@@ -365,6 +394,7 @@ class Trainer:
         """
         self._sync_step_count(state)
         state = self._drive_async(state, self._step_count)
+        state = self._drive_offload(state, self._step_count)
         new_state, loss = self._step(state, batch)
         self._maybe_warn(new_state)
         self._drive_checkpoints(new_state)
@@ -382,6 +412,7 @@ class Trainer:
         entry, as the JAX package's scan does.
         """
         state = self._drive_async(state, None)
+        state = self._drive_offload(state, None)
         losses = []
         for i in range(_leading(batches)):
             state, loss = self._step(state, _index(batches, i))
@@ -437,6 +468,7 @@ class Trainer:
         loss = acc['loss'] / n
         grads, loss = self._reduce(grads, loss)
         state = self._drive_async(state, self._step_count)
+        state = self._drive_offload(state, self._step_count)
         new_state = self._finish_step(state, grads, stats, acc['model_state'], loss)
         self._accum = None
         self._step_count += 1

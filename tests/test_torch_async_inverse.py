@@ -555,3 +555,142 @@ def test_jax_host_pump_is_the_reference():
         state = engine.init()
         assert pump(engine, state, step=0) is state
         assert pump(engine, state, step=N + 1) is state
+
+
+# --------------------------------------------------------------- distributed
+# The KAISA halves (tests/test_async_inverse.py's kaisa cases), in the gloo
+# worlds of tests/test_torch_compression.py (W = 1 and 2): engines at fixed
+# weights stepped on seeded per-step batches at cadence N/N, kl-clip off.
+
+import functools  # noqa: E402
+import types  # noqa: E402
+
+import torch_kaisa_ranks as kranks  # noqa: E402
+from kfac_tpu.parallel import DistributedKFAC as JaxDistributedKFAC  # noqa: E402
+from kfac_tpu.parallel import kaisa_mesh as jax_kaisa_mesh  # noqa: E402
+from kfac_tpu_torch.async_inverse import sliced as tsliced  # noqa: E402
+from kfac_tpu_torch.parallel import kaisa as tkaisa  # noqa: E402
+from test_torch_compression import flax_mlp, jax_engine, knob_worlds, torch_grads  # noqa: E402
+
+KN = kranks.ASYNC_N
+
+
+@functools.cache
+def jax_kaisa_run(world, frac, mode, poison_step=None, health_on=False):
+    """The JAX engine's run of the rank case ``async``: per step the
+    preconditioned grads (port names) and the health counters."""
+    _, reg, run, params, _ = flax_mlp()
+    spec_batches = [
+        tuple(b.astype(np.float32) for b in (rng(40 + i).normal(size=(16, 6)),
+                                              rng(80 + i).normal(size=(16, 5))))
+        for i in range(3 * KN + 1)
+    ]
+    dk = jax_engine(world, frac, async_inverse=mode,
+                    health=jhealth.HealthConfig(warn=False) if health_on else None,
+                    **kranks.ASYNC_KW)
+    step = jax.jit(dk.step)
+    state = dk.init()
+    out = []
+    for i, b in enumerate(spec_batches):
+        (_, _), grads, stats = run(params, tuple(jnp.asarray(x) for x in b))
+        if i == poison_step:
+            a = dict(stats.a)
+            a[kranks.POISON] = a[kranks.POISON] + jnp.float32(np.nan)
+            stats = kfac_tpu.CapturedStats(a=a, g=dict(stats.g), w=dict(stats.w))
+        if mode == 'host':
+            state = jhost.pump(dk, state, step=i)
+        state, pg = step(state, grads, stats)
+        out.append({
+            'grads': torch_grads(pg),
+            'bad_inv': None if state.health is None else {
+                n: int(v) for n, v in state.health.bad_inv.items()
+            },
+        })
+    return out
+
+
+def kaisa_rows(world, case):
+    """Every rank's rows of a rank case of the knobs world."""
+    return [r[case] for r in knob_worlds()[world][1]]
+
+
+def flagship_registries():
+    from kfac_tpu.models import TransformerLM as JaxLM
+    from kfac_tpu_torch.models import TransformerLM
+
+    cfg = dict(vocab_size=8192, d_model=512, num_heads=4, num_layers=6, max_len=512)
+    jreg = kfac_tpu.register_model(JaxLM(**cfg), jnp.zeros((1, 8), jnp.int32), skip_layers=['lm_head'])
+    with torch.device('meta'):
+        model = TransformerLM(**cfg, device='meta')
+    treg = registry.register_model(model, skip_layers=['lm_head'], device='meta')
+    return jreg, treg
+
+
+@pytest.mark.parametrize('world', [1, 4])
+def test_kaisa_slice_plan_matches_jax_at_the_flagship(world):
+    jreg, treg = flagship_registries()
+    jk = JaxDistributedKFAC(
+        config=kfac_tpu.KFACPreconditioner(registry=jreg, async_inverse='sliced',
+                                           factor_update_steps=10, inv_update_steps=10,
+                                           compute_method='eigen'),
+        mesh=jax_kaisa_mesh(1.0, devices=jax.devices()[:world]),
+    )
+    buckets = tkaisa.build_buckets(treg, world, 1)
+    a_store, g_store = tkaisa.build_stores(treg, world, 1, True, buckets)
+    fake = types.SimpleNamespace(_prediv=False, buckets=buckets, a_store=a_store, g_store=g_store)
+    units = tsliced.kaisa_units(fake)
+    jax_units = jasync.sliced.kaisa_units(jk)
+    assert units == jax_units
+    assert tasync.plan_slices(units, min(10, len(units))) == jk._async_slices
+
+
+@pytest.mark.parametrize('world,frac', [(1, 1.0), (2, 1.0), (2, 0.5)])
+def test_kaisa_sliced_bit_identical_one_window_lag(world, frac):
+    for sync, asy in zip(kaisa_rows(world, f'async-None-{frac}'),
+                         kaisa_rows(world, f'async-sliced-{frac}')):
+        sync, asy = sync['rows'], asy['rows']
+        for s in range(len(asy)):
+            lag = s if s < KN else (s // KN) * KN - KN
+            for f, stacks in sync[lag]['decomps'].items():
+                for k, v in stacks.items():
+                    assert np.array_equal(asy[s]['decomps'][f][k], v), (s, f, k)
+
+
+def test_kaisa_sliced_matches_jax_at_w1():
+    got = kaisa_rows(1, 'async-sliced-1.0')[0]['rows']
+    want = jax_kaisa_run(1, 1.0, 'sliced')
+    for s, (g, w) in enumerate(zip(got, want)):
+        ref = w['grads']
+        scale = max(float(np.max(np.abs(v))) for v in ref.values())
+        for n, v in ref.items():
+            np.testing.assert_allclose(g['grads'][n], v, rtol=1e-4, atol=1e-4 * scale,
+                                       err_msg=f'step {s} {n}')
+
+
+@pytest.mark.parametrize('world,frac', [(1, 1.0), (2, 1.0), (2, 0.5)])
+def test_kaisa_host_preconditions_like_lagged_sync(world, frac):
+    for sync, asy in zip(kaisa_rows(world, f'async-None-{frac}'),
+                         kaisa_rows(world, f'async-host-{frac}')):
+        for s in range(KN, len(asy['rows'])):
+            for n, v in sync['rows'][s]['lagged'].items():
+                np.testing.assert_allclose(asy['rows'][s]['grads'][n], v, rtol=5e-3, atol=1e-4,
+                                           err_msg=f'step {s} {n}')
+
+
+@pytest.mark.parametrize('world', [1, 2])
+def test_kaisa_quarantined_slot_does_not_swap_and_bad_inv_matches_jax(world):
+    frac = 1.0 if world == 1 else 0.5
+    want = jax_kaisa_run(world, frac, 'sliced', poison_step=2 * KN, health_on=True)
+    for res in kaisa_rows(world, 'fault-sliced'):
+        rows, names = res['rows'], res['names']
+        for s, (g, w) in enumerate(zip(rows, want)):
+            assert [int(g['health']['bad_inv'][i]) for i in range(len(names))] == \
+                [w['bad_inv'][n] for n in names], s
+        # the boundary at 2N quarantines the poisoned layer's factors and
+        # swaps every layer but that one
+        before, after = rows[2 * KN - 1]['decomps'], rows[2 * KN]['decomps']
+        for side in ('a', 'g'):
+            for name in names:
+                key, i = res['slots'][side][name]
+                same = np.array_equal(before['q' + side][key][i], after['q' + side][key][i])
+                assert same == (name == kranks.POISON), (side, name)

@@ -53,7 +53,8 @@ def test_port_file_imports_no_jax_and_no_kfac_tpu(path):
     'assignment.py', 'enums.py', 'parallel/__init__.py', 'parallel/collectives.py',
     'parallel/mesh.py', 'parallel/kaisa.py', 'parallel/launch.py', 'observability/comms.py',
     'ops/cov.py', 'layers/helpers.py', 'models/layers.py', 'models/resnet.py', 'data.py',
-    'bench_accuracy.py', 'bench_resnet.py', 'training.py',
+    'bench_accuracy.py', 'bench_resnet.py', 'training.py', 'compression/__init__.py',
+    'compression/config.py', 'compression/quant.py', 'compression/offload.py', 'bench_lm.py',
 ])
 def test_checkpoint_and_resilience_modules_are_covered(rel):
     path = ROOT / 'kfac_tpu_torch' / rel

@@ -279,6 +279,9 @@ def run_world(world):
         f'g{g}': dict(damping=0.01, kl_clip=0.001, bucket_granularity=g) for g in (128, 1)
     })))
     spec['cases'].append(('unexecuted', 'unexecuted', dict(frac=mid)))
+    # the compressed stat transport at the smallest fraction (W = 4:
+    # MEM-OPT), held against world 1's (tests/test_torch_compression.py)
+    spec['cases'].append(('compressed', 'compressed', dict(frac=low, comps={'int8': 'int8'})))
     for name, kw in (
         ('allreduce', dict(allreduce_method='allreduce')),
         ('bucketed', dict(allreduce_method='allreduce_bucketed')),
@@ -474,14 +477,25 @@ def test_kaisa_mesh_needs_a_process_group():
     'knob', ['async_inverse', 'auto_layout', 'offload', 'stat_compression', 'compile_watch']
 )
 def test_later_slice_knobs_raise(knob):
-    # offload, stat_compression and compile_watch raise in the config
-    # already; health, metrics and flight are ported (WorldCases below)
+    # compile_watch raises in the config already; health, metrics and
+    # flight are ported (WorldCases below), and so are async_inverse,
+    # offload and stat_compression since (tests/test_torch_compression.py
+    # and tests/test_torch_async_inverse.py drive them in gloo worlds):
+    # DistributedKFAC no longer refuses them
     from kfac_tpu_torch.layers import registry
-    from kfac_tpu_torch.parallel import DistributedKFAC
+    from kfac_tpu_torch.parallel import DistributedKFAC, kaisa
     from kfac_tpu_torch.preconditioner import KFACPreconditioner
 
     reg = registry.register_model(torch.nn.Sequential(torch.nn.Linear(3, 2)), device='cpu')
-    kw = {} if knob == 'auto_layout' else {knob: 'sliced' if knob == 'async_inverse' else True}
+    if knob in ('async_inverse', 'offload', 'stat_compression'):
+        value = {'async_inverse': 'sliced', 'offload': True, 'stat_compression': 'int8'}[knob]
+        cfg = KFACPreconditioner(
+            reg, device='cpu', inv_update_steps=2, factor_update_steps=2,
+            allreduce_method='allreduce_bucketed', **{knob: value},
+        )
+        assert getattr(cfg, knob) is not None and knob not in kaisa._LATER_SLICE_KNOBS
+        return
+    kw = {} if knob == 'auto_layout' else {knob: True}
     with pytest.raises(NotImplementedError, match='not ported'):
         cfg = KFACPreconditioner(reg, device='cpu', inv_update_steps=2, factor_update_steps=2, **kw)
         DistributedKFAC(cfg, auto_layout='plan.json' if knob == 'auto_layout' else None)
@@ -1008,3 +1022,12 @@ class TestWorld2(MultiRankCases):
 
 class TestWorld4(MultiRankCases):
     W = 4
+
+    def test_compressed_step_within_one_quantum_of_w1(self, run):
+        from test_torch_compression import assert_within_one_quantum
+
+        _, results, _ = run
+        w1 = world_run(1)[1][0]['compressed']['int8']
+        assert_within_one_quantum(w1, [r['compressed']['int8'] for r in results])
+        # the transport's collectives: a reduce-scatter and two all-gathers a chunk
+        assert results[0]['compressed']['int8']['counter']['collectives'] == 3 * len(w1['plan'])

@@ -272,7 +272,8 @@ def small_registry():
 
 
 # knobs of this list once raised as the others do
-PORTED_KNOBS = ('health', 'metrics', 'flight', 'async_inverse', 'eigh_impl')
+PORTED_KNOBS = ('health', 'metrics', 'flight', 'async_inverse', 'eigh_impl', 'offload',
+                'stat_compression')
 
 
 @pytest.mark.parametrize(
@@ -297,6 +298,21 @@ def test_later_slice_knobs_raise(knob, value):
         want = torch.linalg.eigvalsh(state.a['0'])
         torch.testing.assert_close(state.da['0'], want, rtol=1e-5, atol=1e-6)
         assert torch.equal(state.dg['0'], torch.ones(3))
+        return
+    if knob == 'offload':
+        # ported since: the engine builds its offload manager
+        kfac = KFACPreconditioner(small_registry(), device='cpu', **{knob: value})
+        assert kfac._offload_manager is not None and kfac._offload_manager.stats['spills'] == 0
+        return
+    if knob == 'stat_compression':
+        # ported since: the JAX engine's refusal without the bucketed
+        # transport, and its config with it
+        with pytest.raises(ValueError, match='allreduce_bucketed'):
+            KFACPreconditioner(small_registry(), device='cpu', **{knob: value})
+        kfac = KFACPreconditioner(
+            small_registry(), device='cpu', allreduce_method='allreduce_bucketed', **{knob: value}
+        )
+        assert kfac.stat_compression.dtype == value
         return
     if knob in PORTED_KNOBS:
         # ported since: the engine builds the knob's state instead of raising

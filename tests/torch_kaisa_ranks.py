@@ -19,6 +19,9 @@ import torch
 import torch.distributed as dist
 
 from kfac_tpu_torch import checkpoint, convert, tracing
+from kfac_tpu_torch.async_inverse import host as async_host
+from kfac_tpu_torch.compression import OffloadConfig
+from kfac_tpu_torch.compression import offload as offload_lib
 from kfac_tpu_torch.health import HealthConfig
 from kfac_tpu_torch.layers import capture, registry
 from kfac_tpu_torch.models import MLP, TransformerLM, lm_loss
@@ -27,7 +30,7 @@ from kfac_tpu_torch.models import resnet
 from kfac_tpu_torch.observability.flight_recorder import PostmortemWriter, drain_flight
 from kfac_tpu_torch.observability.metrics import MetricsCollector
 from kfac_tpu_torch.ops import factors
-from kfac_tpu_torch.parallel import DistributedKFAC, kaisa_mesh, multihost
+from kfac_tpu_torch.parallel import DistributedKFAC, collectives, kaisa_mesh, multihost
 from kfac_tpu_torch.preconditioner import KFACPreconditioner
 from kfac_tpu_torch.resilience import CheckpointManager, Preempted, signals
 from kfac_tpu_torch.training import Trainer
@@ -92,6 +95,18 @@ class Hetero(torch.nn.Module):
         return self.l3(x)
 
 
+class Twin(torch.nn.Module):
+    """Two dense layers of one width: one store a side, two slots, so
+    worlds of 1 and 2 ranks share its layout."""
+
+    def __init__(self):
+        super().__init__()
+        self.u, self.v = torch.nn.Linear(8, 8), torch.nn.Linear(8, 8)
+
+    def forward(self, x):
+        return self.v(torch.relu(self.u(x)))
+
+
 def build(spec, name):
     """(model, registry, loss_fn, global batch) of one of the spec's
     models, with the spec's weights."""
@@ -100,7 +115,8 @@ def build(spec, name):
         reg = registry.register_model(model, skip_layers=['lm_head'], device='cpu')
         loss = lm_loss(model)
     else:
-        model = {'mlp': lambda: MLP(**MLP_CFG, device='cpu'), 'wide': Wide, 'hetero': Hetero}[name]()
+        model = {'mlp': lambda: MLP(**MLP_CFG, device='cpu'), 'wide': Wide, 'hetero': Hetero,
+                 'twin': Twin}[name]()
         reg = registry.register_model(model, device='cpu')
 
         def loss(batch):
@@ -650,7 +666,203 @@ def case_multihost(spec, rank):
     return out
 
 
+# --------------------------------------------- the engines' last knobs
+
+# the compressed transport's one-step engine (tests/test_compression.py's
+# _setup with the one-step cases' kl-clip), on the bucketed transport
+COMP_KW = dict(damping=0.01, kl_clip=0.001, lr=0.1, allreduce_method='allreduce_bucketed')
+# the async refresh's window (cadence N/N) and its engine, kl-clip off
+ASYNC_N = 4
+ASYNC_KW = dict(damping=0.003, lr=0.1, kl_clip=None, factor_update_steps=ASYNC_N,
+                inv_update_steps=ASYNC_N)
+DECOMP_FIELDS = ('qa', 'qg', 'da', 'dg', 'dgda', 'a_inv', 'g_inv')
+
+
+def full_ef(dk, state):
+    """Each chunk's whole residual, the ranks' slices in rank order
+    (a collective), as numpy; None without error feedback."""
+    if state.comp_ef is None:
+        return None
+    return {k: collectives.all_gather_cat(v, dk.mesh.group).numpy() for k, v in state.comp_ef.items()}
+
+
+def gathered(dk, state, fields=('a', 'g')):
+    full = convert.gather_dist_state(state, dk)
+    return {f: full[f] for f in fields}
+
+
+def case_compressed(spec, rank, frac, comps):
+    """One engine step from ``init`` at each wire of ``comps`` (name ->
+    ``stat_compression``): the grads, the whole residuals, the factor
+    stacks, the transport's counter and rank 0's ``stat_transport``."""
+    _, reg, loss, batch = build(spec, 'mlp')
+    out = {}
+    for name, comp in comps.items():
+        dk = DistributedKFAC(config(reg, stat_compression=comp, **COMP_KW), kaisa_mesh(frac, device='cpu'))
+        grads, stats, _ = local_grads_stats(dk, reg, loss, batch)
+        state, pgrads = dk.step(dk.init(), grads, stats)
+        out[name] = {
+            'grads': numpy_tree(pgrads),
+            'comp_ef': full_ef(dk, state),
+            'factors': gathered(dk, state),
+            'counter': dict(dk.transport_counter),
+            'plan': dk._comp_plan,
+            'stores': [(side, sb.key, len(sb.layers))
+                       for side, store in (('a', dk.a_store), ('g', dk.g_store)) for sb in store],
+            'comms': dk.comms_report()['stat_transport'] if rank == 0 else None,
+        }
+    return out
+
+
+def case_converge(spec, rank, frac, steps):
+    """``steps`` Trainer steps (cadence 2/2, damping 1e-3, SGD(0.1)) at the
+    f32 wire and the int8 one (tests/test_compression.py's convergence
+    parity): the losses of each."""
+    out = {}
+    for name, comp in (('f32', None), ('int8', 'int8')):
+        net, reg, loss, batch = build(spec, 'mlp')
+        dk = DistributedKFAC(config(
+            reg, damping=1e-3, lr=0.1, allreduce_method='allreduce_bucketed',
+            factor_update_steps=2, inv_update_steps=2, stat_compression=comp,
+        ), kaisa_mesh(frac, device='cpu'))
+        trainer = Trainer(net, torch.optim.SGD(net.parameters(), lr=0.1),
+                          lambda ms, b: (loss(b), ms), kfac=dk, device='cpu')
+        state, losses = trainer.init(), []
+        for _ in range(steps):
+            state, value = trainer.step(state, batch)
+            losses.append(float(value))
+        out[name] = losses
+    return out
+
+
+def case_comp_checkpoint(spec, rank, frac, root, restore_from=None, model='mlp'):
+    """The residuals through a sharded checkpoint: an int8 engine's
+    state saved and restored (its residuals bitwise), an f32 engine's
+    checkpoint restored into an int8 engine (zero residuals), the int8
+    checkpoint into an f32 engine (refused); with ``restore_from``, another
+    world's int8 checkpoint restored into this one."""
+    _, reg, loss, batch = build(spec, model)
+    mesh = kaisa_mesh(frac, device='cpu')
+    dk8 = DistributedKFAC(config(reg, stat_compression='int8', **COMP_KW), mesh)
+    dk32 = DistributedKFAC(config(reg, **COMP_KW), mesh)
+    out = {}
+    for name, dk in (('int8', dk8), ('f32', dk32)):
+        grads, stats, _ = local_grads_stats(dk, reg, loss, batch)
+        state, _ = dk.step(dk.init(), grads, stats)
+        checkpoint.save(os.path.join(root, name), state, engine=dk)
+        out[f'saved_{name}'] = full_ef(dk, state)
+        out[f'factors_{name}'] = gathered(dk, state)
+    restored, _ = checkpoint.restore(os.path.join(root, 'int8'), dk8)
+    out['round_trip'] = full_ef(dk8, restored)
+    restored, _ = checkpoint.restore(os.path.join(root, 'f32'), dk8)
+    out['pre_compression'] = full_ef(dk8, restored)
+    try:
+        checkpoint.restore(os.path.join(root, 'int8'), dk32)
+        out['into_f32'] = None
+    except ValueError as err:
+        out['into_f32'] = str(err)
+    if restore_from is not None:
+        restored, _ = checkpoint.restore(restore_from, dk8)
+        out['cross_world'] = {'comp_ef': full_ef(dk8, restored), 'factors': gathered(dk8, restored)}
+    return out
+
+
+def case_offload(spec, rank, frac, steps=17):
+    """``steps`` Trainer steps (cadence 8/8) with offload off and on
+    (``OffloadConfig(2, 1)``): each run's losses and parameters, the
+    counters and rank 0's ``comms_report()['offload']``; a spilled state's
+    refusal by ``durable_state``."""
+    out = {}
+    for name, off in (('off', None), ('on', OffloadConfig(min_cold_steps=2, prefetch_lead=1))):
+        net, reg, loss, batch = build(spec, 'mlp')
+        dk = DistributedKFAC(config(
+            reg, damping=1e-3, lr=0.1, factor_update_steps=8, inv_update_steps=8, offload=off,
+        ), kaisa_mesh(frac, device='cpu'))
+        trainer = Trainer(net, torch.optim.SGD(net.parameters(), lr=0.05),
+                          lambda ms, b: (loss(b), ms), kfac=dk, device='cpu')
+        state, losses, spilled = trainer.init(), [], []
+        for _ in range(steps):
+            state, value = trainer.step(state, batch)
+            losses.append(float(value))
+            spilled.append(offload_lib.is_spilled(state.kfac_state))
+        out[name] = {
+            'losses': losses,
+            'params': {n: p.detach().numpy().copy() for n, p in net.named_parameters()},
+            'spilled': spilled,
+            'comms': dk.comms_report()['offload'],
+        }
+        if off is not None:
+            out[name]['stats'] = dict(dk._offload_manager.stats)
+            held = offload_lib.pump(dk, state.kfac_state, step=3)  # f = c = 8: spills
+            try:
+                checkpoint.durable_state(held)
+                out['refused'] = None
+            except ValueError as err:
+                out['refused'] = str(err)
+            out['host_view_spilled'] = offload_lib.is_spilled(dk._offload_manager.host_view(held))
+    return out
+
+
+def case_async(spec, rank, frac, mode, method='eigen', poison_step=None, **kw):
+    """``3 * ASYNC_N + 1`` engine steps at fixed weights on the spec's
+    per-step batches (the engine's own step, the host mode pumped before
+    each), ``mode`` None (synchronous), ``'sliced'`` or ``'host'``; the
+    ``POISON`` layer's A statistic NaN at ``poison_step``. Per step: the
+    grads, the gathered decompositions and the health counters; for the
+    synchronous run also each step's grads preconditioned with the state of
+    one window back (``lagged``)."""
+    _, reg, loss, _ = build(spec, 'mlp')
+    dk = DistributedKFAC(config(reg, compute_method=method, async_inverse=mode, **ASYNC_KW, **kw),
+                         kaisa_mesh(frac, device='cpu'))
+    state = dk.init()
+    rows = []
+    back = {}  # the state after the step that opened each window
+    for i, b in enumerate(spec['async_batches']):
+        grads, stats, _ = local_grads_stats(dk, reg, loss, tensors(b))
+        if i == poison_step:
+            stats = poisoned(stats)
+        state = async_host.pump(dk, state, step=i)
+        row = {}
+        if mode is None and i >= ASYNC_N:
+            lag = back[(i // ASYNC_N - 1) * ASYNC_N]
+            row['lagged'] = numpy_tree(dk.precondition(dataclasses.replace(lag, step=i), grads))
+        state, pgrads = dk.step(state, grads, stats)
+        if i % ASYNC_N == 0:
+            back[i] = state
+        full = convert.gather_dist_state(state, dk)
+        row.update(
+            grads=numpy_tree(pgrads),
+            decomps={f: full[f] for f in DECOMP_FIELDS},
+            health=None if state.health is None else {
+                f: getattr(state.health, f).numpy().copy() for f in ('bad_inv', 'quarantined')
+            },
+        )
+        rows.append(row)
+    return {'rows': rows, 'slots': {'a': dict(dk._a_slot), 'g': dict(dk._g_slot)},
+            'names': list(reg.layers)}
+
+
+def case_convert_knobs(spec, rank, frac, jax_state, **kw):
+    """A JAX state with a shadow and residuals into this rank's shards,
+    then one engine step from it: the grads, the whole residuals and the
+    shadow's progress."""
+    _, reg, loss, batch = build(spec, 'mlp')
+    dk = DistributedKFAC(config(reg, **kw), kaisa_mesh(frac, device='cpu'))
+    state = convert.from_jax_dist_state(jax_state, dk)
+    carried = {'comp_ef': full_ef(dk, state), 'progress': state.shadow.progress}
+    grads, stats, _ = local_grads_stats(dk, reg, loss, batch)
+    state, pgrads = dk.step(state, grads, stats)
+    return {'carried': carried, 'grads': numpy_tree(pgrads), 'comp_ef': full_ef(dk, state),
+            'factors': gathered(dk, state)}
+
+
 CASES = {
+    'compressed': case_compressed,
+    'converge': case_converge,
+    'comp_checkpoint': case_comp_checkpoint,
+    'offload': case_offload,
+    'async': case_async,
+    'convert_knobs': case_convert_knobs,
     'multihost': case_multihost,
     'step': case_step,
     'convert': case_convert,
