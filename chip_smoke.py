@@ -238,6 +238,38 @@ Phases, one JSON line each:
    10/10, 11 steps with offload and without: losses bitwise, each rank's
    ``memory_allocated`` drop at a spilled step at least its shard's factor
    bytes, less what the run without offload moves across those steps.
+16. ``moe``: the flagship with switch-MoE blocks (blocks 2, 4 and 6 route
+   top-1 over 4 experts at capacity factor 1.25, C = 2560 rows an expert;
+   57 K-FAC layers, the 24 experts registered as routed layers; the
+   load-balance loss at 0.01; expert 3 of block 2 starved by a router
+   bias of -1e4), each run's counts set to 0 just before and read just
+   after. (a) The dense engine, EIGEN, cadence 10/100, 21 steps through
+   ``Trainer.step``: losses finite and falling, ``sym_cov`` 114 a capture
+   step, the kl-clip dot and scale once a step, the flash partials once a
+   block a step, no host sync on a plain or capture step, the factors'
+   bytes (4 x 147,167,337), the starved expert's factors bitwise their
+   identity start after every step, step ms by kind, peak memory; a plain
+   and a capture step under torch.profiler. (b) Step 0's capture on the
+   card and on the CPU (plain versions) from the same weights: the
+   routings compared first (flips counted; where none flipped, the loss
+   within 1e-4, grads and factors within 1e-3 of their max, the weights
+   within 1e-6), and each expert's A factors on the card within 1e-5 of
+   the oracle from its routed rows alone. (c) The dense masked dispatch, 3
+   steps, against capacity = E on step 0's loss (1e-5) and preconditioned
+   grads (1e-3 of max). (d) ``DistributedKFAC`` over NCCL, one rank a
+   card, 11 steps: COMM-OPT on one card (losses within 1e-4 of (a)'s),
+   MEM-OPT on four (each rank routes its own rows at its own capacity:
+   losses finite and falling); parameters bitwise on every rank, launches
+   exact, no host sync on a plain or capture step, the starved expert's
+   slots bitwise.
+17. ``lora``: the ``lora_finetune`` gate (``kfac_tpu_torch.bench_accuracy
+   --task lora_finetune``): the digits backbone pretrained on 0-4 with SGD,
+   LoRA units (rank 8) over its frozen hidden layers, 300 K-FAC steps on
+   5-9 whose last 50 batch losses must have a median of at most 0.2
+   (the last batch's loss printed beside it); ``sym_cov`` 10 a step (two
+   units' role blocks and the head), the kl-clip dot and scale once a
+   step; then the same run on the CPU from the same seed, its pretraining
+   loss and first 20 fine-tune losses within 1e-4 of the card's.
 
 Then each phase's seconds and the script's (``timing``), the card's name
 and power limit as nvidia-smi prints them, the
@@ -307,6 +339,10 @@ RESNET_COVS = [
 # over N (the flagship's (8192, 2049) read 2.5e-5 of max|C|, PERF.md), so
 # past 8,192 rows it is reported and not required
 CONTROL_MAX_ROWS = 8192
+# nor under 8 columns: the MoE router's (8192, 4) G has 16 entries, whose
+# TF32 error read 6.1e-6 of max|C| on an H100 (its largest over 4.2M
+# entries at (8192, 2049): 2.5e-5), so it is reported and not required
+CONTROL_MIN_WIDTH = 8
 # the norm epilogue against f64, each sum of squares relative to itself:
 # between the f32 kernel's worst reading and the bf16 control's least
 # (PERF.md, Findings)
@@ -553,9 +589,11 @@ def kernel_cases():
     # (2048, 513) and (2048, 2049): a rank's A factors in the kaisa phase at
     # four ranks (its 4 of the 16 rows of the batch).
     # RESNET_COVS: ResNet-32's covariances at the bench's batch of 256.
+    # MOE_COVS: the switch-MoE flagship's expert buffers and routers;
+    # LORA_COVS: the LoRA fine-tune's role blocks.
     for n, d in ((8192, 513), (8192, 2049), (8192, 512), (8192, 2048), (77, 130),
                  (512, 129), (512, 513), (1024, 129), *DIGITS_COVS, (2048, 513), (2048, 2049),
-                 *RESNET_COVS):
+                 *RESNET_COVS, *MOE_COVS, *LORA_COVS):
         a = randn(n, d)
         extra, also_timed = split_fields(n, d, lambda a=a: sym_cov.sym_cov(a))
         cases.append(dict(
@@ -569,8 +607,11 @@ def kernel_cases():
             control_rule='plain version with TF32 matmuls' + (
                 '' if n <= CONTROL_MAX_ROWS else
                 f'; not required past {CONTROL_MAX_ROWS} rows (its rounding averages over N)'
+            ) + (
+                '' if d >= CONTROL_MIN_WIDTH else
+                f'; not required under {CONTROL_MIN_WIDTH} columns (too few entries)'
             ),
-            control_required=n <= CONTROL_MAX_ROWS,
+            control_required=n <= CONTROL_MAX_ROWS and d >= CONTROL_MIN_WIDTH,
             nbytes=4 * (n * d + d * d), flops=n * d * (d + 1), tf32x3=True,
             # bit for bit from run to run as well
             invariant=lambda got, a=a: (
@@ -941,31 +982,55 @@ def run_kernels(results) -> bool:
 # --------------------------------------------------------------- main path
 
 
+def lm_model(cfg, device, moe=None):
+    """The LM of ``cfg`` from seed 1; with ``moe`` (``MOE``), its switch-MoE
+    blocks at ``moe['capacity_factor']``, and the router bias of each
+    ``moe['starved']`` expert at -1e4, so that expert never gets a token."""
+    from kfac_tpu_torch.models import TransformerLM
+
+    extra = {} if moe is None else dict(
+        num_experts=moe['experts'], moe_every=moe['moe_every'],
+        moe_capacity_factor=moe['capacity_factor'],
+    )
+    model = TransformerLM(
+        vocab_size=cfg['vocab'], d_model=cfg['d_model'], num_heads=cfg['heads'],
+        num_layers=cfg['layers'], max_len=cfg['seq'], seed=1, device=device, **extra,
+    )
+    if moe is not None:
+        with torch.no_grad():
+            for block, e in moe['starved']:
+                model.get_submodule(block).router.bias[e] = -1e4
+    return model
+
+
 class LMRun:
     """The bench's K-FAC LM loop through ``Trainer.step`` on one seeded
     batch, weights from seed 1: a capture step every ``capture_every``
-    steps, a plain step otherwise."""
+    steps, a plain step otherwise. With ``moe`` the flagship's switch-MoE
+    configuration (``MOE``): routed experts and the load-balance loss."""
 
-    def __init__(self, cfg, device, capture_every, inv_every, checkpoints=None, **kfac_kw):
+    def __init__(self, cfg, device, capture_every, inv_every, checkpoints=None, moe=None,
+                 **kfac_kw):
         import kfac_tpu_torch as kt
-        from kfac_tpu_torch.models import TransformerLM, lm_loss
+        from kfac_tpu_torch.models import lm_loss
         from kfac_tpu_torch.training import Trainer
 
         self.device = device
         self.capture_every = capture_every
-        model = TransformerLM(
-            vocab_size=cfg['vocab'], d_model=cfg['d_model'], num_heads=cfg['heads'],
-            num_layers=cfg['layers'], max_len=cfg['seq'], seed=1, device=device,
-        )
+        model = lm_model(cfg, device, moe)
         gen = torch.Generator().manual_seed(0)
         tokens = torch.randint(0, cfg['vocab'], (cfg['batch'], cfg['seq']), generator=gen)
         self.batch = (tokens.to(device), torch.roll(tokens, -1, dims=1).to(device))
-        self.registry = kt.register_model(model, skip_layers=['lm_head'], device=device)
+        self.registry = kt.register_model(
+            model, skip_layers=['lm_head'], device=device,
+            routed_layers=None if moe is None else moe['routed_layers'],
+        )
         self.kfac = kt.KFACPreconditioner(
             self.registry, damping=0.003, lr=0.1, factor_update_steps=capture_every,
             inv_update_steps=inv_every, device=device, **kfac_kw,
         )
-        loss = lm_loss(model)
+        loss = lm_loss(model, 0.0 if moe is None else moe['load_balance'])
+        self.loss = loss
 
         self.config = self.kfac
 
@@ -3854,6 +3919,399 @@ def run_engine_knobs(launches, main_losses, main_tail, dense_async) -> bool:
     return ok
 
 # a quarter of the bench's own window, to keep the script within its time
+# ---------------------------------------------------------------- moe, lora
+
+# The flagship with switch-MoE blocks: blocks 2, 4 and 6 (block1, block3,
+# block5) route top-1 over 4 experts at capacity factor 1.25 (C = 2560 rows
+# an expert), the experts registered as routed layers, the Switch
+# Transformer's load-balance loss at 0.01; expert 3 of block1 is starved
+# (its router bias at -1e4), so its factors must never move.
+MOE = dict(
+    experts=4, moe_every=2, capacity_factor=1.25, load_balance=0.01,
+    routed_layers=[r'.*expert\d+_(up|down)'], starved=[('block1.moe', 3)],
+)
+MOE_STEPS = 21  # dense engine, EIGEN, cadence 10/100: captures at 0, 10, 20; the refresh at 0
+MOE_DENSE_STEPS = 3  # the dense masked dispatch
+MOE_KAISA_STEPS = 11  # DistributedKFAC: captures at 0 and 10
+# 24 attention projections, 6 dense MLP layers, 3 routers, 24 experts
+MOE_LAYERS = 57
+# their factors' f32 elements: attention 24 (513^2 + 512^2), the dense MLP
+# and the experts 15 (513^2 + 2048^2 + 2049^2 + 512^2), the routers
+# 3 (513^2 + 4^2)
+MOE_FACTOR_ELEMENTS = 147_167_337
+MOE_BLOCKS = ('block1', 'block3', 'block5')
+# the covariances of a capture step (rows, width): the experts' A and G
+# over C = 2560 buffer rows, the router's G over the 8192 tokens
+MOE_COVS = [(2560, 513), (2560, 2049), (2560, 2048), (2560, 512), (8192, 4)]
+# the LoRA fine-tune's role blocks at its batch of 128 (the unit's input
+# and G of up, 64 wide; down's output and G, rank 8)
+LORA_COVS = [(128, 64), (128, 8)]
+LORA_STEPS = 300  # the gate's fine-tune; the pretraining runs no kernel
+LORA_COVS_A_STEP = 10  # two units x (two roles x (A, G)), the head's A and G
+LORA_COMPARED = 20  # the fine-tune's losses compared card against CPU
+
+
+def moe_expected(steps: int, captures: int) -> dict:
+    """Launches of the MoE flagship's dense run: two ``sym_cov`` a layer a
+    capture (the routed ones on their C-row buffers), the grouped kl-clip
+    dot and scale once a step, the flash partials once a block a step."""
+    return dict(
+        expected_launches(steps, captures), sym_cov=2 * MOE_LAYERS * captures, fused_ns_step=0,
+    )
+
+
+def moe_capture(run):
+    """One capture of the run's model and batch (``value_stats_and_grad``):
+    (loss, grads, stats, each MoE block's input and expert index)."""
+    from kfac_tpu_torch.layers import capture
+
+    model = run.trainer.model
+    inputs, hooks = {}, []
+    for b in MOE_BLOCKS:
+        m = model.get_submodule(f'{b}.moe')
+        hooks.append(m.register_forward_pre_hook(
+            lambda mod, args, b=b: inputs.update({b: args[0].detach()})))
+    try:
+        (loss, _), grads, stats = capture.CurvatureCapture(run.registry).value_stats_and_grad(
+            run.loss)(run.batch)
+    finally:
+        for h in hooks:
+            h.remove()
+    index = {b: model.get_submodule(f'{b}.moe').expert_index.detach() for b in MOE_BLOCKS}
+    return float(loss), grads, stats, inputs, index
+
+
+def expert_oracle(run, stats, inputs, index) -> dict:
+    """Each expert's A factors against the oracle from its routed rows
+    alone: the tokens routed to it, in arrival order, the first C; a bias
+    one each; their covariance over their count by ``torch.matmul`` (f32),
+    for ``up`` from the block's input and for ``down`` from ``gelu(up(.))``
+    of those rows. Errors relative to each oracle's max; tolerance 1e-5,
+    the ``sym_cov`` kernel's."""
+    import torch.nn.functional as F
+
+    model = run.trainer.model
+    worst, rows_by_expert = 0.0, {}
+    for b in MOE_BLOCKS:
+        m = model.get_submodule(f'{b}.moe')
+        x = inputs[b].reshape(-1, inputs[b].shape[-1])
+        idx = index[b].reshape(-1)
+        cap = m.capacity(x.shape[0])
+        for e in range(m.num_experts):
+            up, _ = m.expert(e)
+            rows = x[idx == e][:cap]
+            n = rows.shape[0]
+            rows_by_expert[f'{b}/{e}'] = n
+            if n == 0:
+                continue
+            ones = torch.ones((n, 1), device=x.device)
+            with torch.no_grad():
+                h = F.gelu(up(rows), approximate='tanh')
+            for side, r in (('up', rows), ('down', h)):
+                r = torch.cat([r, ones], 1)
+                want = r.T @ r / n
+                got = stats.a[f'{b}/moe/expert{e}_{side}']
+                worst = max(worst, float((got - want).abs().max() / want.abs().max()))
+    return dict(max_rel_err=worst, tol=1e-5, rows_by_expert=rows_by_expert, passed=worst <= 1e-5)
+
+
+def card_vs_cpu(card, cpu) -> dict:
+    """Step 0's capture on the card against the CPU's (plain versions),
+    from the same weights and batch: the routings first (flips, token by
+    token, each block), then, where none flipped, the loss (1e-4
+    relative), the grads and the factors (1e-3 of their max)."""
+    c_loss, c_grads, c_stats, _, c_index = card
+    h_loss, h_grads, h_stats, _, h_index = cpu
+    flips = {b: int((c_index[b].cpu() != h_index[b]).sum()) for b in MOE_BLOCKS}
+    out = dict(routing_flips=flips)
+    if any(flips.values()):
+        out.update(compared=False, passed=True)
+        return out
+    loss_err = abs(c_loss - h_loss) / abs(h_loss)
+    scale = max(float(g.abs().max()) for g in h_grads.values())
+    grad_err = max(float((c_grads[n].cpu() - g).abs().max()) for n, g in h_grads.items()) / scale
+    factor_err = max(
+        float((getattr(c_stats, side)[n].cpu() - f).abs().max() / f.abs().max())
+        for side in ('a', 'g') for n, f in getattr(h_stats, side).items() if f.abs().max() > 0
+    )
+    weight_err = max(
+        abs(float(c_stats.w[n]) - float(w)) for n, w in h_stats.w.items()
+    )
+    out.update(
+        compared=True, loss_rel_err=loss_err, loss_tol=1e-4, grad_err_rel_to_max=grad_err,
+        grad_tol=1e-3, factor_err_rel_to_max=factor_err, factor_tol=1e-3,
+        weight_abs_err=weight_err, passed=(
+            loss_err <= 1e-4 and grad_err <= 1e-3 and factor_err <= 1e-3 and weight_err <= 1e-6
+        ),
+    )
+    return out
+
+
+def starved_factors(run) -> dict:
+    """Host copies of the starved experts' factors."""
+    names = [f'{b.replace(".", "/")}/expert{e}_{s}' for b, e in MOE['starved'] for s in ('up', 'down')]
+    return {(side, n): getattr(run.kstate, side)[n].detach().cpu().clone()
+            for side in ('a', 'g') for n in names}
+
+
+def moe_dense_run(launches) -> dict:
+    """(a) The dense engine, EIGEN, cadence 10/100, 21 steps through
+    ``Trainer.step``: losses, step ms and host syncs by kind, launches,
+    peak memory, the factor bytes, the starved expert's factors after
+    every step bitwise its identity start."""
+    wrappers = main_path_wrappers()
+    dev = torch.device('cuda')
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run = LMRun(FLAGSHIP, dev, 10, 100, moe=MOE)
+    start = starved_factors(run)
+    zero_counts(wrappers)
+    losses, seconds, syncs, starved_moved = [], [], [], []
+    for i in range(MOE_STEPS):
+        loss, sec, n = counted_step(run)
+        losses.append(loss)
+        seconds.append(sec)
+        syncs.append(n)
+        now = starved_factors(run)
+        starved_moved += [f'{k[0]}/{k[1]}@{i}' for k, v in now.items() if not torch.equal(v, start[k])]
+    counts = count_into(launches, wrappers)
+    expected = moe_expected(MOE_STEPS, len(range(0, MOE_STEPS, 10)))
+    memory = run.kfac.memory_usage(run.kstate)
+    factor_bytes = sum(
+        f.numel() * f.element_size() for side in ('a', 'g') for f in getattr(run.kstate, side).values()
+    )
+    kinds = step_kinds(seconds, syncs, 10, 100)
+    out = dict(
+        losses=losses, finite=all(math.isfinite(x) for x in losses), loss_falls=losses[-1] < losses[0],
+        registered_layers=len(run.registry), expected_layers=MOE_LAYERS,
+        routed_layers=sum(h.weighted for h in run.registry.layers.values()),
+        step_ms=[s * 1e3 for s in seconds], step_kinds=kinds,
+        peak_memory_bytes=torch.cuda.max_memory_allocated(),
+        factor_bytes=factor_bytes, expected_factor_bytes=4 * MOE_FACTOR_ELEMENTS,
+        memory_usage=memory, starved_factors_moved=starved_moved,
+        launches=counts, expected_launches=expected,
+    )
+    out['passed'] = (
+        out['finite'] and out['loss_falls'] and out['registered_layers'] == MOE_LAYERS
+        and out['routed_layers'] == 24 and factor_bytes == 4 * MOE_FACTOR_ELEMENTS
+        and not starved_moved and counts == expected
+        and all(kinds[k]['syncs_max'] == 0 for k in ('capture', 'plain'))
+    )
+    # after the counted run: a plain and a capture step under torch.profiler,
+    # then the refresh alone (57 eighs, 30 of them at d = 2048 or 2049), twice
+    out['profile'] = [profile_step(run, MOE_STEPS), profile_step(run, MOE_STEPS + 1)]
+    out['refresh_alone_ms'] = [synced(lambda: run.kfac.update_inverses(run.kstate))[1] * 1e3
+                               for _ in range(2)]
+    del run
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_reference() -> dict:
+    """(b) Step 0's capture on the card (kernels) and on the CPU (plain
+    versions) from the same weights, and each routed expert's factors on
+    the card against its oracle."""
+    card_run = LMRun(FLAGSHIP, torch.device('cuda'), 10, 100, moe=MOE)
+    card = moe_capture(card_run)
+    oracle = expert_oracle(card_run, card[2], card[3], card[4])
+    del card_run
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cpu = moe_capture(LMRun(FLAGSHIP, torch.device('cpu'), 10, 100, moe=MOE))
+    out = dict(cpu=card_vs_cpu(card, cpu), cpu_capture_seconds=time.perf_counter() - t0,
+               oracle=oracle)
+    out['passed'] = out['cpu']['passed'] and oracle['passed']
+    return out
+
+
+def moe_dense_dispatch(launches) -> dict:
+    """(c) The dense masked dispatch, 3 steps, against the capacity
+    dispatch at C = T (capacity factor = E, nothing drops) from the same
+    weights: step 0's loss (1e-5 relative) and its preconditioned grads
+    (1e-3 of their max)."""
+    wrappers = main_path_wrappers()
+    dev = torch.device('cuda')
+    zero_counts(wrappers)
+    dense = LMRun(FLAGSHIP, dev, 10, 100, moe=dict(MOE, capacity_factor=None))
+    losses, grads, seconds = train(dense, MOE_DENSE_STEPS, grads=True)
+    counts = count_into(launches, wrappers)
+    del dense
+    full = LMRun(FLAGSHIP, dev, 10, 100, moe=dict(MOE, capacity_factor=float(MOE['experts'])))
+    (full_loss,), (full_grads,), _ = train(full, 1, grads=True)
+    del full
+    torch.cuda.empty_cache()
+    loss_err = abs(losses[0] - full_loss) / abs(full_loss)
+    scale = max(float(g.abs().max()) for g in full_grads.values())
+    grad_err = max(float((grads[0][n] - g).abs().max()) for n, g in full_grads.items()) / scale
+    expected = moe_expected(MOE_DENSE_STEPS, 1)
+    return dict(
+        losses=losses, step_ms=[s * 1e3 for s in seconds], capacity_e_loss=full_loss,
+        loss_rel_err=loss_err, loss_tol=1e-5, pgrad_err_rel_to_max=grad_err, pgrad_tol=1e-3,
+        launches=counts, expected_launches=expected,
+        passed=(all(math.isfinite(x) for x in losses) and loss_err <= 1e-5 and grad_err <= 1e-3
+                and counts == expected),
+    )
+
+
+def moe_kaisa_rank(rank: int, world: int, device: torch.device, frac: float) -> dict:
+    """One NCCL rank: the MoE flagship on a ``DistributedKFAC`` (EIGEN,
+    cadence 10/100) through ``Trainer.step`` on the global batch, 11 steps,
+    counts set to 0 just before and read just after, host syncs counted."""
+    from kfac_tpu_torch.parallel import DistributedKFAC, kaisa_mesh
+    from kfac_tpu_torch.training import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    run = LMRun(FLAGSHIP, device, 10, 100, moe=MOE)
+    engine = DistributedKFAC(run.kfac, kaisa_mesh(frac, device=device))
+    model = run.trainer.model
+    run.trainer = Trainer(
+        model, torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9), run.trainer.loss_fn,
+        kfac=engine, device=device,
+    )
+    run.state = run.trainer.init()
+    start = starved_factors_dist(engine, run.state.kfac_state)
+    wrappers = main_path_wrappers()
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    zero_counts(wrappers)
+    losses, seconds, syncs = [], [], []
+    for _ in range(MOE_KAISA_STEPS):
+        loss, sec, n = counted_step(run)
+        losses.append(loss)
+        seconds.append(sec)
+        syncs.append(n)
+    launches = {n: w.launches for n, w in wrappers.items()}
+    end = starved_factors_dist(engine, run.state.kfac_state)
+    return dict(
+        rank=rank, frac=frac, strategy=engine.strategy.name, losses=losses,
+        step_ms=[s * 1e3 for s in seconds], step_kinds=step_kinds(seconds, syncs, 10, 100),
+        launches=launches, peak_memory_bytes=torch.cuda.max_memory_allocated(device),
+        starved_bitwise=all(torch.equal(start[k], end[k]) for k in start),
+        param_digest=param_digest(model),
+    )
+
+
+def starved_factors_dist(engine, state) -> dict:
+    """This rank's copies of the starved experts' factor slots (those in
+    its factor block)."""
+    names = {f'{b.replace(".", "/")}/expert{e}_{s}' for b, e in MOE['starved'] for s in ('up', 'down')}
+    out = {}
+    for side, store in (('a', engine.a_store), ('g', engine.g_store)):
+        for sb in store:
+            lo, hi = engine._factor_range(sb.padded)
+            for i in range(lo, min(hi, len(sb.layers))):
+                if sb.layers[i] in names:
+                    out[side, sb.layers[i]] = getattr(state, side)[sb.key][i - lo].detach().cpu().clone()
+    return out
+
+
+def moe_kaisa(launches, dense_losses) -> dict:
+    """(d) ``DistributedKFAC`` over NCCL, one rank a card: COMM-OPT on one
+    card (losses within 1e-4 of the dense engine's), MEM-OPT on four (each
+    rank routes its own 4 rows at its own capacity, as a switch
+    Transformer's data-parallel ranks do, so the losses differ from the
+    dense engine's: finite and falling)."""
+    from kfac_tpu_torch.parallel import spawn_world
+
+    world = torch.cuda.device_count()
+    frac = 1.0 if world == 1 else 1.0 / world
+    t0 = time.perf_counter()
+    rows = spawn_world(moe_kaisa_rank, world, 'nccl', 'cuda', args=(frac,), timeout_s=600)
+    r0 = rows[0]
+    expected = moe_expected(MOE_KAISA_STEPS, len(range(0, MOE_KAISA_STEPS, 10)))
+    for name, count in r0['launches'].items():
+        launches[name] = launches.get(name, 0) + count
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(r0['losses'], dense_losses)) if world == 1 else None
+    out = dict(
+        world=world, frac=frac, strategy=r0['strategy'], losses=r0['losses'],
+        dense_losses=dense_losses[:MOE_KAISA_STEPS], loss_rel_err=loss_err,
+        loss_tol=1e-4 if world == 1 else None,
+        step_kinds_by_rank=[r['step_kinds'] for r in rows],
+        peak_memory_by_rank=[r['peak_memory_bytes'] for r in rows],
+        launches_by_rank=[r['launches'] for r in rows], expected_launches=expected,
+        starved_bitwise_by_rank=[r['starved_bitwise'] for r in rows],
+        params_identical_on_every_rank=len({r['param_digest'] for r in rows}) == 1,
+        spawn_seconds=time.perf_counter() - t0,
+    )
+    out['passed'] = (
+        all(math.isfinite(x) for x in r0['losses']) and r0['losses'][-1] < r0['losses'][0]
+        and (world > 1 or loss_err <= 1e-4)
+        and out['params_identical_on_every_rank'] and all(out['starved_bitwise_by_rank'])
+        and all({n: r['launches'][n] for n in expected} == expected for r in rows)
+        and all(r['step_kinds'][k]['syncs_max'] == 0 for r in rows for k in ('capture', 'plain'))
+    )
+    return out
+
+
+def run_moe(launches) -> bool:
+    """The switch-MoE flagship (``MOE``) at full width: (a) the dense
+    engine, (b) step 0 against the CPU and the per-expert oracle, (c) the
+    dense masked dispatch against capacity = E, (d) ``DistributedKFAC``.
+    One line each."""
+    ok = True
+    dense = moe_dense_run(launches)
+    emit(dict(phase='moe', part='a_dense_engine', config=dict(FLAGSHIP, **MOE), steps=MOE_STEPS,
+              cadence=[10, 100], **dense))
+    ok &= dense['passed']
+    for part, fn, args in (
+        ('b_reference', moe_reference, ()),
+        ('c_dense_dispatch', moe_dense_dispatch, (launches,)),
+        ('d_kaisa', moe_kaisa, (launches, dense['losses'])),
+    ):
+        try:
+            out = fn(*args)
+        except Exception:  # report the part's failure and go on to the next
+            traceback.print_exc()
+            out = dict(passed=False, error=traceback.format_exc(limit=3))
+        emit(dict(phase='moe', part=part, **out))
+        ok &= out['passed']
+        torch.cuda.empty_cache()
+    return ok
+
+
+def run_lora(launches) -> bool:
+    """The ``lora_finetune`` gate on the card (``kfac_tpu_torch.
+    bench_accuracy``): pretraining with SGD, then 300 K-FAC steps over the
+    LoRA units and the head must reach a loss of 0.2 (the median of the
+    last 50 batch losses); launches exact. Then
+    the same run on the CPU (plain versions) from the same seed: the
+    pretraining's last loss and the fine-tune's first ``LORA_COMPARED``
+    losses within 1e-4 relative of the card's."""
+    import contextlib
+
+    from kfac_tpu_torch import bench_accuracy
+    from kfac_tpu_torch.examples import finetune_lora
+
+    wrappers = main_path_wrappers()
+    zero_counts(wrappers)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):  # its own lines
+        gate = bench_accuracy.run_task('cuda', seed=0, name='lora_finetune')
+    seconds = time.perf_counter() - t0
+    counts = count_into(launches, wrappers)
+    expected = dict(
+        sym_cov=LORA_COVS_A_STEP * LORA_STEPS, sym_cov_ema=0, klclip_dot=LORA_STEPS,
+        klclip_dot_norms=0, klclip_scale=LORA_STEPS, flash_attention_partials=0, fused_ns_step=0,
+    )
+    runs = {dev: finetune_lora.run(finetune_lora.parse_args(['--device', dev])) for dev in ('cuda', 'cpu')}
+    card, cpu = runs['cuda'], runs['cpu']
+    pairs = [(card['pretrain_loss'], cpu['pretrain_loss'])] + list(
+        zip(card['losses'][:LORA_COMPARED], cpu['losses'][:LORA_COMPARED]))
+    err = max(abs(a - b) / abs(b) for a, b in pairs)
+    passed = gate['passed'] and counts == expected and err <= 1e-4
+    emit(dict(
+        phase='lora', gate=gate, seconds=seconds, launches=counts, expected_launches=expected,
+        cpu=dict(pretrain_loss=cpu['pretrain_loss'], final_loss=cpu['losses'][-1],
+                 accuracy=cpu['accuracy'], compared_losses=LORA_COMPARED, loss_rel_err=err,
+                 loss_tol=1e-4),
+        card=dict(pretrain_loss=card['pretrain_loss'], final_loss=card['losses'][-1],
+                  accuracy=card['accuracy'], losses=card['losses']),
+        passed=passed,
+    ))
+    return passed
+
+
 BENCH_WINDOW = dict(warmup=5, iters=25, scan_steps=25)
 # the probe's warm call and its 9 timed calls, before its profiled passes
 PROBE_TIMED_CALLS = 10
@@ -4061,7 +4519,7 @@ def main() -> int:
         path: {} for path in (
             'main_path', 'main_path_ns', 'digits_mlp', 'digits_cnn', 'observed', 'resume',
             'async_refresh', 'kaisa', 'kaisa_ops', 'resnet', 'bench_lm_tiny', 'bench_lm_flagship',
-            'engine_knobs',
+            'engine_knobs', 'moe', 'lora',
         )
     }
     observed_health: dict = {}
@@ -4109,6 +4567,8 @@ def main() -> int:
     phase('bench_lm', run_bench_lm, launches)
     phase('engine_knobs', run_engine_knobs, launches['engine_knobs'], main_losses, main_tail,
           async_summary)
+    phase('moe', run_moe, launches['moe'])
+    phase('lora', run_lora, launches['lora'])
     emit(dict(phase='timing', seconds=seconds, total_seconds=time.perf_counter() - start))
     print(smi, flush=True)
     emit(kernels_line(results, launches))

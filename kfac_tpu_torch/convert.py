@@ -30,7 +30,9 @@ def from_flax_params(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     conv ``kernel`` (kh, kw, C_in, C_out) becomes ``weight`` (C_out, C_in,
     kh, kw); ``Embed.embedding`` and LayerNorm and BatchNorm ``scale``
     become ``weight``; ``bias`` and raw params (``pos_embed``) keep their
-    names. Paths join with '.'.
+    names. Paths join with '.', so an MoE block's ``moe/router`` and
+    ``moe/expert{e}_{up,down}`` and a LoRA unit's ``base``, ``down`` and
+    ``up`` land on the port's modules of those names.
     """
     out: dict[str, torch.Tensor] = {}
     for path, value in _flatten(params):

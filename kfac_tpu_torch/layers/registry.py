@@ -1,6 +1,8 @@
 """Model analysis: discover the supported layers of a module tree
-(counterpart of ``kfac_tpu/layers/registry.py``): ``nn.Linear``, and 2-D
-convolutions (``nn.Conv2d`` and the port's flax-padded ``SameConv2d``).
+(counterpart of ``kfac_tpu/layers/registry.py``): ``nn.Linear`` (routed
+or not), 2-D convolutions (``nn.Conv2d`` and the port's flax-padded
+``SameConv2d``), and LoRA units (a module whose class sets
+``_kfac_lora_unit = True``, registered once for its adapter pair).
 
 Layers are named by their module path joined with '/', which for the
 port's models equals the flax module path of the JAX package's
@@ -37,13 +39,17 @@ class Registry:
     ``layers`` maps registry name -> its LayerHelper; ``modules`` maps it to the
     registered ``nn.Module``; ``param_paths`` maps it to the module's
     parameter-name prefix in ``model.named_parameters()`` (``block0.attn.
-    q_proj``). ``model`` is the analysed module tree.
+    q_proj``). ``model`` is the analysed module tree. ``taps`` maps the
+    name of a child that captures for a registered unit (a LoRA unit's
+    ``down`` and ``up``) to ``(unit name, role)``; the unit module itself
+    has no hooks.
     """
 
     model: nn.Module
     layers: dict[str, helpers.LayerHelper]
     modules: dict[str, nn.Module]
     param_paths: dict[str, str]
+    taps: dict[str, tuple[str, str]] = dataclasses.field(default_factory=dict)
 
     def __len__(self) -> int:
         return len(self.layers)
@@ -134,10 +140,18 @@ def _mask_value(mask: Any, path: tuple[str, ...], name: str) -> bool:
         raise ValueError(
             f'mask splits layer {name!r} into trainable and frozen '
             'leaves; K-FAC preconditions a layer jointly, so mask whole '
-            'layers (a bool at the layer path or a uniform subtree). '
-            '(LoRA units, whose adapters mask as one, are not ported yet.)'
+            'layers (a bool at the layer path or a uniform subtree)'
         )
     return values.pop()
+
+
+def is_trainable(mask: Any, param_name: str) -> bool:
+    """Whether ``mask`` leaves the parameter ``param_name`` (a
+    ``named_parameters()`` name) trainable: the same mask, read at one
+    parameter, so an optimizer freezes what the registry drops."""
+    if mask is None:
+        return True
+    return _mask_value(mask, tuple(param_name.split('.')), param_name)
 
 
 def masked_registry(registry: Registry, mask: Any) -> Registry:
@@ -145,18 +159,36 @@ def masked_registry(registry: Registry, mask: Any) -> Registry:
     returns it as it is). A frozen layer gets no capture hooks, no factors
     and no metrics keys, and its gradients pass through the preconditioner
     unchanged, as an unregistered layer's do (see :func:`_mask_value` for
-    the mask's form)."""
+    the mask's form). A LoRA unit reads the mask at its adapters (``down``,
+    ``up``), which must agree; its ``base`` is never preconditioned, so
+    freezing it does not freeze the unit."""
     if mask is None:
         return registry
-    keep = [
-        name for name, prefix in registry.param_paths.items()
-        if _mask_value(mask, tuple(prefix.split('.')), name)
-    ]
+    keep = []
+    for name, prefix in registry.param_paths.items():
+        path = tuple(prefix.split('.'))
+        if isinstance(registry.layers[name], helpers.LoRAHelper):
+            roles = {
+                role: _mask_value(mask, path + (role,), name)
+                for role in helpers.LoRAHelper.ROLES
+            }
+            if len(set(roles.values())) > 1:
+                raise ValueError(
+                    f'mask freezes one adapter of LoRA unit {name!r} but '
+                    f'not the other ({roles}); the pair preconditions as '
+                    'one unit, so mask both the same way'
+                )
+            trainable = roles['down']
+        else:
+            trainable = _mask_value(mask, path, name)
+        if trainable:
+            keep.append(name)
     return dataclasses.replace(
         registry,
         layers={n: registry.layers[n] for n in keep},
         modules={n: registry.modules[n] for n in keep},
         param_paths={n: registry.param_paths[n] for n in keep},
+        taps={t: (u, r) for t, (u, r) in registry.taps.items() if u in keep},
     )
 
 
@@ -165,6 +197,7 @@ def register_model(
     skip_layers: list[str] | None = None,
     device: str | torch.device = 'cuda',
     mask: Any = None,
+    routed_layers: list[str] | None = None,
 ) -> Registry:
     """Walk ``model`` and return its K-FAC registry.
 
@@ -173,6 +206,20 @@ def register_model(
     which for the port's models is their call order. ``device`` is where
     the model must lie (``'cuda'`` unless the caller passes another).
     ``mask`` drops the layers it freezes (:func:`masked_registry`).
+
+    ``routed_layers`` (regexes over the layer path, dense layers only)
+    mark row-masked layers, MoE experts whose unrouted input rows are zero,
+    for routed capture: factors over the live rows only, captures weighted
+    by their live fraction (``routed_layers=[r'.*expert\\d+_(up|down)']``
+    for ``models/moe.py``). A pattern that matches a non-dense layer, or
+    no layer at all, raises.
+
+    A module whose class sets ``_kfac_lora_unit = True``
+    (:class:`kfac_tpu_torch.models.lora.LoRADense`) registers as one unit
+    with block-diagonal factors over its adapter pair
+    (:class:`~kfac_tpu_torch.layers.helpers.LoRAHelper`); its ``down`` and
+    ``up`` children capture for it (``Registry.taps``), and no module under
+    it registers on its own.
     """
     device = resolve_device(device)
     for p in model.parameters():
@@ -181,9 +228,12 @@ def register_model(
                 f'model parameters are on {p.device}, not on {device}'
             )
     skip_patterns = [re.compile(p) for p in (skip_layers or [])]
+    routed_patterns = [re.compile(p) for p in (routed_layers or [])]
     layers: dict[str, helpers.LayerHelper] = {}
     modules: dict[str, nn.Module] = {}
     param_paths: dict[str, str] = {}
+    taps: dict[str, tuple[str, str]] = {}
+    units: list[str] = []  # parameter prefixes of the registered units
     for prefix, mod in model.named_modules():
         if not prefix:
             continue
@@ -191,13 +241,44 @@ def register_model(
         cls_name = type(mod).__name__.lower()
         if any_match(name, skip_patterns) or any_match(cls_name, skip_patterns):
             continue
+        if any(prefix.startswith(u + '.') for u in units):
+            continue  # the unit's children belong to its helper
+        if getattr(type(mod), '_kfac_lora_unit', False):
+            layers[name] = helpers.LoRAHelper(
+                name=name, has_bias=False, in_features=mod.down.in_features,
+                rank=int(mod.rank), out_features=int(mod.features),
+            )
+            modules[name] = mod
+            param_paths[name] = prefix
+            for role in helpers.LoRAHelper.ROLES:
+                taps[f'{name}/{role}'] = (name, role)
+            units.append(prefix)
+            continue
         helper = make_helper(mod, name)
         if helper is not None:
+            if any_match(name, routed_patterns):
+                if not isinstance(helper, helpers.DenseHelper):
+                    raise ValueError(
+                        f'routed_layers matched {name!r}, which is not a '
+                        'dense layer (routed capture is defined for '
+                        'row-masked dense inputs only)'
+                    )
+                helper = dataclasses.replace(helper, routed=True)
             layers[name] = helper
             modules[name] = mod
             param_paths[name] = prefix
+    unmatched = [
+        p.pattern for p in routed_patterns if not any(p.fullmatch(n) for n in layers)
+    ]
+    if unmatched:
+        raise ValueError(
+            f'routed_layers patterns {unmatched} matched no registered '
+            'layer: a typo here silently reverts the expert layers to the '
+            'approximate shared-normalization capture, so it is an error. '
+            f'Registered layers: {sorted(layers)}'
+        )
     return masked_registry(Registry(
-        model=model, layers=layers, modules=modules, param_paths=param_paths
+        model=model, layers=layers, modules=modules, param_paths=param_paths, taps=taps,
     ), mask)
 
 
@@ -209,9 +290,9 @@ def slice_layer_grads(
     ``named_parameters``-keyed dict."""
     out: dict[str, dict[str, torch.Tensor]] = {}
     for name, prefix in registry.param_paths.items():
+        helper, module = registry.layers[name], registry.modules[name]
         out[name] = {
-            local: grads[f'{prefix}.{local}']
-            for local, _ in registry.modules[name].named_parameters()
+            local: grads[f'{prefix}.{local}'] for local in helper.param_names(module)
         }
     return out
 
@@ -229,3 +310,31 @@ def merge_layer_grads(
         for local, g in value.items():
             out[f'{prefix}.{local}'] = g
     return out
+
+
+def merge_registries(*registries: Registry) -> Registry:
+    """The union of disjoint registries of one model (say, the model's own
+    and a registry of some of its blocks registered apart), so that one
+    engine preconditions every layer. A layer name in two of them raises,
+    as does a registry over another model (parameter paths are relative to
+    the model)."""
+    if not registries:
+        raise ValueError('merge_registries needs at least one registry')
+    model = registries[0].model
+    layers: dict[str, helpers.LayerHelper] = {}
+    modules: dict[str, nn.Module] = {}
+    paths: dict[str, str] = {}
+    taps: dict[str, tuple[str, str]] = {}
+    for r in registries:
+        if r.model is not model:
+            raise ValueError('registries over different models do not merge')
+        overlap = set(layers) & set(r.layers)
+        if overlap:
+            raise ValueError(
+                f'layer names collide across registries: {sorted(overlap)}'
+            )
+        layers.update(r.layers)
+        modules.update(r.modules)
+        paths.update(r.param_paths)
+        taps.update(r.taps)
+    return Registry(model=model, layers=layers, modules=modules, param_paths=paths, taps=taps)

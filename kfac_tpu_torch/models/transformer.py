@@ -1,5 +1,6 @@
 """Decoder-only Transformer LM (counterpart of
-``kfac_tpu/models/transformer.py``, without MoE, ring attention or remat).
+``kfac_tpu/models/transformer.py``, with its switch-MoE blocks; without
+ring attention or remat).
 
 Module and parameter names follow the flax module paths (``block0``,
 ``attn.q_proj``, ``mlp_up``, ...) so that layers pair one to one with the
@@ -18,6 +19,7 @@ import torch.nn.functional as F
 
 from kfac_tpu_torch.device import resolve_device
 from kfac_tpu_torch.models import attention as attention_lib
+from kfac_tpu_torch.models import moe as moe_lib
 from kfac_tpu_torch.ops import losses
 
 LN_EPS = 1e-6
@@ -49,19 +51,34 @@ class CausalSelfAttention(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-norm transformer block with a dense GELU MLP."""
+    """Pre-norm transformer block with a dense GELU MLP, or with a switch
+    MoE (``moe``, :class:`~kfac_tpu_torch.models.moe.MoEMLP`) when
+    ``num_experts > 0``."""
 
-    def __init__(self, d_model: int, num_heads: int, mlp_ratio: int = 4):
+    def __init__(
+        self,
+        d_model: int,
+        num_heads: int,
+        mlp_ratio: int = 4,
+        num_experts: int = 0,
+        moe_capacity_factor: float | None = None,
+    ):
         super().__init__()
         self.ln1 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.attn = CausalSelfAttention(d_model, num_heads)
         self.ln2 = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.mlp_up = nn.Linear(d_model, mlp_ratio * d_model)
-        self.mlp_down = nn.Linear(mlp_ratio * d_model, d_model)
+        if num_experts > 0:
+            self.moe = moe_lib.MoEMLP(d_model, num_experts, mlp_ratio, moe_capacity_factor)
+        else:
+            self.mlp_up = nn.Linear(d_model, mlp_ratio * d_model)
+            self.mlp_down = nn.Linear(mlp_ratio * d_model, d_model)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln1(x))
-        h = F.gelu(self.mlp_up(self.ln2(x)), approximate='tanh')
+        y = self.ln2(x)
+        if hasattr(self, 'moe'):
+            return x + self.moe(y)
+        h = F.gelu(self.mlp_up(y), approximate='tanh')
         return x + self.mlp_down(h)
 
 
@@ -72,6 +89,11 @@ class TransformerLM(nn.Module):
     seed)`` with flax's initializers (LeCun-normal dense kernels, zero
     biases, unit-normal embedding, normal(0.02) positions), then moved to
     ``device`` (``'cuda'`` unless the caller passes another).
+
+    With ``num_experts > 0`` every ``moe_every``-th block (blocks
+    ``moe_every - 1``, ``2 * moe_every - 1``, ...) has a switch MoE in
+    place of its MLP, with ``moe_capacity_factor`` (None: the dense masked
+    dispatch), as the JAX model's.
     """
 
     def __init__(
@@ -84,6 +106,9 @@ class TransformerLM(nn.Module):
         max_len: int = 2048,
         seed: int = 0,
         device: str | torch.device = 'cuda',
+        num_experts: int = 0,
+        moe_every: int = 2,
+        moe_capacity_factor: float | None = None,
     ):
         super().__init__()
         device = resolve_device(device)
@@ -91,7 +116,12 @@ class TransformerLM(nn.Module):
         self.embed = nn.Embedding(vocab_size, d_model)
         self.pos_embed = nn.Parameter(torch.empty(max_len, d_model))
         for i in range(num_layers):
-            self.add_module(f'block{i}', Block(d_model, num_heads, mlp_ratio))
+            # moe_every <= 0 means no MoE blocks, as num_experts = 0
+            is_moe = num_experts > 0 and moe_every > 0 and (i + 1) % moe_every == 0
+            self.add_module(f'block{i}', Block(
+                d_model, num_heads, mlp_ratio, num_experts if is_moe else 0,
+                moe_capacity_factor,
+            ))
         self.ln_f = nn.LayerNorm(d_model, eps=LN_EPS)
         self.lm_head = nn.Linear(d_model, vocab_size, bias=False)
         self.reset_parameters(torch.Generator().manual_seed(seed))
@@ -124,11 +154,24 @@ class TransformerLM(nn.Module):
         return self.lm_head(x)
 
 
-def lm_loss(model: TransformerLM):
-    """Next-token cross-entropy of ``model``: ``loss_fn((tokens, targets))``."""
+def moe_layers(model: nn.Module) -> list[moe_lib.MoEMLP]:
+    """The model's MoE modules, in module order."""
+    return [m for m in model.modules() if isinstance(m, moe_lib.MoEMLP)]
+
+
+def lm_loss(model: TransformerLM, load_balance_weight: float = 0.0):
+    """Next-token cross-entropy of ``model``: ``loss_fn((tokens, targets))``;
+    with ``load_balance_weight``, plus that weight times the sum over the
+    MoE blocks of :func:`~kfac_tpu_torch.models.moe.load_balance_loss` of
+    the same forward's routing."""
+    moes = moe_layers(model) if load_balance_weight else []
 
     def loss_fn(batch) -> torch.Tensor:
         tokens, targets = batch
-        return torch.mean(losses.vocab_parallel_nll(model(tokens), targets))
+        loss = torch.mean(losses.vocab_parallel_nll(model(tokens), targets))
+        for m in moes:
+            aux = moe_lib.load_balance_loss(m.router_probs, m.expert_index, m.num_experts)
+            loss = loss + load_balance_weight * aux
+        return loss
 
     return loss_fn

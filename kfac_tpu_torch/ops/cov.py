@@ -1,6 +1,6 @@
 """Covariance (Kronecker factor) numerics (counterpart of
-``kfac_tpu/ops/cov.py``: dense and 2-D convolution factors; routed
-factors come in a later slice).
+``kfac_tpu/ops/cov.py``: dense, routed dense and 2-D convolution
+factors).
 
 Convolutions are NCHW here, as PyTorch keeps them, where the JAX package
 is NHWC. Their patches come out with the JAX package's feature order,
@@ -62,6 +62,46 @@ def linear_g_factor(g: torch.Tensor) -> torch.Tensor:
     """G factor of a dense layer from the loss gradient w.r.t. its output."""
     g = g.reshape(-1, g.shape[-1])
     return get_cov(g)
+
+
+def live_rows(x: torch.Tensor) -> torch.Tensor:
+    """1.0 for each row of the 2-D ``x`` with a nonzero entry, else 0.0, in
+    ``x``'s dtype: the rows a routed layer's expert actually received
+    (unrouted rows are exactly zero)."""
+    return (torch.amax(torch.abs(x), dim=-1) > 0).to(x.dtype)
+
+
+def routed_linear_a_factor(a: torch.Tensor, has_bias: bool) -> torch.Tensor:
+    """A factor of a row-masked (MoE-routed) dense layer over its live rows
+    only: the bias one goes on live rows alone and the covariance is
+    normalized by the live count (floored at 1), so the factor is the one
+    the routed tokens alone give. An all-zero input gives zeros. The count
+    and the rescale stay on the device; the covariance is :func:`get_cov`.
+
+    A routed row whose input is exactly zero counts as unrouted, as in the
+    JAX package (its caveat for dead activations)."""
+    a = a.reshape(-1, a.shape[-1])
+    nz = live_rows(a)
+    n = torch.clamp(torch.sum(nz), min=1.0)
+    if has_bias:
+        a = torch.cat([a, nz[:, None]], dim=-1)
+    return get_cov(a) * (a.shape[0] / n)
+
+
+def routed_live_fraction(a: torch.Tensor) -> torch.Tensor:
+    """The fraction of rows with a nonzero entry, a 0-d f32 tensor: a
+    routed capture's evidence weight (0 for an expert that got no token),
+    counted by the same row test as the routed factors."""
+    a = a.reshape(-1, a.shape[-1])
+    return torch.mean((torch.amax(torch.abs(a), dim=-1) > 0).float())
+
+
+def routed_linear_g_factor(g: torch.Tensor) -> torch.Tensor:
+    """G factor normalized by the count of rows with a nonzero cotangent
+    (floored at 1): the routed tokens' rows."""
+    g = g.reshape(-1, g.shape[-1])
+    n = torch.clamp(torch.sum(live_rows(g)), min=1.0)
+    return get_cov(g) * (g.shape[0] / n)
 
 
 # ((top, bottom), (left, right)) zero padding of an image's two spatial dims

@@ -35,6 +35,17 @@ def ema_update(
     return alpha * running + (1.0 - alpha) * new
 
 
+def effective_alpha(
+    alpha: float | torch.Tensor, w: torch.Tensor
+) -> torch.Tensor:
+    """Evidence-weighted EMA decay ``1 - (1 - alpha) * w``: a capture of
+    weight ``w`` in [0, 1] moves the running factor by ``(1 - alpha) * w``,
+    not at all for a starved capture (``w = 0``), by the plain EMA step at
+    ``w = 1``. The one formula behind the traffic-weighted factor updates
+    of both engines; ``w`` stays on the device."""
+    return 1.0 - (1.0 - alpha) * w
+
+
 class EigenDecomp(NamedTuple):
     """Eigendecomposition of a symmetric PSD factor: eigenvectors ``q``
     (d, d) and eigenvalues ``d`` clamped >= 0 (d,)."""

@@ -530,13 +530,29 @@ class DistributedKFAC:
 
     # ------------------------------------------------------------ factors
 
+    def _weights(self, stats: capture_lib.CapturedStats) -> tuple[list[str], torch.Tensor | None]:
+        """The captured routed layers, in registry order, and this rank's
+        (2 n,) weight vector: their A weights, then their G weights (``wg``,
+        else ``w``); None when no captured layer carries a weight."""
+        names = [n for n in self.registry.layers if n in stats.w and n in stats.a]
+        if not names:
+            return names, None
+        return names, torch.stack(
+            [stats.w[n].float() for n in names]
+            + [stats.wg.get(n, stats.w[n]).float() for n in names]
+        )
+
     def _reduce_stats(
         self, state: DistKFACState, stats: capture_lib.CapturedStats
-    ) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor], dict[str, torch.Tensor] | None]:
-        """The world's statistics from this rank's: ``(a, g, comp_ef)``,
+    ) -> tuple[
+        dict[str, torch.Tensor], dict[str, torch.Tensor], dict[str, torch.Tensor] | None,
+        dict[str, torch.Tensor],
+    ]:
+        """The world's statistics from this rank's: ``(a, g, comp_ef, w)``,
         name -> class-dim factor for every captured layer (every layer
-        with ``stat_compression``), and the new error-feedback residual
-        (the state's, unchanged, without compression).
+        with ``stat_compression``), the new error-feedback residual (the
+        state's, unchanged, without compression), and name -> the global
+        evidence weight of each captured routed layer.
 
         ``ALLREDUCE`` sums each true-dim factor in its own all-reduce;
         ``ALLREDUCE_BUCKETED`` packs the upper triangles of the class-dim
@@ -552,37 +568,66 @@ class DistributedKFAC:
         times what the global batch's rows give, and the global G is the
         sum / world^3. (Under pjit the JAX capture sees the global
         cotangents.)
+
+        Routed layers: the ranks route different numbers of tokens to an
+        expert, so the mean of their live-normalized factors is not the
+        global one. A rank sends ``w_r F_r`` (its rows' ``a^T a`` over its
+        row count) and ``w_r`` (its live fraction); the global factor is
+        ``sum_r w_r F_r / sum_r w_r`` in the world's scale, the global
+        weight the mean of the ``w_r``, and G likewise with its G-side
+        weights. The weights ride as one (2 n,) f32 vector in the same
+        collectives: the last tensor of the bucketed buffers, or one more
+        tensor of the per-layer all-reduces. The compressed transport
+        reduces them first (:meth:`_compressed_rows`).
         """
         cfg = self.config
         if self._compression is not None:
             return self._compressed_rows(state, stats)
+        routed, w_vec = self._weights(stats)
         order = [
             (side, n, sb.d)
             for side, store, side_stats in (('a', self.a_store, stats.a), ('g', self.g_store, stats.g))
             for sb in store for n in sb.layers if n in side_stats
         ]
-        raw = [(stats.a if side == 'a' else stats.g)[n].float() for side, n, _ in order]
+        k = len(routed)
+        pos = {n: i for i, n in enumerate(routed)}
+
+        def sent(side, n):
+            m = (stats.a if side == 'a' else stats.g)[n].float()
+            if n in pos:
+                m = m * w_vec[pos[n] + (k if side == 'g' else 0)]
+            return m
+
+        raw = [sent(side, n) for side, n, _ in order]
         if cfg.allreduce_method == enums.AllreduceMethod.ALLREDUCE_BUCKETED:
             cap = cfg.allreduce_bucket_cap_mb
             tris = [collectives.get_triu(pad_factor(m, d)) for m, (_, _, d) in zip(raw, order)]
+            if w_vec is not None:
+                tris.append(w_vec)
             chunks = collectives.concat_flat_chunked(tris, None if cap is None else cap * 1e6)
             for flat, _ in chunks:
                 self._count('all_reduce', flat)
                 dist.all_reduce(flat, group=self.mesh.group)
-            summed = [
-                collectives.fill_triu((d, d), t)
-                for t, (_, _, d) in zip(collectives.split_flat_chunked(chunks), order)
-            ]
+            flat_out = collectives.split_flat_chunked(chunks)
+            summed = [collectives.fill_triu((d, d), t) for t, (_, _, d) in zip(flat_out, order)]
         else:
-            summed = [
-                pad_factor(m, d)
-                for m, (_, _, d) in zip(collectives.all_reduce_sum(raw, self.mesh.group), order)
-            ]
+            if w_vec is not None:
+                raw.append(w_vec)
+            flat_out = collectives.all_reduce_sum(raw, self.mesh.group)
+            summed = [pad_factor(m, d) for m, (_, _, d) in zip(flat_out, order)]
         scale = {'a': float(self.world), 'g': float(self.world) ** 3}
         out: dict[str, dict[str, torch.Tensor]] = {'a': {}, 'g': {}}
         for (side, n, _), m in zip(order, summed):
             out[side][n] = m / scale[side]
-        return out['a'], out['g'], state.comp_ef
+        weights: dict[str, torch.Tensor] = {}
+        if w_vec is not None:
+            mean_w = flat_out[-1] / self.world
+            divisor = torch.clamp(mean_w, min=capture_lib.WEIGHT_FLOOR)
+            for i, n in enumerate(routed):
+                out['a'][n] = out['a'][n] / divisor[i]
+                out['g'][n] = out['g'][n] / divisor[k + i]
+                weights[n] = mean_w[i]
+        return out['a'], out['g'], state.comp_ef, weights
 
     def _count(self, op: str, buffer: torch.Tensor) -> None:
         """Add one stat-transport collective to ``transport_counter``: its
@@ -621,10 +666,30 @@ class DistributedKFAC:
         rank no collective runs. The quantization and the dequantization
         run under the profiler scopes ``kfac.stat_quantize`` and
         ``kfac.stat_dequantize``.
+
+        Routed layers: the ranks' weights are all-reduced first, in f32
+        outside the quantized payload (one small collective), and a rank
+        sends ``w_r F_r / (scale * max(mean w, WEIGHT_FLOOR))``, so the
+        chunk's sum is the global normalized factor, the value the JAX
+        engine quantizes.
         """
         ccfg = self._compression
         w, bs = self.world, ccfg.block_size
         scale = {'a': float(w), 'g': float(w) ** 3}
+        routed, w_vec = self._weights(stats)
+        weights: dict[str, torch.Tensor] = {}
+        factor = {}  # side, name -> what multiplies a routed statistic
+        if w_vec is not None:
+            mean_w = w_vec
+            if w > 1:
+                self._count('all_reduce', w_vec)
+                mean_w = collectives.all_reduce_sum([w_vec], self.mesh.group)[0] / w
+            divisor = torch.clamp(mean_w, min=capture_lib.WEIGHT_FLOOR)
+            k = len(routed)
+            for i, n in enumerate(routed):
+                factor['a', n] = w_vec[i] / divisor[i]
+                factor['g', n] = w_vec[k + i] / divisor[k + i]
+                weights[n] = mean_w[i]
         rows = []
         for side, store, side_stats, fac in (
             ('a', self.a_store, stats.a, state.a), ('g', self.g_store, stats.g, state.g),
@@ -634,6 +699,8 @@ class DistributedKFAC:
                 for i, n in enumerate(sb.layers):
                     if n in side_stats:
                         m = side_stats[n].float() / scale[side]
+                        if (side, n) in factor:
+                            m = m * factor[side, n]
                         m = pad_factor(m, sb.d) if self.mesh.rank == 0 else pad_grad(m, sb.d, sb.d)
                     elif lo <= i < hi:
                         m = fac[sb.key][i - lo]
@@ -675,7 +742,7 @@ class DistributedKFAC:
         out: dict[str, dict[str, torch.Tensor]] = {'a': {}, 'g': {}}
         for (side, n, d, _), t in zip(rows, collectives.split_flat_chunked(deqs)):
             out[side][n] = collectives.fill_triu((d, d), t)
-        return out['a'], out['g'], (ef_out if ef_in is not None else None)
+        return out['a'], out['g'], (ef_out if ef_in is not None else None), weights
 
     def update_factors(
         self, state: DistKFACState, stats: capture_lib.CapturedStats
@@ -690,9 +757,14 @@ class DistributedKFAC:
         verdicts reach every rank in one ``all_reduce``, and a layer whose A
         or G slot failed rolls both back (``torch.where`` per slot) and
         escalates its damping, as the JAX engine's stacked sentinel does.
+
+        A store that holds a captured routed layer decays slot by slot: a
+        (slots, 1, 1) ``effective_alpha`` with the layer's global weight
+        (:meth:`_reduce_stats`) and w = 1 for the other slots and the
+        padding; the other stores keep the scalar decay.
         """
         alpha = resolve(self.config.factor_decay, state.step)
-        red_a, red_g, comp_ef = self._reduce_stats(state, stats)
+        red_a, red_g, comp_ef, red_w = self._reduce_stats(state, stats)
         new = {}
         for side, store, fac, red in (
             ('a', self.a_store, state.a, red_a), ('g', self.g_store, state.g, red_g),
@@ -706,7 +778,15 @@ class DistributedKFAC:
                         rows.append(torch.eye(sb.d, device=self.device))
                     else:
                         rows.append(red.get(sb.layers[s], fac[sb.key][s - lo]))
-                new[side][sb.key] = alpha * fac[sb.key] + (1 - alpha) * torch.stack(rows)
+                decay = alpha
+                if any(n in red_w for n in sb.layers[lo:hi]):
+                    one = torch.ones((), device=self.device)
+                    w = torch.stack([
+                        red_w.get(sb.layers[s], one) if s < len(sb.layers) else one
+                        for s in range(lo, hi)
+                    ])
+                    decay = factors_lib.effective_alpha(alpha, w)[:, None, None]
+                new[side][sb.key] = decay * fac[sb.key] + (1 - decay) * torch.stack(rows)
         names = list(self.registry.layers)
         touched = [i for i, n in enumerate(names) if n in stats.a or n in stats.g]
         ok = None  # (L,) layer verdicts, with health

@@ -394,15 +394,25 @@ class KFACPreconditioner:
         threshold rolls both its factors back and escalates its damping;
         the factor metrics then describe the factors after the rollback, and
         ``last_factor_step`` advances only for accepted updates.
+
+        A layer with an evidence weight in ``stats.w`` (a routed layer)
+        decays by ``effective_alpha(alpha, w)``, a device tensor: a capture
+        in which its expert saw no token leaves its factors as they were.
         """
         alpha = resolve(self.factor_decay, state.step)
+
+        def decay(n):
+            if n in stats.w:
+                return factors_lib.effective_alpha(alpha, stats.w[n])
+            return alpha
+
         new_a = {
-            n: factors_lib.ema_update(state.a[n], stats.a[n].float(), alpha)
+            n: factors_lib.ema_update(state.a[n], stats.a[n].float(), decay(n))
             if n in stats.a else state.a[n]
             for n in state.a
         }
         new_g = {
-            n: factors_lib.ema_update(state.g[n], stats.g[n].float(), alpha)
+            n: factors_lib.ema_update(state.g[n], stats.g[n].float(), decay(n))
             if n in stats.g else state.g[n]
             for n in state.g
         }
