@@ -271,6 +271,29 @@ Phases, one JSON line each:
    step; then the same run on the CPU from the same seed, its pretraining
    loss and first 20 fine-tune losses within 1e-4 of the card's.
 
+18. ``tp_sp``: tensor and sequence parallelism. On any number of cards:
+   the flash partials at every (q offset, k offset, shape) triple the ring
+   (seq 2 and 4) and zigzag (seq 2 and 4) schedules call at flagship
+   width (16 rows, 512 positions, head dim 128; 2 heads a rank beside seq
+   2, 4 beside seq 4), each within 1e-5 of max of acc, m and l of the
+   plain version with the TF32 control outside it, one triple of each
+   shape timed (its rows join the kernel results); then each ring
+   composed in one process from those partials on the card, its output
+   and input grads within 1e-5 of max of dense causal attention on the
+   same q, k, v. On four cards: ``spawn_world`` over NCCL runs the
+   flagship through ``Trainer.step`` with a ``DistributedKFAC`` on a
+   ``train_mesh`` (the LM sharded by ``TRANSFORMER_TP_RULES``, cadence
+   2/6, 8 steps) in (a) dp 1, model 2, seq 2, the ring; (b) dp 1, seq 4,
+   zigzag; (c) dp 2, model 2 at fractions 1 and 0.5; (d) (a) under INVERSE
+   + Newton-Schulz, each job's counts set to 0 just before and read just
+   after: every rank's losses within 1e-4 and its gathered preconditioned
+   grads within 1e-3 of max of the one-card dense engine's run from the
+   same weights and batch, its flash launches exact for its ring
+   position, no host sync on a plain or capture step, the replicated
+   parameters bitwise on every rank and the sharded ones across the dp
+   ranks of each shard; step ms by kind, peak memory and the bytes each
+   collective moves a rank.
+
 Then each phase's seconds and the script's (``timing``), the card's name
 and power limit as nvidia-smi prints them, the
 ``kernels`` line, and ``{"ok": true, "device": ...}`` as the last line.
@@ -285,6 +308,7 @@ import json
 import math
 import os
 import shutil
+import tempfile
 import signal
 import statistics
 import subprocess
@@ -335,14 +359,15 @@ RESNET_COVS = [
     (262144, 27), (262144, 144), (65536, 144), (65536, 288), (16384, 288), (16384, 576),
     (262144, 16), (65536, 32), (16384, 64), (256, 65), (256, 10),
 ]
-# a TF32 control the 1e-5 tolerance must reject: its rounding averages out
-# over N (the flagship's (8192, 2049) read 2.5e-5 of max|C|, PERF.md), so
-# past 8,192 rows it is reported and not required
-CONTROL_MAX_ROWS = 8192
-# nor under 8 columns: the MoE router's (8192, 4) G has 16 entries, whose
-# TF32 error read 6.1e-6 of max|C| on an H100 (its largest over 4.2M
-# entries at (8192, 2049): 2.5e-5), so it is reported and not required
-CONTROL_MIN_WIDTH = 8
+# sym_cov's TF32 control must fail the 1e-5 tolerance at every shape. Its
+# rounding of normal inputs averages out over N (the flagship's (8192,
+# 2049) read 2.5e-5 of max|C|, PERF.md) and reads too little over a few
+# entries (the MoE router's (8192, 4): 6.1e-6), so past 8,192 rows and
+# under 8 columns the inputs carry low mantissa bits that TF32 drops: each
+# entry 2^k (1 + u 2^-11), u uniform in [0, 1), which TF32 rounds to 2^k,
+# a bias of 2^-12 a factor that no N averages away
+LOW_BITS_MIN_ROWS = 8192
+LOW_BITS_MAX_WIDTH = 8
 # the norm epilogue against f64, each sum of squares relative to itself:
 # between the f32 kernel's worst reading and the bf16 control's least
 # (PERF.md, Findings)
@@ -549,6 +574,17 @@ def grouped_dot_cases(ps, gs, lr, kl_clip):
     return [dot, norms]
 
 
+def low_bit_inputs(n: int, d: int, gen) -> torch.Tensor:
+    """(n, d) entries ``2^k (1 + u 2^-11)``: k uniform in [-2, 2] a column,
+    u uniform in [0, 1). TF32 (10 mantissa bits) rounds each to ``2^k``, so
+    a TF32 product is biased low by about 2^-12 of max|C| at any N; the
+    3xTF32 kernel keeps the dropped bits in its low part."""
+    dev = torch.device('cuda')
+    u = torch.rand(n, d, generator=gen, device=dev)
+    k = torch.randint(-2, 3, (d,), generator=gen, device=dev).float()
+    return torch.exp2(k) * (1 + u * 2.0**-11)
+
+
 def kernel_cases():
     """One dict per (kernel, flagship shape): the wrapper's call, the plain
     and library calls, ``compare(got, want) -> (max abs error, reference
@@ -590,12 +626,15 @@ def kernel_cases():
     # four ranks (its 4 of the 16 rows of the batch).
     # RESNET_COVS: ResNet-32's covariances at the bench's batch of 256.
     # MOE_COVS: the switch-MoE flagship's expert buffers and routers;
-    # LORA_COVS: the LoRA fine-tune's role blocks.
+    # LORA_COVS: the LoRA fine-tune's role blocks; TP_SP_COVS: the tp_sp
+    # phase's gathered rows (a rank's 4096 or 2048 tokens, whole widths).
     for n, d in ((8192, 513), (8192, 2049), (8192, 512), (8192, 2048), (77, 130),
                  (512, 129), (512, 513), (1024, 129), *DIGITS_COVS, (2048, 513), (2048, 2049),
-                 *RESNET_COVS, *MOE_COVS, *LORA_COVS):
-        a = randn(n, d)
+                 *RESNET_COVS, *MOE_COVS, *LORA_COVS, *TP_SP_COVS):
+        low_bits = n > LOW_BITS_MIN_ROWS or d < LOW_BITS_MAX_WIDTH
+        a = low_bit_inputs(n, d, gen) if low_bits else randn(n, d)
         extra, also_timed = split_fields(n, d, lambda a=a: sym_cov.sym_cov(a))
+        extra = dict(extra, inputs='2^k (1 + u 2^-11)' if low_bits else 'normal')
         cases.append(dict(
             name='sym_cov', shape=[n, d],
             kernel=lambda a=a: sym_cov.sym_cov(a),
@@ -605,13 +644,8 @@ def kernel_cases():
             tol_rule='1e-5 x max|C|, exactly symmetric and run-to-run identical',
             control=tf32(lambda a=a: sym_cov.sym_cov_plain(a)),
             control_rule='plain version with TF32 matmuls' + (
-                '' if n <= CONTROL_MAX_ROWS else
-                f'; not required past {CONTROL_MAX_ROWS} rows (its rounding averages over N)'
-            ) + (
-                '' if d >= CONTROL_MIN_WIDTH else
-                f'; not required under {CONTROL_MIN_WIDTH} columns (too few entries)'
+                ', on inputs whose low mantissa bits TF32 drops' if low_bits else ''
             ),
-            control_required=n <= CONTROL_MAX_ROWS and d >= CONTROL_MIN_WIDTH,
             nbytes=4 * (n * d + d * d), flops=n * d * (d + 1), tf32x3=True,
             # bit for bit from run to run as well
             invariant=lambda got, a=a: (
@@ -934,7 +968,7 @@ def run_kernels(results) -> bool:
         if 'detail' in case:
             extra['rel_err'] = case['detail'](got, want)
             extra['control_rel_err'] = case['detail'](control, want)
-        passed = err <= tol and holds and (rejects_control or not case.get('control_required', True))
+        passed = err <= tol and holds and rejects_control
         timed = case.get('timed', case['kernel'])
         if 'device_kernels' in case:
             # back-to-back CUDA events time host enqueue at these sizes
@@ -967,7 +1001,7 @@ def run_kernels(results) -> bool:
             phase='kernel', name=case['name'], shape=case['shape'],
             max_abs_err=err, max_rel_err=err / ref if ref else err, tol=tol,
             tol_rule=case['tol_rule'], invariant_holds=holds,
-            control_rule=case['control_rule'], control_required=case.get('control_required', True),
+            control_rule=case['control_rule'],
             control_max_rel_err=control_rel,
             rejects_control=rejects_control, passed=passed,
             ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms,
@@ -3946,6 +3980,11 @@ MOE_COVS = [(2560, 513), (2560, 2049), (2560, 2048), (2560, 512), (8192, 4)]
 # the LoRA fine-tune's role blocks at its batch of 128 (the unit's input
 # and G of up, 64 wide; down's output and G, rank 8)
 LORA_COVS = [(128, 64), (128, 8)]
+# the tp_sp phase's covariances on a rank (rows, width): 4096 tokens at
+# model 2 x seq 2 and dp 2 x model 2, 2048 at seq 4; A of the replicated
+# inputs and of the gathered row-parallel inputs, G of the gathered
+# column-parallel outputs and of the replicated ones
+TP_SP_COVS = [(4096, 513), (4096, 512), (4096, 2048), (4096, 2049), (2048, 512), (2048, 2048)]
 LORA_STEPS = 300  # the gate's fine-tune; the pretraining runs no kernel
 LORA_COVS_A_STEP = 10  # two units x (two roles x (A, G)), the head's A and G
 LORA_COMPARED = 20  # the fine-tune's losses compared card against CPU
@@ -4417,6 +4456,449 @@ def run_bench_lm(launches) -> bool:
     return ok
 
 
+# ------------------------------------------------------------------ tp_sp
+
+TP_SP_CAPTURE = 2  # factor cadence: captures at 0, 2, 4 and 6
+TP_SP_REFRESH = 6  # inverse cadence: refreshes at 0 and 6 (NS: cold, then warm)
+TP_SP_STEPS = 8  # plain steps 1, 3, 5 and 7
+# the ring schedules the flash partials are held at: (kind, seq shards,
+# heads a rank), the heads of a model-2 rank beside seq 2 and of a whole
+# layer beside seq 4 (the four-card layouts' shards)
+TP_SP_RINGS = (('ring', 2, 2), ('ring', 4, 4), ('zigzag', 2, 2), ('zigzag', 4, 4))
+# the four-card layouts: (a) TP x SP with the ring, (b) SP with the zigzag
+# ring, (c) DP x TP at fractions 1 and 0.5, (d) (a) under INVERSE +
+# Newton-Schulz
+TP_SP_JOBS = (
+    dict(name='a_model2_seq2_ring', frac=1.0, model=2, seq=2, kfac={}),
+    dict(name='b_seq4_zigzag', frac=1.0, seq=4, zigzag=True, kfac={}),
+    dict(name='c_dp2_model2_frac1', frac=1.0, model=2, kfac={}),
+    dict(name='c_dp2_model2_frac0.5', frac=0.5, model=2, kfac={}),
+    dict(name='d_model2_seq2_ring_ns', frac=1.0, model=2, seq=2, kfac=INVERSE_NS),
+)
+
+
+def ring_schedules(kind: str, n: int, seq: int):
+    """Every shard's schedule of a ring of ``n`` over ``seq`` positions,
+    with its shards' global positions."""
+    from kfac_tpu_torch.models import attention
+    from kfac_tpu_torch.parallel import mesh
+
+    make = attention.zigzag_schedule if kind == 'zigzag' else attention.ring_schedule
+    return [(make(n, my, seq // n), mesh.shard_positions(seq, n, my, zigzag=kind == 'zigzag'))
+            for my in range(n)]
+
+
+def flash_ring_triples() -> dict:
+    """{(s_q, s_k, heads, q_offset, k_offset): the rings that call it} at
+    flagship width, every attend of every shard of every ring."""
+    out: dict = {}
+    for kind, n, heads in TP_SP_RINGS:
+        for sched, _ in ring_schedules(kind, n, FLAGSHIP['seq']):
+            for attends in sched.attends:
+                for at in attends:
+                    key = (at.q_rows[1] - at.q_rows[0], at.k_rows[1] - at.k_rows[0], heads,
+                           at.q_offset, at.k_offset)
+                    out.setdefault(key, set()).add(f'{kind}{n}')
+    return out
+
+
+def visible_pairs(s_q, s_k, q_off, k_off) -> int:
+    """(query, key) pairs a causal attend at these offsets computes."""
+    q = torch.arange(s_q)[:, None] + q_off
+    k = torch.arange(s_k)[None, :] + k_off
+    return int((q >= k).sum())
+
+
+def flash_ring_checks(results) -> dict:
+    """The flash partials at every ring triple against the plain version
+    (1e-5 x max of each of acc, m and l) with the TF32 control outside it;
+    of each shape, the diagonal triple and the one with the most visible
+    pairs timed beside the plain and library calls, those rows added to the
+    kernel results."""
+    from kfac_tpu_torch.ops import flash_attention
+
+    dev = torch.device('cuda')
+    gen = torch.Generator(dev).manual_seed(3)
+    b, dh = FLAGSHIP['batch'], 128
+    triples = flash_ring_triples()
+    timed_triples = set()
+    for shape in {key[:3] for key in triples}:
+        same = [key for key in triples if key[:3] == shape]
+        timed_triples.add(min(same, key=lambda t: abs(t[3] - t[4])))  # on the diagonal
+        timed_triples.add(max(same, key=lambda t: visible_pairs(*t[:2], *t[3:])))
+    rows = []
+    for (s_q, s_k, h, qo, ko), rings in sorted(triples.items()):
+        q = torch.randn(b, s_q, h, dh, generator=gen, device=dev)
+        k, v = (torch.randn(b, s_k, h, dh, generator=gen, device=dev) for _ in range(2))
+        got = flash_attention.flash_attention_partials(q, k, v, qo, ko, True)
+        want = flash_attention.attend_partials_einsum(q, k, v, qo, ko, True)
+        err, ref = max(map(max_err, got, want), key=lambda p: p[0] / p[1])
+        ctrl = tf32(lambda: flash_attention.attend_partials_einsum(q, k, v, qo, ko, True))()
+        c_err, c_ref = max(map(max_err, ctrl, want), key=lambda p: p[0] / p[1])
+        row = dict(shape=[b, s_q, h, dh], s_k=s_k, q_offset=qo, k_offset=ko, rings=sorted(rings),
+                   max_abs_err=err, max_rel_err=err / ref, control_max_rel_err=c_err / c_ref)
+        row['passed'] = err <= 1e-5 * ref and c_err > 1e-5 * c_ref
+        rows.append(row)
+        if (s_q, s_k, h, qo, ko) not in timed_triples:
+            continue
+        mask = (torch.arange(s_q, device=dev)[:, None] + qo) >= (torch.arange(s_k, device=dev)[None] + ko)
+
+        def sdpa(q=q, k=k, v=v, mask=mask):
+            return torch.nn.functional.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask
+            )
+
+        pairs = visible_pairs(s_q, s_k, qo, ko)
+        ms = time_ms(lambda: flash_attention.flash_attention_partials(q, k, v, qo, ko, True))
+        bms, by = bound_ms(
+            4 * (2 * b * s_q * h * dh + 2 * b * s_k * h * dh + 2 * b * h * s_q),
+            3 * 4 * dh * pairs * b * h, TF32_FLOPS_PER_S,
+        )
+        timed = dict(
+            phase='kernel', name='flash_attention_partials', shape=[b, s_q, h, dh],
+            s_k=s_k, q_offset=qo, k_offset=ko, max_abs_err=err, max_rel_err=err / ref,
+            tol=1e-5 * ref, tol_rule='1e-5 x max|x| for each of acc, m, l',
+            control_rule='plain version with TF32 matmuls', control_max_rel_err=c_err / c_ref,
+            rejects_control=c_err > 1e-5 * c_ref, passed=row['passed'], ms=ms,
+            plain_ms=time_ms(lambda: flash_attention.attend_partials_einsum(q, k, v, qo, ko, True)),
+            library_ms=time_ms(sdpa), library_call='scaled_dot_product_attention with the causal mask',
+            bound_ms=bms, bound_by=by, bound_share=bms / ms, visible_pairs=pairs,
+        )
+        emit(timed)
+        results.append(timed)
+    return dict(triples=len(rows), passed=all(r['passed'] for r in rows),
+                worst_rel_err=max(r['max_rel_err'] for r in rows),
+                least_control_rel_err=min(r['control_max_rel_err'] for r in rows),
+                failed=[r for r in rows if not r['passed']])
+
+
+def ring_composition(kind: str, n: int, heads: int) -> dict:
+    """Every shard's schedule of one ring driven in one process from the
+    flash partials on the card (each step's K/V block sliced from the
+    whole sequence), the output and its input grads against dense causal
+    attention (the plain partials over the whole sequence) on the same q,
+    k, v; the TF32 control of the dense path outside the tolerance."""
+    from kfac_tpu_torch.models import attention
+    from kfac_tpu_torch.ops import flash_attention
+
+    dev = torch.device('cuda')
+    gen = torch.Generator(dev).manual_seed(5)
+    b, s, dh = FLAGSHIP['batch'], FLAGSHIP['seq'], 128
+    q, k, v, dout = (torch.randn(b, s, heads, dh, generator=gen, device=dev) for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    shards = ring_schedules(kind, n, s)
+    outs = []
+    for sched, pos in shards:
+        qs, ks, vs = leaves
+        outs.append(attention.run_schedule(
+            qs[:, pos.to(dev)].contiguous(), sched,
+            lambda i, sched=sched: tuple(
+                x[:, shards[sched.sources[i]][1].to(dev)].contiguous() for x in (ks, vs)
+            ),
+        ))
+    order = torch.cat([pos for _, pos in shards]).to(dev)
+    out = torch.cat(outs, dim=1)[:, torch.argsort(order)]
+    grads = torch.autograd.grad((out * dout).sum(), leaves)
+
+    def dense(allow_tf32=False):
+        ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+        try:
+            ref = attention._finish(flash_attention.attend_partials_einsum(*ref_leaves, 0, 0, True))
+            return ref, torch.autograd.grad((ref * dout).sum(), ref_leaves)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+    ref, ref_grads = dense()
+    ctrl, ctrl_grads = dense(True)
+    errs = [max_err(out, ref)] + [max_err(g, r) for g, r in zip(grads, ref_grads)]
+    ctrl_errs = [max_err(ctrl, ref)] + [max_err(g, r) for g, r in zip(ctrl_grads, ref_grads)]
+    rel = dict(zip(('out', 'dq', 'dk', 'dv'), (e / r for e, r in errs)))
+    ctrl_rel = dict(zip(('out', 'dq', 'dk', 'dv'), (e / r for e, r in ctrl_errs)))
+    return dict(
+        ring=f'{kind}{n}', shape=[b, s, heads, dh], attends=sum(
+            len(a) for sched, _ in shards for a in sched.attends),
+        rel_err=rel, tol='1e-5 x max of each', control_rel_err=ctrl_rel,
+        passed=all(x <= 1e-5 for x in rel.values()) and max(ctrl_rel.values()) > 1e-5,
+    )
+
+
+class CommCounter:
+    """Counts the calls and the bytes this rank hands each
+    ``torch.distributed`` collective (an all-reduce's buffer, an
+    all-gather's input, the sends of a ``batch_isend_irecv``), by wrapping
+    the module's functions while it is entered. Host work only."""
+
+    OPS = ('all_reduce', 'all_gather', 'all_gather_into_tensor', 'reduce_scatter_tensor',
+           'batch_isend_irecv')
+
+    def __init__(self):
+        self.counts: dict = {}
+
+    def _add(self, op, nbytes):
+        c = self.counts.setdefault(op, {'calls': 0, 'bytes': 0})
+        c['calls'] += 1
+        c['bytes'] += int(nbytes)
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self._saved = {op: getattr(dist, op) for op in self.OPS}
+
+        def wrap(op, fn):
+            def counted(*args, **kwargs):
+                if op == 'batch_isend_irecv':
+                    nbytes = sum(p.tensor.numel() * p.tensor.element_size() for p in args[0]
+                                 if p.op is dist.isend)
+                elif op == 'all_gather':
+                    nbytes = args[1].numel() * args[1].element_size()
+                elif op == 'all_reduce':
+                    nbytes = args[0].numel() * args[0].element_size()
+                else:
+                    nbytes = args[1].numel() * args[1].element_size()
+                self._add(op, nbytes)
+                return fn(*args, **kwargs)
+            return counted
+
+        for op, fn in self._saved.items():
+            setattr(dist, op, wrap(op, fn))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        for op, fn in self._saved.items():
+            setattr(dist, op, fn)
+
+
+def tp_sp_expected(job: dict, s: int, steps: int) -> dict:
+    """A rank's launches over ``steps`` steps: ``sym_cov`` twice a K-FAC
+    layer a capture (on gathered rows where a side is sharded), the
+    grouped kl-clip dot and scale once a step, the flash partials once an
+    attend a block a step (the ring at seq n: s + 1 on shard s; zigzag:
+    2 n + 1; no seq axis: 1); no 2-D Newton-Schulz step."""
+    n = job.get('seq', 1)
+    attends = 2 * n + 1 if job.get('zigzag') else s + 1
+    captures = len(range(0, steps, TP_SP_CAPTURE))
+    return dict(
+        expected_launches(steps, captures), fused_ns_step=0,
+        flash_attention_partials=FLAGSHIP['layers'] * attends * steps,
+    )
+
+
+def tp_sp_rank(rank: int, world: int, device: torch.device, jobs: list, dense_path: str) -> list:
+    """One NCCL rank of the tp_sp phase: each job's flagship through
+    ``Trainer.step`` with a ``DistributedKFAC`` on a ``train_mesh`` (the
+    rank takes its row block and sequence shard; the LM sharded by
+    ``TRANSFORMER_TP_RULES``), counts set to 0 just before and read just
+    after, host syncs and the collectives' bytes counted a step; the
+    losses and gathered preconditioned grads held against the dense
+    engine's run (``dense_path``) here."""
+    import kfac_tpu_torch as kt
+    from kfac_tpu_torch.models import TransformerLM, lm_loss
+    from kfac_tpu_torch.parallel import DistributedKFAC, tensor_parallel, train_mesh
+    from kfac_tpu_torch.training import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    grids = [  # every grid first: each creates process groups, in one order on every rank
+        train_mesh(job['frac'], job.get('model', 1), job.get('seq', 1), device=device,
+                   zigzag=job.get('zigzag', False))
+        for job in jobs
+    ]
+    dense = torch.load(dense_path, map_location=device, weights_only=False)
+    cfg = FLAGSHIP
+    wrappers = kaisa_wrappers()
+    out = []
+    for job, grid in zip(jobs, grids):
+        ring = dict(ring_mesh=grid, ring_axis='seq') if grid.seq > 1 else {}
+        model = TransformerLM(
+            vocab_size=cfg['vocab'], d_model=cfg['d_model'], num_heads=cfg['heads'],
+            num_layers=cfg['layers'], max_len=cfg['seq'], seed=1, device=device, **ring,
+        )
+        tensor_parallel.shard_params(model, grid)
+        reg = kt.register_model(model, skip_layers=['lm_head'], device=device)
+        config = kt.KFACPreconditioner(
+            reg, damping=0.003, lr=0.1, factor_update_steps=TP_SP_CAPTURE,
+            inv_update_steps=TP_SP_REFRESH, device=device, **job['kfac'],
+        )
+        engine = DistributedKFAC(config, grid)
+        loss = lm_loss(model)
+        trainer = Trainer(
+            model, torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
+            lambda ms, b: (loss(b), ms), kfac=engine, device=device,
+        )
+        gen = torch.Generator().manual_seed(0)
+        tokens = torch.randint(0, cfg['vocab'], (cfg['batch'], cfg['seq']), generator=gen)
+        run = dataclasses.make_dataclass('Run', ['trainer', 'state', 'batch'])(
+            trainer, trainer.init(), (tokens.to(device), torch.roll(tokens, -1, dims=1).to(device)),
+        )
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        zero_counts(wrappers)
+        losses, seconds, syncs, comms, residuals = [], [], [], [], []
+        for i in range(TP_SP_STEPS):
+            with CommCounter() as counter:
+                value, sec, n = counted_step(run)
+            losses.append(value)
+            seconds.append(sec)
+            syncs.append(n)
+            comms.append(counter.counts)
+            if job['kfac'] and i % TP_SP_REFRESH == 0:
+                res = engine.inverse_residuals(run.state.kfac_state)
+                residuals.append(max(float(r.max()) for side in res.values() for r in side.values()))
+        launches = {n: w.launches for n, w in wrappers.items()}
+        peak = torch.cuda.max_memory_allocated(device)
+        grads = tensor_parallel.gather_params(
+            model, {n: p.grad for n, p in model.named_parameters()}
+        )
+        want_grads = dense[job['kfac'] and 'ns' or 'eigen']
+        scale = max(float(g.abs().max()) for g in want_grads['grads'].values())
+        grad_err = max(float((grads[n] - g).abs().max()) for n, g in want_grads['grads'].items()) / scale
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, want_grads['losses']))
+        sharded = tensor_parallel.sharded_param_names(model)
+        params = dict(model.named_parameters())
+        live_solves = sum(
+            engine._factor_range(sb.padded)[0] < len(sb.layers)
+            for sb in engine.a_store + engine.g_store
+        )
+        memory = engine.memory_usage(run.state.kfac_state)
+        kinds = {
+            'refresh': [i for i in range(TP_SP_STEPS) if i % TP_SP_REFRESH == 0],
+            'capture': [i for i in range(TP_SP_STEPS) if i % TP_SP_REFRESH and i % TP_SP_CAPTURE == 0],
+            'plain': [i for i in range(TP_SP_STEPS) if i % TP_SP_CAPTURE],
+        }
+        out.append(dict(
+            job=job['name'], rank=rank, coords=[grid.row, grid.col, grid.m, grid.s],
+            strategy=engine.strategy.name, topology=engine.topology(),
+            losses=losses, dense_losses=want_grads['losses'], loss_rel_err=loss_err,
+            pgrad_err_rel_to_max=grad_err,
+            step_ms={k: [seconds[i] * 1e3 for i in v] for k, v in kinds.items()},
+            plain_step_ms_median=statistics.median(seconds[i] * 1e3 for i in kinds['plain']),
+            syncs={k: [syncs[i] for i in v] for k, v in kinds.items()},
+            comms_by_kind={k: comms[v[-1]] for k, v in kinds.items()},
+            launches=launches, expected_launches=tp_sp_expected(job, grid.s, TP_SP_STEPS),
+            live_stacked_solves=live_solves, max_independent_residual_by_refresh=residuals,
+            peak_memory_bytes=peak,
+            decomposition_bytes=memory['a_inverses'] + memory['g_inverses'],
+            factor_bytes=memory['a_factors'] + memory['g_factors'],
+            replicated_digest=param_digest_of({n: p for n, p in params.items() if n not in sharded}),
+            sharded_digest=param_digest_of({n: p for n, p in params.items() if n in sharded}),
+        ))
+        del trainer, engine, model, run
+        torch.cuda.empty_cache()
+    return out
+
+
+def param_digest_of(params: dict) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for _, p in sorted(params.items()):
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def tp_sp_dense_reference(kfac_kw: dict) -> dict:
+    """The dense engine's losses and last preconditioned grads on one card
+    from the same weights and global batch, the tp_sp cadence."""
+    run = LMRun(FLAGSHIP, torch.device('cuda'), TP_SP_CAPTURE, TP_SP_REFRESH, **kfac_kw)
+    losses, _, _ = train(run, TP_SP_STEPS)
+    return dict(losses=losses, grads={n: g.cpu() for n, g in run.grads().items()})
+
+
+def run_tp_sp(launches, results) -> bool:
+    """Tensor and sequence parallelism (see the module's docstring, phase
+    18): the flash partials at every ring offset and the rings composed on
+    one card; on four cards the flagship in layouts (a)-(d) over NCCL."""
+    from kfac_tpu_torch.ops import factors
+    from kfac_tpu_torch.parallel import spawn_world
+
+    cards = torch.cuda.device_count()
+    flash = flash_ring_checks(results)
+    emit(dict(phase='tp_sp', part='flash_ring_offsets', **flash))
+    compositions = [ring_composition(kind, n, heads) for kind, n, heads in TP_SP_RINGS]
+    ok = flash['passed'] and all(c['passed'] for c in compositions)
+    emit(dict(phase='tp_sp', part='ring_composition', runs=compositions,
+              passed=all(c['passed'] for c in compositions)))
+    parts = ['flash_ring_offsets', 'ring_composition']
+    if cards >= 4:
+        dense = {'eigen': tp_sp_dense_reference({}), 'ns': tp_sp_dense_reference(INVERSE_NS)}
+        path = os.path.join(tempfile.mkdtemp(prefix='tp_sp_'), 'dense.pt')
+        torch.save(dense, path)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        try:
+            results_by_rank = spawn_world(
+                tp_sp_rank, 4, 'nccl', 'cuda', args=(list(TP_SP_JOBS), path), timeout_s=600
+            )
+        finally:
+            shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+        seconds = time.perf_counter() - t0
+        for j, job in enumerate(TP_SP_JOBS):
+            rows = [r[j] for r in results_by_rank]
+            by_shard: dict = {}
+            for r in rows:
+                by_shard.setdefault(tuple(r['coords'][2:]), set()).add(r['sharded_digest'])
+            launches_exact = all(
+                {n: r['launches'][n] for n in r['expected_launches']} == r['expected_launches']
+                for r in rows
+            )
+            refreshes = len(range(0, TP_SP_STEPS, TP_SP_REFRESH))
+            ns_range = [
+                [refreshes * r['live_stacked_solves'], refreshes * r['live_stacked_solves'] * 2 * 40]
+                if job['kfac'] else [0, 0] for r in rows
+            ]
+            ns_inside = all(lo <= r['launches']['fused_ns_step_stacked'] <= hi
+                            for r, (lo, hi) in zip(rows, ns_range))
+            residual_ok = all(x <= factors.NS_FALLBACK_RESIDUAL
+                              for r in rows for x in r['max_independent_residual_by_refresh'])
+            checks = dict(
+                losses=all(r['loss_rel_err'] <= 1e-4 for r in rows),
+                pgrads=all(r['pgrad_err_rel_to_max'] <= 1e-3 for r in rows),
+                finite_and_falling=all(
+                    all(math.isfinite(x) for x in r['losses']) and r['losses'][-1] < r['losses'][0]
+                    for r in rows),
+                launches_exact=launches_exact, stacked_ns_inside=ns_inside,
+                residuals=residual_ok,
+                zero_syncs_plain_and_capture=all(
+                    max(r['syncs']['capture'] + r['syncs']['plain']) == 0 for r in rows),
+                replicated_bitwise_on_every_rank=len({r['replicated_digest'] for r in rows}) == 1,
+                sharded_bitwise_across_dp=all(len(d) == 1 for d in by_shard.values()),
+            )
+            passed = all(checks.values())
+            for name, count in rows[0]['launches'].items():
+                launches[name] = launches.get(name, 0) + count
+            emit(dict(
+                phase='tp_sp', part=job['name'], world=4, backend='nccl', frac=job['frac'],
+                model=job.get('model', 1), seq=job.get('seq', 1), zigzag=job.get('zigzag', False),
+                kfac=job['kfac'] or 'default (EIGEN)', steps=TP_SP_STEPS,
+                cadence=[TP_SP_CAPTURE, TP_SP_REFRESH], strategy=rows[0]['strategy'],
+                topology=rows[0]['topology'], losses_rank0=rows[0]['losses'],
+                dense_losses=rows[0]['dense_losses'], loss_tol=1e-4, pgrad_tol=1e-3,
+                loss_rel_err_by_rank=[r['loss_rel_err'] for r in rows],
+                pgrad_err_rel_to_max_by_rank=[r['pgrad_err_rel_to_max'] for r in rows],
+                step_ms_by_rank=[r['step_ms'] for r in rows],
+                plain_step_ms_median_by_rank=[r['plain_step_ms_median'] for r in rows],
+                syncs_by_rank=[r['syncs'] for r in rows],
+                peak_memory_by_rank=[r['peak_memory_bytes'] for r in rows],
+                factor_bytes_by_rank=[r['factor_bytes'] for r in rows],
+                decomposition_bytes_by_rank=[r['decomposition_bytes'] for r in rows],
+                comms_by_rank=[r['comms_by_kind'] for r in rows],
+                launches_by_rank=[r['launches'] for r in rows],
+                expected_launches_by_rank=[r['expected_launches'] for r in rows],
+                fused_ns_step_stacked_range=ns_range,
+                max_independent_residual_by_refresh=[
+                    r['max_independent_residual_by_refresh'] for r in rows],
+                checks=checks, passed=passed,
+            ))
+            ok &= passed
+            parts.append(job['name'])
+        emit(dict(phase='tp_sp_world', world=4, jobs=len(TP_SP_JOBS), spawn_seconds=seconds))
+    emit(dict(phase='tp_sp', cards=cards, parts=parts, passed=ok))
+    return ok
+
+
 SOURCES = {
     'sym_cov': ('cuda', 'kfac_tpu_torch/csrc/sym_cov.cu', 'kfac_tpu/ops/pallas_cov.py:88', [8192, 2049]),
     'sym_cov_ema': ('cuda', 'kfac_tpu_torch/csrc/sym_cov.cu', 'kfac_tpu/ops/pallas_cov_ema.py:110', [512, 256]),
@@ -4519,7 +5001,7 @@ def main() -> int:
         path: {} for path in (
             'main_path', 'main_path_ns', 'digits_mlp', 'digits_cnn', 'observed', 'resume',
             'async_refresh', 'kaisa', 'kaisa_ops', 'resnet', 'bench_lm_tiny', 'bench_lm_flagship',
-            'engine_knobs', 'moe', 'lora',
+            'engine_knobs', 'moe', 'lora', 'tp_sp',
         )
     }
     observed_health: dict = {}
@@ -4569,6 +5051,7 @@ def main() -> int:
           async_summary)
     phase('moe', run_moe, launches['moe'])
     phase('lora', run_lora, launches['lora'])
+    phase('tp_sp', run_tp_sp, launches['tp_sp'], results)
     emit(dict(phase='timing', seconds=seconds, total_seconds=time.perf_counter() - start))
     print(smi, flush=True)
     emit(kernels_line(results, launches))

@@ -85,6 +85,11 @@ def layout_manifest(engine: Any) -> dict[str, Any]:
 
 def _stacked(engine: Any) -> bool:
     """Whether ``engine`` keeps the stacked, sharded state."""
+    if hasattr(engine, 'a_store') and engine.total_devices != engine.world:
+        raise NotImplementedError(
+            'checkpoints of a DistributedKFAC over a grid with model or seq axes '
+            'are not ported to kfac_tpu_torch yet'
+        )
     return hasattr(engine, 'a_store')
 
 

@@ -20,6 +20,14 @@ call that saw no token adds nothing. A LoRA unit's ``down`` and ``up``
 children each add their role's block to the unit's block-diagonal sums,
 and each counts as one call. The hooks exist only inside the capture
 call: a step without capture pays nothing for them.
+
+Tensor-parallel layers (``parallel.tensor_parallel``) give the global
+layer's statistics, as the JAX capture does under pjit: a column-parallel
+layer's output cotangents and a row-parallel layer's inputs (any sharded
+input) are gathered over the model group along the feature axis before
+the covariance (the bias column is appended once, after the gather); the
+replicated sides stay local. Every rank of a model group then holds the
+same statistics.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ import torch.nn as nn
 
 from kfac_tpu_torch.layers import helpers as helpers_lib
 from kfac_tpu_torch.layers import registry as registry_lib
+from kfac_tpu_torch.parallel import collectives
 
 # Floor of the traffic-weight divisors: a starved layer keeps factor 0 and
 # weight 0 (the weighted EMA then ignores it) instead of dividing 0 / 0.
@@ -188,8 +197,17 @@ class CurvatureCapture:
                 return post_hook
 
             def layer_hooks(name, helper):
+                mod = registry.modules[name]
+                kind = getattr(mod, 'parallel', None)
+                if kind and helper.weighted:
+                    raise NotImplementedError(
+                        f'{name}: routed capture of a tensor-parallel layer is not ported yet'
+                    )
+
                 def pre_hook(_mod, inputs):
                     a = inputs[0].detach()
+                    if kind and a.shape[-1] != mod.in_features:  # a sharded input
+                        a = collectives.gather_features(a, mod.group)
                     fac = helper.get_a_factor(a)
                     if helper.weighted:
                         w = helper.capture_weight(a)
@@ -199,6 +217,8 @@ class CurvatureCapture:
                     counts[name] = counts.get(name, 0) + 1
 
                 def g_hook(ybar):
+                    if kind == 'column':
+                        ybar = collectives.gather_features(ybar, mod.group)
                     accumulate(g_sums, name, helper.g_factor_for_sum(ybar))
                     if helper.weighted:
                         accumulate(g_w, name, helper.g_capture_weight(ybar))

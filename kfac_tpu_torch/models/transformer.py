@@ -1,6 +1,14 @@
 """Decoder-only Transformer LM (counterpart of
-``kfac_tpu/models/transformer.py``, with its switch-MoE blocks; without
-ring attention or remat).
+``kfac_tpu/models/transformer.py``, with its switch-MoE blocks and ring
+attention; without remat).
+
+With ``ring_mesh`` (a :class:`~kfac_tpu_torch.parallel.mesh.TrainGrid`)
+and ``ring_axis='seq'`` each rank runs its sequence shard: the positions
+are its shard's (``TrainGrid.seq_positions``) and attention is the ring
+(or, with ``zigzag``, the zigzag ring) over the grid's ``seq_group``.
+Sharded by ``parallel.tensor_parallel.shard_params`` the attention runs
+each model rank's heads, and ``lm_loss`` of a vocab-sharded ``lm_head``
+is the vocab-parallel NLL over the model group.
 
 Module and parameter names follow the flax module paths (``block0``,
 ``attn.q_proj``, ``mlp_up``, ...) so that layers pair one to one with the
@@ -12,6 +20,7 @@ approximation, as in ``flax.linen``.
 from __future__ import annotations
 
 import math
+from typing import Any
 
 import torch
 import torch.nn as nn
@@ -26,28 +35,43 @@ LN_EPS = 1e-6
 
 
 class CausalSelfAttention(nn.Module):
-    """Causal multi-head attention; q/k/v/out are K-FAC dense layers."""
+    """Causal multi-head attention; q/k/v/out are K-FAC dense layers. With
+    ``ring_axis`` the ring (``zigzag``: the zigzag ring) over
+    ``ring_mesh``'s sequence shards, else the dense path; column-parallel
+    q/k/v give it this model rank's heads."""
 
-    def __init__(self, d_model: int, num_heads: int):
+    def __init__(
+        self, d_model: int, num_heads: int, ring_mesh: Any = None,
+        ring_axis: str | None = None, zigzag: bool = False,
+    ):
         super().__init__()
         self.num_heads = num_heads
+        self.head_dim = d_model // num_heads
         self.q_proj = nn.Linear(d_model, d_model)
         self.k_proj = nn.Linear(d_model, d_model)
         self.v_proj = nn.Linear(d_model, d_model)
         self.out_proj = nn.Linear(d_model, d_model)
+        self.attend = attention_lib.dense_causal_attention
+        if ring_axis is not None:
+            self.attend = attention_lib.make_context_parallel_attention(
+                ring_mesh, ring_axis, causal=True, zigzag=zigzag
+            )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        d = x.shape[-1]
-        head_dim = d // self.num_heads
-
         def split(t):
-            return t.view(*t.shape[:-1], self.num_heads, head_dim)
+            if t.shape[-1] % self.head_dim:
+                raise ValueError(
+                    f'{t.shape[-1]} features of q/k/v on this rank are not whole heads of '
+                    f'{self.head_dim}: shard the heads over model only where model divides '
+                    f'num_heads ({self.num_heads})'
+                )
+            return t.view(*t.shape[:-1], t.shape[-1] // self.head_dim, self.head_dim)
 
         q = split(self.q_proj(x))
         k = split(self.k_proj(x))
         v = split(self.v_proj(x))
-        out = attention_lib.dense_causal_attention(q, k, v)
-        return self.out_proj(out.reshape(*x.shape[:-1], d))
+        out = self.attend(q, k, v)
+        return self.out_proj(out.reshape(*x.shape[:-1], q.shape[-2] * self.head_dim))
 
 
 class Block(nn.Module):
@@ -62,10 +86,13 @@ class Block(nn.Module):
         mlp_ratio: int = 4,
         num_experts: int = 0,
         moe_capacity_factor: float | None = None,
+        ring_mesh: Any = None,
+        ring_axis: str | None = None,
+        zigzag: bool = False,
     ):
         super().__init__()
         self.ln1 = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.attn = CausalSelfAttention(d_model, num_heads)
+        self.attn = CausalSelfAttention(d_model, num_heads, ring_mesh, ring_axis, zigzag)
         self.ln2 = nn.LayerNorm(d_model, eps=LN_EPS)
         if num_experts > 0:
             self.moe = moe_lib.MoEMLP(d_model, num_experts, mlp_ratio, moe_capacity_factor)
@@ -94,6 +121,10 @@ class TransformerLM(nn.Module):
     ``moe_every - 1``, ``2 * moe_every - 1``, ...) has a switch MoE in
     place of its MLP, with ``moe_capacity_factor`` (None: the dense masked
     dispatch), as the JAX model's.
+
+    ``ring_mesh`` and ``ring_axis`` (``'seq'``) run the ring attention of
+    the grid's sequence shards (the module docstring); ``zigzag`` (None:
+    the grid's layout) must match the grid's sequence layout.
     """
 
     def __init__(
@@ -109,10 +140,16 @@ class TransformerLM(nn.Module):
         num_experts: int = 0,
         moe_every: int = 2,
         moe_capacity_factor: float | None = None,
+        ring_mesh: Any = None,
+        ring_axis: str | None = None,
+        zigzag: bool | None = None,
     ):
         super().__init__()
         device = resolve_device(device)
         self.num_layers = num_layers
+        if zigzag is None:
+            zigzag = bool(getattr(ring_mesh, 'zigzag', False))
+        self.ring_mesh = ring_mesh if ring_axis is not None else None
         self.embed = nn.Embedding(vocab_size, d_model)
         self.pos_embed = nn.Parameter(torch.empty(max_len, d_model))
         for i in range(num_layers):
@@ -120,7 +157,7 @@ class TransformerLM(nn.Module):
             is_moe = num_experts > 0 and moe_every > 0 and (i + 1) % moe_every == 0
             self.add_module(f'block{i}', Block(
                 d_model, num_heads, mlp_ratio, num_experts if is_moe else 0,
-                moe_capacity_factor,
+                moe_capacity_factor, ring_mesh, ring_axis, zigzag,
             ))
         self.ln_f = nn.LayerNorm(d_model, eps=LN_EPS)
         self.lm_head = nn.Linear(d_model, vocab_size, bias=False)
@@ -145,9 +182,17 @@ class TransformerLM(nn.Module):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
 
+    def position_embedding(self, seq: int) -> torch.Tensor:
+        """The position embeddings of the ``seq`` tokens this rank holds:
+        its sequence shard's under ring attention, else the first
+        ``seq``."""
+        mesh = self.ring_mesh
+        if mesh is None or mesh.seq == 1 and not mesh.zigzag:
+            return self.pos_embed[:seq]
+        return mesh.take_seq(self.pos_embed[:seq * mesh.seq], dim=0)
+
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        seq = tokens.shape[-1]
-        x = self.embed(tokens) + self.pos_embed[:seq]
+        x = self.embed(tokens) + self.position_embedding(tokens.shape[-1])
         for i in range(self.num_layers):
             x = getattr(self, f'block{i}')(x)
         x = self.ln_f(x.float())
@@ -168,7 +213,13 @@ def lm_loss(model: TransformerLM, load_balance_weight: float = 0.0):
 
     def loss_fn(batch) -> torch.Tensor:
         tokens, targets = batch
-        loss = torch.mean(losses.vocab_parallel_nll(model(tokens), targets))
+        head = model.lm_head
+        if getattr(head, 'parallel', None) == 'column':  # vocab-sharded
+            per = head.weight.shape[0]
+            nll = losses.vocab_parallel_nll(model(tokens), targets, head.group, head.index * per)
+        else:
+            nll = losses.vocab_parallel_nll(model(tokens), targets)
+        loss = torch.mean(nll)
         for m in moes:
             aux = moe_lib.load_balance_loss(m.router_probs, m.expert_index, m.num_experts)
             loss = loss + load_balance_weight * aux

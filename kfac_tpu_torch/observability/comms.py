@@ -180,7 +180,7 @@ def comms_summary(engine: Any) -> dict[str, Any]:
     return {
         'strategy': engine.strategy.name,
         'grad_worker_fraction': engine.grad_workers / engine.world,
-        'devices': engine.world,
+        'devices': engine.total_devices,
         'grad_workers': engine.grad_workers,
         'n_cols': engine.mesh.n_cols,
         'stat_transport': transport_report(engine),

@@ -1,8 +1,9 @@
 """Distributed execution of the PyTorch port: the KAISA grid over
 ``torch.distributed`` process groups, its collectives, the KAISA engine,
+the training grid's model and seq axes with the tensor-parallel layers,
 the cross-process helpers and a launcher for local worlds."""
 
-from kfac_tpu_torch.parallel import collectives, launch, mesh, multihost
+from kfac_tpu_torch.parallel import collectives, launch, mesh, multihost, tensor_parallel
 from kfac_tpu_torch.parallel.kaisa import (
     DistKFACState,
     DistributedKFAC,
@@ -10,12 +11,13 @@ from kfac_tpu_torch.parallel.kaisa import (
     build_stores,
 )
 from kfac_tpu_torch.parallel.launch import spawn_world
-from kfac_tpu_torch.parallel.mesh import KaisaGrid, kaisa_mesh
+from kfac_tpu_torch.parallel.mesh import KaisaGrid, TrainGrid, kaisa_mesh, train_mesh
 
 __all__ = [
     'DistKFACState',
     'DistributedKFAC',
     'KaisaGrid',
+    'TrainGrid',
     'build_buckets',
     'build_stores',
     'collectives',
@@ -24,4 +26,6 @@ __all__ = [
     'mesh',
     'multihost',
     'spawn_world',
+    'tensor_parallel',
+    'train_mesh',
 ]

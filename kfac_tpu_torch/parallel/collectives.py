@@ -215,3 +215,142 @@ def all_gather_cat(x: torch.Tensor, group: Any = None) -> torch.Tensor:
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, x, group=group)
     return torch.cat(parts)
+
+
+# ------------------------------------------- tensor and sequence parallelism
+
+
+def gather_features(x: torch.Tensor, group: Any) -> torch.Tensor:
+    """Each rank's ``x`` concatenated along the last axis in the group's
+    rank order (no autograd): a tensor-parallel layer's sharded features,
+    whole."""
+    if dist.get_world_size(group) == 1:
+        return x
+    parts = all_gather_cat(x.movedim(-1, 0), group).chunk(dist.get_world_size(group))
+    return torch.cat(parts, dim=0).movedim(0, -1)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """The input of a column-parallel layer: the identity forward, the sum
+    over the model group backward (each rank's shard contributes to the
+    gradient of the replicated input)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """The output of a row-parallel layer (and the vocab-parallel loss's
+    sums): the sum over the model group forward, the identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _ScatterToModel(torch.autograd.Function):
+    """A replicated input of a row-parallel layer: this rank's slice of
+    the features forward, the gradient's slices gathered backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        n = dist.get_world_size(group)
+        i = dist.get_group_rank(group, dist.get_rank())
+        per = x.shape[-1] // n
+        return x[..., i * per:(i + 1) * per].contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return gather_features(grad.contiguous(), ctx.group), None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """A sharded input of a column-parallel layer: the features gathered
+    forward, this rank's slice of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return gather_features(x.contiguous(), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        n = dist.get_world_size(ctx.group)
+        i = dist.get_group_rank(ctx.group, dist.get_rank())
+        per = grad.shape[-1] // n
+        return grad[..., i * per:(i + 1) * per].contiguous(), None
+
+
+def scatter_to_model(x: torch.Tensor, group: Any) -> torch.Tensor:
+    """This rank's slice of a replicated ``x``'s features (gradient
+    gathered backward)."""
+    return _ScatterToModel.apply(x, group)
+
+
+def gather_from_model(x: torch.Tensor, group: Any) -> torch.Tensor:
+    """The whole features of a sharded ``x`` (gradient sliced backward)."""
+    return _GatherFromModel.apply(x, group)
+
+
+def copy_to_model(x: torch.Tensor, group: Any) -> torch.Tensor:
+    """Megatron's ``f``: identity forward, all-reduce backward."""
+    return _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group: Any) -> torch.Tensor:
+    """Megatron's ``g``: all-reduce forward, identity backward."""
+    return _ReduceFromModel.apply(x, group)
+
+
+def ring_exchange(x: torch.Tensor, send_to: int, recv_from: int, group: Any) -> torch.Tensor:
+    """Send ``x`` to rank ``send_to`` and receive a tensor of its shape
+    from ``recv_from`` (global ranks) in one ``batch_isend_irecv``."""
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    ops = [
+        dist.P2POp(dist.isend, x, send_to, group),
+        dist.P2POp(dist.irecv, out, recv_from, group),
+    ]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out
+
+
+class _RingShift(torch.autograd.Function):
+    """One step of a ring permute: forward to the next rank and from the
+    previous; the gradients go the opposite way (``ppermute``'s
+    transpose)."""
+
+    @staticmethod
+    def forward(ctx, x, group, send_to, recv_from):
+        ctx.args = (group, send_to, recv_from)
+        return ring_exchange(x, send_to, recv_from, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        group, send_to, recv_from = ctx.args
+        return ring_exchange(grad, recv_from, send_to, group), None, None, None
+
+
+def ring_shift(x: torch.Tensor, group: Any) -> torch.Tensor:
+    """The ``x`` of the previous rank of ``group`` (in its rank order,
+    cyclic); this rank's ``x`` goes to the next. Differentiable."""
+    ranks = dist.get_process_group_ranks(group)
+    i = ranks.index(dist.get_rank())
+    n = len(ranks)
+    return _RingShift.apply(x, group, ranks[(i + 1) % n], ranks[(i - 1) % n])

@@ -45,6 +45,23 @@ the compressed stat transport (``stat_compression``) and the cold-factor
 offload (``offload``) are the JAX engine's; its compile watch and
 ``auto_layout`` raise ``NotImplementedError``.
 
+On a :class:`~kfac_tpu_torch.parallel.mesh.TrainGrid` with ``model`` or
+``seq`` axes (tensor and sequence parallelism), the strategy, ``world``
+and ``grad_workers`` come from the data-parallel grid, and, as in the JAX
+engine, the factor stores are padded to and sharded over every rank
+(``total_devices``): rank ``(row, col, m, s)`` holds factor block ``col *
+(grad_workers * model * seq) + (row * model + m) * seq + s``, so the
+reshard after a refresh is still one all-gather within each column (now
+every rank of the column, over its model and seq ranks), which leaves the
+decompositions in the strategy's layout, replicated over model and seq.
+The statistics are reduced over the data and sequence ranks
+(``stat_group``), each rank's A and G being from its own tokens, and
+every model rank of a group holds the same. A tensor-parallel layer's
+gradient is gathered over its model group, preconditioned and kl-clipped
+whole (the same on every model rank), and each rank keeps its shard.
+There the async refresh, the compressed transport, the offload, health,
+metrics, flight and checkpoints raise ``NotImplementedError``.
+
 The compressed transport quantizes what crosses the wire. For each packed
 chunk of factor triangles, a ``reduce_scatter`` of the f32 partials gives
 each rank a block-aligned slice of the global sum; the rank adds its slice
@@ -85,6 +102,7 @@ from kfac_tpu_torch.ops import factors as factors_lib
 from kfac_tpu_torch.ops import klclip
 from kfac_tpu_torch.parallel import collectives
 from kfac_tpu_torch.parallel import mesh as mesh_lib
+from kfac_tpu_torch.parallel import tensor_parallel as tp_lib
 
 
 def size_class(d: int, granularity: int) -> int:
@@ -252,6 +270,10 @@ class DistKFACState:
 
 
 _LATER_SLICE_KNOBS = ('compile_watch',)
+# not ported yet on a grid with model or seq axes
+_TP_LATER_KNOBS = (
+    'async_inverse', 'stat_compression', 'offload', 'health', 'metrics', 'flight',
+)
 
 
 @dataclasses.dataclass
@@ -267,8 +289,9 @@ class DistributedKFAC:
             ``allreduce_bucket_cap_mb``) and the knobs ``async_inverse``,
             ``stat_compression`` and ``offload``.
         mesh: the grid from :func:`~kfac_tpu_torch.parallel.mesh.
-            kaisa_mesh`; its shape is the gradient worker fraction. None
-            builds the COMM-OPT grid over the default group.
+            kaisa_mesh` or :func:`~kfac_tpu_torch.parallel.mesh.
+            train_mesh`; its data-parallel shape is the gradient worker
+            fraction. None builds the COMM-OPT grid over the default group.
         auto_layout: not ported yet (raises).
 
     The state lives on ``mesh.device``. Every method that moves data
@@ -294,12 +317,22 @@ class DistributedKFAC:
         self.device = self.mesh.device
         self.registry = self.config.registry
         self.grad_workers = self.mesh.grad_workers
+        # the KAISA strategy is the data-parallel grid's; the factor stores
+        # and their decompositions shard over every rank
         self.world = self.mesh.world_size
+        self.total_devices = self.mesh.total_devices
+        if self.total_devices != self.world:
+            for knob in _TP_LATER_KNOBS:
+                if getattr(self.config, knob) not in (None, False):
+                    raise NotImplementedError(
+                        f'{knob} on DistributedKFAC over a grid with model or seq axes '
+                        'is not ported to kfac_tpu_torch yet'
+                    )
         self.strategy = assignment_lib.strategy_for_fraction(
             self.world, self.grad_workers / self.world
         )
         self.granularity = int(self.config.bucket_granularity)
-        self.buckets = build_buckets(self.registry, self.world, self.granularity)
+        self.buckets = build_buckets(self.registry, self.total_devices, self.granularity)
         self.colocate = bool(self.config.colocate_factors)
         # the reference's query surface (and its MEM-OPT => colocated rule)
         self.assignment = assignment_lib.KAISAAssignment(
@@ -309,7 +342,7 @@ class DistributedKFAC:
             colocate_factors=self.colocate,
         )
         self.a_store, self.g_store = build_stores(
-            self.registry, self.world, self.granularity, self.colocate, self.buckets
+            self.registry, self.total_devices, self.granularity, self.colocate, self.buckets
         )
         self._a_slot = {n: (sb.key, i) for sb in self.a_store for i, n in enumerate(sb.layers)}
         self._g_slot = {n: (sb.key, i) for sb in self.g_store for i, n in enumerate(sb.layers)}
@@ -325,10 +358,15 @@ class DistributedKFAC:
                 'prediv_eigenvalues has no effect with the INVERSE compute method; ignoring',
                 stacklevel=2,
             )
-        gw, nc = self.grad_workers, self.mesh.n_cols
-        # factor block k lives on the rank at (row, col) = (k % gw, k // gw)
-        self._block = self.mesh.col * gw + self.mesh.row
-        self._block_owner = [(k % gw) * nc + k // gw for k in range(self.world)]
+        # factor block k lives on rank _block_owner[k]; a column's blocks
+        # are contiguous
+        self._block = self.mesh.factor_block
+        self._block_owner = [self.mesh.block_owner(k) for k in range(self.total_devices)]
+        # tensor-parallel layers: name -> their parallel module
+        self._tp_layers = {
+            n: m for n, m in self.registry.modules.items() if tp_lib.layer_kind(m)
+        }
+        self._sharded_params = set(tp_lib.sharded_param_names(self.registry.model))
         # positions in registry order (the health and metrics vectors' order)
         names = list(self.registry.layers)
         pos = {n: i for i, n in enumerate(names)}
@@ -434,7 +472,7 @@ class DistributedKFAC:
 
     def _factor_range(self, padded: int) -> tuple[int, int]:
         """Slots ``[lo, hi)`` of this rank's factor block of a stack."""
-        per = padded // self.world
+        per = padded // self.total_devices
         return self._block * per, (self._block + 1) * per
 
     def _column_range(self, padded: int) -> tuple[int, int]:
@@ -451,8 +489,8 @@ class DistributedKFAC:
     def _gather_blocks(self, block: torch.Tensor) -> torch.Tensor:
         """Every rank's factor block of a stack, gathered and put in slot
         order: the global stack."""
-        parts = collectives.all_gather_cat(block, self.mesh.group).chunk(self.world)
-        return torch.cat([parts[self._block_owner[k]] for k in range(self.world)])
+        parts = collectives.all_gather_cat(block, self.mesh.group).chunk(self.total_devices)
+        return torch.cat([parts[self._block_owner[k]] for k in range(self.total_devices)])
 
     # --------------------------------------------------------------- init
 
@@ -562,12 +600,17 @@ class DistributedKFAC:
         engine's do (:meth:`_compressed_rows`).
 
         Scale: each rank's A is its rows' ``a^T a / rows``, so the mean
-        over equal row blocks is the global one (sum / world). Its G comes
-        from the cotangents of the mean loss over its own rows, ``world``
-        times the global mean loss's, so its ``g^T g / rows`` is ``world^2``
+        over equal row blocks is the global one (sum / W). Its G comes
+        from the cotangents of the mean loss over its own rows, ``W``
+        times the global mean loss's, so its ``g^T g / rows`` is ``W^2``
         times what the global batch's rows give, and the global G is the
-        sum / world^3. (Under pjit the JAX capture sees the global
-        cotangents.)
+        sum / W^3. (Under pjit the JAX capture sees the global
+        cotangents.) W is the number of ranks of ``stat_group``, over
+        which the sums run: the data-parallel ranks times the sequence
+        shards (a sequence shard's loss is the mean over its own tokens,
+        whose cotangents reach the other shards' layers through the ring,
+        so the same count holds). The model ranks of a group hold the same
+        statistics and reduce within their own ``stat_group``.
 
         Routed layers: the ranks route different numbers of tokens to an
         expert, so the mean of their live-normalized factors is not the
@@ -607,21 +650,22 @@ class DistributedKFAC:
             chunks = collectives.concat_flat_chunked(tris, None if cap is None else cap * 1e6)
             for flat, _ in chunks:
                 self._count('all_reduce', flat)
-                dist.all_reduce(flat, group=self.mesh.group)
+                dist.all_reduce(flat, group=self.mesh.stat_group)
             flat_out = collectives.split_flat_chunked(chunks)
             summed = [collectives.fill_triu((d, d), t) for t, (_, _, d) in zip(flat_out, order)]
         else:
             if w_vec is not None:
                 raw.append(w_vec)
-            flat_out = collectives.all_reduce_sum(raw, self.mesh.group)
+            flat_out = collectives.all_reduce_sum(raw, self.mesh.stat_group)
             summed = [pad_factor(m, d) for m, (_, _, d) in zip(flat_out, order)]
-        scale = {'a': float(self.world), 'g': float(self.world) ** 3}
+        w_stat = self.mesh.stat_world
+        scale = {'a': float(w_stat), 'g': float(w_stat) ** 3}
         out: dict[str, dict[str, torch.Tensor]] = {'a': {}, 'g': {}}
         for (side, n, _), m in zip(order, summed):
             out[side][n] = m / scale[side]
         weights: dict[str, torch.Tensor] = {}
         if w_vec is not None:
-            mean_w = flat_out[-1] / self.world
+            mean_w = flat_out[-1] / w_stat
             divisor = torch.clamp(mean_w, min=capture_lib.WEIGHT_FLOOR)
             for i, n in enumerate(routed):
                 out['a'][n] = out['a'][n] / divisor[i]
@@ -636,7 +680,7 @@ class DistributedKFAC:
         algorithms (2 (W-1)/W of the buffer for an all-reduce, (W-1)/W for
         the others)."""
         b = buffer.numel() * buffer.element_size()
-        w = self.world
+        w = self.mesh.stat_world
         ring = (2 if op == 'all_reduce' else 1) * b * (w - 1) // w
         c = self.transport_counter
         c['collectives'] += 1
@@ -911,7 +955,7 @@ class DistributedKFAC:
         quarantined factor, as in the JAX engine."""
         hc = self.health
         damping = float(resolve(self.config.damping, state.step))
-        sub = self.mesh.row  # this rank's block within its column's
+        sub = self.mesh.col_index  # this rank's block within its column's
         verdicts = []  # with health: (offset, side, store, bad slots)
         n = len(self.registry.layers)
 
@@ -966,7 +1010,7 @@ class DistributedKFAC:
         outputs are at each slot's effective damping."""
         cfg = self.config
         col = self.mesh.col_group
-        sub = self.mesh.row
+        sub = self.mesh.col_index
         updates: dict[str, dict[str, torch.Tensor]] = {}
 
         def keep(side, sb, cand, judged=()):
@@ -1032,7 +1076,8 @@ class DistributedKFAC:
             for sb in store:
                 lo, hi = self._factor_range(sb.padded)
                 per = hi - lo
-                finv = inv[sb.key][self.mesh.row * per:(self.mesh.row + 1) * per]
+                sub = self.mesh.col_index
+                finv = inv[sb.key][sub * per:(sub + 1) * per]
                 eye = torch.eye(sb.d, device=self.device)
                 r = eye - (fac[sb.key] + state.inv_damping * eye) @ finv
                 res = torch.sqrt(torch.sum(r * r, dim=(-2, -1)) / sb.d)
@@ -1060,6 +1105,11 @@ class DistributedKFAC:
         the row first (the decomposition exchange non-colocation pays
         for).
 
+        A tensor-parallel layer's gradient is gathered over the model group
+        first (one all-gather of every such layer's shards), preconditioned
+        and kl-clipped whole, the same on every model rank, and the rank's
+        shard of the result is returned.
+
         With health, the EIGEN path preconditions each slot at its
         effective damping (INVERSE and prediv bake it into the refresh),
         and a degraded layer's slot carries its raw gradient (still
@@ -1072,7 +1122,7 @@ class DistributedKFAC:
         cfg = self.config
         damping = resolve(cfg.damping, state.step)
         row = self.mesh.row_group
-        layer_grads = registry_lib.slice_layer_grads(grads, self.registry)
+        layer_grads = self._gather_tp_grads(registry_lib.slice_layer_grads(grads, self.registry))
         gmats = {
             n: h.grads_to_matrix(layer_grads[n]).float()
             for n, h in self.registry.layers.items()
@@ -1183,7 +1233,33 @@ class DistributedKFAC:
             n: self.registry.layers[n].matrix_to_grads(p.to(layer_grads[n]['weight'].dtype))
             for n, p in zip(names, pm)
         }
+        for n, mod in self._tp_layers.items():  # this rank's shards
+            for leaf, dim in mod.shard_dims.items():
+                if leaf in out.get(n, {}):
+                    full = out[n][leaf]
+                    per = full.shape[dim] // mod.size
+                    out[n][leaf] = full.narrow(dim, mod.index * per, per).contiguous()
         return registry_lib.merge_layer_grads(grads, out, self.registry)
+
+    def _gather_tp_grads(
+        self, layer_grads: dict[str, dict[str, torch.Tensor]]
+    ) -> dict[str, dict[str, torch.Tensor]]:
+        """The tensor-parallel layers' sharded grads made whole: every such
+        shard in one flat buffer, one all-gather over the model group, each
+        parameter's shards concatenated along its sharded axis."""
+        parts = [
+            (n, leaf, dim) for n, mod in self._tp_layers.items()
+            for leaf, dim in mod.shard_dims.items() if leaf in layer_grads[n]
+        ]
+        if not parts:
+            return layer_grads
+        flat, specs = collectives.concat_flat([layer_grads[n][leaf] for n, leaf, _ in parts])
+        ranks = collectives.all_gather_cat(flat, self.mesh.model_group).chunk(self.mesh.model)
+        by_rank = [collectives.split_flat(r, specs) for r in ranks]
+        out = {n: dict(v) for n, v in layer_grads.items()}
+        for i, (n, leaf, dim) in enumerate(parts):
+            out[n][leaf] = torch.cat([r[i] for r in by_rank], dim=dim)
+        return out
 
     # --------------------------------------------------------------- step
 
@@ -1193,13 +1269,24 @@ class DistributedKFAC:
         """The mean over the ranks of each rank's grads and loss (from its
         own row block), in flat buffers of at most
         ``allreduce_bucket_cap_mb``: the global mean grads and loss that
-        pjit hands the JAX engine."""
-        cap = self.config.allreduce_bucket_cap_mb
-        mean, (loss,) = collectives.mean_grads(
-            grads, self.mesh.group, None if cap is None else cap * 1e6,
-            extra=[loss.detach().float().reshape(1)],
+        pjit hands the JAX engine.
+
+        On a grid with a ``model`` axis the shards of tensor-parallel
+        parameters are averaged over the ranks that hold the same shard
+        (``stat_group``: the data and sequence ranks); the replicated
+        parameters and the loss, the same on every model rank, over every
+        rank, so that they are bitwise equal on every rank."""
+        cap = None if self.config.allreduce_bucket_cap_mb is None else (
+            self.config.allreduce_bucket_cap_mb * 1e6
         )
-        return mean, loss[0]
+        replicated = {n: g for n, g in grads.items() if n not in self._sharded_params}
+        mean, (loss,) = collectives.mean_grads(
+            replicated, self.mesh.group, cap, extra=[loss.detach().float().reshape(1)],
+        )
+        sharded = {n: g for n, g in grads.items() if n in self._sharded_params}
+        if sharded:
+            mean.update(collectives.mean_grads(sharded, self.mesh.stat_group, cap)[0])
+        return {n: mean[n] for n in grads}, loss[0]
 
     def step(
         self,
@@ -1308,16 +1395,19 @@ class DistributedKFAC:
         slot_map, store = (self._a_slot, self.a_store) if side == 'a' else (self._g_slot, self.g_store)
         key, i = slot_map[name]
         padded = next(sb.padded for sb in store if sb.key == key)
-        return self._block_owner[i // (padded // self.world)]
+        return self._block_owner[i // (padded // self.total_devices)]
 
     def describe(self) -> str:
         """Registration and placement: strategy, buckets, each store's
         padding, the rank of each layer's factor slots, and the KAISA
         greedy assignment (the cost model's view)."""
+        grid = f'{self.grad_workers}x{self.mesh.n_cols}'
+        if self.total_devices != self.world:
+            grid += f', model {self.mesh.model} x seq {self.mesh.seq}'
         lines = [
             f'DistributedKFAC: {len(self.registry.layers)} layers over '
-            f'{self.world} ranks '
-            f'(grid {self.grad_workers}x{self.mesh.n_cols}), '
+            f'{self.total_devices} ranks '
+            f'(grid {grid}), '
             f'strategy={self.strategy.name}, colocate={self.colocate}, '
             f'method={self.config.compute_method.name}',
             self.config.describe(),
@@ -1362,13 +1452,18 @@ class DistributedKFAC:
         return '\n'.join(lines)
 
     def topology(self) -> dict[str, Any]:
-        """The process group's size and backend and the grid's shape."""
+        """The process group's size and backend and the grid's shape (with
+        a :class:`~kfac_tpu_torch.parallel.mesh.TrainGrid`, its four
+        axes)."""
+        axes, shape = ['kfac_gw', 'kfac_col'], [self.grad_workers, self.mesh.n_cols]
+        if isinstance(self.mesh, mesh_lib.TrainGrid):
+            axes, shape = axes + ['model', 'seq'], shape + [self.mesh.model, self.mesh.seq]
         return {
-            'process_count': self.world,
-            'device_count': self.world,
+            'process_count': self.total_devices,
+            'device_count': self.total_devices,
             'backend': dist.get_backend(self.mesh.group),
-            'mesh_axes': ['kfac_gw', 'kfac_col'],
-            'mesh_shape': [self.grad_workers, self.mesh.n_cols],
+            'mesh_axes': axes,
+            'mesh_shape': shape,
         }
 
     def comms_report(self) -> dict[str, Any]:

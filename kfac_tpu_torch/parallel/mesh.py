@@ -10,8 +10,11 @@ batch is split into row blocks by rank, as ``batch_sharding`` shards rows
 over both axes jointly. One process runs each rank; on the card, rank
 ``d`` drives ``cuda:<local rank>``.
 
-``train_mesh`` and ``pipeline_mesh`` (model, seq, expert and pipeline
-axes) come in a later slice.
+:func:`train_mesh` adds the JAX mesh's ``model`` and ``seq`` axes
+(:class:`TrainGrid`): tensor-parallel shards of the Megatron layers
+(``parallel/tensor_parallel.py``) and sequence shards for ring attention
+(``models/attention.py``). ``pipeline_mesh`` and the ``expert`` axis come
+in a later slice.
 """
 
 from __future__ import annotations
@@ -47,15 +50,55 @@ class KaisaGrid:
 
     @property
     def world_size(self) -> int:
+        """The data-parallel ranks: the KAISA grid's size."""
         return self.grad_workers * self.n_cols
 
     @property
+    def total_devices(self) -> int:
+        """Every rank: the factor stores are padded to and sharded over
+        them."""
+        return self.world_size
+
+    @property
+    def dp_rank(self) -> int:
+        """This rank's index in the KAISA grid (its row block)."""
+        return self.rank
+
+    @property
     def row(self) -> int:
-        return self.rank // self.n_cols
+        return self.dp_rank // self.n_cols
 
     @property
     def col(self) -> int:
-        return self.rank % self.n_cols
+        return self.dp_rank % self.n_cols
+
+    @property
+    def col_index(self) -> int:
+        """This rank's position in its column group: the block of its
+        column's slots it stores and decomposes."""
+        return self.row
+
+    @property
+    def factor_block(self) -> int:
+        """The factor block this rank stores and decomposes: ``col *
+        grad_workers + row``, so each column's blocks are contiguous and the
+        reshard is one all-gather within the column."""
+        return self.col * (self.total_devices // self.n_cols) + self.col_index
+
+    def block_owner(self, block: int) -> int:
+        """The rank (in ``group``) that holds factor block ``block``."""
+        row, col = block % self.grad_workers, block // self.grad_workers
+        return row * self.n_cols + col
+
+    @property
+    def stat_group(self) -> Any:
+        """The ranks whose statistics and gradients are averaged: the
+        data-parallel world."""
+        return self.group
+
+    @property
+    def stat_world(self) -> int:
+        return self.world_size
 
     @property
     def col_group(self) -> Any:
@@ -79,26 +122,169 @@ class KaisaGrid:
     def local_rows(self, batch: Any) -> Any:
         """This rank's row block of a global batch: every tensor in nested
         tuples, lists and dicts split along its leading axis into
-        ``world_size`` equal blocks, block ``rank`` kept (the JAX
+        ``world_size`` equal blocks, block ``dp_rank`` kept (the JAX
         package's ``batch_sharding``)."""
-        world = self.world_size
+        return _map_tensors(batch, lambda x: _block(x, 0, self.world_size, self.dp_rank, 'row'))
+
+    def local_tokens(self, batch: Any) -> Any:
+        """This rank's part of a global (batch, sequence, ...) batch (the
+        JAX package's ``token_sharding``): without a ``seq`` axis, its row
+        block."""
+        return self.local_rows(batch)
+
+
+def _map_tensors(tree: Any, fn) -> Any:
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_tensors(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_tensors(v, fn) for v in tree)
+    raise TypeError(f'batches hold tensors in tuples, lists and dicts, not {type(tree)}')
+
+
+def _block(x: torch.Tensor, dim: int, parts: int, index: int, what: str) -> torch.Tensor:
+    """Block ``index`` of ``x`` split into ``parts`` equal blocks along
+    ``dim``."""
+    n = x.shape[dim]
+    if n % parts:
+        raise ValueError(f'a batch of {n} {what}s does not split into {parts} equal {what} blocks')
+    per = n // parts
+    return x.narrow(dim, index * per, per)
+
+
+def shard_chunks(
+    seq_len: int, n_shards: int, shard: int, zigzag: bool = False
+) -> list[tuple[int, int]]:
+    """The global position ranges ``[start, stop)`` that sequence shard
+    ``shard`` of ``n_shards`` holds, in its local order: its contiguous
+    block, or in the zigzag layout chunks ``shard`` and ``2 n - 1 - shard``
+    of ``seq_len / (2 n)`` positions (``models.attention.zigzag_indices``)."""
+    if zigzag:
+        if seq_len % (2 * n_shards):
+            raise ValueError(f'{seq_len=} not divisible by 2*{n_shards=}')
+        c = seq_len // (2 * n_shards)
+        mirror = 2 * n_shards - 1 - shard
+        return [(shard * c, (shard + 1) * c), (mirror * c, (mirror + 1) * c)]
+    if seq_len % n_shards:
+        raise ValueError(f'{seq_len=} does not split into {n_shards} sequence shards')
+    per = seq_len // n_shards
+    return [(shard * per, (shard + 1) * per)]
+
+
+def shard_positions(seq_len: int, n_shards: int, shard: int, zigzag: bool = False) -> torch.Tensor:
+    """:func:`shard_chunks` as a (CPU) tensor of positions."""
+    return torch.cat([torch.arange(a, b) for a, b in shard_chunks(seq_len, n_shards, shard, zigzag)])
+
+
+@dataclasses.dataclass(eq=False)
+class TrainGrid(KaisaGrid):
+    """The (grad_workers, n_cols, model, seq) training grid (the JAX
+    package's ``train_mesh``): the KAISA grid over the data-parallel ranks,
+    each of which is a (model x seq) block of ranks.
+
+    Rank ``d`` (its index in ``group``) sits at ``(row, col, m, s)``, the
+    row-major order of the JAX mesh's devices, so a world of N ranks and a
+    mesh over N devices put each shard on the same index. Its groups:
+    ``model_group`` (the ranks that share its (row, col, s), ordered by m:
+    the tensor-parallel shards of its layers), ``seq_group`` (its (row,
+    col, m), ordered by s: the ring), ``dp_group`` (its (m, s)),
+    ``stat_group`` (its m: the data and sequence ranks, over which the
+    statistics and the sharded gradients are averaged), ``col_group``
+    (its col: the factor blocks gathered into the column's decompositions)
+    and ``row_group`` (its (row, m, s): the gradient broadcast).
+    ``zigzag`` lays the sequence out in zigzag chunks
+    (:func:`shard_chunks`) for load-balanced causal ring attention.
+    """
+
+    model: int = 1
+    seq: int = 1
+    zigzag: bool = False
+    groups: dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    @property
+    def total_devices(self) -> int:
+        return self.world_size * self.model * self.seq
+
+    @property
+    def dp_rank(self) -> int:
+        return self.rank // (self.model * self.seq)
+
+    @property
+    def m(self) -> int:
+        """This rank's index on the ``model`` axis."""
+        return (self.rank // self.seq) % self.model
+
+    @property
+    def s(self) -> int:
+        """This rank's index on the ``seq`` axis."""
+        return self.rank % self.seq
+
+    @property
+    def col_index(self) -> int:
+        return (self.row * self.model + self.m) * self.seq + self.s
+
+    def block_owner(self, block: int) -> int:
+        per_col = self.grad_workers * self.model * self.seq
+        col, sub = divmod(block, per_col)
+        row, ms = divmod(sub, self.model * self.seq)
+        return (row * self.n_cols + col) * self.model * self.seq + ms
+
+    @property
+    def model_group(self) -> Any:
+        return self.groups['model']
+
+    @property
+    def seq_group(self) -> Any:
+        return self.groups['seq']
+
+    @property
+    def dp_group(self) -> Any:
+        return self.groups['dp']
+
+    @property
+    def col_group(self) -> Any:
+        return self.groups['col']
+
+    @property
+    def row_group(self) -> Any:
+        return self.groups['row']
+
+    @property
+    def stat_group(self) -> Any:
+        return self.groups['stat']
+
+    @property
+    def stat_world(self) -> int:
+        return self.world_size * self.seq
+
+    def seq_positions(self, seq_len: int) -> torch.Tensor:
+        """The global positions (a CPU tensor) of this rank's ``seq_len /
+        seq`` tokens of a ``seq_len`` sequence: its contiguous block, or its
+        zigzag chunks."""
+        return shard_positions(seq_len, self.seq, self.s, self.zigzag)
+
+    def take_seq(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """This rank's positions of ``x``'s (global) sequence axis ``dim``,
+        by slices (no index tensor, so nothing crosses to the device)."""
+        chunks = shard_chunks(x.shape[dim], self.seq, self.s, self.zigzag)
+        parts = [x.narrow(dim, a, b - a) for a, b in chunks]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
+
+    def local_tokens(self, batch: Any) -> Any:
+        """This rank's part of a global (batch, sequence, ...) batch: its
+        row block and, along the second axis, its sequence positions
+        (:meth:`take_seq`)."""
 
         def take(x):
-            if isinstance(x, torch.Tensor):
-                n = x.shape[0]
-                if n % world:
-                    raise ValueError(
-                        f'a batch of {n} rows does not split into {world} equal row blocks'
-                    )
-                per = n // world
-                return x[self.rank * per:(self.rank + 1) * per]
-            if isinstance(x, dict):
-                return {k: take(v) for k, v in x.items()}
-            if isinstance(x, (tuple, list)):
-                return type(x)(take(v) for v in x)
-            raise TypeError(f'batches hold tensors in tuples, lists and dicts, not {type(x)}')
+            x = _block(x, 0, self.world_size, self.dp_rank, 'row')
+            if self.seq == 1 and not self.zigzag:
+                return x
+            if x.ndim < 2:
+                raise ValueError(f'a batch of shape {tuple(x.shape)} has no sequence axis')
+            return self.take_seq(x)
 
-        return take(batch)
+        return _map_tensors(batch, take)
 
 
 def _local_rank(rank: int) -> int:
@@ -149,3 +335,73 @@ def kaisa_mesh(
         group=group, col_groups=col_groups, row_groups=row_groups,
     )
 
+
+
+def train_mesh(
+    grad_worker_fraction: float = 1.0,
+    model: int = 1,
+    seq: int = 1,
+    expert: int = 1,
+    group: Any = None,
+    device: str | torch.device = 'cuda',
+    zigzag: bool = False,
+) -> TrainGrid | None:
+    """The (kfac_gw, kfac_col, model, seq) training grid over ``group``
+    (None: the default process group): ``world / (model * seq)``
+    data-parallel ranks in a KAISA grid of ``grad_worker_fraction``, each a
+    block of ``model`` tensor-parallel by ``seq`` sequence-parallel ranks
+    (:class:`TrainGrid`). Every rank must call it, in the same order as its
+    other ``new_group`` calls (it creates the grid's process groups); a
+    process outside ``group`` gets None. ``zigzag`` lays the sequence out
+    for zigzag ring attention. ``expert > 1`` (expert parallelism) is not
+    ported yet."""
+    if expert != 1:
+        raise NotImplementedError('train_mesh(expert=...) is not ported to kfac_tpu_torch yet')
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            'train_mesh needs torch.distributed initialized: call '
+            'init_process_group first (kfac_tpu_torch.parallel.launch.spawn_world does)'
+        )
+    ranks = tuple(dist.get_process_group_ranks(group)) if group is not None else tuple(
+        range(dist.get_world_size())
+    )
+    world = len(ranks)
+    if model < 1 or seq < 1 or world % (model * seq):
+        raise ValueError(f'{world} devices not divisible by model*seq = {model * seq}')
+    dp = world // (model * seq)
+    workers = assignment_lib.grad_worker_count(dp, grad_worker_fraction)
+    n_cols = dp // workers
+    # rank d = ((row * n_cols + col) * model + m) * seq + s
+    coords = [
+        (r, c, m, s) for r in range(workers) for c in range(n_cols)
+        for m in range(model) for s in range(seq)
+    ]
+    me = ranks.index(dist.get_rank()) if dist.get_rank() in ranks else None
+
+    def grouped(key) -> Any:
+        """One group for each value of ``key(coord)``, ranks in rank order;
+        returns this rank's."""
+        mine = None
+        for value in dict.fromkeys(key(c) for c in coords):
+            g = dist.new_group([ranks[i] for i, c in enumerate(coords) if key(c) == value])
+            if me is not None and key(coords[me]) == value:
+                mine = g
+        return mine
+
+    groups = {
+        'col': grouped(lambda c: c[1]),
+        'row': grouped(lambda c: (c[0], c[2], c[3])),
+        'model': grouped(lambda c: (c[0], c[1], c[3])),
+        'seq': grouped(lambda c: (c[0], c[1], c[2])),
+        'dp': grouped(lambda c: (c[2], c[3])),
+        'stat': grouped(lambda c: c[2]),
+    }
+    if me is None:
+        return None
+    dev = resolve_device(device)
+    if dev.type == 'cuda' and dev.index is None:
+        dev = torch.device('cuda', _local_rank(dist.get_rank()))
+    return TrainGrid(
+        grad_workers=workers, n_cols=n_cols, rank=me, device=dev, group=group,
+        col_groups=[], row_groups=[], model=model, seq=seq, zigzag=zigzag, groups=groups,
+    )

@@ -31,6 +31,14 @@ on every rank. Its checkpoints are sharded: every rank saves its factor
 blocks, rank 0 the extras, and every rank loads the extras on a restore,
 so the parameters are bitwise equal on every rank after it.
 
+On a :class:`~kfac_tpu_torch.parallel.mesh.TrainGrid` with ``model`` and
+``seq`` axes each rank takes its row block and its sequence shard of the
+global batch (``TrainGrid.local_tokens``), and the reduction averages the
+loss and the replicated parameters' grads over every rank and the
+tensor-parallel shards' grads over the data and sequence ranks
+(``DistributedKFAC.average_grads``); :meth:`Trainer.step` is otherwise
+the same. Checkpoints are not ported there yet.
+
 Knobs of the JAX Trainer whose slice comes later (``auto_layout``,
 ``fleet``) raise ``NotImplementedError``.
 """
@@ -157,6 +165,11 @@ class Trainer:
                     'Trainer(checkpoints=...) requires a kfac preconditioner: '
                     'the CheckpointManager persists the K-FAC durable state'
                 )
+            if getattr(self.kfac, 'total_devices', None) not in (None, getattr(self.kfac, 'world', None)):
+                raise NotImplementedError(
+                    'Trainer(checkpoints=...) with a DistributedKFAC over a grid with model or '
+                    'seq axes is not ported to kfac_tpu_torch yet'
+                )
             self.checkpoints.extras_of = self.checkpoint_extras
             if self.checkpoints.engine is None:
                 self.checkpoints.engine = self.kfac
@@ -166,13 +179,14 @@ class Trainer:
         return hasattr(self.kfac, 'average_grads')
 
     def _local(self, batch):
-        """This rank's row block of a global batch (the batch itself
+        """This rank's part of a global batch: its row block, and its
+        sequence shard on a grid with a ``seq`` axis (the batch itself
         without a distributed engine)."""
-        return self.kfac.mesh.local_rows(batch) if self._distributed() else batch
+        return self.kfac.mesh.local_tokens(batch) if self._distributed() else batch
 
     def _reduce(self, grads, loss):
-        """The mean grads and loss over the ranks (as they are without a
-        distributed engine)."""
+        """The mean grads and loss over the ranks, each shard's over the
+        ranks that hold it (as they are without a distributed engine)."""
         return self.kfac.average_grads(grads, loss) if self._distributed() else (grads, loss)
 
     def _bind_capture(self) -> None:

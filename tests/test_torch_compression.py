@@ -31,6 +31,7 @@ JAX package's (``kfac_tpu.compression``; the port of
   with residuals and a shadow, stepped once against the JAX engine.
 """
 
+import concurrent.futures
 import fcntl
 import functools
 import os
@@ -430,9 +431,9 @@ def jax_convert_state(world, frac):
     }
 
 
-def run_world(world, root):
-    """The port's cases in a ``world``-rank gloo world and the JAX
-    references they are held against."""
+def world_spec(world, root):
+    """The JAX references of a ``world``-rank gloo world's cases and the
+    spec of the port's cases."""
     _, _, _, params, batch = flax_mlp()
     fracs = [1.0] if world == 1 else [1.0, 0.5]
     twin = ranks.Twin()
@@ -480,8 +481,22 @@ def run_world(world, root):
             ('converge', 'converge', dict(frac=1.0, steps=CONVERGE_STEPS)),
             ('offload', 'offload', dict(frac=0.5)),
         ]
-    results = spawn_world(ranks.run_cases, world, 'gloo', 'cpu', args=(spec,), timeout_s=300)
-    return ref, results, spec
+    return ref, spec
+
+
+def run_worlds(root):
+    """``{world: (JAX references, the port's results by rank, spec)}``: the
+    W = 2 world first (the W = 1 world restores its checkpoints), the W = 1
+    references computed while the W = 2 world's processes run."""
+    ref2, spec2 = world_spec(2, root)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        pending = pool.submit(
+            spawn_world, ranks.run_cases, 2, 'gloo', 'cpu', args=(spec2,), timeout_s=300
+        )
+        ref1, spec1 = world_spec(1, root)
+        out2 = pending.result()
+    out1 = spawn_world(ranks.run_cases, 1, 'gloo', 'cpu', args=(spec1,), timeout_s=300)
+    return {2: (ref2, out2, spec2), 1: (ref1, out1, spec1)}
 
 
 _WORLDS: dict[int, tuple] = {}
@@ -497,8 +512,7 @@ def knob_worlds():
     uid = os.environ.get('PYTEST_XDIST_TESTRUNUID')
 
     def compute():
-        root = tempfile.mkdtemp(prefix='kfac_knobs_')
-        return {w: run_world(w, root) for w in (2, 1)}
+        return run_worlds(tempfile.mkdtemp(prefix='kfac_knobs_'))
 
     if uid is None:
         _WORLDS.update(compute())

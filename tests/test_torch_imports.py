@@ -2,7 +2,8 @@
 
 - ``kfac_tpu_torch`` and ``chip_smoke.py`` import neither JAX (``jax``,
   ``flax``, ``optax``), nor orbax, nor anything of ``kfac_tpu``, checked on
-  the ASTs; the checkpoint and resilience modules among them.
+  the ASTs; the checkpoint and resilience modules among them, and the
+  tensor and sequence parallel ones.
 - Entry points default to CUDA: without a GPU they raise unless the caller
   passes ``device='cpu'``.
 - Nothing imports ``triton`` when a module is imported.
@@ -55,6 +56,8 @@ def test_port_file_imports_no_jax_and_no_kfac_tpu(path):
     'ops/cov.py', 'layers/helpers.py', 'models/layers.py', 'models/resnet.py', 'data.py',
     'bench_accuracy.py', 'bench_resnet.py', 'training.py', 'compression/__init__.py',
     'compression/config.py', 'compression/quant.py', 'compression/offload.py', 'bench_lm.py',
+    'parallel/tensor_parallel.py', 'models/attention.py', 'models/transformer.py',
+    'ops/losses.py', 'layers/capture.py',
 ])
 def test_checkpoint_and_resilience_modules_are_covered(rel):
     path = ROOT / 'kfac_tpu_torch' / rel

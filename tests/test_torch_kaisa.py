@@ -46,6 +46,7 @@ bitwise its interrupted run's continued in memory. The JAX package's
 installed orbax (ROADMAP queue 3).
 """
 
+import concurrent.futures
 import fcntl
 import functools
 import os
@@ -259,15 +260,18 @@ def run_world(world):
     })))
     # colocate_factors=False on the Wide model, against the JAX engine
     cfrac = colocate_frac(world)
-    wgrads, wstats = capture('wide')
-    ref['colocate'] = {}
-    for method, kw in (('eigen', EIGEN), ('inverse', NS)):
-        dk = JaxDistributedKFAC(
-            config=jax_cfg(models['wide'][1], **kw, **ranks.STEP_KW, colocate_factors=False),
-            mesh=jax_kaisa_mesh(cfrac, devices=devices),
-        )
-        _, g = jax.jit(dk.step)(dk.init(), wgrads, wstats)
-        ref['colocate'][method] = torch_grads(g)
+
+    def colocate_refs():
+        wgrads, wstats = capture('wide')
+        ref['colocate'] = {}
+        for method, kw in (('eigen', EIGEN), ('inverse', NS)):
+            dk = JaxDistributedKFAC(
+                config=jax_cfg(models['wide'][1], **kw, **ranks.STEP_KW, colocate_factors=False),
+                mesh=jax_kaisa_mesh(cfrac, devices=devices),
+            )
+            _, g = jax.jit(dk.step)(dk.init(), wgrads, wstats)
+            ref['colocate'][method] = torch_grads(g)
+
     spec['cases'].append(('colocate', 'variants', dict(frac=cfrac, model='wide', variants={
         m: dict(kw, colocate_factors=False, **ranks.STEP_KW) for m, kw in (('eigen', EIGEN), ('inverse', NS))
     })))
@@ -301,36 +305,39 @@ def run_world(world):
     # step_accumulate (each batch in two micro-batches)
     lm, reg, loss, params, _ = models['lm']
     paths = TRAINER_PATHS[world]
-    ref['trainer'] = {'init': spec['weights']['lm']}
-    for path in paths:
-        dk = JaxDistributedKFAC(
-            config=jax_cfg(reg, **ranks.TRAINER_KW), mesh=jax_kaisa_mesh(low, devices=devices)
-        )
-        trainer = jtraining.Trainer(
-            loss_fn=lambda p, ms, b: (loss(p, b), ms), optimizer=optax.sgd(0.1, momentum=0.9),
-            kfac=dk,
-        )
-        state, losses = trainer.init(params), []
-        batches = [tuple(jnp.asarray(x) for x in b) for b in spec['train_batches']['lm']]
-        if path == 'step':
-            for b in batches:
-                state, value = trainer.step(state, b)
-                losses.append(float(value))
-        elif path == 'scan_steps':
-            state, values = trainer.scan_steps(state, tuple(jnp.stack(x) for x in zip(*batches)))
-            losses = [float(v) for v in values]
-        else:
-            for b in batches:
-                micro = [tuple(x[:4] for x in b), tuple(x[4:] for x in b)]
-                state, value = trainer.step_accumulate(state, micro)
-                losses.append(float(value))
-        ref['trainer'][path] = {
-            'losses': losses,
-            'params': {
-                k: v.numpy()
-                for k, v in convert.from_flax_params(jax.device_get(state.params)).items()
-            },
-        }
+
+    def trainer_refs():
+        ref['trainer'] = {'init': spec['weights']['lm']}
+        for path in paths:
+            dk = JaxDistributedKFAC(
+                config=jax_cfg(reg, **ranks.TRAINER_KW), mesh=jax_kaisa_mesh(low, devices=devices)
+            )
+            trainer = jtraining.Trainer(
+                loss_fn=lambda p, ms, b: (loss(p, b), ms), optimizer=optax.sgd(0.1, momentum=0.9),
+                kfac=dk,
+            )
+            state, losses = trainer.init(params), []
+            batches = [tuple(jnp.asarray(x) for x in b) for b in spec['train_batches']['lm']]
+            if path == 'step':
+                for b in batches:
+                    state, value = trainer.step(state, b)
+                    losses.append(float(value))
+            elif path == 'scan_steps':
+                state, values = trainer.scan_steps(state, tuple(jnp.stack(x) for x in zip(*batches)))
+                losses = [float(v) for v in values]
+            else:
+                for b in batches:
+                    micro = [tuple(x[:4] for x in b), tuple(x[4:] for x in b)]
+                    state, value = trainer.step_accumulate(state, micro)
+                    losses.append(float(value))
+            ref['trainer'][path] = {
+                'losses': losses,
+                'params': {
+                    k: v.numpy()
+                    for k, v in convert.from_flax_params(jax.device_get(state.params)).items()
+                },
+            }
+
     spec['cases'].append((
         'trainer', 'train', dict(frac=low, model='lm', steps=3, kw=ranks.TRAINER_KW, paths=paths),
     ))
@@ -350,38 +357,53 @@ def run_world(world):
         spec['cases'].append(('resnet', 'resnet', dict(frac=low, steps=RESNET_STEPS)))
     # the sentinel, metrics and flight recorder against the JAX engine
     root = tempfile.mkdtemp(prefix=f'kfac_torch_kaisa_w{world}_')
-    ref['observe'] = {}
     for frac in fracs:
         for method, kw in OBSERVE_VARIANTS:
-            dk = JaxDistributedKFAC(
-                config=jax_cfg(models['mlp'][1], health=jhealth.HealthConfig(**ranks.OBS_HEALTH),
-                               **ranks.OBS_KW, **kw),
-                mesh=jax_kaisa_mesh(frac, devices=devices),
-            )
-            step, state, steps = jax.jit(dk.step), dk.init(), []
-            for i in range(ranks.OBS_STEPS):
-                st = jax_poisoned(mlp_stats) if i == 1 else mlp_stats
-                state, g = step(state, mlp_grads, st, loss=ref['loss']['mlp'])
-                steps.append({'grads': torch_grads(g), 'health': jtracing.health_counters(state)})
-            ref['observe'][frac, method] = {
-                'steps': steps,
-                'drain': jmetrics.MetricsCollector(include_health=False).drain(state),
-                'ring': jflight.drain_flight(state),
-            }
             spec['cases'].append((f'observe-{method}-{frac}', 'observe', dict(frac=frac, **kw)))
     spec['cases'][-1][2]['root'] = os.path.join(root, 'observe')
-    # checkpoints: the manifests of the engines the port saves and restores
-    ref['manifest'] = {}
-    for name, frac_, kw in (('mid', mid, {}), ('mid128', mid, dict(bucket_granularity=128))):
-        dk = JaxDistributedKFAC(
-            config=jax_cfg(models['mlp'][1], **ranks.CKPT_KW, **kw),
-            mesh=jax_kaisa_mesh(frac_, devices=devices),
-        )
-        ref['manifest'][name] = jcheckpoint.layout_manifest(dk)
-    ref['mlp_grads'] = jax.device_get(mlp_grads)
+
+    def observe_refs():
+        ref['observe'] = {}
+        for frac in fracs:
+            for method, kw in OBSERVE_VARIANTS:
+                dk = JaxDistributedKFAC(
+                    config=jax_cfg(models['mlp'][1], health=jhealth.HealthConfig(**ranks.OBS_HEALTH),
+                                   **ranks.OBS_KW, **kw),
+                    mesh=jax_kaisa_mesh(frac, devices=devices),
+                )
+                step, state, steps = jax.jit(dk.step), dk.init(), []
+                for i in range(ranks.OBS_STEPS):
+                    st = jax_poisoned(mlp_stats) if i == 1 else mlp_stats
+                    state, g = step(state, mlp_grads, st, loss=ref['loss']['mlp'])
+                    steps.append({'grads': torch_grads(g), 'health': jtracing.health_counters(state)})
+                ref['observe'][frac, method] = {
+                    'steps': steps,
+                    'drain': jmetrics.MetricsCollector(include_health=False).drain(state),
+                    'ring': jflight.drain_flight(state),
+                }
+
+    def manifest_refs():
+        # checkpoints: the manifests of the engines the port saves and restores
+        ref['manifest'] = {}
+        for name, frac_, kw in (('mid', mid, {}), ('mid128', mid, dict(bucket_granularity=128))):
+            dk = JaxDistributedKFAC(
+                config=jax_cfg(models['mlp'][1], **ranks.CKPT_KW, **kw),
+                mesh=jax_kaisa_mesh(frac_, devices=devices),
+            )
+            ref['manifest'][name] = jcheckpoint.layout_manifest(dk)
+        ref['mlp_grads'] = jax.device_get(mlp_grads)
+
     spec['cases'].append(('checkpoint', 'checkpoint', dict(frac=mid, root=os.path.join(root, 'ckpt'))))
     spec['cases'].append(('manager', 'manager', dict(frac=mid, root=os.path.join(root, 'mgr'))))
-    results = spawn_world(ranks.run_cases, world, 'gloo', 'cpu', args=(spec,), timeout_s=300)
+    # the world's processes run while this one computes the references the
+    # spec does not carry
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        pending = pool.submit(
+            spawn_world, ranks.run_cases, world, 'gloo', 'cpu', args=(spec,), timeout_s=300
+        )
+        for refs in (colocate_refs, trainer_refs, observe_refs, manifest_refs):
+            refs()
+        results = pending.result()
     return ref, results, fracs
 
 

@@ -26,8 +26,12 @@ numpy seed, NHWC on the JAX side and NCHW on the port's. Tolerances:
 - the synthetic datasets: bitwise.
 """
 
+import fcntl
+import os
 import pathlib
+import pickle
 import sys
+import tempfile
 
 import jax
 import jax.numpy as jnp
@@ -196,6 +200,27 @@ def test_resnet_draws_flax_initializers():
 
 @pytest.fixture(scope='module')
 def trainer_runs():
+    """:func:`run_trainers` once per test run: under pytest-xdist the first
+    worker to need it computes it under a file lock and leaves it in the
+    temporary directory, keyed by the run's id, for the others (as
+    ``tests/test_torch_kaisa.py``'s worlds)."""
+    uid = os.environ.get('PYTEST_XDIST_TESTRUNUID')
+    if uid is None:
+        return run_trainers()
+    path = os.path.join(tempfile.gettempdir(), f'kfac_torch_resnet_trainers_{uid}.pkl')
+    with open(path + '.lock', 'w') as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(path):
+            with open(path, 'rb') as f:
+                return pickle.load(f)
+        out = run_trainers()
+        with open(path + '.tmp', 'wb') as f:
+            pickle.dump(out, f)
+        os.replace(path + '.tmp', path)
+        return out
+
+
+def run_trainers():
     """Three Trainer steps of ``CifarResNet(depth=8)`` at 8x8, batch 4,
     cadence 1/2 (captures at 0, 1, 2; refreshes at 0 and 2), on each
     package from the same weights and statistics."""

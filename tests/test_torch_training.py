@@ -8,7 +8,11 @@ over by ``convert.from_flax_params``. Tolerances, as in
 1e-4 x the factor's max.
 """
 
+import fcntl
 import logging
+import os
+import pickle
+import tempfile
 import warnings
 from types import SimpleNamespace
 
@@ -166,6 +170,27 @@ def test_scan_steps_matches_jax():
 
 @pytest.fixture(scope='module')
 def accumulation_runs():
+    """:func:`run_accumulation` once per test run: under pytest-xdist the
+    first worker to need it computes it under a file lock and leaves it in
+    the temporary directory, keyed by the run's id, for the others (as
+    ``tests/test_torch_kaisa.py``'s worlds)."""
+    uid = os.environ.get('PYTEST_XDIST_TESTRUNUID')
+    if uid is None:
+        return run_accumulation()
+    path = os.path.join(tempfile.gettempdir(), f'kfac_torch_training_accumulation_{uid}.pkl')
+    with open(path + '.lock', 'w') as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(path):
+            with open(path, 'rb') as f:
+                return pickle.load(f)
+        out = run_accumulation()
+        with open(path + '.tmp', 'wb') as f:
+            pickle.dump(out, f)
+        os.replace(path + '.tmp', path)
+        return out
+
+
+def run_accumulation():
     """Three ``step_accumulate`` steps over two micro-batches, then one
     incremental step that accumulates a micro-batch, drops it with
     ``reset_batch`` and applies two others, on each package."""
