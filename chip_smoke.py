@@ -40,6 +40,13 @@ Phases, one JSON line each:
    at four a quarter of the slots, fc2's padded from 6 to 8): each slot
    within tolerance and bitwise the 2-D launch at the same tile (the
    library call: two ``torch.bmm`` and ``torch.linalg.matrix_norm``).
+   The bf16 and f16 forms of ``sym_cov`` (the flagship's four factor
+   widths at 8192 rows) and of the flash partials (the flagship's
+   attention, on normal inputs and on ``flash_attention.exact_inputs``)
+   against their plain oracles (the TPU kernel's function in the dtype),
+   with tolerances from the dtype's unit roundoff u (``half_kernel_cases``),
+   bounded at the 989 TFLOP/s 16-bit tensor-core peak and the HBM rate,
+   beside ``matmul(a.T, a)`` and SDPA in the dtype.
 4. ``reference``: a two-layer model trained three steps through
    ``Trainer.step`` on the card (kernels) and on the CPU (plain versions)
    from the same weights, once with EIGEN, once with INVERSE +
@@ -195,7 +202,7 @@ Phases, one JSON line each:
    ``sym_cov`` at every covariance shape of a capture step here, and the
    grouped kl-clip dot and scale at the 32 layers.
 14. ``bench_lm``: the bench's LM stage (``kfac_tpu_torch.bench_lm``) in
-   process for ``tiny`` and then ``flagship``, at a quarter of the bench's
+   process for ``tiny`` and then ``flagship``, in f32, at a quarter of the bench's
    own window (25 timed steps, 25 ``scan_steps``), counts set to 0 before each
    and read after: every rate finite and positive, every fused-kernel
    probe family timed without error, the async spike probe's keys, the
@@ -293,6 +300,29 @@ Phases, one JSON line each:
    parameters bitwise on every rank and the sharded ones across the dp
    ranks of each shard; step ms by kind, peak memory and the bytes each
    collective moves a rank.
+19. ``amp``: mixed precision, each run's counts (every form's) set to 0
+   just before and read just after, one line a part. (a) The flagship
+   computing in bf16 (f32 masters, LayerNorms and logits in f32) through
+   ``Trainer.step``, EIGEN, cadence 10/100, 20 steps: losses finite and
+   falling, launches exact by form (the flash partials' bf16 form, f32
+   ``sym_cov``), no host sync on a plain or capture step, step ms by kind
+   beside ``main_path``'s f32 plain median, peak memory; then its plain
+   step and the f32 flagship's in turns (5 rounds of f32, bf16, bf16,
+   f32) with each one's device busy ms and idle share; step 0's loss and
+   grads against the CPU's bf16 run from the same weights (loss within 2u,
+   grads within 8u of max, u = 2^-8) with the gap's parts: attention
+   through the einsum form on the card. (b) ``factor_dtype = inv_dtype =
+   bf16`` on the bf16 flagship at cadence 1/2 for 3 steps on the dense
+   engine and on a ``DistributedKFAC`` in a world of this process alone:
+   launches exact (``sym_cov``'s bf16 form), factor and decomposition bytes
+   half of (a)'s, the KAISA losses within 2u of the dense ones; then the
+   f16 flagship with f16 stores for 2 steps (the f16 forms' launches). (c)
+   ``kfac_tpu_torch.examples.train_amp`` in f16 with the JAX slow test's
+   contract (40 steps, batch 32, init scale 2^24, growth interval 1000):
+   skipped >= 1, K-FAC steps 40 - skipped, final loss < 2.3; each step's
+   host syncs by kind. (d) The bench's LM stage for the flagship in bf16
+   (``AMP_BENCH_WINDOW``, no probes): tokens/s, ``vs_baseline`` and MFU
+   against the bf16 peak, beside ``bench_lm``'s f32 reading.
 
 Then each phase's seconds and the script's (``timing``), the card's name
 and power limit as nvidia-smi prints them, the
@@ -323,6 +353,10 @@ from torch.utils import _pytree as pytree
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 TF32_FLOPS_PER_S = 495e12  # H100 SXM TF32 tensor cores, dense
+HALF_FLOPS_PER_S = 989e12  # H100 SXM bf16 and f16 tensor cores, dense
+# unit roundoff of the 16-bit forms: their tolerances are multiples of it
+HALF_U = {torch.bfloat16: 2.0**-8, torch.float16: 2.0**-11}
+HALF_NAMES = {torch.bfloat16: 'bf16', torch.float16: 'f16'}
 
 FLAGSHIP = dict(batch=16, seq=512, d_model=512, layers=6, heads=4, vocab=8192)
 STEPS = 20
@@ -796,6 +830,10 @@ def kernel_cases():
             nbytes=4 * (4 * b * s_ * h * dh + 2 * b * h * s_),
             flops=4 * dh * pairs * b * h, tf32x3=True,
         ))
+    # the 16-bit forms (bf16, f16) at the flagship's factor widths and its
+    # attention; tolerances from the dtype's unit roundoff u
+    cases += half_kernel_cases(randn)
+
     def ns_errors(got, want):
         # x_new and mx_new relative to their own max, the residual relative
         # to itself
@@ -901,6 +939,113 @@ def kernel_cases():
     return cases
 
 
+def accumulated_in(a: torch.Tensor, rows: int = 8) -> torch.Tensor:
+    """The control of a 16-bit covariance: ``a^T a / n`` with the sum kept
+    in a's dtype, one ``rows``-row block's product added at a time."""
+    acc = torch.zeros(a.shape[1], a.shape[1], dtype=a.dtype, device=a.device)
+    for blk in a.split(rows):
+        acc = acc + blk.T @ blk
+    return acc.float() / a.shape[0]
+
+
+def half_kernel_cases(randn) -> list[dict]:
+    """The bf16 and f16 forms of ``sym_cov`` (the flagship's A and G
+    widths at its 8192 rows) and of the flash partials (the flagship's
+    attention), each against its plain oracle (the TPU kernel's function in
+    that dtype), timed beside the library call in the dtype and bounded at
+    the 16-bit tensor-core peak and the HBM rate.
+
+    - ``sym_cov``: within 2u of max|C| (one flip of its single rounding);
+      the control, the sum kept in the dtype (``accumulated_in``), is
+      outside. Exactly symmetric and run-to-run identical.
+    - flash on normal inputs: acc within 2u of max|acc| (one rounding of
+      each p, at a key tile's running max or the row's max), m and l within
+      1e-5 of max; no control. On ``flash_attention.exact_inputs`` (every
+      rounding point and sum exact): acc bitwise (tolerance 0), m and l
+      within 1e-5 of max; the control, p left unrounded, moves acc, and the
+      einsum form (``q * scale`` rounded to the dtype) moves m past 1e-5.
+    """
+    from kfac_tpu_torch.ops import flash_attention, sym_cov
+
+    dev = torch.device('cuda')
+    cases = []
+    for dt, tag in HALF_NAMES.items():
+        u = HALF_U[dt]
+
+        def cmp16(got, want):
+            return max_err(got.float(), want.float())
+
+        for n, d in ((8192, 513), (8192, 2049), (8192, 512), (8192, 2048)):
+            a = randn(n, d).to(dt)
+            cases.append(dict(
+                name=f'sym_cov_{tag}', shape=[n, d],
+                kernel=lambda a=a: sym_cov.sym_cov(a),
+                plain=lambda a=a: sym_cov.sym_cov_plain(a),
+                library=lambda a=a: torch.matmul(a.T, a),
+                compare=cmp16, rtol=2 * u,
+                tol_rule=f'2u = {2 * u:g} x max|C| (one rounding flip); exactly symmetric, '
+                         'run-to-run identical',
+                control=lambda a=a: accumulated_in(a),
+                control_rule=f'sum kept in {tag}, 8 rows at a time',
+                invariant=lambda got, a=a: (
+                    torch.equal(got, got.T) and torch.equal(got, sym_cov.sym_cov(a))
+                ),
+                nbytes=2 * (n * d + d * d), flops=n * d * (d + 1),
+                flops_per_s=HALF_FLOPS_PER_S,
+            ))
+        b, s_, h, dh = FLAGSHIP['batch'], FLAGSHIP['seq'], FLAGSHIP['heads'], 128
+        pairs = s_ * (s_ + 1) // 2
+        gen = torch.Generator().manual_seed(1)
+        for inputs in ('normal', 'exact'):
+            if inputs == 'exact':
+                q, k, v = (x.to(dev) for x in flash_attention.exact_inputs(b, s_, h, dh, dt, gen))
+            else:
+                q, k, v = (randn(b, s_, h, dh).to(dt) for _ in range(3))
+
+            def sdpa(q=q, k=k, v=v):
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True
+                )
+
+            def oracle(q=q, k=k, v=v):
+                return flash_attention.attend_partials_rounded(q, k, v, 0, 0, True)
+
+            def ml_hold(got, oracle=oracle):
+                want = oracle()
+                return all(
+                    float((x - w).abs().max()) <= 1e-5 * float(w.abs().max())
+                    for x, w in zip(got[1:], want[1:])
+                )
+
+            exact = inputs == 'exact'
+            einsum_m = flash_attention.attend_partials_einsum(q, k, v, 0, 0, True)[1]
+            m_ref = oracle()[1]
+            cases.append(dict(
+                name=f'flash_attention_partials_{tag}', shape=[b, s_, h, dh],
+                kernel=lambda q=q, k=k, v=v: flash_attention.flash_attention_partials(q, k, v, 0, 0, True),
+                plain=oracle, library=sdpa,
+                compare=lambda got, want: max_err(got[0], want[0]),
+                rtol=0.0 if exact else 2 * u,
+                tol_rule=('acc bitwise' if exact else f'acc within 2u = {2 * u:g} x max|acc|')
+                + '; m and l within 1e-5 x max',
+                invariant=ml_hold,
+                control=(
+                    (lambda q=q, k=k, v=v: flash_attention.attend_partials_rounded(
+                        q, k, v.float(), 0, 0, True))
+                    if exact else oracle
+                ),
+                control_rule='p left unrounded' if exact else 'none (normal inputs)',
+                nbytes=2 * 3 * b * s_ * h * dh + 4 * (b * s_ * h * dh + 2 * b * h * s_),
+                flops=4 * dh * pairs * b * h, flops_per_s=HALF_FLOPS_PER_S,
+                no_control=not exact,
+                extra=dict(
+                    inputs=inputs,
+                    einsum_form_m_rel_err=float((einsum_m - m_ref).abs().max() / m_ref.abs().max()),
+                ),
+            ))
+    return cases
+
+
 def kaisa_ns_blocks(world: int) -> list[tuple[int, int]]:
     """(slots, d) of the stacked Newton-Schulz solves on one rank of the
     kaisa phase at ``world`` ranks: a rank's block (its 1/world of the
@@ -968,6 +1113,11 @@ def run_kernels(results) -> bool:
         if 'detail' in case:
             extra['rel_err'] = case['detail'](got, want)
             extra['control_rel_err'] = case['detail'](control, want)
+        if case.get('no_control'):
+            rejects_control = True  # a tolerance that no control is held to
+        if 'einsum_form_m_rel_err' in extra and case['rtol'] == 0.0:
+            # exact inputs: the einsum form's m must fall outside 1e-5 too
+            rejects_control &= extra['einsum_form_m_rel_err'] > 1e-5
         passed = err <= tol and holds and rejects_control
         timed = case.get('timed', case['kernel'])
         if 'device_kernels' in case:
@@ -991,7 +1141,7 @@ def run_kernels(results) -> bool:
                 extra['ms_planned_turns'] = statistics.median(planned)
                 extra[key + '_turns'] = statistics.median(other)
                 extra['plan_faster'] = extra['ms_planned_turns'] <= extra[key + '_turns']
-        bms, by = bound_ms(case['nbytes'], case['flops'])
+        bms, by = bound_ms(case['nbytes'], case['flops'], case.get('flops_per_s', F32_FLOPS_PER_S))
         if case.get('tf32x3'):
             # the work the kernel issues: 3 TF32 products per f32 product,
             # with the f32 bound beside it
@@ -1016,10 +1166,11 @@ def run_kernels(results) -> bool:
 # --------------------------------------------------------------- main path
 
 
-def lm_model(cfg, device, moe=None):
-    """The LM of ``cfg`` from seed 1; with ``moe`` (``MOE``), its switch-MoE
-    blocks at ``moe['capacity_factor']``, and the router bias of each
-    ``moe['starved']`` expert at -1e4, so that expert never gets a token."""
+def lm_model(cfg, device, moe=None, dtype=torch.float32):
+    """The LM of ``cfg`` computing in ``dtype`` from seed 1; with ``moe``
+    (``MOE``), its switch-MoE blocks at ``moe['capacity_factor']``, and the
+    router bias of each ``moe['starved']`` expert at -1e4, so that expert
+    never gets a token."""
     from kfac_tpu_torch.models import TransformerLM
 
     extra = {} if moe is None else dict(
@@ -1028,7 +1179,8 @@ def lm_model(cfg, device, moe=None):
     )
     model = TransformerLM(
         vocab_size=cfg['vocab'], d_model=cfg['d_model'], num_heads=cfg['heads'],
-        num_layers=cfg['layers'], max_len=cfg['seq'], seed=1, device=device, **extra,
+        num_layers=cfg['layers'], max_len=cfg['seq'], seed=1, device=device, dtype=dtype,
+        **extra,
     )
     if moe is not None:
         with torch.no_grad():
@@ -1041,23 +1193,26 @@ class LMRun:
     """The bench's K-FAC LM loop through ``Trainer.step`` on one seeded
     batch, weights from seed 1: a capture step every ``capture_every``
     steps, a plain step otherwise. With ``moe`` the flagship's switch-MoE
-    configuration (``MOE``): routed experts and the load-balance loss."""
+    configuration (``MOE``): routed experts and the load-balance loss. The
+    model computes in ``dtype``; a ``factor_dtype`` in ``kfac_kw`` is the
+    registry's too, so the capture computes the covariances in it."""
 
     def __init__(self, cfg, device, capture_every, inv_every, checkpoints=None, moe=None,
-                 **kfac_kw):
+                 dtype=torch.float32, **kfac_kw):
         import kfac_tpu_torch as kt
         from kfac_tpu_torch.models import lm_loss
         from kfac_tpu_torch.training import Trainer
 
         self.device = device
         self.capture_every = capture_every
-        model = lm_model(cfg, device, moe)
+        model = lm_model(cfg, device, moe, dtype)
         gen = torch.Generator().manual_seed(0)
         tokens = torch.randint(0, cfg['vocab'], (cfg['batch'], cfg['seq']), generator=gen)
         self.batch = (tokens.to(device), torch.roll(tokens, -1, dims=1).to(device))
         self.registry = kt.register_model(
             model, skip_layers=['lm_head'], device=device,
             routed_layers=None if moe is None else moe['routed_layers'],
+            factor_dtype=kfac_kw.get('factor_dtype', torch.float32),
         )
         self.kfac = kt.KFACPreconditioner(
             self.registry, damping=0.003, lr=0.1, factor_update_steps=capture_every,
@@ -2537,7 +2692,7 @@ class DistLMRun:
     the global batch."""
 
     def __init__(self, device, capture_every, inv_every, frac=1.0, checkpoints=None,
-                 granularity=None, **kfac_kw):
+                 granularity=None, dtype=torch.float32, **kfac_kw):
         import kfac_tpu_torch as kt
         from kfac_tpu_torch.models import TransformerLM, lm_loss
         from kfac_tpu_torch.parallel import DistributedKFAC, kaisa_mesh
@@ -2547,12 +2702,15 @@ class DistLMRun:
         self.device, self.capture_every = device, capture_every
         model = TransformerLM(
             vocab_size=cfg['vocab'], d_model=cfg['d_model'], num_heads=cfg['heads'],
-            num_layers=cfg['layers'], max_len=cfg['seq'], seed=1, device=device,
+            num_layers=cfg['layers'], max_len=cfg['seq'], seed=1, device=device, dtype=dtype,
         )
         gen = torch.Generator().manual_seed(0)
         tokens = torch.randint(0, cfg['vocab'], (cfg['batch'], cfg['seq']), generator=gen)
         self.batch = (tokens.to(device), torch.roll(tokens, -1, dims=1).to(device))
-        self.registry = kt.register_model(model, skip_layers=['lm_head'], device=device)
+        self.registry = kt.register_model(
+            model, skip_layers=['lm_head'], device=device,
+            factor_dtype=kfac_kw.get('factor_dtype', torch.float32),
+        )
         self.config = kt.KFACPreconditioner(
             self.registry, damping=0.003, lr=0.1, factor_update_steps=capture_every,
             inv_update_steps=inv_every, device=device, bucket_granularity=granularity, **kfac_kw,
@@ -4402,9 +4560,11 @@ def expected_bench_launches(cfg: dict, window: dict, probe_calls: int) -> dict:
     }
 
 
-def run_bench_lm(launches) -> bool:
-    """The bench's LM stage in process, ``tiny`` then ``flagship``, each
-    with the kernels' counts set to 0 just before and read just after."""
+def run_bench_lm(launches, records=None) -> bool:
+    """The bench's LM stage in process, ``tiny`` then ``flagship``, in f32
+    (the bench's dtype on a card is bf16: the ``amp`` phase runs that), each
+    with the kernels' counts set to 0 just before and read just after;
+    ``records`` takes each config's record."""
     from kfac_tpu_torch import bench_lm
 
     wrappers = main_path_wrappers()
@@ -4412,7 +4572,9 @@ def run_bench_lm(launches) -> bool:
     for config in ('tiny', 'flagship'):
         for w in wrappers.values():
             w.launches = 0
-        record = bench_lm.run_lm_stage(config, 'cuda', **BENCH_WINDOW)
+        record = bench_lm.run_lm_stage(config, 'cuda', **BENCH_WINDOW, dtype=torch.float32)
+        if records is not None:
+            records[config] = record
         counts = launches[f'bench_lm_{config}']
         counts.update({n: w.launches for n, w in wrappers.items()})
         probe = record['fused_kernel_probe']
@@ -4453,6 +4615,344 @@ def run_bench_lm(launches) -> bool:
             expected_launches=expected, profile=profiles, passed=passed,
         ))
         ok &= passed
+    return ok
+
+
+# ------------------------------------------------------------------ amp
+
+AMP_STORE_STEPS = 3  # (b): cadence 1/2, captures at 0, 1, 2 and refreshes at 0 and 2
+AMP_F16_STEPS = 2  # (b): the f16 flagship, a capture and refresh, then a capture
+# (c): the contract of the JAX package's slow test (tests/test_amp.py:44-70)
+AMP_EXAMPLE_ARGS = ['--steps', '40', '--batch-size', '32', '--init-scale', str(2.0**24),
+                    '--growth-interval', '1000']
+AMP_BENCH_WINDOW = dict(warmup=3, iters=10, scan_steps=10)
+AMP_TURNS = 5  # (a): rounds of f32, bf16, bf16, f32 plain steps
+
+
+def reset_counts(wrappers) -> None:
+    """Every wrapper's counts to 0, each form's too."""
+    from kfac_tpu_torch.ops import build
+
+    for w in wrappers.values():
+        if hasattr(w, 'launches_by_dtype'):
+            build.reset_counts(w)
+        else:
+            w.launches = 0
+
+
+def counts_by_form(wrappers) -> dict:
+    """Launches by kernel form: ``name`` (f32), ``name_bf16``, ``name_f16``."""
+    out = {}
+    for n, w in wrappers.items():
+        by = getattr(w, 'launches_by_dtype', None)
+        if by is None:
+            out[n] = w.launches
+            continue
+        out[n] = by.get(torch.float32, 0)
+        for dt, tag in HALF_NAMES.items():
+            out[f'{n}_{tag}'] = by.get(dt, 0)
+    return out
+
+
+def amp_expected(steps: int, captures: int, model_dtype, factor_dtype) -> dict:
+    """``expected_launches`` by form: the flash partials in the model's
+    dtype, ``sym_cov`` in the factor dtype (the capture casts a and g to
+    it), the kl-clip kernels in f32 (the grads are f32 masters')."""
+    base = dict(expected_launches(steps, captures), fused_ns_step=0)
+    out = {k: v for k, v in base.items() if k not in ('sym_cov', 'flash_attention_partials')}
+    for name, dt in (('sym_cov', factor_dtype), ('flash_attention_partials', model_dtype)):
+        out[name] = base[name] if dt == torch.float32 else 0
+        for d16, tag in HALF_NAMES.items():
+            out[f'{name}_{tag}'] = base[name] if dt == d16 else 0
+    return out
+
+
+def amp_run(run, steps, wrappers) -> dict:
+    """``steps`` counted steps of ``run`` from counts at 0: losses, step ms
+    and host syncs by kind, peak memory, the counts by form."""
+    reset_counts(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    losses, seconds, syncs = [], [], []
+    for _ in range(steps):
+        loss, sec, n = counted_step(run)
+        losses.append(loss)
+        seconds.append(sec)
+        syncs.append(n)
+    return dict(
+        losses=losses, seconds=seconds, syncs=syncs, launches=counts_by_form(wrappers),
+        peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+    )
+
+
+def amp_card_vs_cpu() -> dict:
+    """Step 0's loss and grads of the bf16 flagship (no K-FAC step) on the
+    card and on the CPU from the same weights and batch: the loss within 2u
+    and the grads within 8u of their max (u = 2^-8). The parts of the gap:
+    the card's loss again with attention through the einsum form (the CPU
+    path: q * scale rounded to bf16, p rounded at the row's max), so that
+    ``loss_gap_attention`` is the kernel's function against the einsum
+    form's on the card, and ``loss_gap_other`` the rest (cuBLAS against the
+    CPU's bf16 GEMMs and elementwise roundings)."""
+    from kfac_tpu_torch.layers import capture
+    from kfac_tpu_torch.models import lm_loss
+    from kfac_tpu_torch.ops import flash_attention
+
+    out = {}
+    for dev in (torch.device('cuda'), torch.device('cpu')):
+        # LMRun's weights and batch
+        model = lm_model(FLAGSHIP, dev, dtype=torch.bfloat16)
+        gen = torch.Generator().manual_seed(0)
+        tokens = torch.randint(0, FLAGSHIP['vocab'], (FLAGSHIP['batch'], FLAGSHIP['seq']), generator=gen)
+        batch = (tokens.to(dev), torch.roll(tokens, -1, dims=1).to(dev))
+        loss, grads = capture.value_and_grad(model, lm_loss(model))(batch)
+        out[dev.type] = (float(loss), {n: g.float().cpu() for n, g in grads.items()})
+        if dev.type == 'cuda':
+            kernel = flash_attention._flash_partials_kernel
+            flash_attention._flash_partials_kernel = flash_attention.attend_partials_einsum
+            try:
+                with torch.no_grad():
+                    out['einsum'] = float(lm_loss(model)(batch))
+            finally:
+                flash_attention._flash_partials_kernel = kernel
+    u = HALF_U[torch.bfloat16]
+    (c_loss, c_grads), (h_loss, h_grads) = out['cuda'], out['cpu']
+    scale = max(float(g.abs().max()) for g in h_grads.values())
+    grad_err = max(float((c_grads[n] - g).abs().max()) for n, g in h_grads.items()) / scale
+    loss_err = abs(c_loss - h_loss) / abs(h_loss)
+    return dict(
+        loss_card=c_loss, loss_cpu=h_loss, loss_rel_err=loss_err, loss_tol=2 * u,
+        grad_err_rel_to_max=grad_err, grad_tol=8 * u,
+        loss_card_einsum_attention=out['einsum'],
+        loss_gap_attention=abs(c_loss - out['einsum']) / abs(h_loss),
+        loss_gap_other=abs(out['einsum'] - h_loss) / abs(h_loss),
+        passed=loss_err <= 2 * u and grad_err <= 8 * u,
+    )
+
+
+def plain_steps_in_turns(runs: dict) -> dict:
+    """Plain-step ms of each run of ``runs`` (name -> ``LMRun`` whose state
+    is at a plain step), timed in turns (a, b, b, a) for ``AMP_TURNS``
+    rounds from the same state each time, and one such step of each under
+    torch.profiler: medians, device busy ms, idle share, launches."""
+    first, second = list(runs)
+    ms = {name: [] for name in runs}
+    for _ in range(AMP_TURNS):
+        for name in (first, second, second, first):
+            run = runs[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run.trainer.step(run.state, run.batch)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+    out = {}
+    for name, run in runs.items():
+        prof = device_profile(lambda run=run: run.trainer.step(run.state, run.batch))
+        out[name] = dict(
+            plain_ms_median=statistics.median(ms[name]), plain_ms=ms[name],
+            device_busy_ms=prof['device_busy_ms'], idle_share=prof['idle_share'],
+            kernel_launches=prof['kernel_launches'],
+        )
+    return out
+
+
+def amp_flagship(launches, f32_summary) -> dict:
+    """(a): the bf16 flagship through ``Trainer.step`` (EIGEN, cadence
+    10/100, f32 factors), ``STEPS`` steps; after the counted run, its plain
+    step and the f32 flagship's from the same weights in turns."""
+    wrappers = main_path_wrappers()
+    run = LMRun(FLAGSHIP, torch.device('cuda'), 10, 100, dtype=torch.bfloat16)
+    r = amp_run(run, STEPS, wrappers)
+    for n, c in r['launches'].items():
+        launches[n] = launches.get(n, 0) + c
+    expected = amp_expected(STEPS, len(range(0, STEPS, 10)), torch.bfloat16, torch.float32)
+    kinds = step_kinds(r['seconds'], r['syncs'], 10, 100)
+    run.step()  # step 20, a capture: the state is then at a plain step
+    f32_run = LMRun(FLAGSHIP, torch.device('cuda'), 10, 100)
+    f32_run.step()  # step 0, the refresh
+    turns = plain_steps_in_turns({'float32': f32_run, 'bfloat16': run})
+    del f32_run
+    reference = amp_card_vs_cpu()
+    usage = run.kfac.memory_usage(run.kstate)
+    checks = dict(
+        finite=all(math.isfinite(x) for x in r['losses']),
+        falling=r['losses'][-1] < r['losses'][0],
+        launches_exact=r['launches'] == expected,
+        zero_syncs_plain_and_capture=all(
+            kinds[k]['syncs_max'] == 0 for k in ('plain', 'capture') if k in kinds
+        ),
+        card_vs_cpu=reference['passed'],
+    )
+    return dict(
+        part='a_bf16_flagship', config=FLAGSHIP, dtype='bfloat16', steps=STEPS,
+        losses=r['losses'], step_ms=[x * 1e3 for x in r['seconds']], by_kind=kinds,
+        f32_main_path_plain_step_ms_median=f32_summary.get('plain_step_ms_median'),
+        plain_steps_in_turns=turns,
+        peak_memory_gib=r['peak_memory_gib'], memory_usage=usage,
+        launches=r['launches'], expected_launches=expected, card_vs_cpu=reference,
+        checks=checks, passed=all(checks.values()),
+    )
+
+
+def amp_stores(launches, f32_usage) -> list[dict]:
+    """(b): bf16 factors and decompositions (the bf16 flagship at cadence
+    1/2, ``AMP_STORE_STEPS`` steps) on the dense engine and on a
+    ``DistributedKFAC`` in a world of this process alone (NCCL), then the
+    f16 flagship with f16 stores for ``AMP_F16_STEPS`` steps."""
+    from kfac_tpu_torch import bench_lm
+
+    wrappers = main_path_wrappers()
+    half = dict(factor_dtype=torch.bfloat16, inv_dtype=torch.bfloat16)
+    u = HALF_U[torch.bfloat16]
+    run = LMRun(FLAGSHIP, torch.device('cuda'), 1, 2, dtype=torch.bfloat16, **half)
+    dense = amp_run(run, AMP_STORE_STEPS, wrappers)
+    usage = run.kfac.memory_usage(run.kstate)
+    expected = amp_expected(AMP_STORE_STEPS, AMP_STORE_STEPS, torch.bfloat16, torch.bfloat16)
+    with bench_lm.one_rank_world(torch.device('cuda')):
+        dist_run = DistLMRun(torch.device('cuda'), 1, 2, dtype=torch.bfloat16, **half)
+        dist = amp_run(dist_run, AMP_STORE_STEPS, wrappers)
+        dist_usage = dist_run.kfac.memory_usage(dist_run.kstate)
+        dist_comms = dist_run.kfac.comms_report()
+    f16_run = LMRun(FLAGSHIP, torch.device('cuda'), 1, 2, dtype=torch.float16,
+                    factor_dtype=torch.float16, inv_dtype=torch.float16)
+    f16 = amp_run(f16_run, AMP_F16_STEPS, wrappers)
+    f16_expected = amp_expected(AMP_F16_STEPS, AMP_F16_STEPS, torch.float16, torch.float16)
+    for r in (dense, dist, f16):
+        for n, c in r['launches'].items():
+            launches[n] = launches.get(n, 0) + c
+    dist_loss_err = max(
+        abs(a - b) / abs(b) for a, b in zip(dist['losses'], dense['losses'])
+    )
+    lines = []
+    checks = dict(
+        finite=all(math.isfinite(x) for x in dense['losses'] + dist['losses']),
+        launches_exact=dense['launches'] == expected and dist['launches'] == expected,
+        factor_bytes_half=2 * usage['a_factors'] == f32_usage['a_factors']
+        and 2 * usage['g_factors'] == f32_usage['g_factors'],
+        decomposition_bytes_half=2 * usage['a_inverses'] == f32_usage['a_inverses']
+        and 2 * usage['g_inverses'] == f32_usage['g_inverses'],
+        kaisa_losses_within_2u=dist_loss_err <= 2 * u,
+        stores_bf16=all(
+            v.dtype == torch.bfloat16 for v in (*run.kstate.a.values(), *run.kstate.qa.values())
+        ),
+    )
+    lines.append(dict(
+        part='b_bf16_stores', steps=AMP_STORE_STEPS, capture_every=1, inv_every=2,
+        dense=dict(losses=dense['losses'], step_ms=[x * 1e3 for x in dense['seconds']],
+                   syncs=dense['syncs'], peak_memory_gib=dense['peak_memory_gib'],
+                   memory_usage=usage, launches=dense['launches']),
+        f32_memory_usage=f32_usage, expected_launches=expected,
+        kaisa_w1=dict(losses=dist['losses'], step_ms=[x * 1e3 for x in dist['seconds']],
+                      syncs=dist['syncs'], peak_memory_gib=dist['peak_memory_gib'],
+                      memory_usage=dist_usage, launches=dist['launches'],
+                      loss_rel_err_to_dense=dist_loss_err, loss_tol=2 * u,
+                      stat_transport_bytes=dist_comms['stat_transport']['bytes'],
+                      decomp_reshard_bytes=dist_comms['decomp_reshard_bytes']),
+        checks=checks, passed=all(checks.values()),
+    ))
+    f16_checks = dict(
+        finite=all(math.isfinite(x) for x in f16['losses']),
+        launches_exact=f16['launches'] == f16_expected,
+    )
+    lines.append(dict(
+        part='b_f16_stores', steps=AMP_F16_STEPS, losses=f16['losses'],
+        step_ms=[x * 1e3 for x in f16['seconds']], syncs=f16['syncs'],
+        launches=f16['launches'], expected_launches=f16_expected,
+        checks=f16_checks, passed=all(f16_checks.values()),
+    ))
+    return lines
+
+
+def amp_example(launches) -> dict:
+    """(c): ``kfac_tpu_torch.examples.train_amp`` in f16 with the JAX slow
+    test's contract: skipped >= 1, K-FAC steps = 40 - skipped, final loss
+    < 2.3; each step's ms and host syncs, by whether it applied."""
+    from kfac_tpu_torch.examples import train_amp
+
+    wrappers = main_path_wrappers()
+    reset_counts(wrappers)
+    steps = []
+    original = train_amp.amp_step
+
+    def counted(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            torch.cuda.set_sync_debug_mode('warn')
+            try:
+                out = original(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode('default')
+        torch.cuda.synchronize()
+        syncs = sum('synchroniz' in str(w.message) for w in caught)
+        steps.append(dict(applied=out[3], ms=(time.perf_counter() - t0) * 1e3, syncs=syncs))
+        return out
+
+    train_amp.amp_step = counted
+    try:
+        loss, skipped, kfac_steps = train_amp.main(AMP_EXAMPLE_ARGS)
+    finally:
+        train_amp.amp_step = original
+    counts = counts_by_form(wrappers)
+    for n, c in counts.items():
+        launches[n] = launches.get(n, 0) + c
+    applied = [s for s in steps if s['applied']]
+    # the refresh (every 10th applied step) decomposes on the device
+    plain = [s for i, s in enumerate(applied) if i % 10]
+    checks = dict(
+        skipped_at_least_one=skipped >= 1, kfac_steps_exact=kfac_steps == 40 - skipped,
+        loss_below=math.isfinite(loss) and loss < 2.3,
+    )
+    return dict(
+        part='c_train_amp_f16', args=AMP_EXAMPLE_ARGS, loss=loss, skipped=skipped,
+        kfac_steps=kfac_steps, launches=counts,
+        applied_step_ms_median=statistics.median(s['ms'] for s in plain) if plain else None,
+        # the host reads of a step: the skip's bool, and a refresh's
+        syncs_by_kind={
+            kind: sorted({s['syncs'] for s in group})
+            for kind, group in (('skipped', [s for s in steps if not s['applied']]),
+                                ('applied', plain),
+                                ('refresh', [s for i, s in enumerate(applied) if not i % 10]))
+            if group
+        },
+        syncs=[s['syncs'] for s in steps], applied=[s['applied'] for s in steps],
+        checks=checks, passed=all(checks.values()),
+    )
+
+
+def amp_bench(f32_record) -> dict:
+    """(d): the bench's LM stage for the flagship in bf16 (the bench's own
+    dtype on a card), MFU against the bf16 peak, beside the ``bench_lm``
+    phase's f32 reading of the same call (a quarter window there; this at
+    ``AMP_BENCH_WINDOW``, no probes)."""
+    from kfac_tpu_torch import bench_lm
+
+    record = bench_lm.run_lm_stage(
+        'flagship', 'cuda', **AMP_BENCH_WINDOW, dtype=torch.bfloat16, probes=False
+    )
+    keys = ('sgd_tokens_per_sec', 'eager_tokens_per_sec', 'scan_tokens_per_sec', 'value',
+            'vs_baseline', 'mfu', 'sgd_mfu')
+    f32 = {k: f32_record.get(k) for k in keys + ('mfu_peak', 'window')} if f32_record else None
+    checks = dict(
+        rates=all(math.isfinite(record[k]) and record[k] > 0 for k in keys),
+        bf16_peak=record['mfu_peak'] == bench_lm.PEAK_FLOPS[torch.bfloat16][1],
+    )
+    return dict(part='d_bench_lm_bf16', record=record, f32=f32, checks=checks,
+                passed=all(checks.values()))
+
+
+def run_amp(launches, f32_summary, bench_records) -> bool:
+    """Mixed precision on the flagship: (a) the bf16 model, (b) bf16 and
+    f16 stores on both engines, (c) the f16 loss-scaled example, (d) the
+    bench's LM stage in bf16; one line each."""
+    ok = True
+    a = amp_flagship(launches, f32_summary)
+    # (a)'s f32 stores are (b)'s comparison: the store sizes do not depend
+    # on the cadence
+    for line in [a, *amp_stores(launches, a['memory_usage']), amp_example(launches),
+                 amp_bench(bench_records.get('flagship'))]:
+        emit(dict(phase='amp', **line))
+        ok &= line['passed']
     return ok
 
 
@@ -4909,6 +5409,12 @@ SOURCES = {
     'fused_ns_step': ('cuda', 'kfac_tpu_torch/csrc/newton_schulz.cu', 'kfac_tpu/ops/pallas_ns.py:127,139', [2049, 2049]),
     # the largest block a rank solves on this machine's cards
     'fused_ns_step_stacked': ('cuda', 'kfac_tpu_torch/csrc/newton_schulz.cu', 'kfac_tpu/ops/pallas_ns.py:127,139', None),
+    # the 16-bit forms: bf16 and f16 instantiations of the same sources
+    **{f'sym_cov_{tag}': ('cuda', 'kfac_tpu_torch/csrc/sym_cov.cu', 'kfac_tpu/ops/pallas_cov.py:88',
+                          [8192, 2049]) for tag in ('bf16', 'f16')},
+    **{f'flash_attention_partials_{tag}': (
+        'cuda', 'kfac_tpu_torch/csrc/flash_attn.cu', 'kfac_tpu/ops/pallas_attention.py:257',
+        [16, 512, 4, 128]) for tag in ('bf16', 'f16')},
 }
 
 
@@ -5001,9 +5507,10 @@ def main() -> int:
         path: {} for path in (
             'main_path', 'main_path_ns', 'digits_mlp', 'digits_cnn', 'observed', 'resume',
             'async_refresh', 'kaisa', 'kaisa_ops', 'resnet', 'bench_lm_tiny', 'bench_lm_flagship',
-            'engine_knobs', 'moe', 'lora', 'tp_sp',
+            'engine_knobs', 'moe', 'lora', 'tp_sp', 'amp',
         )
     }
+    bench_records: dict = {}
     observed_health: dict = {}
     eigen_summary: dict = {}
     main_losses: list[float] = []
@@ -5046,7 +5553,8 @@ def main() -> int:
     phase('kaisa', run_kaisa, launches['kaisa'])
     phase('kaisa_ops', run_kaisa_ops, launches['kaisa_ops'], observed_health)
     phase('resnet', run_resnet, launches['resnet'])
-    phase('bench_lm', run_bench_lm, launches)
+    phase('bench_lm', run_bench_lm, launches, bench_records)
+    phase('amp', run_amp, launches['amp'], eigen_summary, bench_records)
     phase('engine_knobs', run_engine_knobs, launches['engine_knobs'], main_losses, main_tail,
           async_summary)
     phase('moe', run_moe, launches['moe'])

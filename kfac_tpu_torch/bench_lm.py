@@ -6,7 +6,8 @@ Run::
     python -m kfac_tpu_torch.bench_lm --config {tiny,flagship,large,longctx} [--device cuda]
 
 On one seeded batch (tokens from seed 0, weights from seed 1), 4 heads,
-f32, ``lm_head`` skipped, damping 0.003, lr 0.1, cadence 10/100,
+bf16 on the card and f32 on the CPU, as the bench runs its LM
+(``bench.py:1227``; ``--dtype`` overrides), ``lm_head`` skipped, damping 0.003, lr 0.1, cadence 10/100,
 SGD(0.1, momentum 0.9), the compute method left to the platform default
 (EIGEN on CUDA), it times:
 
@@ -26,8 +27,9 @@ a ``DistributedKFAC`` in a world of one rank at the f32 and the int8 wire,
 and a dense offload Trainer's counters.
 
 Prints the card's name and power limit (``nvidia-smi``) on CUDA, then one
-JSON line. On the CPU the kernels' plain versions run and the record says
-so; its times are the CPU's and no MFU is given.
+JSON line. MFU is read against the peak of the dtype the step computes in
+(``PEAK_FLOPS``). On the CPU the kernels' plain versions run and the
+record says so; its times are the CPU's and no MFU is given.
 """
 
 from __future__ import annotations
@@ -64,10 +66,21 @@ LM_CONFIGS = {
     'longctx': dict(batch=4, seq=2048, d_model=512, layers=6, vocab=8192),
 }
 NUM_HEADS = 4
-# MFU is against the H100 SXM's f32 peak outside the tensor cores: the
-# port computes in full f32 (NVIDIA's data sheet, at a 700 W limit)
-F32_PEAK_FLOPS = 67e12
-F32_PEAK_NAME = 'H100 SXM f32 without tensor cores, 67 TFLOP/s'
+# MFU is against the H100 SXM's published peak for the dtype the model
+# computes in (NVIDIA's data sheet, dense, at a 700 W limit): f32 outside
+# the tensor cores (the port's f32 products are full f32), bf16 and f16 on
+# the tensor cores
+PEAK_FLOPS = {
+    torch.float32: (67e12, 'H100 SXM f32 without tensor cores, 67 TFLOP/s'),
+    torch.bfloat16: (989e12, 'H100 SXM bf16 dense tensor cores, 989 TFLOP/s'),
+    torch.float16: (989e12, 'H100 SXM f16 dense tensor cores, 989 TFLOP/s'),
+}
+DTYPES = {'f32': torch.float32, 'bf16': torch.bfloat16, 'f16': torch.float16}
+
+
+def default_dtype(device: torch.device) -> torch.dtype:
+    """The bench's LM dtype: bf16 on an accelerator, f32 on the CPU."""
+    return torch.bfloat16 if device.type == 'cuda' else torch.float32
 
 
 def _sync(device: torch.device) -> None:
@@ -91,12 +104,15 @@ def lm_batch(cfg: dict, device: torch.device) -> tuple[torch.Tensor, torch.Tenso
     return tokens.to(device), torch.roll(tokens, -1, dims=1).to(device)
 
 
-def lm_trainer(cfg: dict, device: torch.device, kfac: bool, **kfac_kw: Any) -> Trainer:
-    """The bench's LM, weights from seed 1, under K-FAC (the bench's
-    settings, ``kfac_kw`` over them) or plain SGD."""
+def lm_trainer(
+    cfg: dict, device: torch.device, kfac: bool, dtype: torch.dtype = torch.float32,
+    **kfac_kw: Any,
+) -> Trainer:
+    """The bench's LM computing in ``dtype``, weights from seed 1, under
+    K-FAC (the bench's settings, ``kfac_kw`` over them) or plain SGD."""
     model = TransformerLM(
         vocab_size=cfg['vocab'], d_model=cfg['d_model'], num_heads=NUM_HEADS,
-        num_layers=cfg['layers'], max_len=cfg['seq'], seed=1, device=device,
+        num_layers=cfg['layers'], max_len=cfg['seq'], seed=1, device=device, dtype=dtype,
     )
     engine = None
     if kfac:
@@ -507,11 +523,17 @@ def run_lm_stage(
     warmup: int = 5,
     iters: int = 100,
     scan_steps: int = 100,
+    dtype: torch.dtype | None = None,
+    probes: bool = True,
 ) -> dict[str, Any]:
-    """Measure SGD vs K-FAC LM throughput at one config; returns the record."""
+    """Measure SGD vs K-FAC LM throughput at one config in ``dtype`` (None:
+    :func:`default_dtype`); returns the record. ``probes=False`` leaves out
+    the fused-kernel, async spike and compression probes."""
     device = resolve_device(device)
     cfg = LM_CONFIGS[config_name]
     on_cuda = device.type == 'cuda'
+    dtype = default_dtype(device) if dtype is None else dtype
+    peak, peak_name = PEAK_FLOPS[dtype]
     result: dict[str, Any] = {
         'stage': f'lm_{config_name}',
         'platform': 'gpu' if on_cuda else 'cpu',
@@ -520,15 +542,20 @@ def run_lm_stage(
             f'{"gpu_lm" if on_cuda else "cpu_smoke"}_L{cfg["layers"]}_d{cfg["d_model"]}'
             f'_s{cfg["seq"]}_b{cfg["batch"]}_v{cfg["vocab"]}'
         ),
+        'dtype': str(dtype).removeprefix('torch.'),
         'window': dict(warmup=warmup, iters=iters, scan_steps=scan_steps),
     }
     batch = lm_batch(cfg, device)
     tokens = cfg['batch'] * cfg['seq']
 
-    t_sgd, sgd_loss = time_steps(lm_trainer(cfg, device, kfac=False), batch, warmup, iters)
-    kfac_trainer = lm_trainer(cfg, device, kfac=True)
+    t_sgd, sgd_loss = time_steps(
+        lm_trainer(cfg, device, kfac=False, dtype=dtype), batch, warmup, iters
+    )
+    kfac_trainer = lm_trainer(cfg, device, kfac=True, dtype=dtype)
     t_kfac, eager_loss = time_steps(kfac_trainer, batch, warmup, iters)
-    t_scan, scan_loss = time_scan(lm_trainer(cfg, device, kfac=True), batch, scan_steps)
+    t_scan, scan_loss = time_scan(
+        lm_trainer(cfg, device, kfac=True, dtype=dtype), batch, scan_steps
+    )
     n_params, flops = flops_per_step(kfac_trainer.model, cfg)
 
     # headline: the faster K-FAC stepping mode; both are recorded
@@ -543,11 +570,13 @@ def run_lm_stage(
         last_loss=dict(sgd=sgd_loss, eager=eager_loss, scan=scan_loss),
         n_params=n_params,
         flops_per_step=flops,
-        mfu=flops / t_best / F32_PEAK_FLOPS if on_cuda else None,
-        sgd_mfu=flops / t_sgd / F32_PEAK_FLOPS if on_cuda else None,
-        mfu_peak=F32_PEAK_NAME if on_cuda else None,
+        mfu=flops / t_best / peak if on_cuda else None,
+        sgd_mfu=flops / t_sgd / peak if on_cuda else None,
+        mfu_peak=peak_name if on_cuda else None,
         compute_method=kfac_trainer.kfac.compute_method.name,
     )
+    if not probes:
+        return result
     result['fused_kernel_probe'] = fused_kernel_probe(device)
     result['async_spike_probe'] = async_spike_probe(device)
     result['compression_probe'] = compression_probe(device)
@@ -561,11 +590,18 @@ def main(argv: list[str] | None = None) -> dict[str, Any]:
     parser.add_argument('--warmup', type=int, default=5)
     parser.add_argument('--iters', type=int, default=100)
     parser.add_argument('--scan-steps', type=int, default=100)
+    parser.add_argument(
+        '--dtype', choices=sorted(DTYPES), default=None,
+        help='the model\'s compute dtype (default: bf16 on cuda, f32 on the cpu)',
+    )
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
     if device.type == 'cuda':
         print(nvidia_smi(), flush=True)
-    record = run_lm_stage(args.config, device, args.warmup, args.iters, args.scan_steps)
+    record = run_lm_stage(
+        args.config, device, args.warmup, args.iters, args.scan_steps,
+        None if args.dtype is None else DTYPES[args.dtype],
+    )
     print(json.dumps(record), flush=True)
     return record
 

@@ -42,7 +42,7 @@ from typing import Any
 import torch
 import torch.nn as nn
 
-from kfac_tpu_torch.bench_lm import F32_PEAK_FLOPS, F32_PEAK_NAME, nvidia_smi
+from kfac_tpu_torch.bench_lm import PEAK_FLOPS, nvidia_smi
 from kfac_tpu_torch.device import resolve_device
 from kfac_tpu_torch.layers.registry import register_model
 from kfac_tpu_torch.models import layers as layers_lib
@@ -169,9 +169,9 @@ def run_resnet_stage(
         last_loss=dict(sgd=sgd_loss, kfac=kfac_loss),
         peak_memory_bytes=dict(sgd=sgd_peak, kfac=kfac_peak),
         flops_per_step=flops,
-        mfu=flops / t_kfac / F32_PEAK_FLOPS if on_cuda else None,
-        sgd_mfu=flops / t_sgd / F32_PEAK_FLOPS if on_cuda else None,
-        mfu_peak=F32_PEAK_NAME if on_cuda else None,
+        mfu=flops / t_kfac / PEAK_FLOPS[torch.float32][0] if on_cuda else None,
+        sgd_mfu=flops / t_sgd / PEAK_FLOPS[torch.float32][0] if on_cuda else None,
+        mfu_peak=PEAK_FLOPS[torch.float32][1] if on_cuda else None,
         compute_method=kfac_trainer.kfac.compute_method.name,
     )
     return result

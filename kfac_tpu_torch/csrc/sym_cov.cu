@@ -45,6 +45,25 @@
 //   atomics: the result is the same bit for bit on every run.
 // S comes from ops/sym_cov.py's plan().
 //
+// bf16 and f16 (sym_cov_mma16_kernel<T>): the TPU kernel takes `a` in any
+// dtype, accumulates a^T a in f32, divides by `scale` in f32 and rounds
+// once to a.dtype (pallas_cov.py:66-105); these forms compute that
+// function. The product of two bf16 or f16 values is exact in f32, so the
+// tensor cores take the values as they are (mma.sync m16n8k16, f32
+// accumulate): one product per element where f32 takes three, and half the
+// bytes. Bound at the flagship's (8192, 2049): 3.4e10 FLOP at the 989
+// TFLOP/s bf16/f16 peak, 0.035 ms, against 42 MB of input and 8.4 MB of
+// output (0.015 ms at 3.35 TB/s): bound by operations. Tiles, slabs,
+// stages, split and the two passes are the f32 form's; a slab row holds
+// the 16-byte copies from the boundary at or before a[row, i0] (8 values
+// of 16 bits each), padded to 88 values so that the fragment reads of a
+// warp (rows 2t and 2t + 1, column g) hit distinct banks. Fragments pack
+// two 16-bit shared loads into one register (A is a transposed read of
+// the slab). Each slab's products start from 0 and join the f32
+// accumulator in f32 adds, as in the f32 form. The epilogue divides by
+// `scale` in f32 and rounds to T to nearest (__float2bfloat16_rn,
+// __float2half_rn), once.
+//
 // sym_cov_ema runs the same kernels with the blend as a compile-time flag
 // (kBlend), so sym_cov's instantiation is the code it was without it. The
 // epilogue that writes an upper element (the main kernel's where S = 1,
@@ -55,6 +74,8 @@
 // F is mirrored element by element, where the TPU mirrors whole tiles; the
 // two agree because F is symmetric, which is the function's contract.
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -106,6 +127,22 @@ __device__ __forceinline__ float epilogue(float sum, float scale,
   return sum / scale;
 }
 
+// An f32 result in the output's type, rounded to nearest.
+template <typename T>
+__device__ __forceinline__ T to_out(float v);
+template <>
+__device__ __forceinline__ float to_out<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 to_out<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+template <>
+__device__ __forceinline__ __half to_out<__half>(float v) {
+  return __float2half_rn(v);
+}
+
 // 16 bytes from global to shared; the `valid` floats after src are copied
 // and the rest zero-filled.
 __device__ __forceinline__ void cp_async16(float* dst, const float* src,
@@ -113,6 +150,14 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(src), "r"(4 * valid));
+}
+
+// The same copy of 16-bit values: `bytes` of the 16 are copied.
+__device__ __forceinline__ void cp_async16_bytes(void* dst, const void* src,
+                                                 int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -316,9 +361,9 @@ sym_cov_tc_kernel(const float* __restrict__ a, float* __restrict__ out, int n,
 // the sum over slices in slice order, / scale (with kBlend, blended into
 // F), written to both halves. Grid: x over pairs, y over kTile * kTile / 256
 // elements of a tile.
-template <bool kBlend>
+template <bool kBlend, typename T>
 __global__ void __launch_bounds__(256)
-sym_cov_reduce_kernel(const float* __restrict__ part, float* __restrict__ c,
+sym_cov_reduce_kernel(const float* __restrict__ part, T* __restrict__ c,
                       int d, float scale, int nblk, int splits, Blend blend) {
   int bi, bj;
   pair_of(blockIdx.x, nblk, bi, bj);
@@ -332,7 +377,7 @@ sym_cov_reduce_kernel(const float* __restrict__ part, float* __restrict__ c,
   float sum = 0.f;
   for (int s = 0; s < splits; ++s) sum += p[s * stride];
   const size_t ij = static_cast<size_t>(gi) * d + gj;
-  const float v = epilogue<kBlend>(sum, scale, blend, ij);
+  const T v = to_out<T>(epilogue<kBlend>(sum, scale, blend, ij));
   c[ij] = v;
   c[static_cast<size_t>(gj) * d + gi] = v;
 }
@@ -368,9 +413,218 @@ int launch(const float* a, float* c, float* part, int n, int d, float scale,
           blend);
   err = cudaGetLastError();
   if (err != cudaSuccess || direct) return static_cast<int>(err);
-  sym_cov_reduce_kernel<kBlend>
+  sym_cov_reduce_kernel<kBlend, float>
       <<<dim3(pairs, kTile * kTile / 256), 256, 0, stream>>>(
           part, c, d, scale, nblk, splits, blend);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------- sym_cov, bf16 and f16: mma.sync
+
+constexpr int kVec16 = 8;                // 16-bit values a 16-byte copy
+constexpr int kLd16 = kTile + 24;        // slab row: 72 copied values + pad
+constexpr int kStage16 = 2 * kSlab * kLd16;
+constexpr int kSmemBytes16 = kStages * kStage16 * 2;
+
+template <typename T>
+struct Mma16;
+template <>
+struct Mma16<__nv_bfloat16> {
+  static __device__ __forceinline__ void run(float (&c)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+};
+template <>
+struct Mma16<__half> {
+  static __device__ __forceinline__ void run(float (&c)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+};
+
+// Two 16-bit values as one mma register, the first in the low half.
+__device__ __forceinline__ uint32_t pack16(uint16_t lo, uint16_t hi) {
+  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
+}
+
+// sym_cov_tc_kernel's tile of a bf16 or f16 `a` (T): the same grid, slabs,
+// ring and outputs (direct: C = acc / scale rounded to T; else raw f32
+// sums to `part`). A slab row of `row` holds the kTile + 8 values from the
+// 16-byte boundary at or before a[row, i0]: column i0 + c sits at slot
+// c + shift(row), shift(row) = (flat index of a[row, 0] + a's offset from a
+// 16-byte boundary, in values) % 8.
+template <typename T>
+__global__ void __launch_bounds__(kTcThreads)
+sym_cov_mma16_kernel(const T* __restrict__ a, T* __restrict__ out,
+                     float* __restrict__ part_out, int n, int d, float scale,
+                     int nblk, int rows_per_split, int direct) {
+  extern __shared__ __align__(16) uint16_t smem16[];
+  int bi, bj;
+  pair_of(blockIdx.x, nblk, bi, bj);
+  const int i0 = bi * kTile;
+  const int j0 = bj * kTile;
+  const bool diag = bi == bj;
+  const int r_begin = blockIdx.y * rows_per_split;
+  const int r_end = min(n, r_begin + rows_per_split);
+  const int nslab = (r_end - r_begin + kSlab - 1) / kSlab;
+  const int s0 = static_cast<int>(reinterpret_cast<uintptr_t>(a) % 16) / 2;
+  const T* a16 = a - s0;  // 16-byte aligned
+  const long long total = static_cast<long long>(n) * d;
+  auto shift = [&](int row) { return ((row & 7) * (d & 7) + s0) & 7; };
+  auto inside = [&](long long f) {
+    return static_cast<int>(max(0LL, min(8LL, total - f)));
+  };
+
+  auto load = [&](int slab, int stage) {
+    uint16_t* si = smem16 + stage * kStage16;
+    uint16_t* sj = si + kSlab * kLd16;
+    const int row0 = r_begin + slab * kSlab;
+    constexpr int kPerRow = kTile / kVec16 + 1;
+#pragma unroll
+    for (int e = threadIdx.x; e < kSlab * kPerRow; e += kTcThreads) {
+      const int kk = e / kPerRow;
+      const int c = kVec16 * (e % kPerRow);
+      const int row = row0 + kk;
+      const long long f = static_cast<long long>(row) * d - shift(row) + c;
+      const bool in_row = row < r_end;
+      const int vi = in_row ? inside(f + i0) : 0;
+      cp_async16_bytes(si + kk * kLd16 + c, vi ? a + f + i0 : a16, 2 * vi);
+      if (!diag) {
+        const int vj = in_row ? inside(f + j0) : 0;
+        cp_async16_bytes(sj + kk * kLd16 + c, vj ? a + f + j0 : a16, 2 * vj);
+      }
+    }
+  };
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wm = (warp / kWarpsN) * kWarp;
+  const int wn = (warp % kWarpsN) * kWarp;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  float acc[kMt][kNt][4];
+#pragma unroll
+  for (int mi = 0; mi < kMt; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < kNt; ++ni)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nslab) load(s, s);
+    cp_async_commit();
+  }
+  for (int slab = 0; slab < nslab; ++slab) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    const int next = slab + kStages - 1;
+    if (next < nslab) load(next, next % kStages);
+    cp_async_commit();
+    const uint16_t* si = smem16 + (slab % kStages) * kStage16;
+    const uint16_t* sj = diag ? si : si + kSlab * kLd16;
+    const int row0 = r_begin + slab * kSlab;
+    float slab_sum[kMt][kNt][4];
+#pragma unroll
+    for (int mi = 0; mi < kMt; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < kNt; ++ni)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) slab_sum[mi][ni][r] = 0.f;
+#pragma unroll
+    for (int k16 = 0; k16 < kSlab; k16 += 16) {
+      // A[m][k] = si[k][m], B[k][n] = sj[k][n]; a lane reads k = 2t, 2t + 1
+      // (o[0], o[1]) and 2t + 8, 2t + 9 (o[2], o[3]) of the step.
+      int o[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int k = k16 + 2 * t + (q & 1) + 8 * (q >> 1);
+        o[q] = k * kLd16 + shift(row0 + k);
+      }
+      uint32_t af[kMt][4];
+#pragma unroll
+      for (int mi = 0; mi < kMt; ++mi) {
+        const int m = wm + mi * 16 + g;
+        af[mi][0] = pack16(si[o[0] + m], si[o[1] + m]);
+        af[mi][1] = pack16(si[o[0] + m + 8], si[o[1] + m + 8]);
+        af[mi][2] = pack16(si[o[2] + m], si[o[3] + m]);
+        af[mi][3] = pack16(si[o[2] + m + 8], si[o[3] + m + 8]);
+      }
+#pragma unroll
+      for (int ni = 0; ni < kNt; ++ni) {
+        const int c = wn + ni * 8 + g;
+        const uint32_t b0 = pack16(sj[o[0] + c], sj[o[1] + c]);
+        const uint32_t b1 = pack16(sj[o[2] + c], sj[o[3] + c]);
+#pragma unroll
+        for (int mi = 0; mi < kMt; ++mi)
+          Mma16<T>::run(slab_sum[mi][ni], af[mi], b0, b1);
+      }
+    }
+#pragma unroll
+    for (int mi = 0; mi < kMt; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < kNt; ++ni)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[mi][ni][r] += slab_sum[mi][ni][r];
+  }
+  cp_async_wait<0>();
+
+  float* part = part_out + static_cast<size_t>(blockIdx.y * gridDim.x + blockIdx.x) *
+                               (kTile * kTile);
+#pragma unroll
+  for (int mi = 0; mi < kMt; ++mi) {
+#pragma unroll
+    for (int ni = 0; ni < kNt; ++ni) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int m = wm + mi * 16 + g + 8 * (r / 2);
+        const int c = wn + ni * 8 + 2 * t + r % 2;
+        if (!direct) {
+          part[m * kTile + c] = acc[mi][ni][r];
+          continue;
+        }
+        const int gi = i0 + m;
+        const int gj = j0 + c;
+        if (gi < d && gj < d && (!diag || gi <= gj)) {
+          const T v = to_out<T>(acc[mi][ni][r] / scale);
+          out[static_cast<size_t>(gi) * d + gj] = v;
+          out[static_cast<size_t>(gj) * d + gi] = v;
+        }
+      }
+    }
+  }
+}
+
+// Both passes of the 16-bit sym_cov; `part` holds the f32 partials.
+template <typename T>
+int launch16(const T* a, T* c, float* part, int n, int d, float scale,
+             int splits, int rows_per_split, cudaStream_t stream) {
+  if (splits < 1 || rows_per_split % kSlab != 0 ||
+      (splits > 1 && part == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int nblk = (d + kTile - 1) / kTile;
+  const int pairs = nblk * (nblk + 1) / 2;
+  const bool direct = splits == 1;
+  sym_cov_mma16_kernel<T>
+      <<<dim3(pairs, splits), kTcThreads, kSmemBytes16, stream>>>(
+          a, c, part, n, d, scale, nblk, rows_per_split, direct);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || direct) return static_cast<int>(err);
+  sym_cov_reduce_kernel<false, T>
+      <<<dim3(pairs, kTile * kTile / 256), 256, 0, stream>>>(
+          part, c, d, scale, nblk, splits, Blend{nullptr, 0.f, 0.f});
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -398,6 +652,22 @@ int sym_cov_ema_f32(const float* a, const float* f, float* c, float* part,
                     int rows_per_split, cudaStream_t stream) {
   return launch<true>(a, c, part, n, d, 1.f, Blend{f, beta, coeff}, splits,
                       rows_per_split, stream);
+}
+
+// c = a^T a / scale of a bf16 (N, D) `a` into bf16 `c`: the f32 sum
+// divided in f32 and rounded once. Splits and scratch (f32) as
+// sym_cov_f32. Returns cudaGetLastError() after the launches.
+int sym_cov_bf16(const __nv_bfloat16* a, __nv_bfloat16* c, float* part, int n,
+                 int d, float scale, int splits, int rows_per_split,
+                 cudaStream_t stream) {
+  return launch16(a, c, part, n, d, scale, splits, rows_per_split, stream);
+}
+
+// The same for f16.
+int sym_cov_f16(const __half* a, __half* c, float* part, int n, int d,
+                float scale, int splits, int rows_per_split,
+                cudaStream_t stream) {
+  return launch16(a, c, part, n, d, scale, splits, rows_per_split, stream);
 }
 
 const char* kfac_error_string(int code) {

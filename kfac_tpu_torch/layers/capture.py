@@ -66,6 +66,15 @@ class CapturedStats:
     w: dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
     wg: dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
+    def scaled(self, grad_scale: torch.Tensor | float) -> 'CapturedStats':
+        """The statistics of a scaled loss, unscaled (AMP loss scaling): G
+        is quadratic in the cotangents, so it divides by
+        ``grad_scale**2``; A and the weights stay as they are."""
+        s2 = grad_scale**2
+        return CapturedStats(
+            a=self.a, g={n: v / s2 for n, v in self.g.items()}, w=self.w, wg=self.wg,
+        )
+
 
 def weighted_average(
     sums: dict[str, torch.Tensor],

@@ -25,10 +25,13 @@ from kfac_tpu_torch.ops import cov
 class LayerHelper:
     """What every helper gives the engines. ``name`` is the registry name
     (module path joined with '/'); ``has_bias`` whether a bias column is
-    folded into the A factor and the grad matrix."""
+    folded into the A factor and the grad matrix; ``factor_dtype`` the
+    dtype the layer's inputs and cotangents are cast to before their
+    covariances, which come out in it (the JAX helpers' field)."""
 
     name: str
     has_bias: bool
+    factor_dtype: torch.dtype = dataclasses.field(default=torch.float32, kw_only=True)
 
     @property
     def a_factor_shape(self) -> tuple[int, int]:
@@ -109,13 +112,13 @@ class DenseHelper(LayerHelper):
 
     def get_a_factor(self, a: torch.Tensor) -> torch.Tensor:
         if self.routed:
-            return cov.routed_linear_a_factor(a, self.has_bias)
-        return cov.linear_a_factor(a, self.has_bias)
+            return cov.routed_linear_a_factor(a, self.has_bias, self.factor_dtype)
+        return cov.linear_a_factor(a, self.has_bias, self.factor_dtype)
 
     def get_g_factor(self, g: torch.Tensor) -> torch.Tensor:
         if self.routed:
-            return cov.routed_linear_g_factor(g)
-        return cov.linear_g_factor(g)
+            return cov.routed_linear_g_factor(g, self.factor_dtype)
+        return cov.linear_g_factor(g, self.factor_dtype)
 
     @property
     def weighted(self) -> bool:
@@ -127,10 +130,12 @@ class DenseHelper(LayerHelper):
     def g_factor_for_sum(self, g: torch.Tensor) -> torch.Tensor:
         # the routed G times its live fraction is the plain total-rows
         # normalization: g^T g / n * (n / rows) = g^T g / rows
-        return cov.linear_g_factor(g) if self.routed else self.get_g_factor(g)
+        if self.routed:
+            return cov.linear_g_factor(g, self.factor_dtype)
+        return self.get_g_factor(g)
 
     def g_capture_weight(self, g: torch.Tensor) -> torch.Tensor | None:
-        return cov.routed_live_fraction(g) if self.routed else None
+        return cov.routed_live_fraction(g).to(self.factor_dtype) if self.routed else None
 
     def grads_to_matrix(self, grads: dict[str, torch.Tensor]) -> torch.Tensor:
         mat = grads['weight']
@@ -172,11 +177,12 @@ class Conv2dHelper(LayerHelper):
 
     def get_a_factor(self, a: torch.Tensor) -> torch.Tensor:
         return cov.conv2d_a_factor(
-            a, self.kernel_size, self.strides, self.padding, self.has_bias
+            a, self.kernel_size, self.strides, self.padding, self.has_bias,
+            self.factor_dtype,
         )
 
     def get_g_factor(self, g: torch.Tensor) -> torch.Tensor:
-        return cov.conv2d_g_factor(g)
+        return cov.conv2d_g_factor(g, self.factor_dtype)
 
     def grads_to_matrix(self, grads: dict[str, torch.Tensor]) -> torch.Tensor:
         mat = grads['weight'].reshape(self.out_channels, -1)
@@ -243,12 +249,12 @@ class LoRAHelper(LayerHelper):
     def role_a_factor(self, role: str, a: torch.Tensor) -> torch.Tensor:
         """The role's A block, embedded (``down``: the unit's input;
         ``up``: ``down``'s output)."""
-        fac = cov.linear_a_factor(a, has_bias=False)
+        fac = cov.linear_a_factor(a, has_bias=False, dtype=self.factor_dtype)
         return self._embed(fac, self.a_factor_shape[0], 0 if role == 'down' else self.in_features)
 
     def role_g_factor(self, role: str, g: torch.Tensor) -> torch.Tensor:
         """The role's routed G block, embedded."""
-        fac = cov.routed_linear_g_factor(g)
+        fac = cov.routed_linear_g_factor(g, self.factor_dtype)
         return self._embed(fac, self.g_factor_shape[0], 0 if role == 'down' else self.rank)
 
     def get_a_factor(self, a: torch.Tensor) -> torch.Tensor:

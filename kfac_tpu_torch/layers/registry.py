@@ -71,17 +71,20 @@ def _conv_padding(module: nn.Conv2d) -> Any:
     return ((ph, ph), (pw, pw))
 
 
-def make_helper(module: nn.Module, name: str) -> helpers.LayerHelper | None:
+def make_helper(
+    module: nn.Module, name: str, factor_dtype: torch.dtype = torch.float32
+) -> helpers.LayerHelper | None:
     """A helper for a supported module, else None. As the JAX package, it
     leaves out grouped and dilated convolutions, and those whose padding
     its patches cannot reproduce; ``nn.Conv1d`` and ``nn.Conv3d`` are not
-    2-D."""
+    2-D. ``factor_dtype`` is the helper's."""
     if isinstance(module, nn.Linear):
         return helpers.DenseHelper(
             name=name,
             has_bias=module.bias is not None,
             in_features=module.in_features,
             out_features=module.out_features,
+            factor_dtype=factor_dtype,
         )
     if isinstance(module, nn.Conv2d):
         padding = _conv_padding(module)
@@ -95,6 +98,7 @@ def make_helper(module: nn.Module, name: str) -> helpers.LayerHelper | None:
             kernel_size=tuple(module.kernel_size),
             strides=tuple(module.stride),
             padding=padding,
+            factor_dtype=factor_dtype,
         )
     return None
 
@@ -198,6 +202,7 @@ def register_model(
     device: str | torch.device = 'cuda',
     mask: Any = None,
     routed_layers: list[str] | None = None,
+    factor_dtype: torch.dtype = torch.float32,
 ) -> Registry:
     """Walk ``model`` and return its K-FAC registry.
 
@@ -220,6 +225,10 @@ def register_model(
     (:class:`~kfac_tpu_torch.layers.helpers.LoRAHelper`); its ``down`` and
     ``up`` children capture for it (``Registry.taps``), and no module under
     it registers on its own.
+
+    ``factor_dtype`` is every helper's (the dtype of the capture's
+    covariances; the engines store their factors in their own
+    ``factor_dtype``).
     """
     device = resolve_device(device)
     for p in model.parameters():
@@ -247,6 +256,7 @@ def register_model(
             layers[name] = helpers.LoRAHelper(
                 name=name, has_bias=False, in_features=mod.down.in_features,
                 rank=int(mod.rank), out_features=int(mod.features),
+                factor_dtype=factor_dtype,
             )
             modules[name] = mod
             param_paths[name] = prefix
@@ -254,7 +264,7 @@ def register_model(
                 taps[f'{name}/{role}'] = (name, role)
             units.append(prefix)
             continue
-        helper = make_helper(mod, name)
+        helper = make_helper(mod, name, factor_dtype)
         if helper is not None:
             if any_match(name, routed_patterns):
                 if not isinstance(helper, helpers.DenseHelper):

@@ -1,6 +1,12 @@
-"""Flax's convolution padding and BatchNorm, in PyTorch (the building
-blocks of ``models/resnet.py`` and of the accuracy gate's CNN).
+"""Flax's convolution padding and BatchNorm, and its compute ``dtype`` of
+dense and conv layers, in PyTorch (the building blocks of
+``models/resnet.py``, of the accuracy gate's CNN and of the reduced-precision
+models).
 
+- :class:`CastLinear` is ``nn.Linear`` computing in ``dtype``, as flax's
+  ``nn.Dense(dtype=...)`` with f32 parameters: the parameters stay the f32
+  masters, the input and the parameters are cast to ``dtype``, the product
+  is rounded to it and the bias added in it.
 - :class:`SameConv2d` pads by flax's SAME rule (``ops.cov.same_padding``),
   which is asymmetric under stride 2: a 3x3 stride-2 conv on 32 px pads
   (0, 1), where ``nn.Conv2d(padding=1)`` pads (1, 1).
@@ -23,10 +29,39 @@ import torch.nn.functional as F
 from kfac_tpu_torch.ops import cov
 
 
+class CastLinear(nn.Linear):
+    """``nn.Linear`` computing in ``dtype`` (flax's ``nn.Dense(dtype=...)``
+    with f32 parameters): ``x @ W.T`` of the input and weight cast to
+    ``dtype``, rounded to it, then the bias in ``dtype`` added. The
+    registry takes it as any ``nn.Linear``; the capture sees its input as
+    the caller gave it and the cotangent of its ``dtype`` output, as the
+    JAX capture does."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        y = x.to(dt) @ self.weight.to(dt).T
+        return y if self.bias is None else y + self.bias.to(dt)
+
+
+def dense_layer(dtype: torch.dtype):
+    """The dense layer class of a model computing in ``dtype``: plain
+    ``nn.Linear`` in f32, else :class:`CastLinear` in ``dtype``."""
+    if dtype == torch.float32:
+        return nn.Linear
+    return lambda *args, **kwargs: CastLinear(*args, **kwargs, dtype=dtype)
+
+
 class SameConv2d(nn.Conv2d):
     """``nn.Conv2d`` with flax's SAME zero padding, resolved on each
     input's spatial size; the registry pairs it with a ``Conv2dHelper``
-    whose patches pad the same way."""
+    whose patches pad the same way. With ``dtype`` it computes in it, as
+    flax's ``nn.Conv(dtype=...)``: input, kernel and bias cast, f32
+    parameters kept."""
 
     def __init__(
         self,
@@ -35,12 +70,18 @@ class SameConv2d(nn.Conv2d):
         kernel_size: int | tuple[int, int],
         stride: int | tuple[int, int] = 1,
         bias: bool = True,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__(in_channels, out_channels, kernel_size, stride=stride, padding=0, bias=bias)
+        self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         (t, b), (l, r) = cov.same_padding(x.shape[-2:], self.kernel_size, self.stride)
-        return self._conv_forward(F.pad(x, (l, r, t, b)), self.weight, self.bias)
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            return self._conv_forward(F.pad(x, (l, r, t, b)), self.weight, self.bias)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(F.pad(x.to(dt), (l, r, t, b)), self.weight.to(dt), bias)
 
 
 class BatchStats:

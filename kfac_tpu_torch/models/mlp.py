@@ -14,6 +14,7 @@ import torch
 import torch.nn as nn
 
 from kfac_tpu_torch.device import resolve_device
+from kfac_tpu_torch.models import layers as layers_lib
 
 
 class MLP(nn.Module):
@@ -24,7 +25,9 @@ class MLP(nn.Module):
     ``init``). Parameters are drawn on the CPU from
     ``torch.Generator().manual_seed(seed)`` with flax's defaults
     (LeCun-normal kernels, zero biases), then moved to ``device``
-    (``'cuda'`` unless the caller passes another).
+    (``'cuda'`` unless the caller passes another). ``dtype`` is the dense
+    layers' compute dtype (``models.layers.CastLinear`` off f32); the
+    logits come out in it.
     """
 
     def __init__(
@@ -34,15 +37,17 @@ class MLP(nn.Module):
         num_classes: int = 10,
         seed: int = 0,
         device: str | torch.device = 'cuda',
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         device = resolve_device(device)
         self.num_hidden = len(features)
+        linear = layers_lib.dense_layer(dtype)
         width = in_features
         for i, f in enumerate(features):
-            self.add_module(f'dense{i}', nn.Linear(width, f))
+            self.add_module(f'dense{i}', linear(width, f))
             width = f
-        self.head = nn.Linear(width, num_classes)
+        self.head = linear(width, num_classes)
         self.reset_parameters(torch.Generator().manual_seed(seed))
         self.to(device)
 

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from kfac_tpu_torch.device import resolve_device
 from kfac_tpu_torch.models import attention as attention_lib
+from kfac_tpu_torch.models import layers as layers_lib
 from kfac_tpu_torch.models import moe as moe_lib
 from kfac_tpu_torch.ops import losses
 
@@ -43,14 +44,16 @@ class CausalSelfAttention(nn.Module):
     def __init__(
         self, d_model: int, num_heads: int, ring_mesh: Any = None,
         ring_axis: str | None = None, zigzag: bool = False,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.num_heads = num_heads
         self.head_dim = d_model // num_heads
-        self.q_proj = nn.Linear(d_model, d_model)
-        self.k_proj = nn.Linear(d_model, d_model)
-        self.v_proj = nn.Linear(d_model, d_model)
-        self.out_proj = nn.Linear(d_model, d_model)
+        linear = layers_lib.dense_layer(dtype)
+        self.q_proj = linear(d_model, d_model)
+        self.k_proj = linear(d_model, d_model)
+        self.v_proj = linear(d_model, d_model)
+        self.out_proj = linear(d_model, d_model)
         self.attend = attention_lib.dense_causal_attention
         if ring_axis is not None:
             self.attend = attention_lib.make_context_parallel_attention(
@@ -89,20 +92,23 @@ class Block(nn.Module):
         ring_mesh: Any = None,
         ring_axis: str | None = None,
         zigzag: bool = False,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.ln1 = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.attn = CausalSelfAttention(d_model, num_heads, ring_mesh, ring_axis, zigzag)
+        self.attn = CausalSelfAttention(d_model, num_heads, ring_mesh, ring_axis, zigzag, dtype)
         self.ln2 = nn.LayerNorm(d_model, eps=LN_EPS)
         if num_experts > 0:
             self.moe = moe_lib.MoEMLP(d_model, num_experts, mlp_ratio, moe_capacity_factor)
         else:
-            self.mlp_up = nn.Linear(d_model, mlp_ratio * d_model)
-            self.mlp_down = nn.Linear(mlp_ratio * d_model, d_model)
+            linear = layers_lib.dense_layer(dtype)
+            self.mlp_up = linear(d_model, mlp_ratio * d_model)
+            self.mlp_down = linear(mlp_ratio * d_model, d_model)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x))
-        y = self.ln2(x)
+        # the LayerNorms compute in f32, as flax's LayerNorm(dtype=f32)
+        x = x + self.attn(self.ln1(x.float()))
+        y = self.ln2(x.float())
         if hasattr(self, 'moe'):
             return x + self.moe(y)
         h = F.gelu(self.mlp_up(y), approximate='tanh')
@@ -125,6 +131,9 @@ class TransformerLM(nn.Module):
     ``ring_mesh`` and ``ring_axis`` (``'seq'``) run the ring attention of
     the grid's sequence shards (the module docstring); ``zigzag`` (None:
     the grid's layout) must match the grid's sequence layout.
+
+    ``dtype`` (f32, bf16 or f16) is the compute dtype of the blocks (the
+    module docstring); MoE blocks and the ring forms run in f32 only.
     """
 
     def __init__(
@@ -143,9 +152,16 @@ class TransformerLM(nn.Module):
         ring_mesh: Any = None,
         ring_axis: str | None = None,
         zigzag: bool | None = None,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         device = resolve_device(device)
+        if dtype != torch.float32 and (num_experts > 0 or ring_axis is not None):
+            raise NotImplementedError(
+                f'TransformerLM(dtype={dtype}) with MoE blocks or ring attention is not '
+                'ported to kfac_tpu_torch yet'
+            )
+        self.dtype = dtype
         self.num_layers = num_layers
         if zigzag is None:
             zigzag = bool(getattr(ring_mesh, 'zigzag', False))
@@ -157,7 +173,7 @@ class TransformerLM(nn.Module):
             is_moe = num_experts > 0 and moe_every > 0 and (i + 1) % moe_every == 0
             self.add_module(f'block{i}', Block(
                 d_model, num_heads, mlp_ratio, num_experts if is_moe else 0,
-                moe_capacity_factor, ring_mesh, ring_axis, zigzag,
+                moe_capacity_factor, ring_mesh, ring_axis, zigzag, dtype,
             ))
         self.ln_f = nn.LayerNorm(d_model, eps=LN_EPS)
         self.lm_head = nn.Linear(d_model, vocab_size, bias=False)
@@ -192,7 +208,7 @@ class TransformerLM(nn.Module):
         return mesh.take_seq(self.pos_embed[:seq * mesh.seq], dim=0)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = self.embed(tokens) + self.position_embedding(tokens.shape[-1])
+        x = (self.embed(tokens) + self.position_embedding(tokens.shape[-1])).to(self.dtype)
         for i in range(self.num_layers):
             x = getattr(self, f'block{i}')(x)
         x = self.ln_f(x.float())

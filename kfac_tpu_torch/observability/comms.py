@@ -16,7 +16,9 @@ flows its step runs:
   the class dims, and whole slots rounding a stack to the world.
 
 Bytes are global logical bytes a flow moves per occurrence, as in the JAX
-package. The port keeps its state in f32, so every dtype is f32. With
+package: factors (the stat transport, the padding, a spill) at the
+engine's ``factor_dtype``, decompositions and preconditioned stacks (the
+reshard, the gradient broadcast) at its ``inv_dtype``. With
 ``stat_compression`` the stat transport's ``wire_bytes`` is the quantized
 payload and its f32 scales (the JAX package's static figure), and
 ``collectives`` lists what the port's compressed transport runs per chunk
@@ -30,6 +32,8 @@ from __future__ import annotations
 
 from typing import Any
 
+import torch
+
 from kfac_tpu_torch import enums
 from kfac_tpu_torch.compression import quant as quant_lib
 from kfac_tpu_torch.parallel import collectives
@@ -37,15 +41,24 @@ from kfac_tpu_torch.parallel import collectives
 F32_BYTES = 4
 
 
+def _itemsize(dtype: torch.dtype) -> int:
+    return dtype.itemsize
+
+
+def _name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix('torch.')
+
+
 def padding_report(engine: Any) -> dict[str, dict[str, Any]]:
     """Resident against padding bytes of each A and G store, keyed
     ``'a/<key>'`` / ``'g/<key>'``."""
+    item = _itemsize(engine.config.factor_dtype)
     out: dict[str, dict[str, Any]] = {}
     for side, store in (('a', engine.a_store), ('g', engine.g_store)):
         for sb in store:
-            resident = sum(d * d for d in sb.dims) * F32_BYTES
-            layer_slots = len(sb.layers) * sb.d * sb.d * F32_BYTES
-            total = sb.padded * sb.d * sb.d * F32_BYTES
+            resident = sum(d * d for d in sb.dims) * item
+            layer_slots = len(sb.layers) * sb.d * sb.d * item
+            total = sb.padded * sb.d * sb.d * item
             out[f'{side}/{sb.key}'] = {
                 'layers': len(sb.layers),
                 'slots': sb.padded,
@@ -66,22 +79,23 @@ def transport_report(engine: Any) -> dict[str, Any]:
     (``ALLREDUCE_BUCKETED``; ``savings`` against shipping them dense)."""
     cfg = engine.config
     stores = (engine.a_store, engine.g_store)
+    item = _itemsize(cfg.factor_dtype)
     if cfg.allreduce_method != enums.AllreduceMethod.ALLREDUCE_BUCKETED:
-        dense = sum(d * d for store in stores for sb in store for d in sb.dims) * F32_BYTES
+        dense = sum(d * d for store in stores for sb in store for d in sb.dims) * item
         return {
             'method': 'ALLREDUCE',
             'collectives': sum(len(sb.layers) for store in stores for sb in store),
             'bytes': dense,
             'raw_bytes': dense,
             'wire_bytes': dense,
-            'wire_dtype': 'float32',
+            'wire_dtype': _name(cfg.factor_dtype),
             'dense_bytes': dense,
             'savings': 0.0,
             'compression': None,
             'chunks': [],
         }
     specs = [
-        (sb.d * (sb.d + 1) // 2, 'float32')
+        (sb.d * (sb.d + 1) // 2, cfg.factor_dtype)
         for store in stores for sb in store for _ in sb.layers
     ]
     cap = cfg.allreduce_bucket_cap_mb
@@ -97,14 +111,14 @@ def transport_report(engine: Any) -> dict[str, Any]:
         chunks.append(entry)
     raw = sum(c['raw_bytes'] for c in chunks)
     wire = sum(c['wire_bytes'] for c in chunks)
-    dense = sum(sb.d * sb.d * len(sb.layers) for store in stores for sb in store) * F32_BYTES
+    dense = sum(sb.d * sb.d * len(sb.layers) for store in stores for sb in store) * item
     out = {
         'method': 'ALLREDUCE_BUCKETED',
         'collectives': len(chunks),
         'bytes': wire,
         'raw_bytes': raw,
         'wire_bytes': wire,
-        'wire_dtype': 'float32' if ccfg is None else ccfg.dtype,
+        'wire_dtype': _name(cfg.factor_dtype) if ccfg is None else ccfg.dtype,
         'dense_bytes': dense,
         'savings': 1.0 - wire / dense if dense else 0.0,
         'compression': None if ccfg is None else {
@@ -146,21 +160,21 @@ def port_collectives(engine: Any) -> dict[str, Any]:
 
 def grad_broadcast_bytes(engine: Any) -> int:
     """Bytes of the per-step gradient broadcast: every pair bucket's
-    (padded, dg, da) preconditioned stack."""
-    return sum(b.padded * b.dg * b.da for b in engine.buckets) * F32_BYTES
+    (padded, dg, da) preconditioned stack, at ``inv_dtype``."""
+    return sum(b.padded * b.dg * b.da for b in engine.buckets) * _itemsize(engine.config.inv_dtype)
 
 
 def decomp_reshard_bytes(engine: Any) -> int:
     """Bytes of the refresh's decomposition reshard: eigenvector stacks and
     eigenvalues (EIGEN), eigenvector stacks and fused eigenvalue grids
-    (prediv), or inverse stacks (INVERSE)."""
+    (prediv), or inverse stacks (INVERSE), at ``inv_dtype``."""
     stores = (engine.a_store, engine.g_store)
     total = sum(sb.padded * sb.d * sb.d for store in stores for sb in store)
     if engine._prediv:
         total += sum(b.padded * b.dg * b.da for b in engine.buckets)
     elif engine._eigen:
         total += sum(sb.padded * sb.d for store in stores for sb in store)
-    return total * F32_BYTES
+    return total * _itemsize(engine.config.inv_dtype)
 
 
 def comms_summary(engine: Any) -> dict[str, Any]:
@@ -173,7 +187,7 @@ def comms_summary(engine: Any) -> dict[str, Any]:
         'prefetch_lead': int(ocfg.prefetch_lead),
         # the factor stacks' global bytes a spill moves to the host
         'spill_bytes': sum(
-            sb.padded * sb.d * sb.d * F32_BYTES
+            sb.padded * sb.d * sb.d * _itemsize(engine.config.factor_dtype)
             for store in (engine.a_store, engine.g_store) for sb in store
         ),
     }

@@ -117,6 +117,20 @@ def other_library(name: str, source: Path) -> ctypes.CDLL:
     return ctypes.CDLL(str(out))
 
 
+def count(wrapper, dtype) -> None:
+    """One launch of ``wrapper``'s kernel in its ``dtype`` form: adds one to
+    ``wrapper.launches`` (every form) and to
+    ``wrapper.launches_by_dtype[dtype]``."""
+    wrapper.launches += 1
+    wrapper.launches_by_dtype[dtype] = wrapper.launches_by_dtype.get(dtype, 0) + 1
+
+
+def reset_counts(wrapper) -> None:
+    """Set ``wrapper``'s launch counts, of every form, to 0."""
+    wrapper.launches = 0
+    wrapper.launches_by_dtype = {}
+
+
 def check(name: str, code: int) -> None:
     """Raise if a launcher returned a nonzero CUDA error code."""
     if code != 0:

@@ -49,18 +49,27 @@ def get_cov(
     return a.T @ (b / scale)
 
 
-def linear_a_factor(a: torch.Tensor, has_bias: bool) -> torch.Tensor:
+def _cast(x: torch.Tensor, dtype: torch.dtype | None) -> torch.Tensor:
+    return x if dtype is None else x.to(dtype)
+
+
+def linear_a_factor(
+    a: torch.Tensor, has_bias: bool, dtype: torch.dtype | None = None
+) -> torch.Tensor:
     """A factor of a dense layer from its input: rows are the flattened
-    leading dims, with a bias column of ones."""
-    a = a.reshape(-1, a.shape[-1])
+    leading dims, with a bias column of ones. With ``dtype`` the input is
+    cast to it first, so the covariance is computed and returned in it (the
+    helpers' ``factor_dtype``), as in the JAX package."""
+    a = _cast(a, dtype).reshape(-1, a.shape[-1])
     if has_bias:
         a = append_bias_ones(a)
     return get_cov(a)
 
 
-def linear_g_factor(g: torch.Tensor) -> torch.Tensor:
-    """G factor of a dense layer from the loss gradient w.r.t. its output."""
-    g = g.reshape(-1, g.shape[-1])
+def linear_g_factor(g: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """G factor of a dense layer from the loss gradient w.r.t. its output
+    (cast to ``dtype`` first, when given)."""
+    g = _cast(g, dtype).reshape(-1, g.shape[-1])
     return get_cov(g)
 
 
@@ -71,7 +80,9 @@ def live_rows(x: torch.Tensor) -> torch.Tensor:
     return (torch.amax(torch.abs(x), dim=-1) > 0).to(x.dtype)
 
 
-def routed_linear_a_factor(a: torch.Tensor, has_bias: bool) -> torch.Tensor:
+def routed_linear_a_factor(
+    a: torch.Tensor, has_bias: bool, dtype: torch.dtype | None = None
+) -> torch.Tensor:
     """A factor of a row-masked (MoE-routed) dense layer over its live rows
     only: the bias one goes on live rows alone and the covariance is
     normalized by the live count (floored at 1), so the factor is the one
@@ -79,8 +90,9 @@ def routed_linear_a_factor(a: torch.Tensor, has_bias: bool) -> torch.Tensor:
     and the rescale stay on the device; the covariance is :func:`get_cov`.
 
     A routed row whose input is exactly zero counts as unrouted, as in the
-    JAX package (its caveat for dead activations)."""
-    a = a.reshape(-1, a.shape[-1])
+    JAX package (its caveat for dead activations). ``dtype``: as
+    :func:`linear_a_factor`'s."""
+    a = _cast(a, dtype).reshape(-1, a.shape[-1])
     nz = live_rows(a)
     n = torch.clamp(torch.sum(nz), min=1.0)
     if has_bias:
@@ -96,10 +108,11 @@ def routed_live_fraction(a: torch.Tensor) -> torch.Tensor:
     return torch.mean((torch.amax(torch.abs(a), dim=-1) > 0).float())
 
 
-def routed_linear_g_factor(g: torch.Tensor) -> torch.Tensor:
+def routed_linear_g_factor(g: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
     """G factor normalized by the count of rows with a nonzero cotangent
-    (floored at 1): the routed tokens' rows."""
-    g = g.reshape(-1, g.shape[-1])
+    (floored at 1): the routed tokens' rows (cast to ``dtype`` first, when
+    given)."""
+    g = _cast(g, dtype).reshape(-1, g.shape[-1])
     n = torch.clamp(torch.sum(live_rows(g)), min=1.0)
     return get_cov(g) * (g.shape[0] / n)
 
@@ -169,12 +182,14 @@ def conv2d_a_factor(
     strides: Sequence[int],
     padding: Padding,
     has_bias: bool,
+    dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """A factor of a 2-D conv from its NCHW input (before any padding):
     patch rows, with a bias column of ones, divided by the spatial output
     size before the covariance, as the JAX package divides them (the
-    factor then carries 1 / spatial^2)."""
-    patches = extract_patches(a, kernel_size, strides, padding)
+    factor then carries 1 / spatial^2). ``dtype``: as
+    :func:`linear_a_factor`'s."""
+    patches = extract_patches(_cast(a, dtype), kernel_size, strides, padding)
     spatial_size = patches.shape[1] * patches.shape[2]
     rows = patches.reshape(-1, patches.shape[-1])
     if has_bias:
@@ -183,9 +198,11 @@ def conv2d_a_factor(
     return get_cov(rows)
 
 
-def conv2d_g_factor(g: torch.Tensor) -> torch.Tensor:
+def conv2d_g_factor(g: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
     """G factor of a 2-D conv from the loss gradient w.r.t. its NCHW
-    output: rows in (n, h, w) order, divided by h * w."""
+    output: rows in (n, h, w) order, divided by h * w (cast to ``dtype``
+    first, when given)."""
+    g = _cast(g, dtype)
     spatial_size = g.shape[2] * g.shape[3]
     rows = g.permute(0, 2, 3, 1).reshape(-1, g.shape[1])
     rows = rows / spatial_size

@@ -106,11 +106,14 @@ def _eigh(f: torch.Tensor, impl: str) -> tuple[torch.Tensor, torch.Tensor]:
     )
 
 
-def compute_eigh(factor: torch.Tensor, impl: str = 'device') -> EigenDecomp:
+def compute_eigh(
+    factor: torch.Tensor, impl: str = 'device', inv_dtype: torch.dtype = torch.float32
+) -> EigenDecomp:
     """Eigendecompose a symmetric factor in f32 by :func:`batched_eigh`'s
-    ``impl``, eigenvalues clamped >= 0."""
+    ``impl`` (a half-precision factor upcast first), eigenvalues clamped
+    >= 0, both cast to ``inv_dtype``."""
     d, q = batched_eigh(factor, impl)
-    return EigenDecomp(q=q, d=torch.clamp(d, min=0.0))
+    return EigenDecomp(q=q.to(inv_dtype), d=torch.clamp(d, min=0.0).to(inv_dtype))
 
 
 def compute_inverse(
@@ -123,7 +126,8 @@ def compute_inverse(
     A damped factor that is not positive definite gives an all-NaN inverse,
     as the JAX function's ``cho_factor`` does, chosen on the device from
     ``cholesky_ex``'s ``info`` (no host read), so the health sentinel can
-    roll it back."""
+    roll it back. A half-precision factor is upcast first; the engines
+    cast the inverse to their ``inv_dtype``."""
     f = factor.float()
     eye = torch.eye(f.shape[-1], dtype=f.dtype, device=f.device)
     chol, info = torch.linalg.cholesky_ex(f + _slot_scalar(damping, f) * eye)
@@ -223,7 +227,8 @@ def newton_schulz_inverse_info(
     only. ``differentiable=True`` (the fixed-trip scan) is not ported and
     raises. Each call adds one to ``newton_schulz_inverse_info.starts['warm']``,
     ``['cold']`` or ``['warm_restarted']``. The solve is
-    :func:`newton_schulz_inverse_stacked` of a stack of one.
+    :func:`newton_schulz_inverse_stacked` of a stack of one, in f32 (a
+    half-precision factor and ``x0`` upcast).
     """
     if differentiable:
         raise NotImplementedError(
@@ -261,7 +266,8 @@ def damped_inverse(
     iters: int = 40,
     x0: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Solver-dispatched damped inverse in f32: ``'cholesky'``,
+    """Solver-dispatched damped inverse in f32 (a half-precision factor
+    upcast first; the engines cast it to their ``inv_dtype``): ``'cholesky'``,
     ``'newton_schulz'`` (warm-started from ``x0`` when given) or ``'auto'``
     (Newton-Schulz, then Cholesky when its residual is not at or below
     :data:`NS_FALLBACK_RESIDUAL`, NaN included; each such factor adds one

@@ -8,6 +8,11 @@ accuracy (3xTF32), over the upper tile pairs and, where those cannot fill
 the card, over slices of N (:func:`plan`). On a CPU tensor it runs
 :func:`sym_cov_plain`. Both compute the upper triangle and mirror it, so
 the result is exactly symmetric.
+
+A bfloat16 or float16 ``a`` takes the kernel's 16-bit form (the tensor
+cores' m16n8k16 product of the values themselves, each product exact in
+f32) and gives the TPU kernel's function at that dtype: the sum in f32,
+divided by ``scale`` in f32, rounded once to ``a.dtype``.
 """
 
 from __future__ import annotations
@@ -32,14 +37,24 @@ MIN_WAVE_FILL = 0.9
 MAX_UNSPLIT_SLABS = 16
 
 
+# the dtypes the kernel is built for, and its C entry point for each
+ENTRY = {
+    torch.float32: 'sym_cov_f32',
+    torch.bfloat16: 'sym_cov_bf16',
+    torch.float16: 'sym_cov_f16',
+}
+
+
 def sym_cov_plain(a: torch.Tensor, scale: float | None = None) -> torch.Tensor:
     """Plain PyTorch version: upper triangle of ``a^T a`` mirrored, then
-    divided by ``scale`` (default: the row count)."""
+    divided by ``scale`` (default: the row count); for a 16-bit ``a`` the
+    product and the divide in f32, then one rounding to ``a.dtype``."""
     if scale is None:
         scale = a.shape[0]
-    full = a.T @ a
+    x = a.float()
+    full = x.T @ x
     upper = torch.triu(full)
-    return (upper + torch.triu(full, diagonal=1).T) / scale
+    return ((upper + torch.triu(full, diagonal=1).T) / scale).to(a.dtype)
 
 
 class CovPlan(NamedTuple):
@@ -114,8 +129,8 @@ def plan(n: int, d: int, sms: int) -> CovPlan:
 
 
 @functools.cache
-def _launcher():
-    fn = build.library('sym_cov').sym_cov_f32
+def _launcher(dtype: torch.dtype):
+    fn = getattr(build.library('sym_cov'), ENTRY[dtype])
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
@@ -142,7 +157,7 @@ def launch(a: torch.Tensor, out: torch.Tensor, scale: float, p: CovPlan) -> None
     arguments; no launch count)."""
     part = scratch(p, a.device)
     with torch.cuda.device(a.device):
-        code = _launcher()(
+        code = _launcher(a.dtype)(
             a.data_ptr(), out.data_ptr(), 0 if part is None else part.data_ptr(),
             p.n, p.d, float(scale), p.splits, p.rows_per_split,
             torch.cuda.current_stream(a.device).cuda_stream,
@@ -151,11 +166,13 @@ def launch(a: torch.Tensor, out: torch.Tensor, scale: float, p: CovPlan) -> None
 
 
 def sym_cov(a: torch.Tensor, scale: float | None = None) -> torch.Tensor:
-    """``a^T a / scale`` for a 2-D ``a`` of shape (N, D); (D, D) f32.
+    """``a^T a / scale`` for a 2-D ``a`` of shape (N, D); (D, D) in
+    ``a.dtype``.
 
-    CUDA tensors go through the kernel (f32, contiguous, else raises); the
-    split plan's scratch is allocated here. CPU tensors go through
-    :func:`sym_cov_plain`.
+    CUDA tensors go through the kernel (f32, bf16 or f16, contiguous, else
+    raises); the split plan's scratch is allocated here. CPU tensors go
+    through :func:`sym_cov_plain`. Each launch adds one to
+    ``sym_cov.launches`` and to ``sym_cov.launches_by_dtype[dtype]``.
     """
     if a.ndim != 2:
         raise ValueError(f'expected a 2D tensor, got shape {tuple(a.shape)}')
@@ -165,18 +182,18 @@ def sym_cov(a: torch.Tensor, scale: float | None = None) -> torch.Tensor:
         return sym_cov_plain(a, scale)
     if a.device.type != 'cuda':
         raise ValueError(f'sym_cov runs on cuda or cpu, not {a.device}')
-    if a.dtype != torch.float32 or not a.is_contiguous():
+    if a.dtype not in ENTRY or not a.is_contiguous():
         raise ValueError(
-            'the sym_cov kernel takes a contiguous float32 tensor; got '
-            f'{a.dtype}, contiguous={a.is_contiguous()}'
+            'the sym_cov kernel takes a contiguous float32, bfloat16 or float16 '
+            f'tensor; got {a.dtype}, contiguous={a.is_contiguous()}'
         )
     n, d = a.shape
-    out = torch.empty((d, d), dtype=torch.float32, device=a.device)
+    out = torch.empty((d, d), dtype=a.dtype, device=a.device)
     if d == 0:
         return out
     launch(a, out, scale, plan(n, d, sm_count(a.device.index)))
-    sym_cov.launches += 1
+    build.count(sym_cov, a.dtype)
     return out
 
 
-sym_cov.launches = 0
+build.reset_counts(sym_cov)

@@ -328,6 +328,15 @@ class DistributedKFAC:
                         f'{knob} on DistributedKFAC over a grid with model or seq axes '
                         'is not ported to kfac_tpu_torch yet'
                     )
+        if self.config.reduced_precision and (
+            self.total_devices != self.world
+            or any(h.weighted for h in self.config.registry.layers.values())
+        ):
+            raise NotImplementedError(
+                f'DistributedKFAC with factor_dtype={self.config.factor_dtype}, '
+                f'inv_dtype={self.config.inv_dtype} over a grid with model or seq axes, '
+                'or with routed layers, is not ported to kfac_tpu_torch yet'
+            )
         self.strategy = assignment_lib.strategy_for_fraction(
             self.world, self.grad_workers / self.world
         )
@@ -506,20 +515,23 @@ class DistributedKFAC:
             (self.a_store, state.a, state.qa, state.da, state.a_inv),
             (self.g_store, state.g, state.qg, state.dg, state.g_inv),
         ):
+            fdt, idt = self.config.factor_dtype, self.config.inv_dtype
             for sb in store:
                 lo, hi = self._factor_range(sb.padded)
-                fac[sb.key] = torch.eye(sb.d, device=dev).repeat(hi - lo, 1, 1)
+                fac[sb.key] = torch.eye(sb.d, device=dev, dtype=fdt).repeat(hi - lo, 1, 1)
                 clo, chi = self._column_range(sb.padded)
                 if self._eigen:
-                    q[sb.key] = torch.zeros((chi - clo, sb.d, sb.d), device=dev)
+                    q[sb.key] = torch.zeros((chi - clo, sb.d, sb.d), device=dev, dtype=idt)
                     if not self._prediv:
-                        dvec[sb.key] = torch.zeros((chi - clo, sb.d), device=dev)
+                        dvec[sb.key] = torch.zeros((chi - clo, sb.d), device=dev, dtype=idt)
                 else:
-                    inv[sb.key] = torch.zeros((chi - clo, sb.d, sb.d), device=dev)
+                    inv[sb.key] = torch.zeros((chi - clo, sb.d, sb.d), device=dev, dtype=idt)
         if self._prediv:
             for b in self.buckets:
                 clo, chi = self._column_range(b.padded)
-                state.dgda[b.key] = torch.zeros((chi - clo, b.dg, b.da), device=dev)
+                state.dgda[b.key] = torch.zeros(
+                    (chi - clo, b.dg, b.da), device=dev, dtype=self.config.inv_dtype
+                )
         names = list(self.registry.layers)
         if self.health is not None:
             state.health = health_lib.init_health(names, dev)
@@ -636,7 +648,8 @@ class DistributedKFAC:
         pos = {n: i for i, n in enumerate(routed)}
 
         def sent(side, n):
-            m = (stats.a if side == 'a' else stats.g)[n].float()
+            # in factor_dtype, as the JAX engine reduces them
+            m = (stats.a if side == 'a' else stats.g)[n].to(cfg.factor_dtype)
             if n in pos:
                 m = m * w_vec[pos[n] + (k if side == 'g' else 0)]
             return m
@@ -817,9 +830,10 @@ class DistributedKFAC:
             for sb in store:
                 lo, hi = self._factor_range(sb.padded)
                 rows = []
+                fdt = self.config.factor_dtype
                 for s in range(lo, hi):
                     if s >= len(sb.layers):
-                        rows.append(torch.eye(sb.d, device=self.device))
+                        rows.append(torch.eye(sb.d, device=self.device, dtype=fdt))
                     else:
                         rows.append(red.get(sb.layers[s], fac[sb.key][s - lo]))
                 decay = alpha
@@ -830,7 +844,9 @@ class DistributedKFAC:
                         for s in range(lo, hi)
                     ])
                     decay = factors_lib.effective_alpha(alpha, w)[:, None, None]
-                new[side][sb.key] = decay * fac[sb.key] + (1 - decay) * torch.stack(rows)
+                new[side][sb.key] = (
+                    decay * fac[sb.key] + (1 - decay) * torch.stack(rows)
+                ).to(fdt)
         names = list(self.registry.layers)
         touched = [i for i, n in enumerate(names) if n in stats.a or n in stats.g]
         ok = None  # (L,) layer verdicts, with health
@@ -1029,9 +1045,9 @@ class DistributedKFAC:
                     sb = self._stores[s, key]
                     d_, q_ = factors_lib.batched_eigh(getattr(state, s)[key], cfg.eigh_impl)
                     d_ = torch.clamp(d_, min=0.0)
-                    cand = {'q' + s: q_}
+                    cand = {'q' + s: q_.to(cfg.inv_dtype)}
                     if not self._prediv:
-                        cand['d' + s] = d_
+                        cand['d' + s] = d_.to(cfg.inv_dtype)
                     for f, v in keep(s, sb, cand, (d_,) if self._prediv else ()).items():
                         gather(f, key, v)
                     eig[s] = d_
@@ -1042,7 +1058,7 @@ class DistributedKFAC:
                         factors_lib.EigenDecomp(None, eig['g']),
                         damping_of('a', sb),
                     )
-                    gather('dgda', key, keep('a', sb, {'dgda': fused})['dgda'])
+                    gather('dgda', key, keep('a', sb, {'dgda': fused.to(cfg.inv_dtype)})['dgda'])
             else:
                 sb = self._stores[side, key]
                 field = side + '_inv'
@@ -1052,7 +1068,7 @@ class DistributedKFAC:
                     getattr(state, side)[key], damping_of(side, sb),
                     getattr(state, field)[key][sub * per:(sub + 1) * per],
                     self._live(sb.layers, lo, hi),
-                )
+                ).to(cfg.inv_dtype)
                 gather(field, key, keep(side, sb, {field: cand})[field])
         return updates
 
@@ -1123,6 +1139,7 @@ class DistributedKFAC:
         damping = resolve(cfg.damping, state.step)
         row = self.mesh.row_group
         layer_grads = self._gather_tp_grads(registry_lib.slice_layer_grads(grads, self.registry))
+        idt = cfg.inv_dtype  # the preconditioning's; the kl-clip runs in f32
         gmats = {
             n: h.grads_to_matrix(layer_grads[n]).float()
             for n, h in self.registry.layers.items()
@@ -1145,7 +1162,7 @@ class DistributedKFAC:
             """Rows of the full side stacks' ``field`` for ``names`` (zeros
             for padding)."""
             return torch.stack([
-                torch.zeros(shape, device=self.device) if n is None
+                torch.zeros(shape, device=self.device, dtype=idt) if n is None
                 else full[field][slot_map[n][0]][slot_map[n][1]]
                 for n in names
             ])
@@ -1155,8 +1172,8 @@ class DistributedKFAC:
             lo, hi = self._column_range(b.padded)
             names = [b.layers[s] if s < len(b.layers) else None for s in range(lo, hi)]
             gstack = torch.stack([
-                torch.zeros((b.dg, b.da), device=self.device) if n is None
-                else pad_grad(gmats[n], b.dg, b.da)
+                torch.zeros((b.dg, b.da), device=self.device, dtype=idt) if n is None
+                else pad_grad(gmats[n].to(idt), b.dg, b.da)
                 for n in names
             ])
 
@@ -1197,7 +1214,7 @@ class DistributedKFAC:
             pfull = collectives.all_gather_cat(pstack, row)
             for i, name in enumerate(b.layers):
                 dag, dgg = b.dims[i]
-                pmats[name] = pfull[i, :dgg, :dag].contiguous()
+                pmats[name] = pfull[i, :dgg, :dag].float().contiguous()
 
         names = [n for b in self.buckets for n in b.layers]
         pm = [pmats[n] for n in names]

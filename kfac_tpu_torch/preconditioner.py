@@ -95,6 +95,8 @@ class KFACState:
 
 
 _LATER_SLICE_KNOBS = ('compile_watch',)
+# the dtypes the engines store factors and decompositions in
+STORE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 @dataclasses.dataclass
@@ -110,7 +112,14 @@ class KFACPreconditioner:
     ``newton_schulz_iters`` (the iteration cap), ``eigh_impl`` (the EIGEN
     decomposition: ``'device'``, ``'host'`` or ``'eig_host'``, see
     :func:`~kfac_tpu_torch.ops.factors.batched_eigh`),
-    ``prediv_eigenvalues``.
+    ``prediv_eigenvalues``. ``factor_dtype`` and ``inv_dtype`` (f32, bf16
+    or f16) are the dtypes the factors and the decompositions or inverses
+    are stored in, as the JAX engine's: the EMA's result is pinned to
+    ``factor_dtype``, decompositions run in f32 and are cast to
+    ``inv_dtype``, and the preconditioning runs in ``inv_dtype`` and returns
+    each grad in its own dtype; a half-precision store with
+    ``async_inverse``, ``offload`` or ``stat_compression`` is not ported
+    yet (raises).
     ``health``: a :class:`~kfac_tpu_torch.health.HealthConfig` (True for its
     defaults). ``metrics``: a :class:`~kfac_tpu_torch.observability.
     metrics.MetricsConfig` (True for its defaults). ``flight``: a
@@ -144,6 +153,8 @@ class KFACPreconditioner:
     newton_schulz_iters: int = 40
     eigh_impl: str = 'device'
     prediv_eigenvalues: bool = False
+    factor_dtype: torch.dtype = torch.float32
+    inv_dtype: torch.dtype = torch.float32
     device: str | torch.device = 'cuda'
     health: Any = None
     metrics: Any = None
@@ -243,6 +254,18 @@ class KFACPreconditioner:
                     'inv_update_steps (the host-side pump computes cadence '
                     'boundaries from them); got a schedule'
                 )
+        for name in ('factor_dtype', 'inv_dtype'):
+            if getattr(self, name) not in STORE_DTYPES:
+                raise ValueError(
+                    f'{name} must be one of {STORE_DTYPES}, got {getattr(self, name)}'
+                )
+        if self.reduced_precision:
+            for knob in ('async_inverse', 'offload', 'stat_compression'):
+                if getattr(self, knob) is not None:
+                    raise NotImplementedError(
+                        f'{knob} with factor_dtype={self.factor_dtype}, '
+                        f'inv_dtype={self.inv_dtype} is not ported to kfac_tpu_torch yet'
+                    )
         self._plan_async()
         self._plan_offload()
 
@@ -333,6 +356,11 @@ class KFACPreconditioner:
             )
 
     @property
+    def reduced_precision(self) -> bool:
+        """Whether the factors or the decompositions are stored below f32."""
+        return self.factor_dtype != torch.float32 or self.inv_dtype != torch.float32
+
+    @property
     def eigen(self) -> bool:
         return self.compute_method == enums.ComputeMethod.EIGEN
 
@@ -345,19 +373,20 @@ class KFACPreconditioner:
         state = KFACState(0, {}, {}, {}, {}, {}, {}, {}, {}, {})
         for name, h in self.registry.layers.items():
             na, ng = h.a_factor_shape[0], h.g_factor_shape[0]
-            state.a[name] = torch.eye(na, device=dev)
-            state.g[name] = torch.eye(ng, device=dev)
+            fdt, idt = self.factor_dtype, self.inv_dtype
+            state.a[name] = torch.eye(na, device=dev, dtype=fdt)
+            state.g[name] = torch.eye(ng, device=dev, dtype=fdt)
             if self.eigen:
-                state.qa[name] = torch.zeros((na, na), device=dev)
-                state.qg[name] = torch.zeros((ng, ng), device=dev)
+                state.qa[name] = torch.zeros((na, na), device=dev, dtype=idt)
+                state.qg[name] = torch.zeros((ng, ng), device=dev, dtype=idt)
                 if self.prediv_eigenvalues:
-                    state.dgda[name] = torch.zeros((ng, na), device=dev)
+                    state.dgda[name] = torch.zeros((ng, na), device=dev, dtype=idt)
                 else:
-                    state.da[name] = torch.zeros((na,), device=dev)
-                    state.dg[name] = torch.zeros((ng,), device=dev)
+                    state.da[name] = torch.zeros((na,), device=dev, dtype=idt)
+                    state.dg[name] = torch.zeros((ng,), device=dev, dtype=idt)
             else:
-                state.a_inv[name] = torch.zeros((na, na), device=dev)
-                state.g_inv[name] = torch.zeros((ng, ng), device=dev)
+                state.a_inv[name] = torch.zeros((na, na), device=dev, dtype=idt)
+                state.g_inv[name] = torch.zeros((ng, ng), device=dev, dtype=idt)
         names = list(self.registry.layers)
         if self.health is not None:
             state.health = health_lib.init_health(names, dev)
@@ -406,13 +435,16 @@ class KFACPreconditioner:
                 return factors_lib.effective_alpha(alpha, stats.w[n])
             return alpha
 
+        # the result is pinned to factor_dtype: a routed layer's f32 decay
+        # would otherwise promote a half-precision factor
+        fdt = self.factor_dtype
         new_a = {
-            n: factors_lib.ema_update(state.a[n], stats.a[n].float(), decay(n))
+            n: factors_lib.ema_update(state.a[n], stats.a[n].to(fdt), decay(n)).to(fdt)
             if n in stats.a else state.a[n]
             for n in state.a
         }
         new_g = {
-            n: factors_lib.ema_update(state.g[n], stats.g[n].float(), decay(n))
+            n: factors_lib.ema_update(state.g[n], stats.g[n].to(fdt), decay(n)).to(fdt)
             if n in stats.g else state.g[n]
             for n in state.g
         }
@@ -518,7 +550,7 @@ class KFACPreconditioner:
                     key: factors_lib.damped_inverse(
                         factor, eff[i], self.inverse_solver,
                         self.newton_schulz_iters, x0=prev,
-                    )
+                    ).to(self.inv_dtype)
                     for key, factor, prev in (
                         ('a_inv', state.a[n], state.a_inv[n]),
                         ('g_inv', state.g[n], state.g_inv[n]),
@@ -529,11 +561,13 @@ class KFACPreconditioner:
             prev = {'qa': state.qa, 'qg': state.qg, 'da': state.da, 'dg': state.dg,
                     'dgda': state.dgda}
             for i, n in enumerate(names):
-                adec = factors_lib.compute_eigh(state.a[n], self.eigh_impl)
-                gdec = factors_lib.compute_eigh(state.g[n], self.eigh_impl)
+                adec = factors_lib.compute_eigh(state.a[n], self.eigh_impl, self.inv_dtype)
+                gdec = factors_lib.compute_eigh(state.g[n], self.eigh_impl, self.inv_dtype)
                 cand = {'qa': adec.q, 'qg': gdec.q}
                 if self.prediv_eigenvalues:
-                    cand['dgda'] = factors_lib.prediv_eigenvalues(adec, gdec, eff[i])
+                    cand['dgda'] = factors_lib.prediv_eigenvalues(
+                        adec, gdec, eff[i]
+                    ).to(self.inv_dtype)
                 else:
                     cand['da'], cand['dg'] = adec.d, gdec.d
                 slots[n] = checked(n, cand, prev)
@@ -566,7 +600,7 @@ class KFACPreconditioner:
                 grad_mat, state.a_inv[name], state.g_inv[name]
             )
         if self.prediv_eigenvalues:
-            v1 = state.qg[name].T @ grad_mat.float() @ state.qa[name]
+            v1 = state.qg[name].T @ grad_mat.to(self.inv_dtype) @ state.qa[name]
             v2 = v1 * state.dgda[name]
             return (state.qg[name] @ v2 @ state.qa[name].T).to(grad_mat.dtype)
         return factors_lib.eigen_preconditioned_grad(
@@ -709,14 +743,14 @@ class KFACPreconditioner:
         self, state: KFACState, factors: dict[str, dict[str, Any]]
     ) -> KFACState:
         """Inverse of :meth:`extract_factors`: each registered layer named in
-        ``factors`` takes its ``'a'`` and ``'g'`` (tensors or arrays) as f32
-        on ``device``; others keep theirs. Call :meth:`rematerialize`
+        ``factors`` takes its ``'a'`` and ``'g'`` (tensors or arrays) in
+        ``factor_dtype`` on ``device``; others keep theirs. Call :meth:`rematerialize`
         afterwards."""
         new_a, new_g = dict(state.a), dict(state.g)
         for name, fg in factors.items():
             if name in new_a:
-                new_a[name] = torch.as_tensor(fg['a']).to(self.device, torch.float32)
-                new_g[name] = torch.as_tensor(fg['g']).to(self.device, torch.float32)
+                new_a[name] = torch.as_tensor(fg['a']).to(self.device, self.factor_dtype)
+                new_g[name] = torch.as_tensor(fg['g']).to(self.device, self.factor_dtype)
         return dataclasses.replace(state, a=new_a, g=new_g)
 
     def rematerialize(self, state: KFACState) -> KFACState:

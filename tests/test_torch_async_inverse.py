@@ -23,6 +23,7 @@ same seeded gradients and statistics, kl-clip off:
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -46,6 +47,10 @@ from kfac_tpu_torch.models import MLP
 from kfac_tpu_torch.observability import metrics as tmetrics
 from kfac_tpu_torch.preconditioner import KFACPreconditioner
 from kfac_tpu_torch.training import Trainer
+
+# each xdist worker gets its share of the host's cores for torch: at the
+# default (every core in every worker) the workers oversubscribe the host
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(os.environ.get('PYTEST_XDIST_WORKER_COUNT', '1'))))
 
 N = 4  # the cadence window, factor == inverse
 STEPS = 3 * N

@@ -6,6 +6,8 @@ plain versions ran, and no device metric is filled from a CPU run. Its FLOP coun
 bench's formula applied to the JAX model's parameters.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import pytest
@@ -14,6 +16,10 @@ import torch
 import bench
 from kfac_tpu.models import TransformerLM as JaxLM
 from kfac_tpu_torch import bench_lm
+
+# each xdist worker gets its share of the host's cores for torch: at the
+# default (every core in every worker) the workers oversubscribe the host
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(os.environ.get('PYTEST_XDIST_WORKER_COUNT', '1'))))
 
 KEYS = {
     'stage', 'platform', 'device_kind', 'model_config', 'sgd_tokens_per_sec',

@@ -46,6 +46,10 @@ from kfac_tpu_torch.ops import factors
 from kfac_tpu_torch.preconditioner import KFACPreconditioner
 from kfac_tpu_torch.warnings import CheckpointResilienceWarning
 
+# each xdist worker gets its share of the host's cores for torch: at the
+# default (every core in every worker) the workers oversubscribe the host
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(os.environ.get('PYTEST_XDIST_WORKER_COUNT', '1'))))
+
 IN, HIDDEN, OUT = 6, 8, 4
 NAMES = ['dense0', 'head']
 STEPS = 3

@@ -8,6 +8,8 @@ plans must be the JAX package's. The collectives themselves run in
 ``tests/test_torch_kaisa.py``'s gloo worlds.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,6 +19,10 @@ from hypothesis import strategies as st
 
 from kfac_tpu.parallel import collectives as jcoll
 from kfac_tpu_torch.parallel import collectives
+
+# each xdist worker gets its share of the host's cores for torch: at the
+# default (every core in every worker) the workers oversubscribe the host
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(os.environ.get('PYTEST_XDIST_WORKER_COUNT', '1'))))
 
 JDT = {'f32': jnp.float32, 'bf16': jnp.bfloat16}
 TDT = {'f32': torch.float32, 'bf16': torch.bfloat16}

@@ -66,6 +66,10 @@ from kfac_tpu_torch.preconditioner import KFACPreconditioner
 from kfac_tpu_torch.resilience import CheckpointManager
 from kfac_tpu_torch.training import Trainer
 
+# each xdist worker gets its share of the host's cores for torch: at the
+# default (every core in every worker) the workers oversubscribe the host
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(os.environ.get('PYTEST_XDIST_WORKER_COUNT', '1'))))
+
 DTYPES = ('int8', 'fp8')
 
 

@@ -14,6 +14,7 @@ NHWC on the JAX side and NCHW (the same arrays transposed) on the port's.
   1e-6 x max; ``padding=1`` is not flax's rule under stride 2.
 """
 
+import os
 import pathlib
 import sys
 
@@ -36,6 +37,10 @@ from kfac_tpu_torch.models import resnet
 from kfac_tpu_torch.models.layers import SameConv2d
 from kfac_tpu_torch.ops import cov
 from testing.models import TinyConvNet as JaxTinyConvNet
+
+# each xdist worker gets its share of the host's cores for torch: at the
+# default (every core in every worker) the workers oversubscribe the host
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(os.environ.get('PYTEST_XDIST_WORKER_COUNT', '1'))))
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1] / 'tools'))
 from bench_accuracy import SmallCNN as JaxSmallCNN  # noqa: E402

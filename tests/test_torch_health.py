@@ -19,6 +19,7 @@
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -38,6 +39,10 @@ from kfac_tpu_torch.layers import capture, registry
 from kfac_tpu_torch.models import MLP
 from kfac_tpu_torch.preconditioner import KFACPreconditioner
 from kfac_tpu_torch.training import Trainer
+
+# each xdist worker gets its share of the host's cores for torch: at the
+# default (every core in every worker) the workers oversubscribe the host
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(os.environ.get('PYTEST_XDIST_WORKER_COUNT', '1'))))
 
 IN, HIDDEN, OUT = 6, 8, 5
 NAMES = ['dense0', 'head']

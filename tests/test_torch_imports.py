@@ -11,11 +11,16 @@
 
 import ast
 import importlib
+import os
 import pathlib
 import sys
 
 import pytest
 import torch
+
+# each xdist worker gets its share of the host's cores for torch: at the
+# default (every core in every worker) the workers oversubscribe the host
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(os.environ.get('PYTEST_XDIST_WORKER_COUNT', '1'))))
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {'jax', 'jaxlib', 'flax', 'optax', 'orbax', 'kfac_tpu'}
@@ -57,7 +62,8 @@ def test_port_file_imports_no_jax_and_no_kfac_tpu(path):
     'bench_accuracy.py', 'bench_resnet.py', 'training.py', 'compression/__init__.py',
     'compression/config.py', 'compression/quant.py', 'compression/offload.py', 'bench_lm.py',
     'parallel/tensor_parallel.py', 'models/attention.py', 'models/transformer.py',
-    'ops/losses.py', 'layers/capture.py',
+    'ops/losses.py', 'layers/capture.py', 'amp.py', 'examples/train_amp.py', 'models/mlp.py',
+    'ops/sym_cov.py', 'ops/flash_attention.py', 'ops/factors.py', 'preconditioner.py',
 ])
 def test_checkpoint_and_resilience_modules_are_covered(rel):
     path = ROOT / 'kfac_tpu_torch' / rel
@@ -138,3 +144,13 @@ def test_register_model_rejects_a_model_on_another_device():
     model = torch.nn.Linear(3, 2)
     with pytest.raises(ValueError, match='cpu'):
         register_model(model, device='meta')
+
+
+def test_amp_entry_points_default_to_cuda_and_raise_without_gpu(no_gpu):
+    from kfac_tpu_torch import amp
+    from kfac_tpu_torch.examples import train_amp
+
+    for make in (amp.init, train_amp.ConvNet, lambda: train_amp.main(['--steps', '1'])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert amp.init(device='cpu').scale.device.type == 'cpu'

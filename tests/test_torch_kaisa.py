@@ -83,6 +83,10 @@ from kfac_tpu_torch.ops import factors
 from kfac_tpu_torch.parallel import spawn_world
 from kfac_tpu_torch.parallel.kaisa import size_class
 
+# each xdist worker gets its share of the host's cores for torch: at the
+# default (every core in every worker) the workers oversubscribe the host
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(os.environ.get('PYTEST_XDIST_WORKER_COUNT', '1'))))
+
 NS = dict(compute_method='inverse', inverse_solver='newton_schulz')
 # the observed engine's variants at every fraction: both methods, both transports
 OBSERVE_VARIANTS = (

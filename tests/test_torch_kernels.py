@@ -24,12 +24,18 @@ step within 3e-5 x max of x_new and of mx_new and 3e-5 of the residual,
 every output identical from run to run.
 """
 
+import os
+
 import pytest
 import torch
 
 from kfac_tpu_torch.ops import cov_ema, factors, flash_attention, klclip
 from kfac_tpu_torch.ops import newton_schulz as ns_lib
 from kfac_tpu_torch.ops import sym_cov as sym_cov_lib
+
+# each xdist worker gets its share of the host's cores for torch: at the
+# default (every core in every worker) the workers oversubscribe the host
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(os.environ.get('PYTEST_XDIST_WORKER_COUNT', '1'))))
 
 
 @pytest.fixture
@@ -423,3 +429,63 @@ def test_ns_stacked_kernel_skips_inactive_slots_on_card(cuda_device):
         assert all(torch.equal(p[i], f[i]) for p, f in zip(part, full))
     with pytest.raises(ValueError):  # a CUDA tensor never takes the plain version
         ns_lib.fused_ns_step_stacked(m.double(), x.double(), mx.double())
+
+
+# ------------------------------------------------- bf16 and f16 forms
+# Their own tolerances, from the unit roundoff u (bf16 2^-8, f16 2^-11):
+# sym_cov within 2u of max (one flip of the single rounding); flash on
+# exact inputs acc bitwise and m, l within 1e-5 of max, on normal inputs
+# acc within 2u of max (one rounding of each p at a tile's running max).
+HALF_U = {torch.bfloat16: 2.0**-8, torch.float16: 2.0**-11}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16], ids=['bf16', 'f16'])
+@pytest.mark.parametrize(
+    'shape', [(8192, 513), (8192, 2049), (8192, 512), (8192, 2048), (1000, 70), (77, 130), (5, 3)],
+)
+def test_sym_cov_16_bit_kernel_matches_plain_on_card(cuda_device, dtype, shape):
+    g = torch.Generator(cuda_device).manual_seed(7)
+    a = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+    got = sym_cov_lib.sym_cov(a)
+    want = sym_cov_lib.sym_cov_plain(a)
+    assert got.dtype == dtype and torch.equal(got, got.T)
+    assert torch.equal(got, sym_cov_lib.sym_cov(a))  # no atomics: repeatable
+    err = (got.float() - want.float()).abs().max()
+    assert err <= 2 * HALF_U[dtype] * want.float().abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16], ids=['bf16', 'f16'])
+@pytest.mark.parametrize('inputs', ['exact', 'normal'])
+@pytest.mark.parametrize('d', [32, 128, 256])
+def test_flash_16_bit_kernel_matches_plain_on_card(cuda_device, dtype, inputs, d):
+    gen = torch.Generator().manual_seed(8)
+    if inputs == 'exact':
+        q, k, v = flash_attention.exact_inputs(2, 300, 2, d, dtype, gen)
+    else:
+        q, k, v = (torch.randn(2, 300, 2, d, generator=gen).to(dtype) for _ in range(3))
+    q, k, v = (x.to(cuda_device) for x in (q, k, v))
+    got = flash_attention.flash_attention_partials(q, k, v, 0, 0, True)
+    want = flash_attention.attend_partials_rounded(q, k, v, 0, 0, True)
+    assert all(x.dtype == torch.float32 for x in got)
+    for x, w in zip(got[1:], want[1:]):
+        assert (x - w).abs().max() <= 1e-5 * w.abs().max()
+    if inputs == 'exact':
+        assert torch.equal(got[0], want[0])
+    else:
+        assert (got[0] - want[0]).abs().max() <= 2 * HALF_U[dtype] * want[0].abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float64, torch.int32])
+def test_16_bit_wrappers_raise_for_other_dtypes_on_card(cuda_device, dtype):
+    a = torch.ones(64, 8, device=cuda_device, dtype=dtype)
+    with pytest.raises(ValueError, match='float32, bfloat16 or float16'):
+        sym_cov_lib.sym_cov(a)
+    q = torch.ones(1, 16, 1, 32, device=cuda_device, dtype=dtype)
+    with pytest.raises(ValueError, match='float32, bfloat16 or float16'):
+        flash_attention.flash_attention_partials(q, q, q, 0, 0, True)
+    mixed = torch.ones(1, 16, 1, 32, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match='one dtype'):
+        flash_attention.flash_attention_partials(mixed, mixed.half(), mixed, 0, 0, True)

@@ -15,6 +15,8 @@ largest (``tests/test_torch_preconditioner.py``'s); zero blocks, taps and
 the frozen base exactly.
 """
 
+import os
+
 import flax.linen as nn
 import jax
 import jax.numpy as jnp
@@ -33,6 +35,10 @@ from kfac_tpu_torch.examples import finetune_lora
 from kfac_tpu_torch.layers import capture, helpers, registry
 from kfac_tpu_torch.models import LoRADense
 from kfac_tpu_torch.preconditioner import KFACPreconditioner
+
+# each xdist worker gets its share of the host's cores for torch: at the
+# default (every core in every worker) the workers oversubscribe the host
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(os.environ.get('PYTEST_XDIST_WORKER_COUNT', '1'))))
 
 D_IN, RANK, D_OUT = 6, 2, 4
 

@@ -12,6 +12,8 @@ trainable layer's match the JAX engine's within rtol 1e-4, atol 1e-4 x
 the max.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +28,10 @@ from kfac_tpu_torch.layers import capture, registry
 from kfac_tpu_torch.models import MLP, TransformerLM
 from kfac_tpu_torch.observability import metrics
 from kfac_tpu_torch.preconditioner import KFACPreconditioner
+
+# each xdist worker gets its share of the host's cores for torch: at the
+# default (every core in every worker) the workers oversubscribe the host
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(os.environ.get('PYTEST_XDIST_WORKER_COUNT', '1'))))
 
 IN, HIDDEN, OUT = 6, 8, 5
 

@@ -10,6 +10,8 @@ rtol 1e-5 relative to each factor's max (G comes from cotangents of a
 mean loss and is tiny in absolute terms).
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +26,10 @@ from kfac_tpu_torch.layers import capture, registry
 from kfac_tpu_torch.models import TransformerLM, lm_loss
 from kfac_tpu_torch.models import attention
 from kfac_tpu.models import attention as jattention
+
+# each xdist worker gets its share of the host's cores for torch: at the
+# default (every core in every worker) the workers oversubscribe the host
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(os.environ.get('PYTEST_XDIST_WORKER_COUNT', '1'))))
 
 CFG = dict(vocab_size=128, d_model=64, num_heads=4, num_layers=2, max_len=32)
 

@@ -50,6 +50,10 @@ from kfac_tpu_torch.ops import factors
 from kfac_tpu_torch.parallel import spawn_world
 from kfac_tpu_torch.preconditioner import KFACPreconditioner, set_grads
 
+# each xdist worker gets its share of the host's cores for torch: at the
+# default (every core in every worker) the workers oversubscribe the host
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(os.environ.get('PYTEST_XDIST_WORKER_COUNT', '1'))))
+
 CFG = ranks.MOE_CFG
 ROUTED = ranks.ROUTED
 LB = 0.01  # the load-balance weight of the flagship MoE configuration

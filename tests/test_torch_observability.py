@@ -45,6 +45,10 @@ from kfac_tpu_torch.ops import factors, klclip
 from kfac_tpu_torch.preconditioner import KFACPreconditioner
 from kfac_tpu_torch.training import Trainer
 
+# each xdist worker gets its share of the host's cores for torch: at the
+# default (every core in every worker) the workers oversubscribe the host
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(os.environ.get('PYTEST_XDIST_WORKER_COUNT', '1'))))
+
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), os.pardir, 'tools'))
 import kfac_inspect  # noqa: E402
 

@@ -9,6 +9,7 @@ against their plain versions on the card in ``test_torch_kernels.py``.
 """
 
 import math
+import os
 
 import jax
 import jax.numpy as jnp
@@ -26,6 +27,10 @@ from kfac_tpu.ops import pallas_ns as jpallas_ns
 from kfac_tpu_torch.ops import cov, cov_ema, factors, flash_attention, klclip, losses
 from kfac_tpu_torch.ops import newton_schulz as ns_lib
 from kfac_tpu_torch.ops import sym_cov as sym_cov_lib
+
+# each xdist worker gets its share of the host's cores for torch: at the
+# default (every core in every worker) the workers oversubscribe the host
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(os.environ.get('PYTEST_XDIST_WORKER_COUNT', '1'))))
 
 NEG_INF = -1e30
 

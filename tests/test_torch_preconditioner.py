@@ -10,6 +10,7 @@ Tolerances: losses rtol 1e-5; preconditioned grads rtol 1e-4 with atol
 factor's max. Eigenvectors are never compared element-wise.
 """
 
+import os
 import warnings
 
 import jax
@@ -32,6 +33,10 @@ from kfac_tpu_torch.preconditioner import (
     default_compute_method,
     set_grads,
 )
+
+# each xdist worker gets its share of the host's cores for torch: at the
+# default (every core in every worker) the workers oversubscribe the host
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(os.environ.get('PYTEST_XDIST_WORKER_COUNT', '1'))))
 
 CFG = dict(vocab_size=128, d_model=64, num_heads=4, num_layers=2, max_len=32)
 KFAC = dict(damping=0.003, lr=0.1, factor_update_steps=10, inv_update_steps=5)

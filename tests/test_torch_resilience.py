@@ -33,6 +33,10 @@ from kfac_tpu_torch.resilience import CheckpointManager, Preempted, signals
 from kfac_tpu_torch.training import Trainer
 from kfac_tpu_torch.warnings import CheckpointResilienceWarning
 
+# each xdist worker gets its share of the host's cores for torch: at the
+# default (every core in every worker) the workers oversubscribe the host
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(os.environ.get('PYTEST_XDIST_WORKER_COUNT', '1'))))
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 CORRUPTIONS = ('truncate', 'delete', 'metadata', 'torn_latest')

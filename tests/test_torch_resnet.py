@@ -51,6 +51,10 @@ from kfac_tpu_torch.models import resnet
 from kfac_tpu_torch.preconditioner import KFACPreconditioner
 from kfac_tpu_torch.training import Trainer
 
+# each xdist worker gets its share of the host's cores for torch: at the
+# default (every core in every worker) the workers oversubscribe the host
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(os.environ.get('PYTEST_XDIST_WORKER_COUNT', '1'))))
+
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1] / 'tools'))
 import bench_accuracy as jax_bench  # noqa: E402
 
@@ -377,6 +381,7 @@ def test_bench_resnet_counts_flops_and_reports_its_keys():
     macs = 16 * 27 * 1024 + 5 * 2 * 16 * 144 * 1024 + 32 * 144 * 256 + (2 * 5 - 1) * 32 * 288 * 256 \
         + 64 * 288 * 64 + (2 * 5 - 1) * 64 * 576 * 64 + 64 * 10
     assert bench_resnet.conv_flops(model, x) == 3 * 2 * 2 * macs
-    out = bench_resnet.run_resnet_stage('resnet32_cifar', 'cpu', warmup=1, iters=1, batch=4)
+    # one step of each run: the keys and counts need no more
+    out = bench_resnet.run_resnet_stage('resnet32_cifar', 'cpu', warmup=0, iters=1, batch=2)
     assert out['n_kfac_layers'] == 32 and out['mfu'] is None
     assert out['kfac_images_per_sec'] > 0 and np.isfinite(out['last_loss']['kfac'])

@@ -39,6 +39,10 @@ from kfac_tpu_torch.observability import ledger
 from kfac_tpu_torch.preconditioner import KFACPreconditioner
 from kfac_tpu_torch.training import Trainer, TrainState
 
+# each xdist worker gets its share of the host's cores for torch: at the
+# default (every core in every worker) the workers oversubscribe the host
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(os.environ.get('PYTEST_XDIST_WORKER_COUNT', '1'))))
+
 CFG = dict(vocab_size=128, d_model=64, num_heads=4, num_layers=2, max_len=32)
 STEPS = 12
 # capture steps at 0 and 10, refreshes at 0, 5 and 10
