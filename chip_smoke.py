@@ -41,12 +41,16 @@ Phases, one JSON line each:
    within tolerance and bitwise the 2-D launch at the same tile (the
    library call: two ``torch.bmm`` and ``torch.linalg.matrix_norm``).
    The bf16 and f16 forms of ``sym_cov`` (the flagship's four factor
-   widths at 8192 rows) and of the flash partials (the flagship's
-   attention, on normal inputs and on ``flash_attention.exact_inputs``)
-   against their plain oracles (the TPU kernel's function in the dtype),
-   with tolerances from the dtype's unit roundoff u (``half_kernel_cases``),
-   bounded at the 989 TFLOP/s 16-bit tensor-core peak and the HBM rate,
-   beside ``matmul(a.T, a)`` and SDPA in the dtype.
+   widths at 8192 rows, in the padded rows its A builders give), of
+   ``sym_cov_ema`` and of the flash partials (the flagship's attention, in
+   bf16 also two ring steps of ``tp_sp``, on normal inputs and on
+   ``flash_attention.exact_inputs``) against their plain oracles (the TPU
+   kernel's function in the dtype), with tolerances from the dtype's unit
+   roundoff u (``half_kernel_cases``), bounded at the 989 TFLOP/s 16-bit
+   tensor-core peak and the HBM rate, beside ``matmul(a.T, a)``,
+   ``addmm`` and SDPA in the dtype; each with its device ms and the
+   library call's (torch.profiler; ``library_device_ms`` sums every
+   kernel the call launches).
 4. ``reference``: a two-layer model trained three steps through
    ``Trainer.step`` on the card (kernels) and on the CPU (plain versions)
    from the same weights, once with EIGEN, once with INVERSE +
@@ -950,14 +954,25 @@ def accumulated_in(a: torch.Tensor, rows: int = 8) -> torch.Tensor:
 
 def half_kernel_cases(randn) -> list[dict]:
     """The bf16 and f16 forms of ``sym_cov`` (the flagship's A and G
-    widths at its 8192 rows) and of the flash partials (the flagship's
-    attention), each against its plain oracle (the TPU kernel's function in
-    that dtype), timed beside the library call in the dtype and bounded at
-    the 16-bit tensor-core peak and the HBM rate.
+    widths at its 8192 rows, in the layout its A builders give: rows
+    padded to 64 values where the width is not a multiple of 8), of
+    ``sym_cov_ema`` (the blend into an f32 factor) and of the flash
+    partials (the flagship's attention; in bf16 also two ring steps of the
+    tp_sp phase), each against its plain oracle (the TPU kernel's function
+    in that dtype), timed beside the library call in the dtype and bounded
+    at the 16-bit tensor-core peak and the HBM rate. Each also reports its
+    device ms and the library call's (torch.profiler): at these sizes
+    back-to-back CUDA events time the host's enqueue.
 
     - ``sym_cov``: within 2u of max|C| (one flip of its single rounding);
       the control, the sum kept in the dtype (``accumulated_in``), is
-      outside. Exactly symmetric and run-to-run identical.
+      outside. Exactly symmetric and run-to-run identical. At the padded
+      widths, ``ms_contiguous_input`` is the wrapper's call on a contiguous
+      ``a``, which it copies into padded rows first.
+    - ``sym_cov_ema``: within 1e-5 of max|coeff a^T a| (the f32 form's;
+      the products are exact in f32); the control, a^T a rounded to the
+      dtype before the blend, is outside. Exactly symmetric and
+      run-to-run identical.
     - flash on normal inputs: acc within 2u of max|acc| (one rounding of
       each p, at a key tile's running max or the row's max), m and l within
       1e-5 of max; no control. On ``flash_attention.exact_inputs`` (every
@@ -965,9 +980,10 @@ def half_kernel_cases(randn) -> list[dict]:
       within 1e-5 of max; the control, p left unrounded, moves acc, and the
       einsum form (``q * scale`` rounded to the dtype) moves m past 1e-5.
     """
-    from kfac_tpu_torch.ops import flash_attention, sym_cov
+    from kfac_tpu_torch.ops import cov_ema, flash_attention, sym_cov
 
     dev = torch.device('cuda')
+    sms = sym_cov.sm_count(torch.cuda.current_device())
     cases = []
     for dt, tag in HALF_NAMES.items():
         u = HALF_U[dt]
@@ -976,12 +992,15 @@ def half_kernel_cases(randn) -> list[dict]:
             return max_err(got.float(), want.float())
 
         for n, d in ((8192, 513), (8192, 2049), (8192, 512), (8192, 2048)):
-            a = randn(n, d).to(dt)
+            contiguous = randn(n, d).to(dt)
+            padded = d % sym_cov.ROW_ALIGN16 != 0
+            a = sym_cov.kernel_rows(n, d, dt, dev, padded).copy_(contiguous)
+            p = sym_cov.plan16(n, d, sms)
             cases.append(dict(
                 name=f'sym_cov_{tag}', shape=[n, d],
                 kernel=lambda a=a: sym_cov.sym_cov(a),
                 plain=lambda a=a: sym_cov.sym_cov_plain(a),
-                library=lambda a=a: torch.matmul(a.T, a),
+                library=lambda a=contiguous: torch.matmul(a.T, a),
                 compare=cmp16, rtol=2 * u,
                 tol_rule=f'2u = {2 * u:g} x max|C| (one rounding flip); exactly symmetric, '
                          'run-to-run identical',
@@ -991,58 +1010,103 @@ def half_kernel_cases(randn) -> list[dict]:
                     torch.equal(got, got.T) and torch.equal(got, sym_cov.sym_cov(a))
                 ),
                 nbytes=2 * (n * d + d * d), flops=n * d * (d + 1),
-                flops_per_s=HALF_FLOPS_PER_S,
+                flops_per_s=HALF_FLOPS_PER_S, device_kernels=SYM16_KERNELS, library_device=True,
+                also_timed=(
+                    dict(ms_contiguous_input=lambda a=contiguous: sym_cov.sym_cov(a)) if padded else {}
+                ),
+                extra=dict(row_stride=a.stride(0), walk=dict(
+                    whole=p.whole, split=p.split, slices=p.slices, rows_per_slice=p.rows_per_slice,
+                    ctas=p.ctas, fill=p.fill, scratch_mib=p.scratch_bytes / 2**20,
+                )),
             ))
-        b, s_, h, dh = FLAGSHIP['batch'], FLAGSHIP['seq'], FLAGSHIP['heads'], 128
-        pairs = s_ * (s_ + 1) // 2
-        gen = torch.Generator().manual_seed(1)
-        for inputs in ('normal', 'exact'):
-            if inputs == 'exact':
-                q, k, v = (x.to(dev) for x in flash_attention.exact_inputs(b, s_, h, dh, dt, gen))
-            else:
-                q, k, v = (randn(b, s_, h, dh).to(dt) for _ in range(3))
+        for n, d in ((8192, 2049), (512, 256)):
+            a = sym_cov.kernel_rows(n, d, dt, dev, d % sym_cov.ROW_ALIGN16 != 0).copy_(
+                randn(n, d).to(dt))
+            a32 = a.float()
+            f = sym_cov.sym_cov_plain(randn(n, d))
+            beta, coeff = 0.95, 0.05 / n
+            scale = float((coeff * (a32.T @ a32)).abs().max())
 
-            def sdpa(q=q, k=k, v=v):
-                return torch.nn.functional.scaled_dot_product_attention(
-                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True
-                )
+            def cmp_ema(got, want, scale=scale):
+                return float((got - want).abs().max()), scale
 
-            def oracle(q=q, k=k, v=v):
-                return flash_attention.attend_partials_rounded(q, k, v, 0, 0, True)
-
-            def ml_hold(got, oracle=oracle):
-                want = oracle()
-                return all(
-                    float((x - w).abs().max()) <= 1e-5 * float(w.abs().max())
-                    for x, w in zip(got[1:], want[1:])
-                )
-
-            exact = inputs == 'exact'
-            einsum_m = flash_attention.attend_partials_einsum(q, k, v, 0, 0, True)[1]
-            m_ref = oracle()[1]
             cases.append(dict(
-                name=f'flash_attention_partials_{tag}', shape=[b, s_, h, dh],
-                kernel=lambda q=q, k=k, v=v: flash_attention.flash_attention_partials(q, k, v, 0, 0, True),
-                plain=oracle, library=sdpa,
-                compare=lambda got, want: max_err(got[0], want[0]),
-                rtol=0.0 if exact else 2 * u,
-                tol_rule=('acc bitwise' if exact else f'acc within 2u = {2 * u:g} x max|acc|')
-                + '; m and l within 1e-5 x max',
-                invariant=ml_hold,
-                control=(
-                    (lambda q=q, k=k, v=v: flash_attention.attend_partials_rounded(
-                        q, k, v.float(), 0, 0, True))
-                    if exact else oracle
+                name=f'sym_cov_ema_{tag}', shape=[n, d],
+                kernel=lambda a=a, f=f, b=beta, c=coeff: cov_ema.sym_cov_ema(f, a, b, c),
+                plain=lambda a=a, f=f, b=beta, c=coeff: cov_ema.sym_cov_ema_plain(f, a, b, c),
+                library=lambda a=a32, f=f, b=beta, c=coeff: torch.addmm(f, a.T, a, beta=b, alpha=c),
+                library_call='addmm(F, a.T, a) of a in f32', compare=cmp_ema, rtol=1e-5,
+                tol_rule='1e-5 x max|coeff a^T a|, exactly symmetric and run-to-run identical',
+                invariant=lambda got, a=a, f=f, b=beta, c=coeff: (
+                    torch.equal(got, got.T) and torch.equal(got, cov_ema.sym_cov_ema(f, a, b, c))
                 ),
-                control_rule='p left unrounded' if exact else 'none (normal inputs)',
-                nbytes=2 * 3 * b * s_ * h * dh + 4 * (b * s_ * h * dh + 2 * b * h * s_),
-                flops=4 * dh * pairs * b * h, flops_per_s=HALF_FLOPS_PER_S,
-                no_control=not exact,
-                extra=dict(
-                    inputs=inputs,
-                    einsum_form_m_rel_err=float((einsum_m - m_ref).abs().max() / m_ref.abs().max()),
-                ),
+                control=lambda a=a, f=f, b=beta, c=coeff: b * f + c * (a.T @ a).float(),
+                control_rule=f'a^T a rounded to {tag} before the blend',
+                nbytes=2 * n * d + 4 * (d * (d + 1) // 2 + d * d),
+                flops=n * d * (d + 1) + 3 * d * (d + 1) // 2, flops_per_s=HALF_FLOPS_PER_S,
+                device_kernels=SYM16_KERNELS, library_device=True,
             ))
+        gen = torch.Generator().manual_seed(1)
+        b, dh = FLAGSHIP['batch'], 128
+        # the flagship's attention, then (bf16) the tp_sp phase's ring step
+        # of seq 2 (256 rows at offset 256) and zigzag seq 4's last chunk
+        flash_shapes = [(FLAGSHIP['seq'], FLAGSHIP['heads'], 0)]
+        if dt == torch.bfloat16:
+            flash_shapes += [(256, 2, 256), (64, 4, 448)]
+        for s_, h, q_off in flash_shapes:
+            pairs = visible_pairs(s_, s_, q_off, 0)
+            for inputs in ('normal', 'exact'):
+                if inputs == 'exact':
+                    q, k, v = (x.to(dev) for x in flash_attention.exact_inputs(b, s_, h, dh, dt, gen))
+                else:
+                    q, k, v = (randn(b, s_, h, dh).to(dt) for _ in range(3))
+                mask = (torch.arange(s_, device=dev)[:, None] + q_off) >= torch.arange(s_, device=dev)
+
+                def sdpa(q=q, k=k, v=v, mask=None if q_off == 0 else mask):
+                    # at offset 0 the causal flag, SDPA's fastest form
+                    return torch.nn.functional.scaled_dot_product_attention(
+                        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+                        is_causal=mask is None,
+                    )
+
+                def oracle(q=q, k=k, v=v, q_off=q_off):
+                    return flash_attention.attend_partials_rounded(q, k, v, q_off, 0, True)
+
+                def ml_hold(got, oracle=oracle):
+                    want = oracle()
+                    return all(
+                        float((x - w).abs().max()) <= 1e-5 * float(w.abs().max())
+                        for x, w in zip(got[1:], want[1:])
+                    )
+
+                exact = inputs == 'exact'
+                einsum_m = flash_attention.attend_partials_einsum(q, k, v, q_off, 0, True)[1]
+                m_ref = oracle()[1]
+                cases.append(dict(
+                    name=f'flash_attention_partials_{tag}', shape=[b, s_, h, dh],
+                    kernel=lambda q=q, k=k, v=v, q_off=q_off: flash_attention.flash_attention_partials(
+                        q, k, v, q_off, 0, True),
+                    plain=oracle, library=sdpa,
+                    library_call='scaled_dot_product_attention in the dtype with the causal mask',
+                    compare=lambda got, want: max_err(got[0], want[0]),
+                    rtol=0.0 if exact else 2 * u,
+                    tol_rule=('acc bitwise' if exact else f'acc within 2u = {2 * u:g} x max|acc|')
+                    + '; m and l within 1e-5 x max',
+                    invariant=ml_hold,
+                    control=(
+                        (lambda q=q, k=k, v=v, q_off=q_off: flash_attention.attend_partials_rounded(
+                            q, k, v.float(), q_off, 0, True))
+                        if exact else oracle
+                    ),
+                    control_rule='p left unrounded' if exact else 'none (normal inputs)',
+                    nbytes=2 * 3 * b * s_ * h * dh + 4 * (b * s_ * h * dh + 2 * b * h * s_),
+                    flops=4 * dh * pairs * b * h, flops_per_s=HALF_FLOPS_PER_S,
+                    no_control=not exact, device_kernels=FLASH16_KERNELS, library_device=True,
+                    extra=dict(
+                        inputs=inputs, q_offset=q_off, k_offset=0, visible_pairs=pairs,
+                        einsum_form_m_rel_err=float((einsum_m - m_ref).abs().max() / m_ref.abs().max()),
+                    ),
+                ))
     return cases
 
 
@@ -1092,6 +1156,33 @@ def profiled_device_ms(fn, names, calls=20):
     return sum(ms / count for ms, count in found), sum(count for _, count in found)
 
 
+# the 16-bit kernels' device names (csrc/sym_cov.cu, csrc/flash_attn.cu)
+SYM16_KERNELS = ('sym_cov_wgmma_kernel', 'sym_cov16_reduce_kernel')
+FLASH16_KERNELS = ('flash_wgmma_kernel',)
+
+
+def library_device_ms(fn, calls=20) -> float | str:
+    """Device ms of one ``fn()`` from torch.profiler: every device kernel
+    it launches, summed, over ``calls`` calls. 100 lead kernels of a kind
+    no library call launches go first (a trace can lose a pass's first
+    records) and are left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    lead = torch.zeros(1, dtype=torch.int32, device='cuda')
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(100):
+            lead.bitwise_not_()
+        torch.cuda.synchronize()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(
+        evt.self_device_time_total / 1e3 for evt in prof.key_averages()
+        if str(evt.device_type).endswith('CUDA') and evt.count and 'bitwise_not' not in evt.key
+    )
+    return total / calls if total else 'not measured'
+
+
 def run_kernels(results) -> bool:
     ok = True
     for case in kernel_cases():
@@ -1125,6 +1216,8 @@ def run_kernels(results) -> bool:
             extra['device_ms'], extra['device_launches_seen'] = profiled_device_ms(
                 timed, case['device_kernels']
             )
+        if case.get('library_device'):
+            extra['library_device_ms'] = library_device_ms(case['library'])
         ms = time_ms(timed)
         plain_ms = time_ms(case['plain'])
         library_ms = time_ms(case['library'])
@@ -4664,6 +4757,8 @@ def amp_expected(steps: int, captures: int, model_dtype, factor_dtype) -> dict:
         out[name] = base[name] if dt == torch.float32 else 0
         for d16, tag in HALF_NAMES.items():
             out[f'{name}_{tag}'] = base[name] if dt == d16 else 0
+    for tag in HALF_NAMES.values():  # no path blends a 16-bit covariance
+        out[f'sym_cov_ema_{tag}'] = 0
     return out
 
 
@@ -5415,6 +5510,9 @@ SOURCES = {
     **{f'flash_attention_partials_{tag}': (
         'cuda', 'kfac_tpu_torch/csrc/flash_attn.cu', 'kfac_tpu/ops/pallas_attention.py:257',
         [16, 512, 4, 128]) for tag in ('bf16', 'f16')},
+    **{f'sym_cov_ema_{tag}': ('cuda', 'kfac_tpu_torch/csrc/sym_cov.cu',
+                              'kfac_tpu/ops/pallas_cov_ema.py:110', [8192, 2049])
+       for tag in ('bf16', 'f16')},
 }
 
 
@@ -5438,8 +5536,8 @@ def kernels_line(results, launches) -> dict:
             ms=row['ms'], plain_ms=row['plain_ms'], bound_ms=row['bound_ms'],
             bound_by=row['bound_by'], bound_share=row['bound_share'],
             library_ms=row['library_ms'],
-            **{k: row[k] for k in ('bound_f32_ms', 'bound_f32_share', 'device_ms', 'library_call')
-               if k in row},
+            **{k: row[k] for k in ('bound_f32_ms', 'bound_f32_share', 'device_ms',
+                                   'library_device_ms', 'library_call') if k in row},
         ))
     return {'kernels': out}
 

@@ -58,29 +58,55 @@
 // and l are written as (B, H, S_q): the TPU's 128-lane broadcast of them
 // was a Mosaic layout constraint.
 //
-// bf16 and f16 inputs (flash_mma16_kernel<T>): the TPU kernel upcasts q and
-// k, takes f32 logits and softmax, and rounds p to v's dtype before P V,
-// which accumulates in f32 (pallas_attention.py:56-99); acc, m and l stay
-// f32. These forms compute that function with logit = (q . k) * D^-0.5:
-// q . k of the 16-bit values on the tensor cores (each product exact in
-// f32, f32 accumulate), then one f32 multiply (__fmul_rn, so it is never
-// contracted into the subtraction that follows). The TPU kernel's
+// bf16 and f16 inputs (flash_wgmma_kernel<T, D>): the TPU kernel upcasts q
+// and k, takes f32 logits and softmax, and rounds p to v's dtype before
+// P V, which accumulates in f32 (pallas_attention.py:56-99); acc, m and l
+// stay f32. These forms compute that function with logit = (q . k) *
+// D^-0.5: q . k of the 16-bit values on the tensor cores (each product
+// exact in f32, f32 accumulate), then one f32 multiply (__fmul_rn, so it
+// is never contracted into the subtraction that follows). The TPU kernel's
 // (q * scale) . k differs from it by f32 rounding only; neither rounds
-// q * scale to 16 bits, as the einsum form off the TPU does. p = expf(logit
-// - m) is summed into l unrounded and rounded to T to nearest for P V, both
-// products mma.sync m16n8k16 (f32 accumulate). Tiles per head dim, the
-// causal bound, the ring of K/V tiles, the masking, the online update and
-// the per-tile P V joining O in f32 adds are the f32 form's; shared rows of
-// Q, K and V hold D + 8 values of 16 bits. Bound at the flagship's (16,
-// 512, 4, 128): 4.3e9 FLOP at the 989 TFLOP/s bf16/f16 peak, 0.0044 ms,
-// against 12.6 MB of 16-bit inputs and 33.6 MB of f32 output (0.014 ms
-// at 3.35 TB/s): bound by bytes.
+// q * scale to 16 bits, as the einsum form off the TPU does. p = exp(logit
+// - m) is summed into l unrounded and rounded to T to nearest for P V. m
+// is the f32 form's, bit for bit (the largest dot, scaled: the rounding is
+// monotone); p is 2^(dot * scale * log2 e - m * log2 e), one FMA and the
+// SFU's ex2.approx, within a few f32 ulps of expf(logit - m) (with expf
+// the kernel took 0.0337 ms on an H100 against 0.0233 at (16, 512, 4,
+// 128): `python -m kfac_tpu_torch.half_probe`).
+// Bound at the flagship's (16, 512, 4, 128): 4.3e9 FLOP at the 989 TFLOP/s
+// bf16/f16 peak, 0.0044 ms, against 25.2 MB of 16-bit q, k and v and 16.8
+// MB of f32 acc (m and l 0.26 MB), 0.0126 ms at 3.35 TB/s: bound by bytes.
+// Design:
+// - One CTA per (batch * head, 64-row Q tile), Q tiles last first, the
+//   causal bound as in the f32 form (K tiles above the diagonal are never
+//   loaded). A producer warp loads Q once and 64-key K/V tiles into a
+//   two-stage ring of mbarriers by TMA over the 4-D (B, S, H, D) tensors,
+//   a box of one head: 64 head-dim values (128 bytes, 128-byte swizzle;
+//   32 values and the 64-byte swizzle at D = 32) x the tile's rows. Rows
+//   past the chunk read as zeros.
+// - One consumer warpgroup owns the 64 query rows. S = Q K^T is wgmma
+//   m64n64k16 with Q and K from shared memory, both K-major. P V is wgmma
+//   m64nDk16 with P from registers: the S accumulator of each 16 keys,
+//   rounded to T, packs into the A fragment; V comes from shared memory,
+//   MN-major, through the transpose bit. O is scaled by alpha in registers
+//   and P V accumulates onto it in the tensor cores.
+// - Two CTAs share an SM at D = 32 and 128 (80 KB of shared memory each at
+//   D = 128), so one's loads, softmax and epilogue overlap the other's
+//   products. At D = 256 one CTA an SM (160 KB) gets 255 registers a
+//   thread for its 128 f32 of O, 32 of S and 16 packed P registers. (Two
+//   consumer warpgroups of 64 rows sharing 128-row K/V tiles, with
+//   setmaxnreg raising them to 232, took 0.0245 ms against 0.0233 at (16,
+//   512, 4, 128) on an H100 (`half_probe`), and at D = 256 ptxas still
+//   held the kernel to 168 registers and spilled 580 bytes.)
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -393,280 +419,321 @@ int launch(const float* q, const float* k, const float* v, float* acc,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ------------------------------------------------ bf16 and f16: m16n8k16
+// --------------------------------------------------- bf16 and f16: wgmma
 
-template <int D, int kWarps, int kBK>
+// Tiles of the 16-bit form at head dim D: one consumer warpgroup of 64
+// query rows and a producer warp, K/V tiles of 64 keys in a ring of
+// kStages; TMA boxes of kBox head-dim values (one swizzle row: 128 bytes,
+// or 64 at D = 32). kCtas CTAs share an SM (shared memory and registers).
+template <int D>
 struct Flash16 {
-  static constexpr int kBQ = 16 * kWarps;
-  static constexpr int kThreads = 32 * kWarps;
-  static constexpr int kLd = D + 8;  // Q, K and V rows, in 16-bit values
-  static constexpr int kQVals = kBQ * kLd;
-  static constexpr int kStageVals = 2 * kBK * kLd;
-  static constexpr int kSmemBytes = (kQVals + 2 * kStageVals) * 2;
-  static constexpr int kNf = kBK / 8;  // n8 fragments of S
-  static_assert(D % 16 == 0 && kBK % 16 == 0, "tiles are whole mma steps");
+  static constexpr int kBQ = 64;
+  static constexpr int kBK = 64;
+  static constexpr int kStages = 2;
+  static constexpr int kCtas = D == 256 ? 1 : 2;
+  static constexpr int kBox = D < 64 ? D : 64;
+  static constexpr int kBoxes = D / kBox;
+  static constexpr int kRow = kBox * 2;  // bytes of a box row: the swizzle span
+  static constexpr uint32_t kLayout =
+      kRow == 128 ? hopper::kSwizzle128 : hopper::kSwizzle64;
+  static constexpr int kQBytes = kBQ * D * 2;
+  static constexpr int kTileBytes = kBK * D * 2;  // a K or a V tile
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  static constexpr int kThreads = 160;  // a consumer warpgroup, a producer warp
+  static constexpr int kSmemBytes =
+      1024 + kQBytes + kStages * kStageBytes + (2 * kStages + 1) * 8;
+  static_assert(D % kBox == 0 && kBox % 16 == 0, "whole boxes of k16 steps");
 };
 
+// p rounded to T (to nearest), as the bits of a 16-bit value.
 template <typename T>
-struct Half16;
+__device__ __forceinline__ uint16_t bits16(float x);
 template <>
-struct Half16<__nv_bfloat16> {
-  static __device__ __forceinline__ uint16_t bits(float x) {
-    return __bfloat16_as_ushort(__float2bfloat16_rn(x));
-  }
-  static __device__ __forceinline__ void mma(float (&c)[4],
-                                             const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-};
+__device__ __forceinline__ uint16_t bits16<__nv_bfloat16>(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
 template <>
-struct Half16<__half> {
-  static __device__ __forceinline__ uint16_t bits(float x) {
-    return __half_as_ushort(__float2half_rn(x));
-  }
-  static __device__ __forceinline__ void mma(float (&c)[4],
-                                             const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-};
+__device__ __forceinline__ uint16_t bits16<__half>(float x) {
+  return __half_as_ushort(__float2half_rn(x));
+}
 
 __device__ __forceinline__ uint32_t pack16(uint16_t lo, uint16_t hi) {
   return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
 }
 
-// Rows [row0, row0 + R) of one head of a (B, S, H, D) 16-bit tensor into
-// shared rows of LD values; rows >= s are zero-filled.
-template <int R, int D, int LD, int kThreads>
-__device__ __forceinline__ void load_rows16(uint16_t* dst, const uint16_t* src,
-                                            size_t row_stride, int row0,
-                                            int s) {
-  constexpr int kPerRow = D / 8;  // 16-byte copies a row
-#pragma unroll
-  for (int e = threadIdx.x; e < R * kPerRow; e += kThreads) {
-    const int r = e / kPerRow;
-    const int c = 8 * (e % kPerRow);
-    const int row = row0 + r;
-    const bool in = row < s;
-    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst + r * LD + c));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-                 "l"(in ? src + row * row_stride + c : src), "r"(in ? 16 : 0));
-  }
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x by the SFU (ex2.approx: within 2 ulp of f32; subnormal results kept).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-template <typename T, int D, int kWarps, int kBK>
-__global__ void __launch_bounds__(32 * kWarps, 1)
-flash_mma16_kernel(const uint16_t* __restrict__ q,
-                   const uint16_t* __restrict__ k,
-                   const uint16_t* __restrict__ v, float* __restrict__ acc_out,
-                   float* __restrict__ m_out, float* __restrict__ l_out, int h,
-                   int s_q, int s_k, int q_off, int k_off, int causal,
-                   float scale) {
-  using F = Flash16<D, kWarps, kBK>;
-  constexpr int kLd = F::kLd;
-  extern __shared__ __align__(16) uint16_t smem16[];
-  uint16_t* qs = smem16;
+// One CTA per (batch * head, 64-row Q tile), the Q tiles last first.
+// Threads 128..159 are the producer warp: its first thread loads Q once
+// and K/V tiles up to the causal bound into the ring (TMA over the
+// (B, S, H, D) tensors, a box of one head). Warpgroup 0 owns the query
+// rows: S = Q K^T by wgmma m64n64k16 (Q and K from shared memory, both
+// K-major), the online softmax in registers, then O = O * alpha + P V by
+// wgmma m64nDk16 with P from registers (the accumulator of S, rounded to
+// T, is the A fragment) and V from shared memory (MN-major, through the
+// transpose bit).
+template <typename T, int D>
+__global__ void __launch_bounds__(160, Flash16<D>::kCtas)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                   const __grid_constant__ CUtensorMap k_map,
+                   const __grid_constant__ CUtensorMap v_map,
+                   float* __restrict__ acc_out, float* __restrict__ m_out,
+                   float* __restrict__ l_out, int h, int s_q, int s_k,
+                   int q_off, int k_off, int causal, float scale) {
+  using F = Flash16<D>;
+  using hopper::smem_u32;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* qs = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
+  unsigned char* ring = qs + F::kQBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + F::kStages * F::kStageBytes);
+  uint64_t* empty = full + F::kStages;
+  uint64_t* q_full = empty + F::kStages;
 
   const int bh = blockIdx.x;
   const int b = bh / h;
   const int hh = bh % h;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * F::kBQ;  // last tile first
-  const size_t row_stride = static_cast<size_t>(h) * D;
-  const uint16_t* qb = q + (static_cast<size_t>(b) * s_q * h + hh) * D;
-  const uint16_t* kb = k + (static_cast<size_t>(b) * s_k * h + hh) * D;
-  const uint16_t* vb = v + (static_cast<size_t>(b) * s_k * h + hh) * D;
+  const int n_k = (s_k + F::kBK - 1) / F::kBK;
+  // K tiles [0, bound(rows)) hold every key that query rows [q0, q0 + rows)
+  // can see: one past the last row's position, in key-chunk coordinates
+  auto bound = [&](int first, int rows) {
+    if (!causal) return n_k;
+    const int num = q_off + min(first + rows, s_q) - k_off;
+    return num <= 0 ? 0 : min((num + F::kBK - 1) / F::kBK, n_k);
+  };
+  const int hi = bound(q0, F::kBQ);
 
-  const int n_k = (s_k + kBK - 1) / kBK;
-  int hi = n_k;
-  if (causal) {
-    const int q_end = min(q0 + F::kBQ, s_q);
-    const int num = q_off + q_end - k_off;
-    hi = num <= 0 ? 0 : min((num + kBK - 1) / kBK, n_k);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < F::kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 4);  // the consumer warps
+    }
+    hopper::mbar_init(q_full, 1);
+    hopper::mbar_fence_init();
   }
+  __syncthreads();
 
-  auto stage_k = [&](int kt) {
-    return smem16 + F::kQVals + (kt & 1) * F::kStageVals;
-  };
-  auto load_kv = [&](int kt) {
-    uint16_t* ks = stage_k(kt);
-    load_rows16<kBK, D, kLd, F::kThreads>(ks, kb, row_stride, kt * kBK, s_k);
-    load_rows16<kBK, D, kLd, F::kThreads>(ks + kBK * kLd, vb, row_stride,
-                                          kt * kBK, s_k);
-  };
+  if (threadIdx.x >= 128) {  // the producer warp
+    if (threadIdx.x == 128 && hi > 0) {
+      hopper::mbar_expect_tx(q_full, F::kQBytes);
+#pragma unroll
+      for (int c = 0; c < F::kBoxes; ++c)
+        hopper::tma_load_4d(qs + c * F::kBQ * F::kRow, &q_map, q_full,
+                            c * F::kBox, hh, q0, b);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int kt = 0; kt < hi; ++kt) {
+        hopper::mbar_wait(&empty[stage], phase ^ 1);
+        unsigned char* ks = ring + stage * F::kStageBytes;
+        unsigned char* vs = ks + F::kTileBytes;
+        hopper::mbar_expect_tx(&full[stage], F::kStageBytes);
+#pragma unroll
+        for (int c = 0; c < F::kBoxes; ++c) {
+          hopper::tma_load_4d(ks + c * F::kBK * F::kRow, &k_map, &full[stage],
+                              c * F::kBox, hh, kt * F::kBK, b);
+          hopper::tma_load_4d(vs + c * F::kBK * F::kRow, &v_map, &full[stage],
+                              c * F::kBox, hh, kt * F::kBK, b);
+        }
+        if (++stage == F::kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {  // the consumer warpgroup
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    // this lane's rows g and g + 8 of its warp, as global query positions
+    const int qpos0 = q_off + q0 + 16 * warp + g;
 
-  load_rows16<F::kBQ, D, kLd, F::kThreads>(qs, qb, row_stride, q0, s_q);
-  if (hi > 0) load_kv(0);
-  cp_async_commit();
+    // p = exp(logit - m) = 2^(q.k * scale * log2(e) - m * log2(e)): one
+    // FMA of the dot and ex2
+    const float scale_log2e = scale * kLog2e;
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf};
+    float l[2] = {0.f, 0.f};
+    if (hi > 0) hopper::mbar_wait(q_full, 0);
+    const uint32_t q_at = smem_u32(qs);
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  // this lane's Q row g, column 2t (and rows g + 8, columns 2t + 8)
-  const uint16_t* qw = qs + (warp * 16 + g) * kLd + 2 * t;
-  const int qpos0 = q_off + q0 + warp * 16 + g;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int kt = 0; kt < hi; ++kt) {
+      hopper::mbar_wait(&full[stage], phase);
+      {
+        const uint32_t k_at = smem_u32(ring + stage * F::kStageBytes);
+        const uint32_t v_at = k_at + F::kTileBytes;
+        // S = q k^T: s[4j + r] at row g + 8 (r / 2), key 8j + 2t + r % 2
+        float s[32];
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int c = 0; c < F::kBoxes; ++c)
+#pragma unroll
+          for (int kk = 0; kk < F::kBox / 16; ++kk) {
+            const uint64_t dq = hopper::make_desc(
+                q_at + c * F::kBQ * F::kRow + 32 * kk, 16, 8 * F::kRow, F::kLayout);
+            const uint64_t dk = hopper::make_desc(
+                k_at + c * F::kBK * F::kRow + 32 * kk, 16, 8 * F::kRow, F::kLayout);
+            hopper::Wgmma<T>::ss_n64_nn(s, dq, dk, c + kk > 0);
+          }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_operands(s);
 
-  float o[D / 8][4];
+        const int key0 = kt * F::kBK;
+        const bool masked = key0 + F::kBK > s_k ||
+                            (causal && k_off + key0 + F::kBK - 1 > q_off + q0);
+        float alpha[2];
 #pragma unroll
-  for (int df = 0; df < D / 8; ++df)
+        for (int r = 0; r < 2; ++r) {
+          const int qpos = qpos0 + 8 * r;
+          if (masked) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) o[df][i] = 0.f;
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};
-
-  for (int kt = 0; kt < hi; ++kt) {
-    if (kt + 1 < hi) load_kv(kt + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const uint16_t* ks = stage_k(kt);
-    const uint16_t* vs = ks + kBK * kLd;
-
-    // S = q k^T: c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8,
-    // 2t + 1) of each n8 fragment of keys
-    float sc[F::kNf][4];
+            for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int nf = 0; nf < F::kNf; ++nf)
+              for (int e = 0; e < 2; ++e) {
+                const int kc = key0 + 8 * j + 2 * t + e;
+                const bool visible = kc < s_k && (!causal || qpos >= k_off + kc);
+                if (!visible) s[4 * j + 2 * r + e] = kNegInf;
+              }
+          }
+          float bm = kNegInf;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) sc[nf][i] = 0.f;
+          for (int j = 0; j < 8; ++j)
+            bm = fmaxf(bm, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+          // the 4 lanes of a row group hold the row
+          bm = fmaxf(bm, __shfl_xor_sync(0xffffffffu, bm, 1));
+          bm = fmaxf(bm, __shfl_xor_sync(0xffffffffu, bm, 2));
+          // the largest logit: rounding q.k * scale is monotone, so it is
+          // the largest dot's logit
+          if (bm > kNegInf / 2) bm = __fmul_rn(bm, scale);
+          const float new_m = fmaxf(m[r], bm);
+          const float base = new_m * kLog2e;
+          float rs = 0.f;
 #pragma unroll
-    for (int kd = 0; kd < D; kd += 16) {
-      uint32_t a[4];
-      a[0] = *reinterpret_cast<const uint32_t*>(qw + kd);
-      a[1] = *reinterpret_cast<const uint32_t*>(qw + 8 * kLd + kd);
-      a[2] = *reinterpret_cast<const uint32_t*>(qw + kd + 8);
-      a[3] = *reinterpret_cast<const uint32_t*>(qw + 8 * kLd + kd + 8);
+          for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int nf = 0; nf < F::kNf; ++nf) {
-        const uint16_t* kr = ks + (nf * 8 + g) * kLd + kd + 2 * t;
-        Half16<T>::mma(sc[nf], a, *reinterpret_cast<const uint32_t*>(kr),
-                       *reinterpret_cast<const uint32_t*>(kr + 8));
+            for (int e = 0; e < 2; ++e) {
+              float& x = s[4 * j + 2 * r + e];
+              x = x <= kNegInf / 2 ? 0.f : exp2_approx(fmaf(x, scale_log2e, -base));
+              rs += x;
+            }
+          rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+          rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+          alpha[r] = m[r] <= kNegInf / 2 ? 0.f : exp2_approx((m[r] - new_m) * kLog2e);
+          l[r] = l[r] * alpha[r] + rs;
+          m[r] = new_m;
+        }
+        // P rounded to T as the A fragment of each k16 step kk (keys 16 kk
+        // .. 16 kk + 15 are S blocks 2 kk and 2 kk + 1)
+        uint32_t pa[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float* x = s + 4 * (2 * kk + q / 2) + 2 * (q % 2);
+            pa[kk][q] = pack16(bits16<T>(x[0]), bits16<T>(x[1]));
+          }
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i / 2) % 2];
+        // O += P V; V rows 16 kk.. of the tile, MN-major: its boxes are
+        // kBK rows apart (lbo), 8-row groups 8 rows apart (sbo)
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t dv = hopper::make_desc(v_at + 16 * kk * F::kRow,
+                                                F::kBK * F::kRow, 8 * F::kRow,
+                                                F::kLayout);
+          hopper::Wgmma<T>::rs_t(o, pa[kk], dv, 1);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_operands(o);
+      }
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[stage]);
+      if (++stage == F::kStages) {
+        stage = 0;
+        phase ^= 1;
       }
     }
 
-    const int key0 = kt * kBK;
-    const bool masked =
-        key0 + kBK > s_k ||
-        (causal && k_off + key0 + kBK - 1 > q_off + q0);
-    float alpha[2];
+    const size_t row_stride = static_cast<size_t>(h) * D;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const int qpos = qpos0 + 8 * r;
+      const int sq = q0 + 16 * warp + g + 8 * r;
+      if (sq >= s_q) continue;
+      float* orow = acc_out + (static_cast<size_t>(b) * s_q + sq) * row_stride + hh * D;
 #pragma unroll
-      for (int nf = 0; nf < F::kNf; ++nf)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& s = sc[nf][2 * r + e];
-          s = __fmul_rn(s, scale);
-          if (masked) {
-            const int kc = key0 + nf * 8 + 2 * t + e;
-            const bool visible = kc < s_k && (!causal || qpos >= k_off + kc);
-            if (!visible) s = kNegInf;
-          }
-        }
-      float bm = kNegInf;
-#pragma unroll
-      for (int nf = 0; nf < F::kNf; ++nf)
-        bm = fmaxf(bm, fmaxf(sc[nf][2 * r], sc[nf][2 * r + 1]));
-      bm = fmaxf(bm, __shfl_xor_sync(0xffffffffu, bm, 1));
-      bm = fmaxf(bm, __shfl_xor_sync(0xffffffffu, bm, 2));
-      const float new_m = fmaxf(m[r], bm);
-      float rs = 0.f;
-#pragma unroll
-      for (int nf = 0; nf < F::kNf; ++nf)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& s = sc[nf][2 * r + e];
-          s = s <= kNegInf / 2 ? 0.f : expf(s - new_m);
-          rs += s;
-        }
-      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-      alpha[r] = m[r] <= kNegInf / 2 ? 0.f : expf(m[r] - new_m);
-      l[r] = l[r] * alpha[r] + rs;
-      m[r] = new_m;
-    }
-
-    // P rounded to T as the A fragments of each k16 step j (keys 16 j ..
-    // 16 j + 15 are S fragments 2 j and 2 j + 1): the accumulator layout
-    // is the A layout.
-    uint32_t pa[F::kNf / 2][4];
-#pragma unroll
-    for (int j = 0; j < F::kNf / 2; ++j) {
-      pa[j][0] = pack16(Half16<T>::bits(sc[2 * j][0]), Half16<T>::bits(sc[2 * j][1]));
-      pa[j][1] = pack16(Half16<T>::bits(sc[2 * j][2]), Half16<T>::bits(sc[2 * j][3]));
-      pa[j][2] = pack16(Half16<T>::bits(sc[2 * j + 1][0]), Half16<T>::bits(sc[2 * j + 1][1]));
-      pa[j][3] = pack16(Half16<T>::bits(sc[2 * j + 1][2]), Half16<T>::bits(sc[2 * j + 1][3]));
-    }
-    // O = O * alpha + P V; B = V rows 16 j + 2t, + 1 (b0) and + 8, + 9
-    // (b1), column g of each n8 fragment of the head dim
-    const uint16_t* vt = vs + 2 * t * kLd + g;
-#pragma unroll
-    for (int df = 0; df < D / 8; ++df) {
-      float pv[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int j = 0; j < F::kNf / 2; ++j) {
-        const uint16_t* vj = vt + j * 16 * kLd + df * 8;
-        const uint32_t b0 = pack16(vj[0], vj[kLd]);
-        const uint32_t b1 = pack16(vj[8 * kLd], vj[9 * kLd]);
-        Half16<T>::mma(pv, pa[j], b0, b1);
+      for (int j = 0; j < D / 8; ++j)  // streaming: acc is read by a later kernel
+        __stcs(reinterpret_cast<float2*>(orow + 8 * j + 2 * t),
+               make_float2(o[4 * j + 2 * r], o[4 * j + 2 * r + 1]));
+      if (t == 0) {
+        m_out[static_cast<size_t>(bh) * s_q + sq] = m[r];
+        l_out[static_cast<size_t>(bh) * s_q + sq] = l[r];
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) o[df][i] = o[df][i] * alpha[i / 2] + pv[i];
-    }
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int s = q0 + warp * 16 + g + 8 * r;
-    if (s >= s_q) continue;
-    float* orow =
-        acc_out + (static_cast<size_t>(b) * s_q + s) * row_stride + hh * D;
-#pragma unroll
-    for (int df = 0; df < D / 8; ++df)
-      *reinterpret_cast<float2*>(orow + df * 8 + 2 * t) =
-          make_float2(o[df][2 * r], o[df][2 * r + 1]);
-    if (t == 0) {
-      m_out[static_cast<size_t>(bh) * s_q + s] = m[r];
-      l_out[static_cast<size_t>(bh) * s_q + s] = l[r];
     }
   }
 }
 
+// The TMA map of one (B, S, H, D) tensor of T, read a box of one head:
+// kBox values of the head dim x `rows` positions.
 template <typename T, int D>
-int launch16(const uint16_t* q, const uint16_t* k, const uint16_t* v,
-             float* acc, float* m, float* l, int b, int h, int s_q, int s_k,
-             int q_off, int k_off, int causal, float scale,
-             cudaStream_t stream) {
-  using Tl = Tiles<D>;
-  using F = Flash16<D, Tl::kWarps, Tl::kBK>;
+cudaError_t encode_heads(CUtensorMap* map, const void* x, int b, int s, int h,
+                         int rows) {
+  using F = Flash16<D>;
+  const cuuint64_t dims[4] = {D, static_cast<cuuint64_t>(h),
+                              static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(h) * D * 2,
+                                 static_cast<cuuint64_t>(s) * h * D * 2};
+  const cuuint32_t box[4] = {F::kBox, 1, static_cast<cuuint32_t>(rows), 1};
+  return hopper::encode_map(
+      map, hopper::TmaType<T>::value, 4, x, dims, strides, box,
+      F::kRow == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
+}
+
+template <typename T, int D>
+int launch16(const void* q, const void* k, const void* v, float* acc,
+             float* m, float* l, int b, int h, int s_q, int s_k, int q_off,
+             int k_off, int causal, float scale, cudaStream_t stream) {
+  using F = Flash16<D>;
+  if (b * h == 0 || s_q == 0) return static_cast<int>(cudaSuccess);
+  CUtensorMap q_map, k_map, v_map;
+  std::memset(&k_map, 0, sizeof(k_map));
+  std::memset(&v_map, 0, sizeof(v_map));
+  cudaError_t err = encode_heads<T, D>(&q_map, q, b, s_q, h, F::kBQ);
+  if (err == cudaSuccess && s_k > 0) {  // with no keys no tile is loaded
+    err = encode_heads<T, D>(&k_map, k, b, s_k, h, F::kBK);
+    if (err == cudaSuccess) err = encode_heads<T, D>(&v_map, v, b, s_k, h, F::kBK);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
   static bool smem_allowed[kMaxDevices] = {};
   int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
   if (!smem_allowed[dev]) {
-    err = cudaFuncSetAttribute(flash_mma16_kernel<T, D, Tl::kWarps, Tl::kBK>,
+    err = cudaFuncSetAttribute(flash_wgmma_kernel<T, D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                F::kSmemBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_allowed[dev] = true;
   }
   const dim3 grid(b * h, (s_q + F::kBQ - 1) / F::kBQ);
-  flash_mma16_kernel<T, D, Tl::kWarps, Tl::kBK>
-      <<<grid, F::kThreads, F::kSmemBytes, stream>>>(
-          q, k, v, acc, m, l, h, s_q, s_k, q_off, k_off, causal, scale);
+  flash_wgmma_kernel<T, D><<<grid, F::kThreads, F::kSmemBytes, stream>>>(
+      q_map, k_map, v_map, acc, m, l, h, s_q, s_k, q_off, k_off, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -675,19 +742,16 @@ int partials16(const void* q, const void* k, const void* v, float* acc,
                float* m, float* l, int b, int h, int s_q, int s_k, int d,
                int q_off, int k_off, int causal, float scale,
                cudaStream_t stream) {
-  const auto* q16 = static_cast<const uint16_t*>(q);
-  const auto* k16 = static_cast<const uint16_t*>(k);
-  const auto* v16 = static_cast<const uint16_t*>(v);
   switch (d) {
     case 32:
-      return launch16<T, 32>(q16, k16, v16, acc, m, l, b, h, s_q, s_k, q_off,
-                             k_off, causal, scale, stream);
+      return launch16<T, 32>(q, k, v, acc, m, l, b, h, s_q, s_k, q_off, k_off,
+                             causal, scale, stream);
     case 128:
-      return launch16<T, 128>(q16, k16, v16, acc, m, l, b, h, s_q, s_k, q_off,
-                              k_off, causal, scale, stream);
+      return launch16<T, 128>(q, k, v, acc, m, l, b, h, s_q, s_k, q_off, k_off,
+                              causal, scale, stream);
     case 256:
-      return launch16<T, 256>(q16, k16, v16, acc, m, l, b, h, s_q, s_k, q_off,
-                              k_off, causal, scale, stream);
+      return launch16<T, 256>(q, k, v, acc, m, l, b, h, s_q, s_k, q_off, k_off,
+                              causal, scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -45,24 +45,42 @@
 //   atomics: the result is the same bit for bit on every run.
 // S comes from ops/sym_cov.py's plan().
 //
-// bf16 and f16 (sym_cov_mma16_kernel<T>): the TPU kernel takes `a` in any
-// dtype, accumulates a^T a in f32, divides by `scale` in f32 and rounds
-// once to a.dtype (pallas_cov.py:66-105); these forms compute that
-// function. The product of two bf16 or f16 values is exact in f32, so the
-// tensor cores take the values as they are (mma.sync m16n8k16, f32
-// accumulate): one product per element where f32 takes three, and half the
-// bytes. Bound at the flagship's (8192, 2049): 3.4e10 FLOP at the 989
-// TFLOP/s bf16/f16 peak, 0.035 ms, against 42 MB of input and 8.4 MB of
-// output (0.015 ms at 3.35 TB/s): bound by operations. Tiles, slabs,
-// stages, split and the two passes are the f32 form's; a slab row holds
-// the 16-byte copies from the boundary at or before a[row, i0] (8 values
-// of 16 bits each), padded to 88 values so that the fragment reads of a
-// warp (rows 2t and 2t + 1, column g) hit distinct banks. Fragments pack
-// two 16-bit shared loads into one register (A is a transposed read of
-// the slab). Each slab's products start from 0 and join the f32
-// accumulator in f32 adds, as in the f32 form. The epilogue divides by
-// `scale` in f32 and rounds to T to nearest (__float2bfloat16_rn,
-// __float2half_rn), once.
+// bf16 and f16 (sym_cov_wgmma_kernel<T, kBlend>): the TPU kernel takes `a`
+// in any dtype, accumulates a^T a in f32, divides by `scale` in f32 and
+// rounds once to a.dtype (pallas_cov.py:66-105); these forms compute that
+// function (and with kBlend sym_cov_ema's: f32 F and output). The product
+// of two bf16 or f16 values is exact in f32, so wgmma takes the values as
+// they are, f32 accumulate. Bound at the flagship's (8192, 2048): 3.4e10
+// FLOP at the 989 TFLOP/s bf16/f16 peak, 0.035 ms, against 42 MB of input
+// and output (0.013 ms at 3.35 TB/s): bound by operations. Design:
+// - Both operands of a^T a are column blocks of `a` with N as the depth,
+//   so both are MN-major in shared memory: a TMA box of 64 columns x 64
+//   rows, 128-byte swizzled, is wgmma's canonical MN-major layout, read
+//   through its transpose bits. The f32 form cannot do this (a 32-bit
+//   wgmma operand must be K-major; newton_schulz.cu builds its own).
+// - Tiles of 128 x 128; one CTA an SM (a ring of 5 stages of 32 KB and
+//   the epilogue's tile of C's values, 33 KB in 16 bits, 66 KB for the
+//   blend's f32), 288 threads: one
+//   producer warp issues the TMA loads into the mbarrier ring, two
+//   consumer warpgroups of 64 rows each run wgmma m64n128k16.
+// - TMA reads rows that start on 16 bytes: ld % 8 == 0 and `a` on a
+//   16-byte boundary. The A builders of ops/cov.py write the bias-augmented
+//   rows (d = 513, 2049) into a buffer whose rows are rounded up to 64
+//   values (128 bytes, so that a box row lies in one L2 line); the wrapper
+//   copies any layout TMA cannot read into such a buffer.
+// - Wave quantisation: D = 2048 has 136 pairs, two waves on 132 SMs for
+//   1.03 waves of work. ops/sym_cov.py's plan16 gives every SM the same
+//   number of whole pairs and cuts only the rest into row slices; the
+//   CTAs are persistent and walk the items (Walk, below), so one CTA's
+//   epilogue overlaps its next item's loads. A second pass adds the
+//   slices' partial tiles in slice order. No float atomics: every run
+//   gives the same bits.
+// - The sum chains in the tensor cores over an item's rows. Their f32
+//   adds may truncate; over 8192 rows that stays far below one rounding
+//   of a 16-bit output. The blend's output is f32 and held to 1e-5, so
+//   there each slab's product starts from 0 and joins the sum in f32 adds.
+// The epilogue divides by `scale` in f32 and rounds to T to nearest
+// (__float2bfloat16_rn, __float2half_rn), once.
 //
 // sym_cov_ema runs the same kernels with the blend as a compile-time flag
 // (kBlend), so sym_cov's instantiation is the code it was without it. The
@@ -78,7 +96,12 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include <chrono>
 #include <cstdint>
+#include <cstring>
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -150,14 +173,6 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(src), "r"(4 * valid));
-}
-
-// The same copy of 16-bit values: `bytes` of the 16 are copied.
-__device__ __forceinline__ void cp_async16_bytes(void* dst, const void* src,
-                                                 int bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(bytes));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -361,9 +376,9 @@ sym_cov_tc_kernel(const float* __restrict__ a, float* __restrict__ out, int n,
 // the sum over slices in slice order, / scale (with kBlend, blended into
 // F), written to both halves. Grid: x over pairs, y over kTile * kTile / 256
 // elements of a tile.
-template <bool kBlend, typename T>
+template <bool kBlend>
 __global__ void __launch_bounds__(256)
-sym_cov_reduce_kernel(const float* __restrict__ part, T* __restrict__ c,
+sym_cov_reduce_kernel(const float* __restrict__ part, float* __restrict__ c,
                       int d, float scale, int nblk, int splits, Blend blend) {
   int bi, bj;
   pair_of(blockIdx.x, nblk, bi, bj);
@@ -377,7 +392,7 @@ sym_cov_reduce_kernel(const float* __restrict__ part, T* __restrict__ c,
   float sum = 0.f;
   for (int s = 0; s < splits; ++s) sum += p[s * stride];
   const size_t ij = static_cast<size_t>(gi) * d + gj;
-  const T v = to_out<T>(epilogue<kBlend>(sum, scale, blend, ij));
+  const float v = epilogue<kBlend>(sum, scale, blend, ij);
   c[ij] = v;
   c[static_cast<size_t>(gj) * d + gi] = v;
 }
@@ -413,218 +428,382 @@ int launch(const float* a, float* c, float* part, int n, int d, float scale,
           blend);
   err = cudaGetLastError();
   if (err != cudaSuccess || direct) return static_cast<int>(err);
-  sym_cov_reduce_kernel<kBlend, float>
+  sym_cov_reduce_kernel<kBlend>
       <<<dim3(pairs, kTile * kTile / 256), 256, 0, stream>>>(
           part, c, d, scale, nblk, splits, blend);
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---------------------------------------- sym_cov, bf16 and f16: mma.sync
+// ------------------------------------------ sym_cov, bf16 and f16: wgmma
 
-constexpr int kVec16 = 8;                // 16-bit values a 16-byte copy
-constexpr int kLd16 = kTile + 24;        // slab row: 72 copied values + pad
-constexpr int kStage16 = 2 * kSlab * kLd16;
-constexpr int kSmemBytes16 = kStages * kStage16 * 2;
+constexpr int kTile16 = 128;  // TILE16 in ops/sym_cov.py
+constexpr int kSlab16 = 64;   // SLAB16_ROWS: rows of `a` a stage
+constexpr int kBoxCols = 64;  // a TMA box: 64 columns (128 bytes) x kSlab16 rows
+constexpr int kBoxBytes = kBoxCols * kSlab16 * 2;
+constexpr int kK16Bytes = 16 * kBoxCols * 2;  // one wgmma's 16 rows of a box
+constexpr int kStageBytes16 = 4 * kBoxBytes;  // two boxes of block bi, two of bj
+constexpr int kConsumerThreads = 256;         // two warpgroups, 64 rows of C each
+constexpr int kThreads16 = kConsumerThreads + 32;  // and one producer warp
 
-template <typename T>
-struct Mma16;
-template <>
-struct Mma16<__nv_bfloat16> {
-  static __device__ __forceinline__ void run(float (&c)[4],
-                                             const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-};
-template <>
-struct Mma16<__half> {
-  static __device__ __forceinline__ void run(float (&c)[4],
-                                             const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
+template <typename T, bool kBlend>
+using Out16 = std::conditional_t<kBlend, float, T>;
+
+// Shared memory of a form: a ring of 5 stages (on an H100 4 took 6 % longer
+// at (8192, 2048), 6 as long there and 10 % longer at 2049: `python -m
+// kfac_tpu_torch.half_probe`),
+// the epilogue's tile of C's values in the output type (rows of an odd
+// count of 32-bit words, so that reading a column hits distinct banks),
+// then the barriers.
+template <typename Out>
+struct Smem16 {
+  static constexpr int kLdEpi = sizeof(Out) == 4 ? kTile16 + 1 : kTile16 + 2;
+  static constexpr int kEpiBytes = kTile16 * kLdEpi * static_cast<int>(sizeof(Out));
+  static constexpr int kStages = 5;
+  static constexpr int kBytes = 1024 + kStages * kStageBytes16 + kEpiBytes + 2 * kStages * 8;
+  static_assert(kBytes <= 232448, "one CTA an SM");
 };
 
-// Two 16-bit values as one mma register, the first in the low half.
-__device__ __forceinline__ uint32_t pack16(uint16_t lo, uint16_t hi) {
-  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
+// The work of one 16-bit product (ops/sym_cov.py's plan16): items
+// [0, whole) are tile pairs taken over all n rows and written to C; items
+// [whole, whole + split * slices) cut each of the last `split` pairs into
+// `slices` slices of rows_per_slice rows (slice-major), each summed into
+// its own scratch tile, which sym_cov16_reduce_kernel adds in slice order.
+// CTA c takes items c, c + gridDim.x, ...
+struct Walk {
+  int n, d, nblk, whole, split, slices, rows_per_slice;
+};
+
+struct Item {
+  int pair, r_begin, r_end, slot;  // slot: the scratch tile, -1 for C
+};
+
+__device__ __forceinline__ Item item_of(int item, const Walk& w) {
+  if (item < w.whole) return {item, 0, w.n, -1};
+  const int idx = item - w.whole;
+  const int r0 = (idx / w.split) * w.rows_per_slice;
+  return {w.whole + idx % w.split, r0, min(w.n, r0 + w.rows_per_slice), idx};
 }
 
-// sym_cov_tc_kernel's tile of a bf16 or f16 `a` (T): the same grid, slabs,
-// ring and outputs (direct: C = acc / scale rounded to T; else raw f32
-// sums to `part`). A slab row of `row` holds the kTile + 8 values from the
-// 16-byte boundary at or before a[row, i0]: column i0 + c sits at slot
-// c + shift(row), shift(row) = (flat index of a[row, 0] + a's offset from a
-// 16-byte boundary, in values) % 8.
-template <typename T>
-__global__ void __launch_bounds__(kTcThreads)
-sym_cov_mma16_kernel(const T* __restrict__ a, T* __restrict__ out,
-                     float* __restrict__ part_out, int n, int d, float scale,
-                     int nblk, int rows_per_split, int direct) {
-  extern __shared__ __align__(16) uint16_t smem16[];
-  int bi, bj;
-  pair_of(blockIdx.x, nblk, bi, bj);
-  const int i0 = bi * kTile;
-  const int j0 = bj * kTile;
-  const bool diag = bi == bj;
-  const int r_begin = blockIdx.y * rows_per_split;
-  const int r_end = min(n, r_begin + rows_per_split);
-  const int nslab = (r_end - r_begin + kSlab - 1) / kSlab;
-  const int s0 = static_cast<int>(reinterpret_cast<uintptr_t>(a) % 16) / 2;
-  const T* a16 = a - s0;  // 16-byte aligned
-  const long long total = static_cast<long long>(n) * d;
-  auto shift = [&](int row) { return ((row & 7) * (d & 7) + s0) & 7; };
-  auto inside = [&](long long f) {
-    return static_cast<int>(max(0LL, min(8LL, total - f)));
-  };
-
-  auto load = [&](int slab, int stage) {
-    uint16_t* si = smem16 + stage * kStage16;
-    uint16_t* sj = si + kSlab * kLd16;
-    const int row0 = r_begin + slab * kSlab;
-    constexpr int kPerRow = kTile / kVec16 + 1;
+// An off-diagonal tile of C's values staged in `epi` to C by 16-byte
+// stores, where d is a multiple of the values in 16 bytes: the tile a row
+// at a time, then its mirror a row of C at a time. Called by the consumer
+// threads together.
+template <typename Out>
+__device__ __forceinline__ void write_tile_vec(const Out* epi, Out* out, int d,
+                                               int i0, int j0) {
+  constexpr int kVec = 16 / sizeof(Out);
+  constexpr int kPerRow = kTile16 / kVec;
+  constexpr int kLd = Smem16<Out>::kLdEpi;
+  for (int e = threadIdx.x; e < kTile16 * kPerRow; e += kConsumerThreads) {
+    const int m = e / kPerRow;
+    const int n = (e % kPerRow) * kVec;
+    if (i0 + m >= d || j0 + n >= d) continue;
+    __align__(16) Out v[kVec];
 #pragma unroll
-    for (int e = threadIdx.x; e < kSlab * kPerRow; e += kTcThreads) {
-      const int kk = e / kPerRow;
-      const int c = kVec16 * (e % kPerRow);
-      const int row = row0 + kk;
-      const long long f = static_cast<long long>(row) * d - shift(row) + c;
-      const bool in_row = row < r_end;
-      const int vi = in_row ? inside(f + i0) : 0;
-      cp_async16_bytes(si + kk * kLd16 + c, vi ? a + f + i0 : a16, 2 * vi);
-      if (!diag) {
-        const int vj = in_row ? inside(f + j0) : 0;
-        cp_async16_bytes(sj + kk * kLd16 + c, vj ? a + f + j0 : a16, 2 * vj);
+    for (int k = 0; k < kVec; ++k) v[k] = epi[m * kLd + n + k];
+    *reinterpret_cast<uint4*>(out + static_cast<size_t>(i0 + m) * d + j0 + n) =
+        *reinterpret_cast<const uint4*>(v);
+  }
+  for (int e = threadIdx.x; e < kTile16 * kPerRow; e += kConsumerThreads) {
+    const int n = e / kPerRow;
+    const int m = (e % kPerRow) * kVec;
+    if (j0 + n >= d || i0 + m >= d) continue;
+    __align__(16) Out v[kVec];
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) v[k] = epi[(m + k) * kLd + n];
+    *reinterpret_cast<uint4*>(out + static_cast<size_t>(j0 + n) * d + i0 + m) =
+        *reinterpret_cast<const uint4*>(v);
+  }
+}
+
+// The items of CTA blockIdx.x: a producer warp keeps Smem16::kStages slabs of
+// kSlab16 rows in flight by TMA (the two 64-column boxes of block bi and
+// the two of bj, 128-byte swizzled; one pair on a diagonal tile), and two
+// consumer warpgroups run wgmma m64n128k16 on them: warpgroup g takes
+// rows 64g.. of the tile, A = box g of bi (MN-major: C's rows run along
+// the box's columns), B = both boxes of bj (MN-major). Without kBlend the
+// sum chains in the tensor cores over the item's rows; with kBlend each
+// slab's product starts from 0 and joins an f32 accumulator in f32 adds.
+// The epilogue stages the tile in shared memory and writes its upper
+// elements row by row, then the mirror column by column, both coalesced;
+// a slice's raw sums go to part[slot] instead.
+template <typename T, bool kBlend>
+__global__ void __launch_bounds__(kThreads16, 1)
+sym_cov_wgmma_kernel(const __grid_constant__ CUtensorMap map,
+                     Out16<T, kBlend>* __restrict__ out,
+                     float* __restrict__ part, Walk w, float scale,
+                     Blend blend) {
+  using hopper::smem_u32;
+  using Out = Out16<T, kBlend>;
+  using S = Smem16<Out>;
+  constexpr int kStages = S::kStages;
+  constexpr int kLd = S::kLdEpi;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // the swizzle pattern repeats every 1024 bytes of shared address
+  unsigned char* ring = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
+  Out* epi = reinterpret_cast<Out*>(ring + kStages * kStageBytes16);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * kStageBytes16 + S::kEpiBytes);
+  uint64_t* empty = full + kStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kConsumerThreads / 32);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  const int items = w.whole + w.split * w.slices;
+
+  if (threadIdx.x >= kConsumerThreads) {  // the producer warp
+    if (threadIdx.x == kConsumerThreads) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int it = blockIdx.x; it < items; it += gridDim.x) {
+        const Item c = item_of(it, w);
+        int bi, bj;
+        pair_of(c.pair, w.nblk, bi, bj);
+        const bool diag = bi == bj;
+        for (int row = c.r_begin; row < c.r_end; row += kSlab16) {
+          hopper::mbar_wait(&empty[stage], phase ^ 1);
+          unsigned char* buf = ring + stage * kStageBytes16;
+          hopper::mbar_expect_tx(&full[stage], (diag ? 2 : 4) * kBoxBytes);
+          hopper::tma_load_2d(buf, &map, &full[stage], bi * kTile16, row);
+          hopper::tma_load_2d(buf + kBoxBytes, &map, &full[stage],
+                              bi * kTile16 + kBoxCols, row);
+          if (!diag) {
+            hopper::tma_load_2d(buf + 2 * kBoxBytes, &map, &full[stage],
+                                bj * kTile16, row);
+            hopper::tma_load_2d(buf + 3 * kBoxBytes, &map, &full[stage],
+                                bj * kTile16 + kBoxCols, row);
+          }
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
       }
     }
-  };
+    return;
+  }
 
-  const int warp = threadIdx.x / 32;
+  constexpr int kVec = 16 / sizeof(Out);
+  const int wg = threadIdx.x / 128;
   const int lane = threadIdx.x % 32;
-  const int wm = (warp / kWarpsN) * kWarp;
-  const int wn = (warp % kWarpsN) * kWarp;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  float acc[kMt][kNt][4];
+  // this thread's fragment rows of the tile: m0 (registers 4j, 4j + 1) and
+  // m0 + 8 (4j + 2, 4j + 3), at columns 8j + 2t and 8j + 2t + 1
+  const int m0 = 64 * wg + 16 * ((threadIdx.x / 32) % 4) + lane / 4;
+  const int t2 = 2 * (lane % 4);
+  auto release = [&](int s) {
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
+  };
+  int stage = 0;
+  uint32_t phase = 0;
+  float acc[64];
+  float slab[64];
 #pragma unroll
-  for (int mi = 0; mi < kMt; ++mi)
+  for (int i = 0; i < 64; ++i) slab[i] = 0.f;
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    const Item c = item_of(it, w);
+    int bi, bj;
+    pair_of(c.pair, w.nblk, bi, bj);
+    const bool diag = bi == bj;
 #pragma unroll
-    for (int ni = 0; ni < kNt; ++ni)
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    int prev = -1;  // a stage whose wgmma group may still be reading it
+    for (int row = c.r_begin; row < c.r_end; row += kSlab16) {
+      hopper::mbar_wait(&full[stage], phase);
+      const uint32_t buf = smem_u32(ring + stage * kStageBytes16);
+      const uint32_t a_at = buf + wg * kBoxBytes;
+      const uint32_t b_at = diag ? buf : buf + 2 * kBoxBytes;
+      hopper::wgmma_fence();
 #pragma unroll
-      for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nslab) load(s, s);
-    cp_async_commit();
-  }
-  for (int slab = 0; slab < nslab; ++slab) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const int next = slab + kStages - 1;
-    if (next < nslab) load(next, next % kStages);
-    cp_async_commit();
-    const uint16_t* si = smem16 + (slab % kStages) * kStage16;
-    const uint16_t* sj = diag ? si : si + kSlab * kLd16;
-    const int row0 = r_begin + slab * kSlab;
-    float slab_sum[kMt][kNt][4];
-#pragma unroll
-    for (int mi = 0; mi < kMt; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < kNt; ++ni)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) slab_sum[mi][ni][r] = 0.f;
-#pragma unroll
-    for (int k16 = 0; k16 < kSlab; k16 += 16) {
-      // A[m][k] = si[k][m], B[k][n] = sj[k][n]; a lane reads k = 2t, 2t + 1
-      // (o[0], o[1]) and 2t + 8, 2t + 9 (o[2], o[3]) of the step.
-      int o[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int k = k16 + 2 * t + (q & 1) + 8 * (q >> 1);
-        o[q] = k * kLd16 + shift(row0 + k);
+      for (int k = 0; k < kSlab16 / 16; ++k) {
+        const uint64_t da = hopper::make_desc(a_at + k * kK16Bytes, kBoxBytes,
+                                              1024, hopper::kSwizzle128);
+        const uint64_t db = hopper::make_desc(b_at + k * kK16Bytes, kBoxBytes,
+                                              1024, hopper::kSwizzle128);
+        if constexpr (kBlend) {
+          hopper::Wgmma<T>::ss_n128_tt(slab, da, db, k);
+        } else {
+          hopper::Wgmma<T>::ss_n128_tt(acc, da, db, 1);
+        }
       }
-      uint32_t af[kMt][4];
+      hopper::wgmma_commit();
+      if constexpr (kBlend) {
+        hopper::wgmma_wait<0>();
+        hopper::fence_operands(slab);
+        release(stage);
 #pragma unroll
-      for (int mi = 0; mi < kMt; ++mi) {
-        const int m = wm + mi * 16 + g;
-        af[mi][0] = pack16(si[o[0] + m], si[o[1] + m]);
-        af[mi][1] = pack16(si[o[0] + m + 8], si[o[1] + m + 8]);
-        af[mi][2] = pack16(si[o[2] + m], si[o[3] + m]);
-        af[mi][3] = pack16(si[o[2] + m + 8], si[o[3] + m + 8]);
+        for (int i = 0; i < 64; ++i) acc[i] += slab[i];
+      } else {
+        hopper::wgmma_wait<1>();  // the previous slab's products are done
+        if (prev >= 0) release(prev);
+        prev = stage;
       }
-#pragma unroll
-      for (int ni = 0; ni < kNt; ++ni) {
-        const int c = wn + ni * 8 + g;
-        const uint32_t b0 = pack16(sj[o[0] + c], sj[o[1] + c]);
-        const uint32_t b1 = pack16(sj[o[2] + c], sj[o[3] + c]);
-#pragma unroll
-        for (int mi = 0; mi < kMt; ++mi)
-          Mma16<T>::run(slab_sum[mi][ni], af[mi], b0, b1);
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
       }
     }
-#pragma unroll
-    for (int mi = 0; mi < kMt; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < kNt; ++ni)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc[mi][ni][r] += slab_sum[mi][ni][r];
-  }
-  cp_async_wait<0>();
+    if constexpr (!kBlend) {
+      hopper::wgmma_wait<0>();
+      hopper::fence_operands(acc);
+      if (prev >= 0) release(prev);
+    }
 
-  float* part = part_out + static_cast<size_t>(blockIdx.y * gridDim.x + blockIdx.x) *
-                               (kTile * kTile);
+    if (c.slot >= 0) {  // a slice: raw sums of C's elements to its scratch tile
+      float* dst = part + static_cast<size_t>(c.slot) * (kTile16 * kTile16);
 #pragma unroll
-  for (int mi = 0; mi < kMt; ++mi) {
+      for (int j = 0; j < 16; ++j)
 #pragma unroll
-    for (int ni = 0; ni < kNt; ++ni) {
+        for (int h = 0; h < 2; ++h)
+          if (bi * kTile16 + m0 + 8 * h < w.d && bj * kTile16 + 8 * j + t2 < w.d)
+            *reinterpret_cast<float2*>(dst + (m0 + 8 * h) * kTile16 + 8 * j + t2) =
+                make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      continue;
+    }
+    // C's values (the epilogue: / scale, or the blend with F read once) in
+    // the output type, staged in shared memory
+    const int i0 = bi * kTile16;
+    const int j0 = bj * kTile16;
+    hopper::bar_sync(1, kConsumerThreads);  // the last tile's readers are done
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int m = wm + mi * 16 + g + 8 * (r / 2);
-        const int c = wn + ni * 8 + 2 * t + r % 2;
-        if (!direct) {
-          part[m * kTile + c] = acc[mi][ni][r];
-          continue;
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const int m = m0 + 8 * h;
+          const int n = 8 * j + t2 + k;
+          const size_t ij = static_cast<size_t>(i0 + m) * w.d + j0 + n;
+          const bool inside = i0 + m < w.d && j0 + n < w.d;  // F is read there only
+          epi[m * kLd + n] = to_out<Out>(
+              epilogue<kBlend>(acc[4 * j + 2 * h + k], scale, blend, inside ? ij : 0));
         }
-        const int gi = i0 + m;
-        const int gj = j0 + c;
-        if (gi < d && gj < d && (!diag || gi <= gj)) {
-          const T v = to_out<T>(acc[mi][ni][r] / scale);
-          out[static_cast<size_t>(gi) * d + gj] = v;
-          out[static_cast<size_t>(gj) * d + gi] = v;
-        }
-      }
+    hopper::bar_sync(1, kConsumerThreads);
+    if (!diag && w.d % kVec == 0) {  // rows of C on 16 bytes: 16-byte stores
+      write_tile_vec(epi, out, w.d, i0, j0);
+      continue;
+    }
+    // upper elements, a row of the tile at a time, then the mirror, a
+    // column of the tile (a row of C) at a time; on a diagonal tile only
+    // gi <= gj, so (i, j) and (j, i) come from one sum: exact symmetry
+    for (int e = threadIdx.x; e < kTile16 * kTile16; e += kConsumerThreads) {
+      const int m = e / kTile16;
+      const int n = e % kTile16;
+      const int gi = i0 + m;
+      const int gj = j0 + n;
+      if (gi < w.d && gj < w.d && (!diag || gi <= gj))
+        out[static_cast<size_t>(gi) * w.d + gj] = epi[m * kLd + n];
+    }
+    for (int e = threadIdx.x; e < kTile16 * kTile16; e += kConsumerThreads) {
+      const int n = e / kTile16;
+      const int m = e % kTile16;
+      const int gi = i0 + m;
+      const int gj = j0 + n;
+      if (gi < w.d && gj < w.d && (!diag || gi < gj))
+        out[static_cast<size_t>(gj) * w.d + gi] = epi[m * kLd + n];
     }
   }
 }
 
-// Both passes of the 16-bit sym_cov; `part` holds the f32 partials.
+// C from the slices of the split pairs: pair whole + blockIdx.x, its
+// 32 x 32 block blockIdx.y of the 128 x 128 tile. Each upper element is
+// the sum of its slices in slice order, then the epilogue; the upper
+// block is written row by row and the mirror column by column.
+template <typename Out, bool kBlend>
+__global__ void __launch_bounds__(256)
+sym_cov16_reduce_kernel(const float* __restrict__ part, Out* __restrict__ out,
+                        Walk w, float scale, Blend blend) {
+  __shared__ float tile[32][33];
+  int bi, bj;
+  pair_of(w.whole + blockIdx.x, w.nblk, bi, bj);
+  const bool diag = bi == bj;
+  const int m0 = (blockIdx.y / 4) * 32;
+  const int n0 = (blockIdx.y % 4) * 32;
+  if (diag && m0 > n0) return;  // below the diagonal of a diagonal tile
+  const size_t slice_stride = static_cast<size_t>(w.split) * kTile16 * kTile16;
+  const float* p = part + static_cast<size_t>(blockIdx.x) * kTile16 * kTile16;
+  for (int e = threadIdx.x; e < 32 * 32; e += 256) {
+    const int r = e / 32;
+    const int c = e % 32;
+    const int gi = bi * kTile16 + m0 + r;
+    const int gj = bj * kTile16 + n0 + c;
+    float v = 0.f;
+    if (gi < w.d && gj < w.d && (!diag || gi <= gj)) {
+      float sum = 0.f;
+      for (int s = 0; s < w.slices; ++s)
+        sum += p[s * slice_stride + (m0 + r) * kTile16 + n0 + c];
+      const size_t ij = static_cast<size_t>(gi) * w.d + gj;
+      v = epilogue<kBlend>(sum, scale, blend, ij);
+      out[ij] = to_out<Out>(v);
+    }
+    tile[r][c] = v;
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < 32 * 32; e += 256) {
+    const int c = e / 32;
+    const int r = e % 32;
+    const int gi = bi * kTile16 + m0 + r;
+    const int gj = bj * kTile16 + n0 + c;
+    if (gi < w.d && gj < w.d && (!diag || gi < gj))
+      out[static_cast<size_t>(gj) * w.d + gi] = to_out<Out>(tile[r][c]);
+  }
+}
+
+// The TMA map of `a`: (n, d) values of T, rows ld values apart, read in
+// boxes of kBoxCols columns x kSlab16 rows, 128-byte swizzled.
 template <typename T>
-int launch16(const T* a, T* c, float* part, int n, int d, float scale,
-             int splits, int rows_per_split, cudaStream_t stream) {
-  if (splits < 1 || rows_per_split % kSlab != 0 ||
-      (splits > 1 && part == nullptr)) {
+cudaError_t encode_rows(CUtensorMap* map, const void* a, long long ld, int n,
+                        int d) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
+  const cuuint32_t box[2] = {kBoxCols, kSlab16};
+  return hopper::encode_map(map, hopper::TmaType<T>::value, 2, a, dims, strides,
+                            box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// Both passes of the 16-bit sym_cov (kBlend false) or sym_cov_ema (true).
+template <typename T, bool kBlend>
+int launch16(const void* a, long long ld, Out16<T, kBlend>* c, float* part,
+             int n, int d, int whole, int split, int slices,
+             int rows_per_slice, int ctas, float scale, Blend blend,
+             cudaStream_t stream) {
+  const Walk w{n, d, (d + kTile16 - 1) / kTile16, whole, split, slices,
+               rows_per_slice};
+  if (ctas < 1 || rows_per_slice % kSlab16 != 0 || split < 0 ||
+      (split > 0 && (part == nullptr || slices < 1)) ||
+      reinterpret_cast<uintptr_t>(a) % 16 != 0 || (ld * 2) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int nblk = (d + kTile - 1) / kTile;
-  const int pairs = nblk * (nblk + 1) / 2;
-  const bool direct = splits == 1;
-  sym_cov_mma16_kernel<T>
-      <<<dim3(pairs, splits), kTcThreads, kSmemBytes16, stream>>>(
-          a, c, part, n, d, scale, nblk, rows_per_split, direct);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || direct) return static_cast<int>(err);
-  sym_cov_reduce_kernel<false, T>
-      <<<dim3(pairs, kTile * kTile / 256), 256, 0, stream>>>(
-          part, c, d, scale, nblk, splits, Blend{nullptr, 0.f, 0.f});
+  CUtensorMap map;
+  std::memset(&map, 0, sizeof(map));
+  cudaError_t err = cudaSuccess;
+  if (n > 0) {  // with no rows no slab is loaded
+    err = encode_rows<T>(&map, a, ld, n, d);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  static bool smem_allowed[kMaxDevices] = {};
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!smem_allowed[dev]) {
+    err = cudaFuncSetAttribute(sym_cov_wgmma_kernel<T, kBlend>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Smem16<Out16<T, kBlend>>::kBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_allowed[dev] = true;
+  }
+  sym_cov_wgmma_kernel<T, kBlend>
+      <<<ctas, kThreads16, Smem16<Out16<T, kBlend>>::kBytes, stream>>>(
+          map, c, part, w, scale, blend);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || split == 0) return static_cast<int>(err);
+  sym_cov16_reduce_kernel<Out16<T, kBlend>, kBlend>
+      <<<dim3(split, 16), 256, 0, stream>>>(part, c, w, scale, blend);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -654,20 +833,64 @@ int sym_cov_ema_f32(const float* a, const float* f, float* c, float* part,
                       rows_per_split, stream);
 }
 
-// c = a^T a / scale of a bf16 (N, D) `a` into bf16 `c`: the f32 sum
-// divided in f32 and rounded once. Splits and scratch (f32) as
-// sym_cov_f32. Returns cudaGetLastError() after the launches.
-int sym_cov_bf16(const __nv_bfloat16* a, __nv_bfloat16* c, float* part, int n,
-                 int d, float scale, int splits, int rows_per_split,
-                 cudaStream_t stream) {
-  return launch16(a, c, part, n, d, scale, splits, rows_per_split, stream);
+// c = a^T a / scale of a bf16 (n, d) `a` whose rows are `ld` values apart
+// (ld % 8 == 0, `a` on a 16-byte boundary: TMA's alignment) into a
+// contiguous bf16 (d, d) `c`: the f32 sum divided in f32 and rounded once.
+// whole, split, slices, rows_per_slice and ctas are ops/sym_cov.py's
+// plan16; with split > 0, `part` is f32 scratch of split * slices * 128 *
+// 128. Returns cudaGetLastError() after the launches.
+int sym_cov_bf16(const void* a, long long ld, void* c, float* part, int n,
+                 int d, float scale, int whole, int split, int slices,
+                 int rows_per_slice, int ctas, cudaStream_t stream) {
+  return launch16<__nv_bfloat16, false>(
+      a, ld, static_cast<__nv_bfloat16*>(c), part, n, d, whole, split, slices,
+      rows_per_slice, ctas, scale, Blend{nullptr, 0.f, 0.f}, stream);
 }
 
 // The same for f16.
-int sym_cov_f16(const __half* a, __half* c, float* part, int n, int d,
-                float scale, int splits, int rows_per_split,
-                cudaStream_t stream) {
-  return launch16(a, c, part, n, d, scale, splits, rows_per_split, stream);
+int sym_cov_f16(const void* a, long long ld, void* c, float* part, int n,
+                int d, float scale, int whole, int split, int slices,
+                int rows_per_slice, int ctas, cudaStream_t stream) {
+  return launch16<__half, false>(a, ld, static_cast<__half*>(c), part, n, d,
+                                 whole, split, slices, rows_per_slice, ctas,
+                                 scale, Blend{nullptr, 0.f, 0.f}, stream);
+}
+
+// c = beta * f + coeff * a^T a in f32 for a bf16 `a` (as sym_cov_bf16) and
+// a symmetric f32 (d, d) f; c must not alias f.
+int sym_cov_ema_bf16(const void* a, long long ld, const float* f, float* c,
+                     float* part, int n, int d, float beta, float coeff,
+                     int whole, int split, int slices, int rows_per_slice,
+                     int ctas, cudaStream_t stream) {
+  return launch16<__nv_bfloat16, true>(a, ld, c, part, n, d, whole, split,
+                                       slices, rows_per_slice, ctas, 1.f,
+                                       Blend{f, beta, coeff}, stream);
+}
+
+// The same for f16.
+int sym_cov_ema_f16(const void* a, long long ld, const float* f, float* c,
+                    float* part, int n, int d, float beta, float coeff,
+                    int whole, int split, int slices, int rows_per_slice,
+                    int ctas, cudaStream_t stream) {
+  return launch16<__half, true>(a, ld, c, part, n, d, whole, split, slices,
+                                rows_per_slice, ctas, 1.f,
+                                Blend{f, beta, coeff}, stream);
+}
+
+// The host's cost of one launch's TMA map: the mean ns of `reps`
+// encodings of a bf16 (n, d) `a` with rows ld values apart; -1 if one
+// fails.
+long long sym_cov_tma_encode_ns(const void* a, long long ld, int n, int d,
+                                int reps) {
+  CUtensorMap map;
+  const auto t0 = std::chrono::steady_clock::now();
+  for (int i = 0; i < reps; ++i) {
+    if (encode_rows<__nv_bfloat16>(&map, a, ld, n, d) != cudaSuccess) return -1;
+  }
+  const auto ns = std::chrono::duration_cast<std::chrono::nanoseconds>(
+                      std::chrono::steady_clock::now() - t0)
+                      .count();
+  return ns / (reps > 0 ? reps : 1);
 }
 
 const char* kfac_error_string(int code) {

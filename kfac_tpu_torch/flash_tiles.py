@@ -66,7 +66,7 @@ def build_variants() -> list[tuple[dict, ctypes.CDLL]]:
         cu.write_text(variant_source(src, tiles))
         lib = cu.with_suffix('.so')
         proc = subprocess.Popen(
-            [build.nvcc(), *build.FLAGS, '-o', str(lib), str(cu)],
+            build.compile_command(cu, lib),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         started.append((tiles, lib, proc))

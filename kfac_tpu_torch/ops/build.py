@@ -2,7 +2,8 @@
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface and loaded with ``ctypes``: no PyTorch headers,
-so a build takes seconds rather than minutes. Libraries go to
+so a build takes seconds rather than minutes. Sources may include the
+headers of ``csrc/`` (``*.cuh``). Libraries go to
 ``build/kernels/`` at the repository root, named by a hash of the source
 and the flags, and are built at first use. :func:`build` starts one
 ``nvcc`` per missing source, all at once.
@@ -50,10 +51,16 @@ def nvcc() -> str:
 
 def target(name: str, source: Path | None = None) -> Path:
     """Library path for source ``name`` (``csrc/<name>.cu``, or
-    ``source``), keyed by its content and flags."""
+    ``source``), keyed by its content, the headers' and the flags."""
     src = (source or CSRC / f'{name}.cu').read_bytes()
-    digest = hashlib.sha256(src + ' '.join(FLAGS).encode()).hexdigest()[:16]
+    headers = b''.join(h.read_bytes() for h in sorted(CSRC.glob('*.cuh')))
+    digest = hashlib.sha256(src + headers + ' '.join(FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f'lib{name}-{digest}.so'
+
+
+def compile_command(source: Path, out: Path) -> list[str]:
+    """The ``nvcc`` command that builds ``source`` into ``out``."""
+    return [nvcc(), *FLAGS, f'-I{CSRC}', '-o', str(out), str(source)]
 
 
 def build(names: tuple[str, ...] = SOURCES) -> dict[str, dict]:
@@ -76,9 +83,9 @@ def build(names: tuple[str, ...] = SOURCES) -> dict[str, dict]:
             }
             continue
         tmp = out.with_suffix(f'.{os.getpid()}.tmp')
-        cmd = [nvcc(), *FLAGS, '-o', str(tmp), str(CSRC / f'{name}.cu')]
         proc = subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            compile_command(CSRC / f'{name}.cu', tmp),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         started[name] = (proc, tmp, out)
     failures = []
@@ -113,7 +120,7 @@ def other_library(name: str, source: Path) -> ctypes.CDLL:
     out = target(f'{name}_other', source)
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        subprocess.run([nvcc(), *FLAGS, '-o', str(out), str(source)], check=True)
+        subprocess.run(compile_command(source, out), check=True)
     return ctypes.CDLL(str(out))
 
 

@@ -18,9 +18,32 @@ import torch.nn.functional as F
 from kfac_tpu_torch.ops import sym_cov as sym_cov_lib
 
 
+def pads_rows(x: torch.Tensor) -> bool:
+    """Whether :func:`with_column` builds ``x``'s augmented rows in padded
+    rows: those of a bf16 or f16 CUDA tensor, which the 16-bit covariance
+    kernel's TMA loads read only where each row starts on 16 bytes (a
+    513- or 2049-value row does not)."""
+    return x.device.type == 'cuda' and x.dtype in sym_cov_lib.HALF
+
+
+def with_column(x: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
+    """``torch.cat([x, col], dim=-1)`` of a 2-D ``x`` and an (n, 1)
+    ``col``; where :func:`pads_rows`, written into the (n, d + 1) view of
+    rows rounded up to ``sym_cov.ROW_PAD16`` values (the same values),
+    which ``sym_cov`` then reads without a copy."""
+    if not pads_rows(x):
+        return torch.cat([x, col], dim=-1)
+    n, d = x.shape
+    out = sym_cov_lib.kernel_rows(n, d + 1, x.dtype, x.device, padded=True)
+    return torch.cat([x, col], dim=-1, out=out)
+
+
 def append_bias_ones(x: torch.Tensor) -> torch.Tensor:
-    """Append a column of ones to the last dimension of ``x``."""
+    """Append a column of ones to the last dimension of ``x`` (a matrix's
+    by :func:`with_column`)."""
     ones = torch.ones(*x.shape[:-1], 1, dtype=x.dtype, device=x.device)
+    if x.ndim == 2:
+        return with_column(x, ones)
     return torch.cat([x, ones], dim=-1)
 
 
@@ -32,8 +55,10 @@ def get_cov(
     """Empirical second moment of a 2D tensor: ``a^T @ (b or a) / scale``.
 
     A self-covariance of a CUDA tensor always goes through the triangular
-    kernel (exactly symmetric by construction); on the CPU it is the plain
-    ``(C + C^T)/2`` form of the JAX package.
+    kernel (exactly symmetric by construction; a bf16 or f16 ``a`` in the
+    layout it has, which the kernel copies only where TMA cannot read its
+    rows); on the CPU it is the plain ``(C + C^T)/2`` form of the JAX
+    package.
     """
     if a.ndim != 2:
         raise ValueError(f'expected 2D tensor, got shape {tuple(a.shape)}')
@@ -43,7 +68,7 @@ def get_cov(
         scale = a.shape[0]
     if b is None:
         if a.device.type == 'cuda':
-            return sym_cov_lib.sym_cov(a.contiguous(), scale)
+            return sym_cov_lib.sym_cov(a if a.dtype in sym_cov_lib.HALF else a.contiguous(), scale)
         cov = a.T @ (a / scale)
         return (cov + cov.T) / 2.0
     return a.T @ (b / scale)
@@ -96,7 +121,7 @@ def routed_linear_a_factor(
     nz = live_rows(a)
     n = torch.clamp(torch.sum(nz), min=1.0)
     if has_bias:
-        a = torch.cat([a, nz[:, None]], dim=-1)
+        a = with_column(a, nz[:, None])
     return get_cov(a) * (a.shape[0] / n)
 
 

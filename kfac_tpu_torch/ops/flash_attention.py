@@ -120,8 +120,8 @@ def _launcher(dtype: torch.dtype):
 def _flash_partials_kernel(q, k, v, q_offset: int, k_offset: int, causal: bool):
     """Launch the CUDA kernel: the forward of :func:`flash_attention_partials`
     on the card. Contiguous (B, S, H, D) inputs of one dtype of ``ENTRY``
-    on 16-byte boundaries (the kernel stages them by 16-byte copies), D in
-    ``HEAD_DIMS``; acc, m and l are f32."""
+    on 16-byte boundaries (the f32 kernel stages them by 16-byte copies,
+    the 16-bit ones by TMA), D in ``HEAD_DIMS``; acc, m and l are f32."""
     b, s_q, h, d = q.shape
     s_k = k.shape[1]
     if k.shape != (b, s_k, h, d) or v.shape != k.shape:

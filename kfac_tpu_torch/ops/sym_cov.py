@@ -9,10 +9,14 @@ the card, over slices of N (:func:`plan`). On a CPU tensor it runs
 :func:`sym_cov_plain`. Both compute the upper triangle and mirror it, so
 the result is exactly symmetric.
 
-A bfloat16 or float16 ``a`` takes the kernel's 16-bit form (the tensor
-cores' m16n8k16 product of the values themselves, each product exact in
-f32) and gives the TPU kernel's function at that dtype: the sum in f32,
-divided by ``scale`` in f32, rounded once to ``a.dtype``.
+A bfloat16 or float16 ``a`` takes the kernel's 16-bit form and gives the
+TPU kernel's function at that dtype: the sum in f32, divided by ``scale``
+in f32, rounded once to ``a.dtype``. It runs ``wgmma`` on operands that TMA
+loads, in 128-wide tiles, by :func:`plan16`'s walk. TMA reads rows that
+start on 16 bytes, so the wrapper takes any 2-D layout whose rows are a
+multiple of 8 values apart (:func:`tma_ready`) as it is, and copies any
+other into such rows (:func:`kernel_rows`); ``ops/cov.py``'s A builders
+write their bias-augmented rows into such rows from the start.
 """
 
 from __future__ import annotations
@@ -43,6 +47,19 @@ ENTRY = {
     torch.bfloat16: 'sym_cov_bf16',
     torch.float16: 'sym_cov_f16',
 }
+# the 16-bit forms (sym_cov_wgmma_kernel): output tile edge, rows of `a` a
+# stage (kTile16, kSlab16 in csrc/sym_cov.cu), the values a row of `a`
+# must be a multiple of apart (TMA's 16 bytes), the values the rows of a
+# padded buffer are a multiple of apart (128 bytes: a TMA box row then
+# lies in one L2 line; 8 values apart, the (8192, 2049) product took 0.128
+# ms on an H100 against 0.084 at 64, ``half_probe``), and the slabs under
+# which N is never split
+HALF = (torch.bfloat16, torch.float16)
+TILE16 = 128
+SLAB16_ROWS = 64
+ROW_ALIGN16 = 8
+ROW_PAD16 = 64
+MAX_UNSPLIT16_SLABS = 8
 
 
 def sym_cov_plain(a: torch.Tensor, scale: float | None = None) -> torch.Tensor:
@@ -128,13 +145,135 @@ def plan(n: int, d: int, sms: int) -> CovPlan:
     return wave_plan(n, d, sms)
 
 
+class HalfPlan(NamedTuple):
+    """How the 16-bit kernel walks an (n, d) product on a card with ``sms``
+    SMs, one persistent CTA an SM at most: items ``[0, whole)`` are upper
+    pairs of ``TILE16``-wide tiles over all n rows; the last ``split``
+    pairs are cut into ``slices`` row slices of ``rows_per_slice`` rows
+    (slice-major items after them), whose partial tiles a second pass adds
+    in slice order. CTA c takes items c, c + ctas, ... (``Walk`` in
+    csrc/sym_cov.cu)."""
+
+    n: int
+    d: int
+    sms: int
+    whole: int
+    split: int
+    slices: int
+    rows_per_slice: int
+
+    @property
+    def nblk(self) -> int:
+        return -(-self.d // TILE16)
+
+    @property
+    def pairs(self) -> int:
+        return self.nblk * (self.nblk + 1) // 2
+
+    @property
+    def items(self) -> int:
+        return self.whole + self.split * self.slices
+
+    @property
+    def ctas(self) -> int:
+        return max(1, min(self.sms, self.items))
+
+    @property
+    def scratch_bytes(self) -> int:
+        """Device memory of the slices' partial tiles (0 when none)."""
+        return 4 * self.split * self.slices * TILE16**2
+
+    @property
+    def fill(self) -> float:
+        """The share of the card's SM time over the walk that its slabs
+        keep busy: all the slabs over ``sms`` times the longest CTA's."""
+        slabs = -(-self.n // SLAB16_ROWS)
+        rounds = -(-self.whole // self.ctas)
+        longest = rounds * slabs + (self.rows_per_slice // SLAB16_ROWS if self.split else 0)
+        return (self.pairs * slabs) / (self.sms * longest) if longest else 1.0
+
+    def walk(self) -> list[tuple[int, int, int, int]]:
+        """``(cta, pair, first row, end row)`` of every item, each CTA's in
+        the order it takes them: the kernel's ``item_of``."""
+        out = []
+        for cta in range(self.ctas):
+            for item in range(cta, self.items, self.ctas):
+                if item < self.whole:
+                    out.append((cta, item, 0, self.n))
+                    continue
+                idx = item - self.whole
+                r0 = idx // self.split * self.rows_per_slice
+                out.append((cta, self.whole + idx % self.split, r0,
+                            min(self.n, r0 + self.rows_per_slice)))
+        return out
+
+
+@functools.cache
+def plan16(n: int, d: int, sms: int) -> HalfPlan:
+    """The 16-bit kernel's walk of an (n, d) product on ``sms`` SMs.
+
+    The pairs in whole waves of ``sms`` CTAs go whole; the rest, if N has
+    more than ``MAX_UNSPLIT16_SLABS`` slabs, are cut into as many slices
+    as fit one more wave, so every CTA takes the same whole pairs and at
+    most one slice. On an H100 (132 SMs) at N = 8192: d = 2048 (136
+    pairs) takes 132 whole and 4 in 32 slices of 256 rows (fill 0.999);
+    d = 2049 (153) 132 whole and 21 in 6 slices of 1408 rows (0.989);
+    d = 512 (10) 13 slices of 640 rows each (0.970); d = 513 (15) 8 of
+    1024 (0.909)."""
+    nblk = -(-d // TILE16)
+    pairs = nblk * (nblk + 1) // 2
+    slabs = -(-n // SLAB16_ROWS)
+    rest = pairs % sms
+    whole = HalfPlan(n, d, sms, pairs, 0, 1, max(1, slabs) * SLAB16_ROWS)
+    if slabs <= MAX_UNSPLIT16_SLABS or rest == 0:
+        return whole
+    slices = min(slabs, sms // rest)
+    if slices <= 1:
+        return whole
+    per = -(-slabs // slices)
+    return HalfPlan(n, d, sms, pairs - rest, rest, -(-slabs // per), per * SLAB16_ROWS)
+
+
+def tma_ready(a: torch.Tensor) -> bool:
+    """Whether the 16-bit kernel reads 2-D ``a`` as it lies: unit column
+    stride, rows a multiple of ``ROW_ALIGN16`` values apart, the first on a
+    16-byte boundary."""
+    return (
+        a.stride(1) == 1 and a.stride(0) >= a.shape[1] and a.stride(0) % ROW_ALIGN16 == 0
+        and a.data_ptr() % 16 == 0
+    )
+
+
+def kernel_rows(n: int, d: int, dtype: torch.dtype, device, padded: bool) -> torch.Tensor:
+    """An uninitialised (n, d) tensor; with ``padded`` the (n, d) view of an
+    (n, d rounded up to ``ROW_PAD16``) buffer, whose rows the 16-bit kernel
+    reads as they lie, else a contiguous one."""
+    if not padded:
+        return torch.empty(n, d, dtype=dtype, device=device)
+    width = -(-d // ROW_PAD16) * ROW_PAD16
+    return torch.empty(n, width, dtype=dtype, device=device)[:, :d]
+
+
+def half_input(a: torch.Tensor) -> torch.Tensor:
+    """``a`` if :func:`tma_ready`, else a copy in padded rows."""
+    if tma_ready(a):
+        return a
+    return kernel_rows(*a.shape, a.dtype, a.device, True).copy_(a)
+
+
 @functools.cache
 def _launcher(dtype: torch.dtype):
     fn = getattr(build.library('sym_cov'), ENTRY[dtype])
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
+    if dtype in HALF:
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_float, *[ctypes.c_int] * 5, ctypes.c_void_p,
+        ]
+    else:
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
     fn.restype = ctypes.c_int
     return fn
 
@@ -153,7 +292,7 @@ def scratch(p: CovPlan, device: torch.device) -> torch.Tensor | None:
 
 
 def launch(a: torch.Tensor, out: torch.Tensor, scale: float, p: CovPlan) -> None:
-    """Run the kernel on ``a`` into ``out`` by plan ``p`` (checked
+    """Run the f32 kernel on ``a`` into ``out`` by plan ``p`` (checked
     arguments; no launch count)."""
     part = scratch(p, a.device)
     with torch.cuda.device(a.device):
@@ -165,14 +304,40 @@ def launch(a: torch.Tensor, out: torch.Tensor, scale: float, p: CovPlan) -> None
     build.check('sym_cov', code)
 
 
+def half_scratch(p: HalfPlan, device: torch.device) -> torch.Tensor | None:
+    """The slices' partial tiles of plan ``p`` (None when none)."""
+    if not p.split:
+        return None
+    return torch.empty(p.scratch_bytes // 4, dtype=torch.float32, device=device)
+
+
+def walk_args(p: HalfPlan) -> tuple[int, ...]:
+    """Plan ``p`` as the 16-bit entry points take it."""
+    return p.whole, p.split, p.slices, p.rows_per_slice, p.ctas
+
+
+def launch16(a: torch.Tensor, out: torch.Tensor, scale: float, p: HalfPlan) -> None:
+    """Run the 16-bit kernel on a :func:`tma_ready` ``a`` into ``out`` by
+    plan ``p`` (checked arguments; no launch count)."""
+    part = half_scratch(p, a.device)
+    with torch.cuda.device(a.device):
+        code = _launcher(a.dtype)(
+            a.data_ptr(), a.stride(0), out.data_ptr(), 0 if part is None else part.data_ptr(),
+            p.n, p.d, float(scale), *walk_args(p),
+            torch.cuda.current_stream(a.device).cuda_stream,
+        )
+    build.check('sym_cov', code)
+
+
 def sym_cov(a: torch.Tensor, scale: float | None = None) -> torch.Tensor:
     """``a^T a / scale`` for a 2-D ``a`` of shape (N, D); (D, D) in
     ``a.dtype``.
 
-    CUDA tensors go through the kernel (f32, bf16 or f16, contiguous, else
-    raises); the split plan's scratch is allocated here. CPU tensors go
-    through :func:`sym_cov_plain`. Each launch adds one to
-    ``sym_cov.launches`` and to ``sym_cov.launches_by_dtype[dtype]``.
+    CUDA tensors go through the kernel: f32 contiguous; bf16 or f16 in any
+    layout (:func:`half_input` copies what TMA cannot read); anything else
+    raises. The plan's scratch is allocated here. CPU tensors go through
+    :func:`sym_cov_plain`. Each launch adds one to ``sym_cov.launches`` and
+    to ``sym_cov.launches_by_dtype[dtype]``.
     """
     if a.ndim != 2:
         raise ValueError(f'expected a 2D tensor, got shape {tuple(a.shape)}')
@@ -182,16 +347,19 @@ def sym_cov(a: torch.Tensor, scale: float | None = None) -> torch.Tensor:
         return sym_cov_plain(a, scale)
     if a.device.type != 'cuda':
         raise ValueError(f'sym_cov runs on cuda or cpu, not {a.device}')
-    if a.dtype not in ENTRY or not a.is_contiguous():
+    if a.dtype not in ENTRY or (a.dtype not in HALF and not a.is_contiguous()):
         raise ValueError(
-            'the sym_cov kernel takes a contiguous float32, bfloat16 or float16 '
-            f'tensor; got {a.dtype}, contiguous={a.is_contiguous()}'
+            'the sym_cov kernel takes a float32, bfloat16 or float16 tensor, a float32 '
+            f'one contiguous; got {a.dtype}, contiguous={a.is_contiguous()}'
         )
     n, d = a.shape
     out = torch.empty((d, d), dtype=a.dtype, device=a.device)
     if d == 0:
         return out
-    launch(a, out, scale, plan(n, d, sm_count(a.device.index)))
+    if a.dtype in HALF:
+        launch16(half_input(a), out, scale, plan16(n, d, sm_count(a.device.index)))
+    else:
+        launch(a, out, scale, plan(n, d, sm_count(a.device.index)))
     build.count(sym_cov, a.dtype)
     return out
 

@@ -455,6 +455,120 @@ def test_sym_cov_16_bit_kernel_matches_plain_on_card(cuda_device, dtype, shape):
     assert err <= 2 * HALF_U[dtype] * want.float().abs().max()
 
 
+def strided_views(a):
+    """``a`` (n, d) as the 16-bit kernel reads it without a copy (rows 8
+    values apart in a wider buffer), with rows a count apart that is not a multiple of 8, and as a
+    column slice of a wider matrix off a 16-byte boundary (both copied)."""
+    n, d = a.shape
+    wide = torch.zeros(n, -(-d // 8) * 8 + 8, dtype=a.dtype, device=a.device)
+    odd = torch.zeros(n, d + 3, dtype=a.dtype, device=a.device)
+    off = torch.zeros(n, d + 2, dtype=a.dtype, device=a.device)
+    return {
+        'padded': wide[:, :d].copy_(a),
+        'unaligned_stride': odd[:, :d].copy_(a),
+        'column_slice': off[:, 1:d + 1].copy_(a),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16], ids=['bf16', 'f16'])
+@pytest.mark.parametrize('shape', [(5, 3), (77, 130), (1000, 70), (8192, 2049), (8192, 513)])
+def test_sym_cov_16_bit_kernel_on_row_strided_views_on_card(cuda_device, dtype, shape):
+    # TMA-ready views read as they lie, the others through a padded copy:
+    # every layout gives the contiguous input's bits
+    g = torch.Generator(cuda_device).manual_seed(9)
+    a = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+    want = sym_cov_lib.sym_cov(a)
+    plain = sym_cov_lib.sym_cov_plain(a)
+    assert (want.float() - plain.float()).abs().max() <= 2 * HALF_U[dtype] * plain.float().abs().max()
+    for name, view in strided_views(a).items():
+        assert sym_cov_lib.tma_ready(view) == (name == 'padded'), name
+        got = sym_cov_lib.sym_cov(view)
+        assert torch.equal(got, got.T), name
+        assert torch.equal(got, want), name
+        assert torch.equal(got, sym_cov_lib.sym_cov(view)), name  # repeatable
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16], ids=['bf16', 'f16'])
+def test_sym_cov_16_bit_kernel_with_each_walk_on_card(cuda_device, dtype):
+    # one shape (6 tile pairs, 16 slabs) through walks from all pairs whole
+    # to one slice per slab, on as many CTAs as the card has SMs and on 1
+    g = torch.Generator(cuda_device).manual_seed(10)
+    a = torch.randn(1000, 300, generator=g, device=cuda_device).to(dtype)
+    want = sym_cov_lib.sym_cov_plain(a, 3.0).float()
+    out = torch.empty(300, 300, dtype=dtype, device=cuda_device)
+    sms = sym_cov_lib.sm_count(cuda_device.index or 0)
+    for whole, split, slices, per in ((6, 0, 1, 1024), (4, 2, 2, 512), (3, 3, 5, 256),
+                                      (0, 6, 16, 64), (5, 1, 3, 384)):
+        for ctas in (sms, 1):
+            p = sym_cov_lib.HalfPlan(1000, 300, ctas, whole, split, slices, per)
+            sym_cov_lib.launch16(sym_cov_lib.half_input(a), out, 3.0, p)
+            assert torch.equal(out, out.T), (whole, split, ctas)
+            err = (out.float() - want).abs().max()
+            assert err <= 2 * HALF_U[dtype] * want.abs().max(), (whole, split, ctas)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16], ids=['bf16', 'f16'])
+@pytest.mark.parametrize('shape', [(8192, 513), (8192, 2048), (512, 256), (77, 130), (1000, 70), (5, 3)])
+def test_sym_cov_ema_16_bit_kernel_matches_plain_on_card(cuda_device, dtype, shape):
+    # the blend of a 16-bit a into an f32 factor: within 1e-5 of max|coeff
+    # a^T a| (the f32 form's tolerance; the products are exact in f32),
+    # exactly symmetric, repeatable
+    g = torch.Generator(cuda_device).manual_seed(11)
+    a = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+    f = sym_cov_lib.sym_cov_plain(torch.randn(shape, generator=g, device=cuda_device))
+    beta, coeff = 0.95, 0.05 / shape[0]
+    want = cov_ema.sym_cov_ema_plain(f, a, beta, coeff)
+    before = cov_ema.sym_cov_ema.launches_by_dtype.get(dtype, 0)
+    got = cov_ema.sym_cov_ema(f, a, beta, coeff)
+    assert cov_ema.sym_cov_ema.launches_by_dtype[dtype] == before + 1
+    assert got.dtype == torch.float32 and torch.equal(got, got.T)
+    assert torch.equal(got, cov_ema.sym_cov_ema(f, a, beta, coeff))  # no atomics: repeatable
+    tol = 1e-5 * (coeff * (a.float().T @ a.float())).abs().max()
+    assert (got - want).abs().max() <= tol
+    for view in strided_views(a).values():
+        assert torch.equal(cov_ema.sym_cov_ema(f, view, beta, coeff), got)
+
+
+def close_partials(got, want, dtype, exact):
+    """acc bitwise (exact inputs) or within 2u of max|acc|; m and l within
+    1e-5 of max over the rows that see a key, and equal (-1e30, 0) on the
+    rows that see none."""
+    seen = want[1] > flash_attention.NEG_INF / 2
+    for x, w in zip(got[1:], want[1:]):
+        assert torch.equal(x[~seen], w[~seen])
+        if seen.any():
+            assert (x[seen] - w[seen]).abs().max() <= 1e-5 * w[seen].abs().max()
+    if exact:
+        assert torch.equal(got[0], want[0])
+    else:
+        assert (got[0] - want[0]).abs().max() <= 2 * HALF_U[dtype] * want[0].abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16], ids=['bf16', 'f16'])
+@pytest.mark.parametrize('inputs', ['exact', 'normal'])
+@pytest.mark.parametrize(
+    'q_off,k_off,s,d',
+    [(0, 0, 512, 128), (64, 0, 100, 128), (0, 256, 128, 128), (16, 0, 192, 128),
+     (0, 0, 128, 32), (16, 0, 100, 32), (0, 0, 256, 256), (48, 0, 100, 256),
+     (0, 128, 96, 256), (256, 0, 256, 128), (448, 0, 64, 128)],
+)
+def test_flash_16_bit_kernel_at_ring_offsets_on_card(cuda_device, dtype, inputs, q_off, k_off, s, d):
+    # the f32 test's offsets and the ring and zigzag steps of the flagship
+    gen = torch.Generator().manual_seed(12)
+    if inputs == 'exact':
+        q, k, v = flash_attention.exact_inputs(2, s, 4, d, dtype, gen)
+    else:
+        q, k, v = (torch.randn(2, s, 4, d, generator=gen).to(dtype) for _ in range(3))
+    q, k, v = (x.to(cuda_device) for x in (q, k, v))
+    got = flash_attention.flash_attention_partials(q, k, v, q_off, k_off, True)
+    want = flash_attention.attend_partials_rounded(q, k, v, q_off, k_off, True)
+    close_partials(got, want, dtype, inputs == 'exact')
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16], ids=['bf16', 'f16'])
 @pytest.mark.parametrize('inputs', ['exact', 'normal'])
