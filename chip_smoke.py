@@ -135,7 +135,8 @@ Phases, one JSON line each:
    engine's refresh of the factors a window back.
 11. ``kaisa``: the KAISA engine (``DistributedKFAC``) over NCCL, one rank
    a visible card, spawned by ``kfac_tpu_torch.parallel.spawn_world``
-   (one card: a world of one rank, which still runs NCCL, the stacked
+   (one card: a world of one rank in this process, ``run_world``, which
+   still runs NCCL, the stacked
    stores, the bucketed triangle all-reduce and the stacked Newton-Schulz
    kernel). The flagship at cadence 10/10 through ``Trainer.step`` on the
    global batch (each rank its row block): 21 steps under EIGEN at every
@@ -224,8 +225,8 @@ Phases, one JSON line each:
    itself moves across those steps), the counters (``prefetch_hit_rate``
    1.0), the ms and host syncs (none) of the spill, prefetch and restore
    steps against the same steps without. Then one NCCL rank a visible card
-   (``spawn_world``), each run's counts set to 0 just before and read just
-   after on every rank: (a) the flagship on a ``DistributedKFAC``, EIGEN,
+   (``run_world``: on one card in this process), each run's counts set to
+   0 just before and read just after on every rank: (a) the flagship on a ``DistributedKFAC``, EIGEN,
    cadence 10/10, ``async_inverse='sliced'``, 31 steps (COMM-OPT; four
    cards also MEM-OPT at 0.25): the decompositions after the swaps at 20
    and 30 bit for bit the same engine's synchronous refresh of its factors
@@ -327,6 +328,41 @@ Phases, one JSON line each:
    host syncs by kind. (d) The bench's LM stage for the flagship in bf16
    (``AMP_BENCH_WINDOW``, no probes): tokens/s, ``vs_baseline`` and MFU
    against the bf16 peak, beside ``bench_lm``'s f32 reading.
+
+20. ``ep_pp``: expert and pipeline parallelism over NCCL, one rank a
+   card (``run_world``: on one card in this process), every job at
+   cadence 2/6 for 8 steps (a capture only on the factor cadence),
+   SGD(0.1, momentum 0.9) on the preconditioned grads, each job's counts (every form's) set to 0 just
+   before and read just after on every rank. On one card: the flagship as
+   a ``PipelinedLM`` on ``pipeline_mesh(1)`` (4 microbatches) under GPipe
+   and 1F1B with ``PipelineKFAC``. On four cards: (a) the MoE flagship of
+   ``moe`` (no load-balance term) with its MoE blocks as ``EPSwitchFFN``
+   at expert 4 and capacity 4.0 (nothing drops) under
+   ``ExpertParallelKFAC``, then timed at capacity 1.25 (drops, by design,
+   unlike the reference); (b) dp 2 x expert 2; (c) model 2 x expert 2
+   (the other layers tensor-parallel); (d) the routed MoE (dense masked)
+   under ``expert_tp_overrides`` at dp 2 x model 2 on ``DistributedKFAC``;
+   (e) the flagship at pipe 2 x dp 2 under GPipe, (f) under 1F1B, (g) pipe
+   2 x model 2 under 1F1B, (h) (f) under INVERSE + Newton-Schulz (a
+   stage's microbatch covariances summed by ``sym_cov_ema`` at beta 1,
+   which the ``kernel`` phase holds at those shapes, 1024 and 2048 rows).
+   Checks:
+   losses within 1e-4 and the preconditioned grads (gathered where
+   sharded; an expert's on its ranks) within 1e-3 of max of the one-card
+   dense engine from the same weights and global batch (the dense masked
+   MoE for (a)-(d)), launches exact by form on every rank, no host sync on
+   a plain or capture step, replicated parameters bitwise on every rank
+   and each shard (a tensor-parallel shard, an expert, a stage) bitwise
+   across its data peers, (f)'s losses, grads and factors within 1e-5 of
+   (e)'s, (h)'s ``fused_ns_step`` launches on each rank inside [solves,
+   2 x cap x solves] (the solves: both factors of the stage layers its
+   data index owns, at each refresh); each job's step ms by kind, peak
+   memory, the bytes each
+   collective moves a rank (the all-to-alls, the point-to-point sends,
+   ``all_reduce_scalar``: the kl-clip sums) and the schedule's bubble
+   share; then one more plain step of each job under torch.profiler
+   (device busy ms with NCCL's kernels apart, which count as busy while
+   they wait for a peer; idle share; kernel launches).
 
 Then each phase's seconds and the script's (``timing``), the card's name
 and power limit as nvidia-smi prints them, the
@@ -665,10 +701,11 @@ def kernel_cases():
     # RESNET_COVS: ResNet-32's covariances at the bench's batch of 256.
     # MOE_COVS: the switch-MoE flagship's expert buffers and routers;
     # LORA_COVS: the LoRA fine-tune's role blocks; TP_SP_COVS: the tp_sp
-    # phase's gathered rows (a rank's 4096 or 2048 tokens, whole widths).
+    # phase's gathered rows (a rank's 4096 or 2048 tokens, whole widths);
+    # EP_PP_COVS: the pipeline's microbatch rows and the EP routers' G.
     for n, d in ((8192, 513), (8192, 2049), (8192, 512), (8192, 2048), (77, 130),
                  (512, 129), (512, 513), (1024, 129), *DIGITS_COVS, (2048, 513), (2048, 2049),
-                 *RESNET_COVS, *MOE_COVS, *LORA_COVS, *TP_SP_COVS):
+                 *RESNET_COVS, *MOE_COVS, *LORA_COVS, *TP_SP_COVS, *EP_PP_COVS):
         low_bits = n > LOW_BITS_MIN_ROWS or d < LOW_BITS_MAX_WIDTH
         a = low_bit_inputs(n, d, gen) if low_bits else randn(n, d)
         extra, also_timed = split_fields(n, d, lambda a=a: sym_cov.sym_cov(a))
@@ -695,9 +732,10 @@ def kernel_cases():
     # ragged shape. F is a covariance, so symmetric, as the contract asks.
     # The blend scales the product's error by coeff, so the tolerance is
     # relative to max|coeff a^T a|, not to max|out| (which F dominates).
-    for n, d in ((8192, 513), (8192, 2049), (512, 256), (77, 130)):
+    # EP_PP_EMA_COVS: the pipeline's microbatch sums at beta 1, coeff 1/n
+    for n, d in ((8192, 513), (8192, 2049), (512, 256), (77, 130), *EP_PP_EMA_COVS):
         a, f = randn(n, d), sym_cov.sym_cov_plain(randn(n, d))
-        beta, coeff = 0.95, 0.05 / n
+        beta, coeff = (1.0, 1.0 / n) if (n, d) in EP_PP_EMA_COVS else (0.95, 0.05 / n)
         scale = float((coeff * (a.T @ a)).abs().max())
         extra, also_timed = split_fields(
             n, d, lambda a=a, f=f, b=beta, c=coeff: cov_ema.sym_cov_ema(f, a, b, c)
@@ -809,10 +847,10 @@ def kernel_cases():
         # the worst of acc, m and l relative to its own max
         return max(map(max_err, got, want), key=lambda p: p[0] / p[1])
 
-    # the flagship's (head dim 128), the bench's tiny LM's (head dim 32) and
-    # its `large` LM's (head dim 256)
+    # the flagship's (head dim 128), the bench's tiny LM's (head dim 32), its
+    # `large` LM's (head dim 256) and the pipeline's microbatches
     for b, s_, h, dh in ((FLAGSHIP['batch'], FLAGSHIP['seq'], FLAGSHIP['heads'], 128),
-                         (4, 128, 4, 32), (8, 1024, 4, 256)):
+                         (4, 128, 4, 32), (8, 1024, 4, 256), *EP_PP_FLASH):
         q, k, v = randn(b, s_, h, dh), randn(b, s_, h, dh), randn(b, s_, h, dh)
 
         def sdpa(q=q, k=k, v=v):
@@ -1393,6 +1431,8 @@ def device_profile(fn) -> dict:
     return dict(
         wall_ms_profiled=wall, device_busy_ms=busy,
         idle_share=(1 - busy / wall) if busy else 'not measured',
+        # NCCL's kernels count as busy while they wait for a peer
+        nccl_ms=sum(k[1] for k in kernels if k[0].startswith('nccl')),
         kernel_launches=sum(k[2] for k in kernels),
         top=[dict(kernel=k[:90], ms=ms, count=n) for k, ms, n in kernels[:15]],
     )
@@ -2294,6 +2334,38 @@ def syncs_by_kind(syncs, every) -> dict:
             for k, v in kinds.items() if v}
 
 
+def run_world(fn, world: int, args: tuple = (), timeout_s: float = 600.0) -> list:
+    """``fn(rank, world, device, *args)`` on each rank of a new NCCL world,
+    one rank a card, each rank's result by rank: ``spawn_world`` for two
+    ranks or more; a world of one runs in this process (its own process
+    group on ``cuda:0``, destroyed after), which spares a process start,
+    its CUDA context and its first-use costs."""
+    import datetime
+
+    import torch.distributed as dist
+    from kfac_tpu_torch.parallel import spawn_world
+
+    if world > 1:
+        return spawn_world(fn, world, 'nccl', 'cuda', args=args, timeout_s=timeout_s)
+    dev = torch.device('cuda', 0)
+    local_rank = os.environ.get('LOCAL_RANK')
+    os.environ['LOCAL_RANK'] = '0'
+    with tempfile.TemporaryDirectory(prefix='kfac_world_') as tmp:
+        dist.init_process_group(
+            'nccl', init_method='file://' + os.path.join(tmp, 'rendezvous'), world_size=1, rank=0,
+            timeout=datetime.timedelta(seconds=timeout_s),
+        )
+        try:
+            return [fn(0, 1, dev, *args)]
+        finally:
+            dist.destroy_process_group()
+            if local_rank is None:
+                os.environ.pop('LOCAL_RANK', None)
+            else:
+                os.environ['LOCAL_RANK'] = local_rank
+            torch.cuda.empty_cache()
+
+
 def count_into(launches, wrappers) -> dict:
     """This run's counts, added into the phase's ``launches``."""
     counts = {n: w.launches for n, w in wrappers.items()}
@@ -2701,7 +2773,6 @@ def kaisa_dense_reference(kfac_kw: dict, steps: int) -> tuple[list, dict]:
 def run_kaisa(launches) -> bool:
     """The KAISA engine over NCCL (see the module's docstring, phase 11)."""
     from kfac_tpu_torch.ops import factors
-    from kfac_tpu_torch.parallel import spawn_world
 
     world = torch.cuda.device_count()
     jobs = kaisa_jobs(world)
@@ -2711,7 +2782,7 @@ def run_kaisa(launches) -> bool:
     }
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    results = spawn_world(kaisa_rank, world, 'nccl', 'cuda', args=(jobs,), timeout_s=600)
+    results = run_world(kaisa_rank, world, args=(jobs,))
     seconds = time.perf_counter() - t0
     ok = True
     for j, job in enumerate(jobs):
@@ -3072,7 +3143,7 @@ def run_kaisa_ops(launches, dense_health) -> bool:
     shutil.rmtree(root, ignore_errors=True)
     try:
         t0 = time.perf_counter()
-        results = spawn_world(kaisa_ops_rank, world, 'nccl', 'cuda', args=(root,), timeout_s=600)
+        results = run_world(kaisa_ops_rank, world, args=(root,))
         seconds = time.perf_counter() - t0
         elastic = None
         if world == 4:
@@ -3402,7 +3473,6 @@ def run_resnet(launches) -> bool:
     13)."""
     from kfac_tpu_torch import assignment
     from kfac_tpu_torch.ops import factors
-    from kfac_tpu_torch.parallel import spawn_world
 
     cuda, cpu = torch.device('cuda'), torch.device('cpu')
     variables = flax_resnet_variables(0)
@@ -3520,7 +3590,7 @@ def run_resnet(launches) -> bool:
     world = torch.cuda.device_count()
     frac = min(assignment.candidate_fractions(world))
     t0 = time.perf_counter()
-    rows = spawn_world(resnet_kaisa_rank, world, 'nccl', 'cuda', args=(frac, variables), timeout_s=600)
+    rows = run_world(resnet_kaisa_rank, world, args=(frac, variables))
     spawn_seconds = time.perf_counter() - t0
     r0 = rows[0]
     want = eig['losses'][:RESNET_KAISA_STEPS]
@@ -4028,7 +4098,6 @@ def knobs_dense_offload(launches, main_losses, main_tail) -> dict:
 def run_engine_knobs(launches, main_losses, main_tail, dense_async) -> bool:
     """The engines' last knobs (see the module's docstring, phase 15)."""
     from kfac_tpu_torch.ops import factors
-    from kfac_tpu_torch.parallel import spawn_world
 
     world = torch.cuda.device_count()
     ok = True
@@ -4037,8 +4106,7 @@ def run_engine_knobs(launches, main_losses, main_tail, dense_async) -> bool:
     ok &= dense['passed']
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    results = spawn_world(knobs_rank, world, 'nccl', 'cuda',
-                          args=(['sliced', 'host', 'compressed', 'offload'],), timeout_s=600)
+    results = run_world(knobs_rank, world, args=(['sliced', 'host', 'compressed', 'offload'],))
     spawn_seconds = time.perf_counter() - t0
     r0 = results[0]
     show = range(world) if world > 1 else [0]
@@ -4502,12 +4570,11 @@ def moe_kaisa(launches, dense_losses) -> dict:
     rank routes its own 4 rows at its own capacity, as a switch
     Transformer's data-parallel ranks do, so the losses differ from the
     dense engine's: finite and falling)."""
-    from kfac_tpu_torch.parallel import spawn_world
 
     world = torch.cuda.device_count()
     frac = 1.0 if world == 1 else 1.0 / world
     t0 = time.perf_counter()
-    rows = spawn_world(moe_kaisa_rank, world, 'nccl', 'cuda', args=(frac,), timeout_s=600)
+    rows = run_world(moe_kaisa_rank, world, args=(frac,))
     r0 = rows[0]
     expected = moe_expected(MOE_KAISA_STEPS, len(range(0, MOE_KAISA_STEPS, 10)))
     for name, count in r0['launches'].items():
@@ -5222,10 +5289,12 @@ class CommCounter:
     """Counts the calls and the bytes this rank hands each
     ``torch.distributed`` collective (an all-reduce's buffer, an
     all-gather's input, the sends of a ``batch_isend_irecv``), by wrapping
-    the module's functions while it is entered. Host work only."""
+    the module's functions while it is entered. Host work only. The
+    4-byte all-reduces (the kl-clip sums of expert and pipeline
+    parallelism) are also counted apart, as ``all_reduce_scalar``."""
 
     OPS = ('all_reduce', 'all_gather', 'all_gather_into_tensor', 'reduce_scatter_tensor',
-           'batch_isend_irecv')
+           'batch_isend_irecv', 'all_to_all_single')
 
     def __init__(self):
         self.counts: dict = {}
@@ -5234,6 +5303,10 @@ class CommCounter:
         c = self.counts.setdefault(op, {'calls': 0, 'bytes': 0})
         c['calls'] += 1
         c['bytes'] += int(nbytes)
+        if op == 'all_reduce' and nbytes == 4:  # a scalar: the kl-clip sum
+            c = self.counts.setdefault('all_reduce_scalar', {'calls': 0, 'bytes': 0})
+            c['calls'] += 1
+            c['bytes'] += int(nbytes)
 
     def __enter__(self):
         import torch.distributed as dist
@@ -5494,6 +5567,412 @@ def run_tp_sp(launches, results) -> bool:
     return ok
 
 
+EP_PP_CAPTURE = 2  # factor cadence: captures at 0, 2, 4 and 6
+EP_PP_REFRESH = 6  # inverse cadence: refreshes at 0 and 6
+EP_PP_STEPS = 8
+EP_PP_MICRO = 4  # the pipeline's microbatches
+# the MoE flagship of the moe phase without its load-balance term (an EP
+# rank routes its own tokens), at capacity 4.0 = E: nothing drops, so the
+# dense masked dispatch on one card is its reference
+EP_MOE = dict(MOE, load_balance=0.0)
+EP_MOE_LAYERS_REPLICATED = 33  # 24 attention, 6 dense MLP layers, 3 routers
+# the four-card jobs; (a) first at capacity 4.0 against the reference,
+# then timed at 1.25, where tokens drop by design
+EP_PP_JOBS = (
+    dict(name='a_ep4', kind='ep', expert=4, cf=4.0),
+    dict(name='a_ep4_cf1.25', kind='ep', expert=4, cf=1.25, reference=False),
+    dict(name='b_dp2_ep2', kind='ep', expert=2, cf=4.0),
+    dict(name='c_model2_ep2', kind='ep', model=2, expert=2, cf=4.0),
+    dict(name='d_dp2_model2_routed_tp', kind='routed_tp', model=2),
+    dict(name='e_pipe2_dp2_gpipe', kind='pp', n_stages=2, schedule='gpipe', kfac={}),
+    dict(name='f_pipe2_dp2_1f1b', kind='pp', n_stages=2, schedule='1f1b', kfac={}),
+    dict(name='g_pipe2_model2_1f1b', kind='pp', n_stages=2, model=2, schedule='1f1b', kfac={}),
+    dict(name='h_pipe2_dp2_1f1b_ns', kind='pp', n_stages=2, schedule='1f1b', kfac=INVERSE_NS),
+)
+# on one card: the flagship as a PipelinedLM on pipeline_mesh(1)
+EP_PP_ONE_CARD = (
+    dict(name='pp1_gpipe', kind='pp', n_stages=1, schedule='gpipe', kfac={}),
+    dict(name='pp1_1f1b', kind='pp', n_stages=1, schedule='1f1b', kfac={}),
+)
+# the phase's covariances on a rank (rows, width) that no other phase
+# gives: the pipeline's microbatch rows at pipe 2 x dp 2 (16 rows / 4
+# microbatches / 2 = 1024 tokens), the routers' G over a rank's 2048 (EP at
+# dp 2 x expert 2 and expert 4) or 4096 tokens (model 2 x expert 2)
+EP_PP_COVS = [(1024, 513), (1024, 2049), (1024, 512), (1024, 2048), (2048, 4), (4096, 4)]
+# the pipeline's running sums of a stage's microbatch covariances, added by
+# sym_cov_ema at beta 1: 1024 rows at pipe 2 x dp 2, 2048 at dp 1 (one
+# card's pp1, whole widths; pipe 2 x model 2's gathered rows)
+EP_PP_EMA_COVS = [(1024, 513), (1024, 2049), (1024, 512), (1024, 2048),
+                  (2048, 513), (2048, 2049), (2048, 512), (2048, 2048)]
+# the pipeline's microbatches at the attention (B, S, H, Dh): 4 of the 16
+# rows on one card, 2 at pipe 2 x dp 2
+EP_PP_FLASH = [(4, FLAGSHIP['seq'], FLAGSHIP['heads'], 128), (2, FLAGSHIP['seq'], FLAGSHIP['heads'], 128)]
+
+
+def ep_pp_expected(job: dict, grid, steps: int) -> dict:
+    """A rank's launches by form over ``steps`` steps at cadence 2/6: every
+    kernel in f32 (the 16-bit forms 0), no 2-D Newton-Schulz step outside
+    INVERSE + Newton-Schulz (which is checked in its range instead)."""
+    captures = len(range(0, steps, EP_PP_CAPTURE))
+    per_capture, summed, flash = 2 * MOE_LAYERS, 0, FLAGSHIP['layers']
+    if job['kind'] == 'ep':
+        # hook layers (24 attention, 6 dense MLP) A and G; a block's router
+        # A and G and each local expert's A and G of up and down
+        e_loc = MOE['experts'] // job['expert']
+        per_capture = 2 * 30 + 3 * (2 + 4 * e_loc)
+    elif job['kind'] == 'pp':
+        # a stage's layers, A and G each microbatch: the first microbatch's
+        # by sym_cov, each later one added into the sum by sym_cov_ema; a
+        # stage's blocks run twice a microbatch (the checkpoint's
+        # recompute, 1F1B's B slot)
+        layers = FLAGSHIP['layers'] // job['n_stages']
+        per_capture = 2 * 6 * layers
+        summed = per_capture * (EP_PP_MICRO - 1)
+        flash = 2 * layers * EP_PP_MICRO
+    base = dict(
+        sym_cov=per_capture * captures, sym_cov_ema=summed * captures, klclip_dot=steps,
+        klclip_dot_norms=0, klclip_scale=steps, flash_attention_partials=flash * steps,
+        fused_ns_step_stacked=0,
+    )
+    if not job.get('kfac'):
+        base['fused_ns_step'] = 0
+    out = dict(base)
+    for name in ('sym_cov', 'sym_cov_ema', 'flash_attention_partials'):
+        for tag in HALF_NAMES.values():
+            out[f'{name}_{tag}'] = 0
+    return out
+
+
+def timed_counted(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode('warn')`` between
+    two device synchronises: (its result, seconds, host syncs it made)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, sum('synchroniz' in str(w.message) for w in caught)
+
+
+def ep_pp_kinds(i: int) -> str:
+    return 'refresh' if i % EP_PP_REFRESH == 0 else 'capture' if i % EP_PP_CAPTURE == 0 else 'plain'
+
+
+def ep_pp_model(job, grid, device):
+    """The job's model from seed 1 (the one-card references' weights),
+    its engine, its optimizer and a step function."""
+    import kfac_tpu_torch as kt
+    from kfac_tpu_torch.models import TransformerLM, lm_loss
+    from kfac_tpu_torch.parallel import expert_parallel, pipeline, tensor_parallel
+    from kfac_tpu_torch.layers import registry
+
+    cfg = FLAGSHIP
+    kfac_kw = dict(damping=0.003, lr=0.1, factor_update_steps=EP_PP_CAPTURE,
+                   inv_update_steps=EP_PP_REFRESH, device=device, **job.get('kfac', {}))
+    lm = dict(vocab_size=cfg['vocab'], d_model=cfg['d_model'], num_heads=cfg['heads'],
+              num_layers=cfg['layers'], max_len=cfg['seq'], seed=1)
+    if job['kind'] == 'pp':
+        with warnings.catch_warnings():
+            warnings.simplefilter('ignore')
+            model = pipeline.PipelinedLM(grid, n_microbatches=EP_PP_MICRO, schedule=job['schedule'],
+                                         **lm)
+        engine = pipeline.PipelineKFAC(kt.KFACPreconditioner(model.stage_registry, **kfac_kw), model)
+
+        def run(batch, capture):
+            loss, grads, stats = model.loss_and_stats(batch, capture=capture)
+            return loss, grads, stats
+    elif job['kind'] == 'ep':
+        model = TransformerLM(**lm, device=device, num_experts=MOE['experts'],
+                              moe_every=MOE['moe_every'], moe_capacity_factor=job['cf'], ep_mesh=grid)
+        with torch.no_grad():
+            for block, e in MOE['starved']:
+                router = model.get_submodule(block).router
+                router.bias[e] = -1e4
+        if grid.model > 1:
+            tensor_parallel.shard_params(model, grid)
+        reg = expert_parallel.register_model(model, skip_layers=['lm_head'], device=device)
+        hooked = registry.register_model(model, skip_layers=['lm_head'], device=device)
+        ffns = [f for _, f in expert_parallel.ep_blocks(model)]
+        engine = expert_parallel.ExpertParallelKFAC(kt.KFACPreconditioner(reg, **kfac_kw), grid, ffns)
+        loss_fn = lm_loss(model)
+        runner = expert_parallel.combined_value_stats_and_grad(
+            lambda b, fs: loss_fn(b), registry=hooked, ep_ffns=ffns, model=model)
+
+        def run(batch, capture):
+            (loss, _), grads, stats = runner(grid.local_tokens(batch), capture=capture)
+            return loss, grads, stats
+    else:  # routed MoE under expert_tp_overrides, DistributedKFAC
+        from kfac_tpu_torch.models import moe as moe_lib
+        from kfac_tpu_torch.layers import capture as capture_lib
+        from kfac_tpu_torch.parallel import DistributedKFAC
+
+        model = TransformerLM(**lm, device=device, num_experts=MOE['experts'],
+                              moe_every=MOE['moe_every'])
+        with torch.no_grad():
+            for block, e in MOE['starved']:
+                model.get_submodule(block).router.bias[e] = -1e4
+        base = kt.register_model(model, skip_layers=['lm_head'], device=device,
+                                 routed_layers=MOE['routed_layers'])
+        tensor_parallel.shard_params_from_registry(
+            model, grid, base, overrides=moe_lib.expert_tp_overrides(), warn_unmatched=False)
+        reg = kt.register_model(model, skip_layers=['lm_head'], device=device,
+                                routed_layers=MOE['routed_layers'])
+        engine = DistributedKFAC(kt.KFACPreconditioner(reg, **kfac_kw), grid)
+        loss_fn = lm_loss(model)
+        cap = capture_lib.CurvatureCapture(reg).value_stats_and_grad(loss_fn)
+        plain = capture_lib.value_and_grad(model, loss_fn)
+
+        def run(batch, capture):
+            local = grid.local_tokens(batch)
+            if capture:
+                (loss, _), grads, stats = cap(local)
+            else:
+                (loss, grads), stats = plain(local), None
+            grads, loss = engine.average_grads(grads, loss)
+            return loss, grads, stats
+    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+    return model, engine, opt, run
+
+
+def ep_pp_job(job: dict, grid, device, dense: dict | None, wrappers) -> dict:
+    """One job on this rank: ``EP_PP_STEPS`` steps (each a capture or not
+    on the factor cadence, the engine's step, SGD(0.1, momentum 0.9) on the
+    preconditioned grads), counts set to 0 just before and read just after,
+    host syncs and the collectives' bytes counted a step; losses and the
+    last preconditioned grads (gathered where sharded) against the
+    one-card reference ``dense``."""
+    from kfac_tpu_torch.parallel import expert_parallel, tensor_parallel
+
+    model, engine, opt, run = ep_pp_model(job, grid, device)
+    gen = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, FLAGSHIP['vocab'], (FLAGSHIP['batch'], FLAGSHIP['seq']), generator=gen)
+    batch = (tokens.to(device), torch.roll(tokens, -1, dims=1).to(device))
+    state = engine.init()
+    box = {}
+
+    def step(i):
+        loss, grads, stats = run(batch, i % EP_PP_CAPTURE == 0)
+        box['state'], pg = engine.step(box['state'], grads, stats)
+        for n, p in model.named_parameters():
+            p.grad = pg[n]
+        opt.step()
+        box['pg'] = pg
+        return loss
+
+    box['state'] = state
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts(wrappers)
+    losses, seconds, syncs, comms, residuals = [], [], [], [], []
+    for i in range(EP_PP_STEPS):
+        with CommCounter() as counter:
+            loss, sec, n = timed_counted(lambda: step(i))
+        losses.append(float(loss))
+        seconds.append(sec)
+        syncs.append(n)
+        comms.append(counter.counts)
+    launches = counts_by_form(wrappers)
+    peak = torch.cuda.max_memory_allocated(device)
+    pg = tensor_parallel.gather_params(model, box['pg']) if tensor_parallel.sharded_param_names(model) \
+        else box['pg']
+    kinds = {k: [i for i in range(EP_PP_STEPS) if ep_pp_kinds(i) == k] for k in ('refresh', 'capture', 'plain')}
+    sharded = set(tensor_parallel.sharded_param_names(model))
+    experts, stage = set(), set()
+    if job['kind'] == 'ep':
+        experts = {n for p, f in expert_parallel.ep_blocks(model) for n in f.expert_param_names(p)}
+    if job['kind'] == 'pp':
+        stage = {n for n, _ in model.named_parameters() if n.startswith('stage.')}
+    params = dict(model.named_parameters())
+    own = sharded | experts | stage
+    # coordinates whose ranks hold the same shard: (m) for a TP shard, (m, e)
+    # for an expert, (stage, m) for a pipeline stage
+    shard_key = (grid.stage, grid.m) if job['kind'] == 'pp' else (grid.m, getattr(grid, 'e', 0))
+    out = dict(
+        job=job['name'], rank=grid.rank, shard_key=list(shard_key), losses=losses,
+        step_ms={k: [seconds[i] * 1e3 for i in v] for k, v in kinds.items()},
+        syncs={k: [syncs[i] for i in v] for k, v in kinds.items()},
+        comms_by_kind={k: comms[v[-1]] for k, v in kinds.items()},
+        launches=launches, expected_launches=ep_pp_expected(job, grid, EP_PP_STEPS),
+        peak_memory_bytes=peak,
+        replicated_digest=param_digest_of({n: p for n, p in params.items() if n not in own}),
+        sharded_digest=param_digest_of({n: p for n, p in params.items() if n in own}),
+    )
+    if job['kind'] == 'pp':
+        out['stage_factors'] = {k: v.detach().cpu() for k, v in box['state'].a.items()}
+        out['stage_factors_g'] = {k: v.detach().cpu() for k, v in box['state'].g.items()}
+        out['bubble'] = dict(ticks=(EP_PP_MICRO + grid.n_stages - 1) if job['schedule'] == 'gpipe'
+                             else EP_PP_MICRO + 2 * grid.n_stages - 2, microbatches=EP_PP_MICRO)
+    if dense is not None and job.get('reference', True):
+        want = dense['grads']
+        got = {}
+        for n, g in pg.items():
+            key = n
+            if n.startswith('stage.block'):
+                b, rest = n[len('stage.block'):].split('.', 1)
+                key = f'block{grid.stage * (FLAGSHIP["layers"] // grid.n_stages) + int(b)}.{rest}'
+            got[key] = g.detach().cpu()
+        scale = max(float(g.abs().max()) for g in want.values())
+        out['pgrad_err_rel_to_max'] = max(float((got[n] - want[n]).abs().max()) for n in got) / scale
+        out['loss_rel_err'] = max(abs(a - b) / abs(b) for a, b in zip(losses, dense['losses']))
+        out['pgrads_for_f'] = {n: g for n, g in got.items()} if job['name'].startswith(('e_', 'f_')) else None
+    if job['kind'] == 'pp':
+        # the Newton-Schulz solves this rank owns: both factors of each stage
+        # layer i with i % dp == its data index, at each refresh; at least one
+        # iteration a solve, at most the cap twice (a warm start that
+        # restarts cold)
+        owned = sum(i % grid.dp == grid.data for i in range(len(engine.registry.layers)))
+        solves = 2 * owned * len(range(0, EP_PP_STEPS, EP_PP_REFRESH))
+        out['fused_ns_step_range'] = [solves, 2 * engine.config.newton_schulz_iters * solves]
+    if job.get('kfac'):
+        out['fused_ns_step'] = launches.get('fused_ns_step', 0)
+    # after the counted steps: one more plain step under torch.profiler
+    out['profile_plain'] = device_profile(lambda: step(EP_PP_STEPS + 1))
+    del model, engine, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def ep_pp_rank(rank: int, world: int, device: torch.device, jobs: list, dense_path: str) -> list:
+    """One NCCL rank of the ep_pp phase: every job's grid first (each
+    creates process groups, in one order on every rank), then the jobs."""
+    from kfac_tpu_torch.parallel import pipeline_mesh, train_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    grids = []
+    for job in jobs:
+        if job['kind'] == 'pp':
+            grids.append(pipeline_mesh(job['n_stages'], model=job.get('model', 1), device=device))
+        else:
+            grids.append(train_mesh(1.0, model=job.get('model', 1), expert=job.get('expert', 1),
+                                    device=device))
+    dense = torch.load(dense_path, map_location='cpu', weights_only=False)
+    wrappers = kaisa_wrappers()
+    out = []
+    for job, grid in zip(jobs, grids):
+        ref = dense['moe'] if job['kind'] in ('ep', 'routed_tp') else dense[
+            'ns' if job.get('kfac') else 'eigen']
+        out.append(ep_pp_job(job, grid, device, ref, wrappers))
+    return out
+
+
+def ep_pp_dense_reference(kfac_kw: dict, moe=None) -> dict:
+    """The dense engine on one card from the same weights and global batch
+    at the ep_pp cadence: losses and the last preconditioned grads."""
+    run = LMRun(FLAGSHIP, torch.device('cuda'), EP_PP_CAPTURE, EP_PP_REFRESH, moe=moe, **kfac_kw)
+    losses, _, _ = train(run, EP_PP_STEPS)
+    out = dict(losses=losses, grads={n: g.cpu() for n, g in run.grads().items()})
+    del run
+    torch.cuda.empty_cache()
+    return out
+
+
+def ep_pp_checks(job: dict, rows: list, e_rows: list | None) -> dict:
+    by_shard: dict = {}
+    for r in rows:
+        by_shard.setdefault(tuple(r['shard_key']), set()).add(r['sharded_digest'])
+    counted = [n for n in rows[0]['expected_launches']]
+    checks = dict(
+        finite=all(all(math.isfinite(x) for x in r['losses']) for r in rows),
+        launches_exact=all(
+            {n: r['launches'].get(n, 0) for n in counted} == r['expected_launches'] for r in rows),
+        zero_syncs_plain_and_capture=all(
+            max(r['syncs']['capture'] + r['syncs']['plain']) == 0 for r in rows),
+        replicated_bitwise_on_every_rank=len({r['replicated_digest'] for r in rows}) == 1,
+        sharded_bitwise_across_data_peers=all(len(d) == 1 for d in by_shard.values()),
+    )
+    if job.get('reference', True):
+        checks['losses'] = all(r['loss_rel_err'] <= 1e-4 for r in rows)
+        checks['pgrads'] = all(r['pgrad_err_rel_to_max'] <= 1e-3 for r in rows)
+    if job.get('kfac'):
+        checks['ns_in_range'] = all(
+            r['fused_ns_step_range'][0] <= r['fused_ns_step'] <= r['fused_ns_step_range'][1] for r in rows)
+    if e_rows is not None:  # (f) against (e): float rounding apart
+        def rel(a, b):
+            scale = max(float(v.abs().max()) for v in b.values())
+            return max(float((a[n] - b[n]).abs().max()) for n in b) / scale
+
+        checks['equals_gpipe_losses'] = all(
+            max(abs(a - b) / abs(b) for a, b in zip(r['losses'], e['losses'])) <= 1e-5
+            for r, e in zip(rows, e_rows))
+        checks['equals_gpipe_pgrads'] = all(
+            rel(r['pgrads_for_f'], e['pgrads_for_f']) <= 1e-5 for r, e in zip(rows, e_rows))
+        checks['equals_gpipe_factors'] = all(
+            rel(r['stage_factors'], e['stage_factors']) <= 1e-5
+            and rel(r['stage_factors_g'], e['stage_factors_g']) <= 1e-5
+            for r, e in zip(rows, e_rows))
+    return checks
+
+
+def run_ep_pp(launches) -> bool:
+    """Expert and pipeline parallelism (see the module's docstring, phase
+    20): on one card the flagship as a ``PipelinedLM`` on
+    ``pipeline_mesh(1)`` under GPipe and 1F1B; on four cards the jobs
+    (a)-(h) of ``EP_PP_JOBS``, over NCCL, each against the one-card dense
+    engine's run from the same weights and batch."""
+
+    cards = torch.cuda.device_count()
+    jobs = list(EP_PP_ONE_CARD) if cards < 4 else list(EP_PP_JOBS)
+    world = 1 if cards < 4 else 4
+    dense = {'eigen': ep_pp_dense_reference({})}
+    if world == 4:
+        dense['ns'] = ep_pp_dense_reference(INVERSE_NS)
+        dense['moe'] = ep_pp_dense_reference({}, moe=dict(EP_MOE, capacity_factor=None))
+    path = os.path.join(tempfile.mkdtemp(prefix='ep_pp_'), 'dense.pt')
+    torch.save(dense, path)
+    t0 = time.perf_counter()
+    try:
+        results = run_world(ep_pp_rank, world, args=(jobs, path))
+    finally:
+        shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    ok, parts, by_name = True, [], {}
+    for j, job in enumerate(jobs):
+        rows = [r[j] for r in results]
+        by_name[job['name']] = rows
+        e_rows = by_name.get('e_pipe2_dp2_gpipe') if job['name'].startswith('f_') else None
+        checks = ep_pp_checks(job, rows, e_rows)
+        passed = all(checks.values())
+        for name, count in rows[0]['launches'].items():
+            launches[name] = launches.get(name, 0) + count
+        line = dict(
+            phase='ep_pp', part=job['name'], world=world, backend='nccl',
+            job={k: v for k, v in job.items() if k != 'name'}, steps=EP_PP_STEPS,
+            cadence=[EP_PP_CAPTURE, EP_PP_REFRESH], losses_rank0=rows[0]['losses'],
+            loss_tol=1e-4, pgrad_tol=1e-3,
+            loss_rel_err_by_rank=[r.get('loss_rel_err') for r in rows],
+            pgrad_err_rel_to_max_by_rank=[r.get('pgrad_err_rel_to_max') for r in rows],
+            step_ms_by_rank=[r['step_ms'] for r in rows],
+            plain_step_ms_median_by_rank=[statistics.median(r['step_ms']['plain']) for r in rows],
+            capture_step_ms_median_by_rank=[statistics.median(r['step_ms']['capture']) for r in rows],
+            syncs_by_rank=[r['syncs'] for r in rows],
+            peak_memory_by_rank=[r['peak_memory_bytes'] for r in rows],
+            comms_by_rank=[r['comms_by_kind'] for r in rows],
+            launches_by_rank=[r['launches'] for r in rows],
+            expected_launches=rows[0]['expected_launches'],
+            fused_ns_step_by_rank=[r.get('fused_ns_step') for r in rows],
+            fused_ns_step_range_by_rank=[r.get('fused_ns_step_range') for r in rows],
+            checks=checks, passed=passed,
+        )
+        line['profile_plain_by_rank'] = [
+            {k: r['profile_plain'][k] for k in ('wall_ms_profiled', 'device_busy_ms', 'nccl_ms',
+                                                'idle_share', 'kernel_launches')} for r in rows]
+        line['profile_plain_top_rank0'] = rows[0]['profile_plain']['top'][:6]
+        if 'bubble' in rows[0]:
+            b = rows[0]['bubble']
+            line['bubble'] = dict(b, share=1 - b['microbatches'] / b['ticks'])
+        emit(line)
+        ok &= passed
+        parts.append(job['name'])
+    emit(dict(phase='ep_pp', cards=cards, world=world, parts=parts, spawn_seconds=seconds, passed=ok))
+    return ok
+
+
 SOURCES = {
     'sym_cov': ('cuda', 'kfac_tpu_torch/csrc/sym_cov.cu', 'kfac_tpu/ops/pallas_cov.py:88', [8192, 2049]),
     'sym_cov_ema': ('cuda', 'kfac_tpu_torch/csrc/sym_cov.cu', 'kfac_tpu/ops/pallas_cov_ema.py:110', [512, 256]),
@@ -5605,7 +6084,7 @@ def main() -> int:
         path: {} for path in (
             'main_path', 'main_path_ns', 'digits_mlp', 'digits_cnn', 'observed', 'resume',
             'async_refresh', 'kaisa', 'kaisa_ops', 'resnet', 'bench_lm_tiny', 'bench_lm_flagship',
-            'engine_knobs', 'moe', 'lora', 'tp_sp', 'amp',
+            'engine_knobs', 'moe', 'lora', 'tp_sp', 'amp', 'ep_pp',
         )
     }
     bench_records: dict = {}
@@ -5658,6 +6137,7 @@ def main() -> int:
     phase('moe', run_moe, launches['moe'])
     phase('lora', run_lora, launches['lora'])
     phase('tp_sp', run_tp_sp, launches['tp_sp'], results)
+    phase('ep_pp', run_ep_pp, launches['ep_pp'])
     emit(dict(phase='timing', seconds=seconds, total_seconds=time.perf_counter() - start))
     print(smi, flush=True)
     emit(kernels_line(results, launches))

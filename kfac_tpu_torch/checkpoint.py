@@ -75,6 +75,8 @@ def layout_manifest(engine: Any) -> dict[str, Any]:
     topo = getattr(engine, 'topology', None)
     if callable(topo):
         man['topology'] = topo()
+    if _pipelined(engine):  # the pipeline engine
+        man['n_stages'] = int(engine.n_stages)
     if _stacked(engine):
         man['bucket_granularity'] = int(cfg.bucket_granularity)
         man['colocate_factors'] = bool(cfg.colocate_factors)
@@ -91,6 +93,17 @@ def _stacked(engine: Any) -> bool:
             'are not ported to kfac_tpu_torch yet'
         )
     return hasattr(engine, 'a_store')
+
+
+def _pipelined(engine: Any) -> bool:
+    """Whether ``engine`` is a pipeline engine (stage-local state on every
+    rank of its grid)."""
+    return hasattr(engine, 'n_stages') and hasattr(engine, 'grid')
+
+
+def _sharded(engine: Any) -> bool:
+    """Whether each rank of ``engine``'s grid writes a shard of its own."""
+    return _stacked(engine) or _pipelined(engine)
 
 
 def _bucket_entry(sb: Any) -> dict[str, Any]:
@@ -181,7 +194,13 @@ def durable_shard(engine: Any, state: Any) -> dict[str, Any]:
     :func:`durable_state` of its factor blocks, with the ``world``, its
     ``rank`` and the slot range ``[lo, hi)`` of each store's block
     (``ranges``), so a restore onto another world can reassemble the
-    stacks."""
+    stacks. A pipeline engine's shard is its stage's durable state, with
+    the ``world``, its ``rank`` and its ``stage``."""
+    if _pipelined(engine):
+        return {
+            **durable_state(state), 'world': engine.world, 'rank': engine.mesh.rank,
+            'stage': engine.grid.stage,
+        }
     return {
         **durable_state(state),
         'world': engine.world,
@@ -536,7 +555,11 @@ def save(
     engine (its blocks' slot ranges go into each shard), and every rank of
     its grid calls: each writes its shard, rank 0 the extras, the manifest
     and, after a barrier shows every shard durable, the commit marker; the
-    ranks pass each ``extra`` (only rank 0's is written).
+    ranks pass each ``extra`` (only rank 0's is written). A
+    :class:`~kfac_tpu_torch.parallel.PipelineKFAC`'s state is saved the
+    same way, each rank's shard its stage's state (``n_stages`` in the
+    manifest), and each rank's ``extra`` goes into its own shard (a
+    stage's parameters are its own), which its restore returns.
 
     ``wait=False`` returns once the snapshot is enqueued (device-to-host
     copies into pinned memory on the current stream, a CUDA event behind
@@ -566,14 +589,19 @@ def save(
         raise ValueError(
             'a DistributedKFAC state is saved with its engine: pass engine=<the DistributedKFAC>'
         )
-    rank0 = (engine.mesh.rank if _stacked(engine) else multihost.process_index()) == 0
+    if getattr(getattr(engine, 'grid', None), 'expert', 1) > 1:
+        raise NotImplementedError(
+            'checkpoints of expert-parallel state (each rank its own experts) are not '
+            'ported to kfac_tpu_torch yet'
+        )
+    rank0 = (engine.mesh.rank if _sharded(engine) else multihost.process_index()) == 0
     mpath = _manifest_path(path)
 
     def finalize_manifest() -> None:
         if engine is not None and rank0:
             _write_json(mpath, layout_manifest(engine))
 
-    if not _stacked(engine):
+    if not _sharded(engine):
         # one replicated state: process 0 writes it, the others wait on it
         handle = _save_replicated(path, state, extra, rank0, mpath, finalize_manifest)
     else:
@@ -622,6 +650,8 @@ def _save_sharded(path, state, extra, engine, rank0, mpath, finalize_manifest) -
     name = shard_name(engine.mesh.rank, world)
     tmp = _tmp_dir(path, multihost.from_process_zero(f'{os.getpid()}-{uuid.uuid4().hex[:8]}', group))
     files = {name: durable_shard(engine, state)}
+    if _pipelined(engine):  # a stage's parameters are its own: each rank keeps its extras
+        files[name]['extra'] = dict(extra or {})
     if rank0:
         files[EXTRA] = dict(extra or {})
         if os.path.exists(mpath):
@@ -755,6 +785,8 @@ def _load_durable(
     saved_man = _read_manifest(path)
     sharded = 'shards' in marker
     cur = layout_manifest(engine)
+    if _pipelined(engine) or (saved_man is not None and 'n_stages' in saved_man):
+        return _load_pipeline(path, engine, marker, saved_man, cur)
     if saved_man is not None and _layout_view(saved_man) != _layout_view(cur):
         diff = [k for k in _LAYOUT_KEYS if saved_man.get(k) != cur.get(k)]
         payload = None if sharded else _load(path, PAYLOAD)
@@ -797,6 +829,36 @@ def _load_durable(
     _validate_blocks(path, engine, loaded)
     _check_comp_ef(path, engine, loaded)
     return 'blocks', loaded, None
+
+
+def _load_pipeline(
+    path: str, engine: Any, marker: dict[str, Any], saved_man: dict[str, Any] | None,
+    cur: dict[str, Any],
+) -> tuple[str, dict[str, Any], None]:
+    """A pipeline checkpoint restores only into the same pipeline layout
+    (the JAX package's refusal: stage-stacked factors do not migrate across
+    stage counts): this rank's own shard, its stage's state, and its
+    extras."""
+    same = (
+        saved_man is not None and _layout_view(saved_man) == _layout_view(cur)
+        and 'shards' in marker and marker['world'] == getattr(engine, 'world', None)
+    )
+    own = shard_name(engine.mesh.rank, engine.world) if same else None
+    if not same or own not in marker['shards']:
+        diff = [k for k in _LAYOUT_KEYS if (saved_man or {}).get(k) != cur.get(k)]
+        raise ValueError(
+            f'checkpoint at {path!r} was saved under a different, non-migratable state '
+            f'layout (differing fields: {diff}; saved engine '
+            f"{(saved_man or {}).get('engine')}, restoring into {cur.get('engine')}). "
+            'Stage-stacked pipeline factors only restore into an identical pipeline '
+            'layout; use checkpoint.save_factors / load_factors for portable factor '
+            'checkpoints.'
+        )
+    loaded = _load(path, own)
+    if loaded.get('stage') != engine.grid.stage:
+        raise ValueError(f'checkpoint at {path!r}: shard {own} holds another stage')
+    _validate_restored_factors(path, engine, loaded)
+    return 'layers', loaded, dict(loaded.get('extra', {}))
 
 
 def _check_comp_ef(path: str, engine: Any, loaded: dict[str, Any]) -> None:
@@ -877,7 +939,7 @@ def restore(
         error = None
     except Exception as exc:  # agreed across the ranks below
         error = exc
-    if _stacked(engine) and not multihost.agree_decision(error is None, engine.mesh.group):
+    if _sharded(engine) and not multihost.agree_decision(error is None, engine.mesh.group):
         if error is None:
             raise ValueError(f'checkpoint at {path!r} was rejected on another process')
     if error is not None:

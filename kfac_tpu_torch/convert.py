@@ -260,3 +260,61 @@ def gather_dist_state(state: Any, engine: Any) -> dict[str, Any]:
             stacks[key] = full.detach().cpu().numpy()
         out[field] = stacks
     return out
+
+
+def local_params(params: Mapping[str, torch.Tensor], module: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """The entries of a whole model's ``state_dict`` that ``module`` holds:
+    a model with expert-parallel blocks keeps its rank's experts (the JAX
+    package's stacked experts, sharded over the expert axis, go to each
+    rank's local ones)."""
+    own = module.state_dict()
+    missing = [k for k in own if k not in params]
+    if missing:
+        raise ValueError(f'the parameters lack {missing[:5]}')
+    return {k: params[k] for k in own}
+
+
+def from_flax_pipeline_params(params: Mapping[str, Any], stage: int) -> dict[str, torch.Tensor]:
+    """A ``PipelinedLM``'s full ``state_dict`` for stage ``stage`` from the
+    JAX ``PipelinedLM``'s params (numpy): the embedding, positions,
+    ``ln_f`` and the head as they are, and the ``stage``-th slice of every
+    leaf of the stage-stacked ``stages`` under ``stage.`` (load it before
+    the stage is sharded: ``PipelinedLM(..., params=...)``)."""
+    stages = _flatten(params['stages'])
+    sliced: dict[str, Any] = {}
+    for path, value in stages:
+        node = sliced
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.asarray(value)[stage]
+    out = {f'stage.{k}': v for k, v in from_flax_params(sliced).items()}
+    rest = from_flax_params({k: v for k, v in params.items() if k not in ('stages', 'head')})
+    out.update(rest)
+    out['lm_head.weight'] = torch.from_numpy(np.array(np.asarray(params['head']['kernel']).T))
+    return out
+
+
+def from_jax_pipeline_state(jax_state: Mapping[str, Any], engine: Any) -> KFACState:
+    """A ``PipelineKFAC``'s state for this rank's stage from the JAX
+    engine's (numpy; every leaf stage-stacked): the factors and the
+    decompositions (EIGEN: ``qa/qg/da/dg``; INVERSE: the inverses in the
+    ``qa/qg`` slots) of ``engine.grid.stage``."""
+    stage = engine.grid.stage
+    cfg = engine.config
+    state = cfg.init()
+    dev = cfg.device
+
+    def take(field, name, dtype):
+        return _tensor(np.asarray(jax_state[field][name])[stage], dtype, dev)
+
+    names = list(engine.registry.layers)
+    fields = {
+        'a': {n: take('a', n, cfg.factor_dtype) for n in names},
+        'g': {n: take('g', n, cfg.factor_dtype) for n in names},
+    }
+    if cfg.eigen:
+        fields.update({f: {n: take(f, n, cfg.inv_dtype) for n in names} for f in ('qa', 'qg', 'da', 'dg')})
+    else:
+        fields['a_inv'] = {n: take('qa', n, cfg.inv_dtype) for n in names}
+        fields['g_inv'] = {n: take('qg', n, cfg.inv_dtype) for n in names}
+    return dataclasses.replace(state, step=int(np.asarray(jax_state['step'])), **fields)

@@ -27,7 +27,9 @@ layer's output cotangents and a row-parallel layer's inputs (any sharded
 input) are gathered over the model group along the feature axis before
 the covariance (the bias column is appended once, after the gather); the
 replicated sides stay local. Every rank of a model group then holds the
-same statistics.
+same statistics. A routed tensor-parallel layer (an expert under
+``models.moe.expert_tp_overrides``) takes its live rows, and its A and G
+evidence weights, from the gathered rows.
 """
 
 from __future__ import annotations
@@ -164,6 +166,122 @@ def average_stats(acc: CapturedStats, num_steps: int) -> CapturedStats:
     )
 
 
+class Taps:
+    """The capture hooks of a registry's layers, and the sums they add
+    up: a context manager that installs them on entry and removes them on
+    exit, and :meth:`stats` of what they saw. While ``active`` is False
+    the forward hooks add no A and tap no G (a forward recomputed under
+    activation checkpointing, whose A was taken the first time; the G taps
+    of the first forward still fire in the backward). An unrouted f32 dense
+    layer called again (the pipeline's microbatches) adds each later call's
+    factor into its sum with the fused ``sym_cov_ema`` kernel (beta 1) on
+    the card."""
+
+    def __init__(self, registry: registry_lib.Registry):
+        self.registry = registry
+        self.a_sums: dict[str, torch.Tensor] = {}
+        self.g_sums: dict[str, torch.Tensor] = {}
+        self.a_w: dict[str, torch.Tensor] = {}  # weighted layers' summed weights
+        self.g_w: dict[str, torch.Tensor] = {}
+        self.counts: dict[str, int] = {}
+        self.active = True
+        self._handles: list[Any] = []
+
+    @staticmethod
+    def _accumulate(sums, name, value):
+        sums[name] = sums[name] + value if name in sums else value
+
+    def _post_hook(self, g_hook):
+        def post_hook(_mod, _inputs, output):
+            if self.active and output.requires_grad:
+                output.register_hook(g_hook)
+
+        return post_hook
+
+    def _layer_hooks(self, name, helper):
+        mod = self.registry.modules[name]
+        kind = getattr(mod, 'parallel', None)
+        add = self._accumulate
+        fused = getattr(helper, 'sums_fused', False)
+
+        def pre_hook(_mod, inputs):
+            if not self.active:
+                return
+            a = inputs[0].detach()
+            if kind and a.shape[-1] != mod.in_features:  # a sharded input
+                a = collectives.gather_features(a, mod.group)
+            self.counts[name] = self.counts.get(name, 0) + 1
+            if fused:
+                self.a_sums[name] = helper.add_a(self.a_sums.get(name), a)
+                return
+            fac = helper.get_a_factor(a)
+            if helper.weighted:  # the live rows of the gathered input
+                w = helper.capture_weight(a)
+                fac = fac * w
+                add(self.a_w, name, w)
+            add(self.a_sums, name, fac)
+
+        def g_hook(ybar):
+            if kind == 'column':
+                ybar = collectives.gather_features(ybar, mod.group)
+            if fused:
+                self.g_sums[name] = helper.add_g(self.g_sums.get(name), ybar)
+                return
+            add(self.g_sums, name, helper.g_factor_for_sum(ybar))
+            if helper.weighted:
+                add(self.g_w, name, helper.g_capture_weight(ybar))
+
+        return pre_hook, self._post_hook(g_hook)
+
+    def _role_hooks(self, unit, role, helper):
+        add = self._accumulate
+
+        def pre_hook(_mod, inputs):
+            if not self.active:
+                return
+            add(self.a_sums, unit, helper.role_a_factor(role, inputs[0].detach()))
+            self.counts[unit] = self.counts.get(unit, 0) + 1
+
+        def g_hook(ybar):
+            add(self.g_sums, unit, helper.role_g_factor(role, ybar))
+
+        return pre_hook, self._post_hook(g_hook)
+
+    def __enter__(self) -> 'Taps':
+        registry = self.registry
+        hooked = []
+        for name, helper in registry.layers.items():
+            if not isinstance(helper, helpers_lib.LoRAHelper):
+                hooked.append((registry.modules[name], self._layer_hooks(name, helper)))
+        for unit, role in registry.taps.values():
+            child = getattr(registry.modules[unit], role)
+            hooked.append((child, self._role_hooks(unit, role, registry.layers[unit])))
+        try:
+            for mod, (pre_hook, post_hook) in hooked:
+                self._handles.append(mod.register_forward_pre_hook(pre_hook))
+                self._handles.append(mod.register_forward_hook(post_hook))
+        except BaseException:
+            self.__exit__()
+            raise
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for h in self._handles:
+            h.remove()
+        self._handles = []
+
+    def stats(self) -> CapturedStats:
+        """The capture's statistics: the sums averaged
+        (:func:`weighted_average`), the weighted layers' mean weights."""
+        counts = self.counts
+        return CapturedStats(
+            a=weighted_average(self.a_sums, counts, self.a_w),
+            g=weighted_average({n: self.g_sums[n] for n in self.a_sums}, counts, self.g_w),
+            w={n: v / counts[n] for n, v in self.a_w.items()},
+            wg={n: v / counts[n] for n, v in self.g_w.items()},
+        )
+
+
 class CurvatureCapture:
     """Wraps a loss function to also emit per-layer curvature statistics.
 
@@ -189,86 +307,11 @@ class CurvatureCapture:
         registry = self.registry
 
         def run(*args: Any, **kwargs: Any):
-            a_sums: dict[str, torch.Tensor] = {}
-            g_sums: dict[str, torch.Tensor] = {}
-            a_w: dict[str, torch.Tensor] = {}  # weighted layers' summed weights
-            g_w: dict[str, torch.Tensor] = {}
-            counts: dict[str, int] = {}
-
-            def accumulate(sums, name, value):
-                sums[name] = sums[name] + value if name in sums else value
-
-            def post_hook_for(g_hook):
-                def post_hook(_mod, _inputs, output):
-                    if output.requires_grad:
-                        output.register_hook(g_hook)
-
-                return post_hook
-
-            def layer_hooks(name, helper):
-                mod = registry.modules[name]
-                kind = getattr(mod, 'parallel', None)
-                if kind and helper.weighted:
-                    raise NotImplementedError(
-                        f'{name}: routed capture of a tensor-parallel layer is not ported yet'
-                    )
-
-                def pre_hook(_mod, inputs):
-                    a = inputs[0].detach()
-                    if kind and a.shape[-1] != mod.in_features:  # a sharded input
-                        a = collectives.gather_features(a, mod.group)
-                    fac = helper.get_a_factor(a)
-                    if helper.weighted:
-                        w = helper.capture_weight(a)
-                        fac = fac * w
-                        accumulate(a_w, name, w)
-                    accumulate(a_sums, name, fac)
-                    counts[name] = counts.get(name, 0) + 1
-
-                def g_hook(ybar):
-                    if kind == 'column':
-                        ybar = collectives.gather_features(ybar, mod.group)
-                    accumulate(g_sums, name, helper.g_factor_for_sum(ybar))
-                    if helper.weighted:
-                        accumulate(g_w, name, helper.g_capture_weight(ybar))
-
-                return pre_hook, post_hook_for(g_hook)
-
-            def role_hooks(unit, role, helper):
-                def pre_hook(_mod, inputs):
-                    accumulate(a_sums, unit, helper.role_a_factor(role, inputs[0].detach()))
-                    counts[unit] = counts.get(unit, 0) + 1
-
-                def g_hook(ybar):
-                    accumulate(g_sums, unit, helper.role_g_factor(role, ybar))
-
-                return pre_hook, post_hook_for(g_hook)
-
-            hooked = []
-            for name, helper in registry.layers.items():
-                if not isinstance(helper, helpers_lib.LoRAHelper):
-                    hooked.append((registry.modules[name], layer_hooks(name, helper)))
-            for unit, role in registry.taps.values():
-                child = getattr(registry.modules[unit], role)
-                hooked.append((child, role_hooks(unit, role, registry.layers[unit])))
-            handles = []
-            try:
-                for mod, (pre_hook, post_hook) in hooked:
-                    handles.append(mod.register_forward_pre_hook(pre_hook))
-                    handles.append(mod.register_forward_hook(post_hook))
+            with Taps(registry) as taps:
                 registry.model.zero_grad(set_to_none=True)
                 out = loss_fn(*args, **kwargs)
                 loss, aux = out if has_aux else (out, None)
                 loss.backward()
-            finally:
-                for h in handles:
-                    h.remove()
-            stats = CapturedStats(
-                a=weighted_average(a_sums, counts, a_w),
-                g=weighted_average({n: g_sums[n] for n in a_sums}, counts, g_w),
-                w={n: v / counts[n] for n, v in a_w.items()},
-                wg={n: v / counts[n] for n, v in g_w.items()},
-            )
-            return (loss.detach(), aux), named_grads(registry.model), stats
+            return (loss.detach(), aux), named_grads(registry.model), taps.stats()
 
         return run

@@ -137,6 +137,20 @@ class DenseHelper(LayerHelper):
     def g_capture_weight(self, g: torch.Tensor) -> torch.Tensor | None:
         return cov.routed_live_fraction(g).to(self.factor_dtype) if self.routed else None
 
+    @property
+    def sums_fused(self) -> bool:
+        """Whether :meth:`add_a` and :meth:`add_g` add a call's factor into
+        a running sum in one fused launch (an unrouted f32 layer)."""
+        return not self.routed and self.factor_dtype == torch.float32
+
+    def add_a(self, acc: torch.Tensor | None, a: torch.Tensor) -> torch.Tensor:
+        """``acc`` plus this call's A factor (``cov.add_cov``)."""
+        return cov.add_cov(acc, cov.linear_a_rows(a, self.has_bias, self.factor_dtype))
+
+    def add_g(self, acc: torch.Tensor | None, g: torch.Tensor) -> torch.Tensor:
+        """``acc`` plus this call's G factor (``cov.add_cov``)."""
+        return cov.add_cov(acc, cov._cast(g, self.factor_dtype).reshape(-1, g.shape[-1]))
+
     def grads_to_matrix(self, grads: dict[str, torch.Tensor]) -> torch.Tensor:
         mat = grads['weight']
         if self.has_bias:

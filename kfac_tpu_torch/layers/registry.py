@@ -229,6 +229,11 @@ def register_model(
     ``factor_dtype`` is every helper's (the dtype of the capture's
     covariances; the engines store their factors in their own
     ``factor_dtype``).
+
+    A module whose class sets ``_kfac_own_capture = True`` (an expert
+    parallel block, ``parallel.expert_parallel.EPSwitchFFN``) is left out
+    with everything under it: it captures its own layers
+    (``expert_parallel.register_model`` merges its registry in).
     """
     device = resolve_device(device)
     for p in model.parameters():
@@ -252,6 +257,9 @@ def register_model(
             continue
         if any(prefix.startswith(u + '.') for u in units):
             continue  # the unit's children belong to its helper
+        if getattr(type(mod), '_kfac_own_capture', False):
+            units.append(prefix)  # an EP block registers and captures its own layers
+            continue
         if getattr(type(mod), '_kfac_lora_unit', False):
             layers[name] = helpers.LoRAHelper(
                 name=name, has_bias=False, in_features=mod.down.in_features,

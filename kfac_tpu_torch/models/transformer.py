@@ -93,12 +93,21 @@ class Block(nn.Module):
         ring_axis: str | None = None,
         zigzag: bool = False,
         dtype: torch.dtype = torch.float32,
+        ep_mesh: Any = None,
+        name: str = '',
     ):
         super().__init__()
         self.ln1 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.attn = CausalSelfAttention(d_model, num_heads, ring_mesh, ring_axis, zigzag, dtype)
         self.ln2 = nn.LayerNorm(d_model, eps=LN_EPS)
-        if num_experts > 0:
+        if num_experts > 0 and ep_mesh is not None:
+            from kfac_tpu_torch.parallel.expert_parallel import EPSwitchFFN
+
+            cf = float(num_experts) if moe_capacity_factor is None else moe_capacity_factor
+            self.moe = EPSwitchFFN(
+                ep_mesh, d_model, num_experts, mlp_ratio, cf, name_prefix=f'{name}/moe/', seed=None,
+            )
+        elif num_experts > 0:
             self.moe = moe_lib.MoEMLP(d_model, num_experts, mlp_ratio, moe_capacity_factor)
         else:
             linear = layers_lib.dense_layer(dtype)
@@ -134,6 +143,13 @@ class TransformerLM(nn.Module):
 
     ``dtype`` (f32, bf16 or f16) is the compute dtype of the blocks (the
     module docstring); MoE blocks and the ring forms run in f32 only.
+
+    ``ep_mesh`` (a :class:`~kfac_tpu_torch.parallel.mesh.TrainGrid` with an
+    expert axis) makes the MoE blocks expert-parallel
+    (:class:`~kfac_tpu_torch.parallel.expert_parallel.EPSwitchFFN`, named
+    ``block{i}/moe/...``, this rank's experts only; ``moe_capacity_factor``
+    None then means ``num_experts``, which never drops). The weights are
+    drawn as the dense model's from the same seed.
     """
 
     def __init__(
@@ -153,6 +169,7 @@ class TransformerLM(nn.Module):
         ring_axis: str | None = None,
         zigzag: bool | None = None,
         dtype: torch.dtype = torch.float32,
+        ep_mesh: Any = None,
     ):
         super().__init__()
         device = resolve_device(device)
@@ -173,7 +190,7 @@ class TransformerLM(nn.Module):
             is_moe = num_experts > 0 and moe_every > 0 and (i + 1) % moe_every == 0
             self.add_module(f'block{i}', Block(
                 d_model, num_heads, mlp_ratio, num_experts if is_moe else 0,
-                moe_capacity_factor, ring_mesh, ring_axis, zigzag, dtype,
+                moe_capacity_factor, ring_mesh, ring_axis, zigzag, dtype, ep_mesh, f'block{i}',
             ))
         self.ln_f = nn.LayerNorm(d_model, eps=LN_EPS)
         self.lm_head = nn.Linear(d_model, vocab_size, bias=False)
@@ -185,8 +202,14 @@ class TransformerLM(nn.Module):
         """Draw every parameter from ``generator`` with flax's defaults."""
         self.embed.weight.normal_(0.0, 1.0, generator=generator)
         self.pos_embed.normal_(0.0, 0.02, generator=generator)
+        own = set()  # the modules of EP blocks, which draw their own (in MoEMLP's order)
         for mod in self.modules():
-            if isinstance(mod, nn.Linear):
+            if id(mod) in own:
+                continue
+            if getattr(type(mod), '_kfac_own_capture', False):
+                mod.reset_parameters(generator)
+                own.update(id(m) for m in mod.modules())
+            elif isinstance(mod, nn.Linear):
                 # lecun_normal: truncated normal at +-2 std, variance 1/fan_in
                 std = 1.0 / math.sqrt(mod.in_features) / 0.87962566103423978
                 nn.init.trunc_normal_(

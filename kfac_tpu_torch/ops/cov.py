@@ -15,6 +15,7 @@ from typing import Sequence, Union
 import torch
 import torch.nn.functional as F
 
+from kfac_tpu_torch.ops import cov_ema
 from kfac_tpu_torch.ops import sym_cov as sym_cov_lib
 
 
@@ -78,6 +79,13 @@ def _cast(x: torch.Tensor, dtype: torch.dtype | None) -> torch.Tensor:
     return x if dtype is None else x.to(dtype)
 
 
+def linear_a_rows(a: torch.Tensor, has_bias: bool, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """A dense layer's A rows: its input's flattened leading dims (cast to
+    ``dtype`` first, when given), with a bias column of ones."""
+    a = _cast(a, dtype).reshape(-1, a.shape[-1])
+    return append_bias_ones(a) if has_bias else a
+
+
 def linear_a_factor(
     a: torch.Tensor, has_bias: bool, dtype: torch.dtype | None = None
 ) -> torch.Tensor:
@@ -85,10 +93,7 @@ def linear_a_factor(
     leading dims, with a bias column of ones. With ``dtype`` the input is
     cast to it first, so the covariance is computed and returned in it (the
     helpers' ``factor_dtype``), as in the JAX package."""
-    a = _cast(a, dtype).reshape(-1, a.shape[-1])
-    if has_bias:
-        a = append_bias_ones(a)
-    return get_cov(a)
+    return get_cov(linear_a_rows(a, has_bias, dtype))
 
 
 def linear_g_factor(g: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -96,6 +101,18 @@ def linear_g_factor(g: torch.Tensor, dtype: torch.dtype | None = None) -> torch.
     (cast to ``dtype`` first, when given)."""
     g = _cast(g, dtype).reshape(-1, g.shape[-1])
     return get_cov(g)
+
+
+def add_cov(acc: torch.Tensor | None, rows: torch.Tensor) -> torch.Tensor:
+    """``acc + rows^T rows / n`` for a running sum of covariances (None:
+    the first, ``get_cov(rows)``): on the card the later ones go through
+    the fused kernel ``sym_cov_ema`` with beta 1 (one launch, no separate
+    add), f32 only; else the covariance and an add."""
+    if acc is None:
+        return get_cov(rows)
+    if rows.dtype == torch.float32 and acc.dtype == torch.float32:
+        return cov_ema.sym_cov_ema(acc, rows.contiguous(), 1.0, 1.0 / rows.shape[0])
+    return acc + get_cov(rows)
 
 
 def live_rows(x: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,24 @@
 """Distributed execution of the PyTorch port: the KAISA grid over
 ``torch.distributed`` process groups, its collectives, the KAISA engine,
-the training grid's model and seq axes with the tensor-parallel layers,
-the cross-process helpers and a launcher for local worlds."""
+the training grid's model, seq and expert axes with the tensor-parallel
+layers and the expert-parallel FFN, the pipeline grid with the pipelined
+LM and its K-FAC engine, the cross-process helpers and a launcher for
+local worlds."""
 
-from kfac_tpu_torch.parallel import collectives, launch, mesh, multihost, tensor_parallel
+from kfac_tpu_torch.parallel import (
+    collectives,
+    expert_parallel,
+    launch,
+    mesh,
+    multihost,
+    pipeline,
+    tensor_parallel,
+)
+from kfac_tpu_torch.parallel.expert_parallel import (
+    EPSwitchFFN,
+    ExpertParallelKFAC,
+    combined_value_stats_and_grad,
+)
 from kfac_tpu_torch.parallel.kaisa import (
     DistKFACState,
     DistributedKFAC,
@@ -11,13 +26,31 @@ from kfac_tpu_torch.parallel.kaisa import (
     build_stores,
 )
 from kfac_tpu_torch.parallel.launch import spawn_world
-from kfac_tpu_torch.parallel.mesh import KaisaGrid, TrainGrid, kaisa_mesh, train_mesh
+from kfac_tpu_torch.parallel.mesh import (
+    KaisaGrid,
+    PipelineGrid,
+    TrainGrid,
+    kaisa_mesh,
+    pipeline_mesh,
+    train_mesh,
+)
+from kfac_tpu_torch.parallel.pipeline import PipelinedLM, PipelineKFAC, StageBlocks
 
 __all__ = [
     'DistKFACState',
     'DistributedKFAC',
+    'EPSwitchFFN',
+    'ExpertParallelKFAC',
     'KaisaGrid',
+    'PipelineGrid',
+    'PipelineKFAC',
+    'PipelinedLM',
+    'StageBlocks',
     'TrainGrid',
+    'combined_value_stats_and_grad',
+    'expert_parallel',
+    'pipeline',
+    'pipeline_mesh',
     'build_buckets',
     'build_stores',
     'collectives',

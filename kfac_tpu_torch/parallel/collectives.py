@@ -354,3 +354,61 @@ def ring_shift(x: torch.Tensor, group: Any) -> torch.Tensor:
     i = ranks.index(dist.get_rank())
     n = len(ranks)
     return _RingShift.apply(x, group, ranks[(i + 1) % n], ranks[(i - 1) % n])
+
+
+# ------------------------------------------------- expert parallelism
+
+
+def all_to_all_dim0(x: torch.Tensor, group: Any) -> torch.Tensor:
+    """``x``'s leading axis split into one equal block a rank of
+    ``group``, block ``j`` sent to its rank ``j``; the blocks received,
+    concatenated in the group's rank order (one ``all_to_all_single``, no
+    autograd)."""
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """The all-to-all of expert parallelism over the leading axis; its
+    backward is the same all-to-all of the gradient (the transpose of an
+    equal-block exchange is itself: what came from rank ``j`` goes back
+    to it), as ``lax.all_to_all``'s transpose is."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_to_all_dim0(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_to_all_dim0(grad, ctx.group), None
+
+
+def all_to_all(x: torch.Tensor, group: Any) -> torch.Tensor:
+    """Differentiable :func:`all_to_all_dim0`."""
+    if dist.get_world_size(group) == 1:
+        return x
+    return _AllToAll.apply(x, group)
+
+
+# ----------------------------------------------------------- pipelines
+
+
+def exchange(
+    sends: Sequence[tuple[torch.Tensor, int]],
+    recvs: Sequence[tuple[torch.Tensor, int]],
+    group: Any = None,
+) -> None:
+    """Post every send ``(tensor, global rank)`` and receive ``(buffer,
+    global rank)`` of one pipeline tick together in one
+    ``batch_isend_irecv`` (both directions at once: posting them apart
+    deadlocks a 1F1B tick under NCCL) and wait for them. Receives fill
+    their buffers in place."""
+    ops = [dist.P2POp(dist.isend, t.contiguous(), peer, group) for t, peer in sends]
+    ops += [dist.P2POp(dist.irecv, buf, peer, group) for buf, peer in recvs]
+    if not ops:
+        return
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()

@@ -1253,9 +1253,7 @@ class DistributedKFAC:
         for n, mod in self._tp_layers.items():  # this rank's shards
             for leaf, dim in mod.shard_dims.items():
                 if leaf in out.get(n, {}):
-                    full = out[n][leaf]
-                    per = full.shape[dim] // mod.size
-                    out[n][leaf] = full.narrow(dim, mod.index * per, per).contiguous()
+                    out[n][leaf] = tp_lib.shard_of(out[n][leaf], dim, mod.index, mod.size).contiguous()
         return registry_lib.merge_layer_grads(grads, out, self.registry)
 
     def _gather_tp_grads(

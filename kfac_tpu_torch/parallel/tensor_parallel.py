@@ -192,8 +192,7 @@ class _ParallelLinear(nn.Linear):
                         f'a {self.parallel}-parallel layer of {tuple(full.shape)} does not '
                         f'split into {size} equal shards along axis {dim}'
                     )
-                per = full.shape[dim] // size
-                full = full.narrow(dim, index * per, per)
+                full = shard_of(full, dim, index, size)
             setattr(self, leaf, nn.Parameter(full.detach().clone()))
 
 
@@ -335,4 +334,24 @@ def gather_params(
             dist.all_gather(parts, value.contiguous(), group=mod.group)
             value = torch.cat(parts, dim=dim)
         out[name] = value.detach()
+    return out
+
+
+def shard_of(full: torch.Tensor, dim: int, index: int, size: int) -> torch.Tensor:
+    """Shard ``index`` of ``size`` equal shards of ``full`` along ``dim``."""
+    per = full.shape[dim] // size
+    return full.narrow(dim, index * per, per)
+
+
+def shard_params_like(
+    model: nn.Module, values: Mapping[str, torch.Tensor]
+) -> dict[str, torch.Tensor]:
+    """The inverse of :func:`gather_params`: ``values`` (full tensors keyed
+    by parameter name) with each sharded parameter's entry cut to this
+    rank's shard; the others pass through."""
+    sharded = sharded_param_names(model)
+    out = dict(values)
+    for name, (mod, dim) in sharded.items():
+        if name in out:
+            out[name] = shard_of(out[name], dim, mod.index, mod.size).contiguous()
     return out

@@ -615,6 +615,7 @@ class KFACPreconditioner:
         state: KFACState,
         grads: dict[str, torch.Tensor],
         metrics_out: dict[str, torch.Tensor] | None = None,
+        vg_reduce: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] | None = None,
     ) -> dict[str, torch.Tensor]:
         """Precondition a ``named_parameters``-keyed grads dict.
 
@@ -631,6 +632,13 @@ class KFACPreconditioner:
         ``grad_norm`` and ``precond_grad_norm`` (its pre-scale norm times
         ``|scale|``), both from the norm instantiation of the kl-clip dot's
         one pass, with or without kl-clip.
+
+        ``vg_reduce(terms, vg_sum) -> vg_total``, when given, makes the
+        kl-clip sum span the layers other ranks precondition (the experts
+        of expert parallelism, the other stages of a pipeline): it takes
+        the kernel's per-layer terms (registry order) and their sum, on the
+        device, and returns the whole model's sum, from which the scale is
+        taken on the device.
         """
         damping = resolve(self.damping, state.step)
         eff = self._effective_damping(state, damping)
@@ -654,9 +662,13 @@ class KFACPreconditioner:
             lr = resolve(self.lr, state.step)
             kl_clip = 1.0 if self.kl_clip is None else resolve(self.kl_clip, state.step)
             if norms:
-                _, _, scale, g_sq, p_sq = klclip.klclip_dot_norms_many(pmats, gmats, lr, kl_clip)
+                terms, vg_sum, scale, g_sq, p_sq = klclip.klclip_dot_norms_many(
+                    pmats, gmats, lr, kl_clip
+                )
             else:
-                _, _, scale = klclip.klclip_dot_many(pmats, gmats, lr, kl_clip)
+                terms, vg_sum, scale = klclip.klclip_dot_many(pmats, gmats, lr, kl_clip)
+            if vg_reduce is not None:
+                scale = factors_lib.kl_clip_scale(vg_reduce(terms, vg_sum), kl_clip)
             if self.kl_clip is None:
                 scale = None
             else:
@@ -690,10 +702,12 @@ class KFACPreconditioner:
         grads: dict[str, torch.Tensor],
         stats: capture_lib.CapturedStats | None,
         loss: torch.Tensor | None = None,
+        vg_reduce: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] | None = None,
     ) -> tuple[KFACState, dict[str, torch.Tensor]]:
         """One K-FAC step: maybe update factors and inverses, then
-        precondition. ``stats=None`` skips the factor update (a step
-        without capture); under ``async_inverse`` the sliced or host stage
+        precondition (``vg_reduce``: :meth:`precondition`'s).
+        ``stats=None`` skips the factor update (a step without capture);
+        under ``async_inverse`` the sliced or host stage
         takes the place of the inverse cadence. With metrics, the step's
         scalars and staleness go into ``state.metrics``; with the flight
         recorder, one ring row then records them beside ``loss`` (when
@@ -719,13 +733,15 @@ class KFACPreconditioner:
             state = self.update_inverses(state)
         if self.metrics is not None and state.metrics is not None:
             families: dict[str, torch.Tensor] = {}
-            new_grads = self.precondition(state, grads, metrics_out=families)
+            new_grads = self.precondition(
+                state, grads, metrics_out=families, vg_reduce=vg_reduce
+            )
             ms = metrics_lib.set_families(state.metrics, families)
             state = dataclasses.replace(
                 state, metrics=metrics_lib.finalize(ms, self.metrics, step)
             )
         else:
-            new_grads = self.precondition(state, grads)
+            new_grads = self.precondition(state, grads, vg_reduce=vg_reduce)
         if self.flight is not None and state.flight is not None:
             state = dataclasses.replace(state, flight=flight_lib.record(
                 state.flight, step, state.metrics.scalars, loss=loss,

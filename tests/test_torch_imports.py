@@ -64,6 +64,7 @@ def test_port_file_imports_no_jax_and_no_kfac_tpu(path):
     'parallel/tensor_parallel.py', 'models/attention.py', 'models/transformer.py',
     'ops/losses.py', 'layers/capture.py', 'amp.py', 'examples/train_amp.py', 'models/mlp.py',
     'ops/sym_cov.py', 'ops/flash_attention.py', 'ops/factors.py', 'preconditioner.py',
+    'parallel/expert_parallel.py', 'parallel/pipeline.py',
 ])
 def test_checkpoint_and_resilience_modules_are_covered(rel):
     path = ROOT / 'kfac_tpu_torch' / rel

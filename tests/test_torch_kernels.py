@@ -10,7 +10,9 @@ configuration::
 Tolerances, the same as ``chip_smoke.py``'s, which also checks that each
 one rejects the plain version at reduced precision (TF32 or bf16): the
 covariance within 1e-5 x max|C| (8192-row f32 sums in another order),
-exactly symmetric and identical from run to run; the covariance blended
+exactly symmetric and identical from run to run (also unscaled, on
+expert parallelism's received buffers and the pipeline's microbatch
+rows); the covariance blended
 into a symmetric running factor within 1e-5 x max|coeff a^T a| (the blend
 scales the product's error by coeff, so the product is the reference) and
 exactly symmetric; the kl-clip dot within 1e-7 x sum|p*g| and identical
@@ -62,6 +64,49 @@ def test_sym_cov_kernel_matches_plain_on_card(cuda_device, shape):
     assert torch.equal(got, got.T)
     assert (got - want).abs().max() <= 1e-5 * want.abs().max()
     assert torch.equal(got, sym_cov_lib.sym_cov(a))  # no atomics: repeatable
+
+
+# expert parallelism's received buffers (an expert's slots from every
+# peer, the empty ones zero, the bias column one on live slots only, the
+# sum unscaled) and the routers' G; the pipeline's microbatch rows
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    'shape,live',
+    [((2560, 512), 0.6), ((8192, 2048), 0.25), ((4096, 512), 0.5), ((1024, 513), 1.0),
+     ((1024, 2049), 1.0), ((1024, 512), 1.0), ((1024, 2048), 1.0), ((2048, 4), 1.0),
+     ((4096, 4), 1.0)],
+)
+def test_sym_cov_at_the_ep_and_pipeline_shapes_on_card(cuda_device, shape, live):
+    from kfac_tpu_torch.ops import cov
+
+    g = torch.Generator(cuda_device).manual_seed(1)
+    a = torch.randn(shape, generator=g, device=cuda_device)
+    if live < 1.0:
+        used = (torch.arange(shape[0], device=cuda_device) < live * shape[0]).float()[:, None]
+        a = cov.with_column(a * used, used)
+    got = cov.get_cov(a, scale=1.0)
+    want = sym_cov_lib.sym_cov_plain(a.contiguous(), 1.0)
+    assert torch.equal(got, got.T)
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+# the pipeline's running sum of a stage's microbatch covariances: the
+# first by sym_cov, each later one added by sym_cov_ema at beta 1; 1024 rows
+# at pipe 2 x dp 2, 2048 at dp 1
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', [(1024, 513), (1024, 2049), (1024, 512), (1024, 2048),
+                                   (2048, 513), (2048, 2049), (2048, 512), (2048, 2048)])
+def test_microbatch_covariance_sums_on_card(cuda_device, shape):
+    from kfac_tpu_torch.ops import cov
+
+    g = torch.Generator(cuda_device).manual_seed(2)
+    parts = [torch.randn(shape, generator=g, device=cuda_device) for _ in range(4)]
+    acc = None
+    for a in parts:
+        acc = cov.add_cov(acc, a)
+    want = sum(sym_cov_lib.sym_cov_plain(a) for a in parts)
+    assert torch.equal(acc, acc.T)
+    assert (acc - want).abs().max() <= 1e-5 * want.abs().max()
 
 
 @pytest.mark.cuda

@@ -388,7 +388,8 @@ def test_train_mesh_needs_a_process_group_and_no_expert_axis():
     assert inspect.signature(mesh_lib.train_mesh).parameters['device'].default == 'cuda'
     with pytest.raises(RuntimeError, match='init_process_group'):
         mesh_lib.train_mesh(model=2, device='cpu')
-    with pytest.raises(NotImplementedError, match='expert'):
+    # the expert axis is ported: it too needs the process group
+    with pytest.raises(RuntimeError, match='init_process_group'):
         mesh_lib.train_mesh(expert=2, device='cpu')
 
 
