@@ -363,6 +363,39 @@ Phases, one JSON line each:
    share; then one more plain step of each job under torch.profiler
    (device busy ms with NCCL's kernels apart, which count as busy while
    they wait for a peer; idle share; kernel launches).
+21. ``examples``: the port's training entry points, each part's counts
+   (every form's, the flash partials' by head dim too) set to 0 just before
+   it and read just after, one line a part. (a)
+   ``kfac_tpu_torch.examples.train_language_model`` at the flagship's
+   width (d 512, 4 heads, 6 layers, seq 512, batch 16, vocab 8192, the
+   Zipf stream, the default cadence 10/100, ``lm_head`` in K-FAC as the
+   JAX script's default), 12 steps: its losses within 1e-6 of a direct
+   ``Trainer`` loop built from the library on the same batches and
+   weights, launches exact. (b) The same at ``--bf16 --num-heads 8``: head
+   dim 64, the flash partials' bf16 form. (c) ``--pipeline-stages 1
+   --pipeline-schedule interleaved --virtual-chunks 3`` (4 microbatches;
+   the script makes its own world of one): the executed ticks equal the
+   table, launches exact (a chunk's first microbatch's covariances by
+   ``sym_cov``, the later ones added by ``sym_cov_ema``), its losses beside
+   (a)'s. (d) Two epochs of 5 steps at cadence 5/5 under
+   ``--checkpoint-dir``, interrupted after epoch 0's checkpoint and run
+   again with ``--resume``: epoch 1's losses within 1e-6 of the
+   uninterrupted run's. (e) ``train_cifar_resnet --model resnet32
+   --batch-size 256 --native-loader`` (the C++ loader built with g++), 4
+   steps; (f) ``train_imagenet_resnet`` at batch 32, 224 px (ResNet-50), 3
+   steps: finite losses, launches exact. (g) The ``char_lm`` and
+   ``char_lm_deep`` gates of ``kfac_tpu_torch.bench_accuracy`` (head dims
+   16 and 32): both curves finite, the target, steps and seconds to it.
+   Each part prints its step ms by kind (read at the scripts' loss reads)
+   and peak memory. On four cards also (h) the flagship as an
+   ``InterleavedPipelinedLM`` at pipe 2 x dp 2, v = 3 (one layer a chunk),
+   4 microbatches, ``PipelineKFAC`` at cadence 2/6 for 8 steps, ep_pp's
+   checks against the one-card dense engine and the executed ticks of
+   every step equal to the table, with the table's idle slots as a count;
+   (i) the LM script of (a) over NCCL on four ranks at ``--kfac-strategy
+   hybrid-opt``: each rank's loader read its row block, the blocks
+   concatenated are the global batch, losses within 1e-4 of (a)'s,
+   parameters identical on every rank.
 
 Then each phase's seconds and the script's (``timing``), the card's name
 and power limit as nvidia-smi prints them, the
@@ -848,9 +881,10 @@ def kernel_cases():
         return max(map(max_err, got, want), key=lambda p: p[0] / p[1])
 
     # the flagship's (head dim 128), the bench's tiny LM's (head dim 32), its
-    # `large` LM's (head dim 256) and the pipeline's microbatches
+    # `large` LM's (head dim 256), the pipeline's microbatches, the char_lm
+    # gates' (head dims 16 and 32) and the flagship's width at 8 heads (64)
     for b, s_, h, dh in ((FLAGSHIP['batch'], FLAGSHIP['seq'], FLAGSHIP['heads'], 128),
-                         (4, 128, 4, 32), (8, 1024, 4, 256), *EP_PP_FLASH):
+                         (4, 128, 4, 32), (8, 1024, 4, 256), *EP_PP_FLASH, *EXAMPLES_FLASH):
         q, k, v = randn(b, s_, h, dh), randn(b, s_, h, dh), randn(b, s_, h, dh)
 
         def sdpa(q=q, k=k, v=v):
@@ -996,7 +1030,7 @@ def half_kernel_cases(randn) -> list[dict]:
     padded to 64 values where the width is not a multiple of 8), of
     ``sym_cov_ema`` (the blend into an f32 factor) and of the flash
     partials (the flagship's attention; in bf16 also two ring steps of the
-    tp_sp phase), each against its plain oracle (the TPU kernel's function
+    tp_sp phase; the examples phase's head dims 32 and 64), each against its plain oracle (the TPU kernel's function
     in that dtype), timed beside the library call in the dtype and bounded
     at the 16-bit tensor-core peak and the HBM rate. Each also reports its
     device ms and the library call's (torch.profiler): at these sizes
@@ -1016,7 +1050,9 @@ def half_kernel_cases(randn) -> list[dict]:
       1e-5 of max; no control. On ``flash_attention.exact_inputs`` (every
       rounding point and sum exact): acc bitwise (tolerance 0), m and l
       within 1e-5 of max; the control, p left unrounded, moves acc, and the
-      einsum form (``q * scale`` rounded to the dtype) moves m past 1e-5.
+      einsum form (``q * scale`` rounded to the dtype) moves m past 1e-5
+      where ``D^-0.5`` is not a power of two (at D = 64 ``q * scale`` is
+      exact in 16 bits and the two forms' m agree: the p control alone).
     """
     from kfac_tpu_torch.ops import cov_ema, flash_attention, sym_cov
 
@@ -1085,13 +1121,16 @@ def half_kernel_cases(randn) -> list[dict]:
                 device_kernels=SYM16_KERNELS, library_device=True,
             ))
         gen = torch.Generator().manual_seed(1)
-        b, dh = FLAGSHIP['batch'], 128
+        b = FLAGSHIP['batch']
         # the flagship's attention, then (bf16) the tp_sp phase's ring step
-        # of seq 2 (256 rows at offset 256) and zigzag seq 4's last chunk
-        flash_shapes = [(FLAGSHIP['seq'], FLAGSHIP['heads'], 0)]
+        # of seq 2 (256 rows at offset 256) and zigzag seq 4's last chunk;
+        # the examples phase's: char_lm_deep's (head dim 32) and the
+        # flagship's width at 8 heads (head dim 64, the --bf16 LM's)
+        flash_shapes = [(FLAGSHIP['seq'], FLAGSHIP['heads'], 0, 128)]
         if dt == torch.bfloat16:
-            flash_shapes += [(256, 2, 256), (64, 4, 448)]
-        for s_, h, q_off in flash_shapes:
+            flash_shapes += [(256, 2, 256, 128), (64, 4, 448, 128)]
+        flash_shapes += [(s_, h, 0, dh) for _, s_, h, dh in EXAMPLES_FLASH if dh in (32, 64)]
+        for s_, h, q_off, dh in flash_shapes:
             pairs = visible_pairs(s_, s_, q_off, 0)
             for inputs in ('normal', 'exact'):
                 if inputs == 'exact':
@@ -1143,6 +1182,10 @@ def half_kernel_cases(randn) -> list[dict]:
                     extra=dict(
                         inputs=inputs, q_offset=q_off, k_offset=0, visible_pairs=pairs,
                         einsum_form_m_rel_err=float((einsum_m - m_ref).abs().max() / m_ref.abs().max()),
+                        # where D^-0.5 is a power of two (D = 64, 256), q * scale
+                        # is exact in 16 bits: the einsum form's m is the
+                        # kernel's, and only the p control can fall outside
+                        einsum_form_rounds_q=math.log2(dh) % 2 == 1,
                     ),
                 ))
     return cases
@@ -1244,7 +1287,7 @@ def run_kernels(results) -> bool:
             extra['control_rel_err'] = case['detail'](control, want)
         if case.get('no_control'):
             rejects_control = True  # a tolerance that no control is held to
-        if 'einsum_form_m_rel_err' in extra and case['rtol'] == 0.0:
+        if extra.get('einsum_form_rounds_q') and case['rtol'] == 0.0:
             # exact inputs: the einsum form's m must fall outside 1e-5 too
             rejects_control &= extra['einsum_form_m_rel_err'] > 1e-5
         passed = err <= tol and holds and rejects_control
@@ -5607,6 +5650,10 @@ EP_PP_EMA_COVS = [(1024, 513), (1024, 2049), (1024, 512), (1024, 2048),
 # the pipeline's microbatches at the attention (B, S, H, Dh): 4 of the 16
 # rows on one card, 2 at pipe 2 x dp 2
 EP_PP_FLASH = [(4, FLAGSHIP['seq'], FLAGSHIP['heads'], 128), (2, FLAGSHIP['seq'], FLAGSHIP['heads'], 128)]
+# the examples phase's attention: the char_lm gate (d 64 over 4 heads: head
+# dim 16, f32 only), char_lm_deep (d 128 over 4: 32) and the flagship's
+# width at 8 heads (64; its --bf16 run takes the 16-bit form)
+EXAMPLES_FLASH = [(16, 64, 4, 16), (16, 128, 4, 32), (16, FLAGSHIP['seq'], 8, 64)]
 
 
 def ep_pp_expected(job: dict, grid, steps: int) -> dict:
@@ -5629,6 +5676,13 @@ def ep_pp_expected(job: dict, grid, steps: int) -> dict:
         per_capture = 2 * 6 * layers
         summed = per_capture * (EP_PP_MICRO - 1)
         flash = 2 * layers * EP_PP_MICRO
+        if job['schedule'] == 'interleaved':
+            # a rank's chunks run F (without a graph) and B (the recompute)
+            # a microbatch, but the last logical stage's F only keeps its
+            # input: one chunk's blocks run once less on rank p - 1
+            per_chunk = layers // job['v']
+            last_rank = grid.stage == grid.n_stages - 1
+            flash = per_chunk * EP_PP_MICRO * (2 * job['v'] - last_rank)
     base = dict(
         sym_cov=per_capture * captures, sym_cov_ema=summed * captures, klclip_dot=steps,
         klclip_dot_norms=0, klclip_scale=steps, flash_attention_partials=flash * steps,
@@ -5679,8 +5733,14 @@ def ep_pp_model(job, grid, device):
     if job['kind'] == 'pp':
         with warnings.catch_warnings():
             warnings.simplefilter('ignore')
-            model = pipeline.PipelinedLM(grid, n_microbatches=EP_PP_MICRO, schedule=job['schedule'],
-                                         **lm)
+            if job['schedule'] == 'interleaved':
+                from kfac_tpu_torch.parallel import InterleavedPipelinedLM
+
+                model = InterleavedPipelinedLM(grid, n_microbatches=EP_PP_MICRO,
+                                               virtual_chunks=job['v'], **lm)
+            else:
+                model = pipeline.PipelinedLM(grid, n_microbatches=EP_PP_MICRO,
+                                             schedule=job['schedule'], **lm)
         engine = pipeline.PipelineKFAC(kt.KFACPreconditioner(model.stage_registry, **kfac_kw), model)
 
         def run(batch, capture):
@@ -5762,9 +5822,12 @@ def ep_pp_job(job: dict, grid, device, dense: dict | None, wrappers) -> dict:
             p.grad = pg[n]
         opt.step()
         box['pg'] = pg
+        if getattr(model, 'last_ticks', None) is not None:  # the interleaved schedule's
+            box['ticks'].append(list(model.last_ticks))
         return loss
 
     box['state'] = state
+    box['ticks'] = []
     torch.cuda.synchronize(device)
     torch.cuda.reset_peak_memory_stats(device)
     reset_counts(wrappers)
@@ -5805,17 +5868,24 @@ def ep_pp_job(job: dict, grid, device, dense: dict | None, wrappers) -> dict:
     if job['kind'] == 'pp':
         out['stage_factors'] = {k: v.detach().cpu() for k, v in box['state'].a.items()}
         out['stage_factors_g'] = {k: v.detach().cpu() for k, v in box['state'].g.items()}
-        out['bubble'] = dict(ticks=(EP_PP_MICRO + grid.n_stages - 1) if job['schedule'] == 'gpipe'
-                             else EP_PP_MICRO + 2 * grid.n_stages - 2, microbatches=EP_PP_MICRO)
+        if job['schedule'] == 'interleaved':
+            # the table's ticks and idle slots (a count, not a measured
+            # time), the executed counts of every step against the table's
+            report = model.tick_report()
+            out['bubble'] = dict(ticks=report['ticks'], idle_slots=report['bubble_slots'],
+                                 slots=report['ticks'] * grid.n_stages, microbatches=EP_PP_MICRO,
+                                 ring=report['ring'], virtual_chunks=job['v'])
+            out['ticks_by_step'] = list(box['ticks'])
+            out['ticks_table'] = [report['predicted'][k][grid.stage]
+                                  for k in ('executed_f', 'executed_b', 'idle')]
+        else:
+            out['bubble'] = dict(ticks=(EP_PP_MICRO + grid.n_stages - 1) if job['schedule'] == 'gpipe'
+                                 else EP_PP_MICRO + 2 * grid.n_stages - 2, microbatches=EP_PP_MICRO)
     if dense is not None and job.get('reference', True):
         want = dense['grads']
         got = {}
         for n, g in pg.items():
-            key = n
-            if n.startswith('stage.block'):
-                b, rest = n[len('stage.block'):].split('.', 1)
-                key = f'block{grid.stage * (FLAGSHIP["layers"] // grid.n_stages) + int(b)}.{rest}'
-            got[key] = g.detach().cpu()
+            got[dense_name(n, grid, job)] = g.detach().cpu()
         scale = max(float(g.abs().max()) for g in want.values())
         out['pgrad_err_rel_to_max'] = max(float((got[n] - want[n]).abs().max()) for n in got) / scale
         out['loss_rel_err'] = max(abs(a - b) / abs(b) for a, b in zip(losses, dense['losses']))
@@ -5835,6 +5905,21 @@ def ep_pp_job(job: dict, grid, device, dense: dict | None, wrappers) -> dict:
     del model, engine, opt
     torch.cuda.empty_cache()
     return out
+
+
+def dense_name(n: str, grid, job) -> str:
+    """A pipeline rank's parameter name as the dense TransformerLM's: its
+    stage's (or, interleaved, its chunk's logical stage's) blocks at their
+    place in the whole model."""
+    per = FLAGSHIP['layers'] // grid.n_stages
+    if n.startswith('stage.chunk'):
+        c, b, rest = n[len('stage.chunk'):].split('.', 2)
+        per //= job['v']
+        return f'block{(int(c) * grid.n_stages + grid.stage) * per + int(b[len("block"):])}.{rest}'
+    if n.startswith('stage.block'):
+        b, rest = n[len('stage.block'):].split('.', 1)
+        return f'block{grid.stage * per + int(b)}.{rest}'
+    return n
 
 
 def ep_pp_rank(rank: int, world: int, device: torch.device, jobs: list, dense_path: str) -> list:
@@ -5889,6 +5974,10 @@ def ep_pp_checks(job: dict, rows: list, e_rows: list | None) -> dict:
     if job.get('reference', True):
         checks['losses'] = all(r['loss_rel_err'] <= 1e-4 for r in rows)
         checks['pgrads'] = all(r['pgrad_err_rel_to_max'] <= 1e-3 for r in rows)
+    if job.get('schedule') == 'interleaved':
+        checks['ticks_equal_table'] = all(
+            all(t == r['ticks_table'] for t in r['ticks_by_step']) and len(r['ticks_by_step']) == len(r['losses'])
+            for r in rows)
     if job.get('kfac'):
         checks['ns_in_range'] = all(
             r['fused_ns_step_range'][0] <= r['fused_ns_step'] <= r['fused_ns_step_range'][1] for r in rows)
@@ -5970,6 +6059,463 @@ def run_ep_pp(launches) -> bool:
         ok &= passed
         parts.append(job['name'])
     emit(dict(phase='ep_pp', cards=cards, world=world, parts=parts, spawn_seconds=seconds, passed=ok))
+    return ok
+
+# ------------------------------------------------------------------ examples
+
+# (a): the LM script at the flagship's width, the default cadence 10/100
+EXAMPLES_LM = ['--d-model', str(FLAGSHIP['d_model']), '--num-heads', str(FLAGSHIP['heads']),
+               '--num-layers', str(FLAGSHIP['layers']), '--seq-len', str(FLAGSHIP['seq']),
+               '--batch-size', str(FLAGSHIP['batch']), '--vocab-size', str(FLAGSHIP['vocab']),
+               '--limit-steps', '12', '--epochs', '1', '--device', 'cuda']
+EXAMPLES_LM_STEPS = 12
+# (d): two epochs of 5 steps at cadence 5/5, so the epoch boundary is a
+# capture and an inverse refresh (the resumed run's rematerialized
+# decompositions are the uninterrupted run's there)
+EXAMPLES_RESUME_STEPS = 5
+EXAMPLES_RESUME = ['--limit-steps', str(EXAMPLES_RESUME_STEPS), '--epochs', '2',
+                   '--kfac-factor-update-steps', '5', '--kfac-inv-update-steps', '5']
+EXAMPLES_CIFAR = ['--model', 'resnet32', '--batch-size', '256', '--native-loader', '--limit-steps', '4',
+                  '--epochs', '1', '--device', 'cuda']
+EXAMPLES_IMAGENET = ['--batch-size', '32', '--image-size', '224', '--limit-steps', '3', '--epochs', '1',
+                     '--device', 'cuda']
+# the four-card jobs: (h) the interleaved flagship at pipe 2 x dp 2, v = 3
+# (one layer a chunk), through ep_pp's job; (i) the LM script on the
+# per-rank loader at HYBRID-OPT
+EXAMPLES_ILV_JOB = dict(name='h_pipe2_dp2_interleaved_v3', kind='pp', n_stages=2,
+                        schedule='interleaved', v=3, kfac={})
+# the parts a driver may narrow (a four-card call of (h) and (i) alone)
+EXAMPLES_JOBS = ('a', 'b', 'c', 'd', 'e', 'f', 'g', 'h', 'i')
+
+
+class StepClock:
+    """Step times of an example script, read at its ``Metric.update`` calls:
+    each script reads the step's loss on the host (a sync) and then adds it
+    to its epoch metric, once a step, so the gaps between calls are step
+    times (the first step has none; a ResNet script's evaluation calls come
+    after its training steps)."""
+
+    def __enter__(self):
+        from kfac_tpu_torch.examples import common
+
+        self._cls, self._real = common.Metric, common.Metric.update
+        self.stamps = []
+        clock = self
+
+        def update(metric, value, n=1):
+            clock.stamps.append(time.perf_counter())
+            return clock._real(metric, value, n)
+
+        common.Metric.update = update
+        torch.cuda.synchronize()
+        self.start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.update = self._real
+
+    def by_kind(self, steps: int, capture: int, refresh: int) -> dict:
+        """ms of steps 1 .. steps - 1 by kind (step 0's is the set-up's)."""
+        gaps = [(b - a) * 1e3 for a, b in zip(self.stamps[:steps - 1], self.stamps[1:steps])]
+        out = {'refresh': [], 'capture': [], 'plain': []}
+        for i, ms in enumerate(gaps, start=1):
+            kind = 'refresh' if i % refresh == 0 else 'capture' if i % capture == 0 else 'plain'
+            out[kind].append(ms)
+        return out
+
+
+def example_counts(wrappers) -> dict:
+    """Launches by form, and the flash partials' by head dim."""
+    from kfac_tpu_torch.ops import flash_attention
+
+    out = counts_by_form(wrappers)
+    out['flash_attention_partials_by_head_dim'] = {
+        str(d): n for d, n in sorted(flash_attention.flash_attention_partials.launches_by_head_dim.items())}
+    return out
+
+
+def example_expected(layers: int, captures: int, steps: int, flash: int, *, summed: int = 0,
+                     flash_tag: str = '', head_dim: int | None = None) -> dict:
+    """Launches of an example run: ``sym_cov`` twice a K-FAC layer a capture
+    (``summed``: a pipeline's later microbatches added by ``sym_cov_ema``),
+    the kl-clip dot and scale once a step, ``flash`` attention partials in
+    the form ``flash_tag`` at ``head_dim``."""
+    out = dict(sym_cov=2 * layers * captures, sym_cov_ema=summed * captures, klclip_dot=steps,
+               klclip_dot_norms=0, klclip_scale=steps, flash_attention_partials=0, fused_ns_step=0)
+    for name in ('sym_cov', 'sym_cov_ema', 'flash_attention_partials'):
+        for tag in HALF_NAMES.values():
+            out[f'{name}_{tag}'] = 0
+    out['flash_attention_partials' + (f'_{flash_tag}' if flash_tag else '')] = flash
+    out['flash_attention_partials_by_head_dim'] = {str(head_dim): flash} if flash else {}
+    return out
+
+
+def direct_lm_losses(argv, steps: int) -> list[float]:
+    """The LM script's run rebuilt from the library's parts (the reference
+    of (a) and (b)): the same model, engine, optimizer and batches through
+    ``Trainer.step``."""
+    from kfac_tpu_torch import KFACPreconditioner, data, register_model
+    from kfac_tpu_torch.examples import common, train_language_model as lm_script
+    from kfac_tpu_torch.models import TransformerLM, lm_loss
+    from kfac_tpu_torch.training import Trainer
+
+    args = lm_script.parse_args(argv)
+    device = torch.device('cuda')
+    tokens, vocab = data.lm_corpus(None, args.vocab_size)
+    model = TransformerLM(vocab_size=vocab, d_model=args.d_model, num_heads=args.num_heads,
+                          num_layers=args.num_layers, max_len=args.seq_len, seed=args.seed, device=device,
+                          dtype=torch.bfloat16 if args.bf16 else torch.float32)
+    lr = common.make_lr_schedule(args.lr, lm_script.steps_per_epoch(args, tokens), args.epochs,
+                                 args.warmup_epochs, args.lr_decay)
+    kfac = KFACPreconditioner(register_model(model, device=device), factor_update_steps=10,
+                              inv_update_steps=100, damping=0.003, factor_decay=0.95, kl_clip=0.001,
+                              lr=lr, device=device)
+    loss = lm_loss(model)
+    trainer = Trainer(model, common.ChainSGD(model.parameters(), lr, momentum=0.9, clip_norm=1.0),
+                      lambda ms, b: (loss(b), ms), kfac=kfac, device=device)
+    state, losses = trainer.init(), []
+    for _, (xb, yb) in zip(range(steps), data.lm_batches(tokens, args.batch_size, args.seq_len, args.seed)):
+        state, value = trainer.step(state, (torch.from_numpy(xb).long().to(device),
+                                            torch.from_numpy(yb).long().to(device)))
+        losses.append(float(value))
+    del trainer, model, kfac
+    torch.cuda.empty_cache()
+    return losses
+
+
+def examples_lm(part: str, argv: list, wrappers, launches) -> dict:
+    """(a) or (b): the LM script, counts set to 0 just before and read just
+    after, against the direct Trainer loop on the same batches and weights
+    (losses within 1e-6)."""
+    from kfac_tpu_torch.examples import train_language_model as lm_script
+
+    args = lm_script.parse_args(argv)
+    reset_counts(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    with StepClock() as clock:
+        run = lm_script.run(args)
+    counts = example_counts(wrappers)
+    add_counts(launches, counts)
+    layers = len(run['trainer'].kfac.registry.layers)
+    peak = torch.cuda.max_memory_allocated()
+    del run['trainer'], run['state']
+    torch.cuda.empty_cache()
+    direct = direct_lm_losses(argv, EXAMPLES_LM_STEPS)
+    steps = EXAMPLES_LM_STEPS
+    head_dim = args.d_model // args.num_heads
+    expected = example_expected(layers, len(range(0, steps, 10)), steps, FLAGSHIP['layers'] * steps,
+                                flash_tag='bf16' if args.bf16 else '', head_dim=head_dim)
+    err = max(abs(a - b) / abs(b) for a, b in zip(run['losses'], direct))
+    checks = dict(
+        finite=all(math.isfinite(x) for x in run['losses']) and len(run['losses']) == steps,
+        losses_equal_direct_trainer=err <= 1e-6, launches_exact=counts == expected,
+    )
+    return dict(part=part, argv=argv, losses=run['losses'], direct_trainer_losses=direct,
+                loss_rel_err=err, loss_tol=1e-6, ppl=run['ppl'], kfac_layers=layers, head_dim=head_dim,
+                step_ms=clock.by_kind(steps, 10, 100), peak_memory_bytes=peak, launches=counts,
+                expected_launches=expected, checks=checks)
+
+
+def examples_interleaved(wrappers, launches, dense_losses) -> dict:
+    """(c): the LM script on one rank with three chunks (4 microbatches):
+    the executed ticks against the table, launches exact, its losses beside
+    (a)'s (the pipeline leaves ``lm_head`` out of K-FAC)."""
+    from kfac_tpu_torch.examples import train_language_model as lm_script
+
+    argv = EXAMPLES_LM + ['--pipeline-stages', '1', '--pipeline-schedule', 'interleaved',
+                          '--virtual-chunks', '3', '--pipeline-microbatches', str(EP_PP_MICRO)]
+    args = lm_script.parse_args(argv)
+    reset_counts(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    with StepClock() as clock:
+        run = lm_script.run(args)
+    counts = example_counts(wrappers)
+    add_counts(launches, counts)
+    model = run['model']
+    report = model.tick_report([model.last_ticks])
+    steps, v = EXAMPLES_LM_STEPS, 3
+    per_chunk = FLAGSHIP['layers'] // v
+    layers = len(model.stage_registry.layers)
+    expected = example_expected(layers, len(range(0, steps, 10)), steps,
+                                per_chunk * EP_PP_MICRO * (2 * v - 1) * steps,
+                                summed=2 * layers * (EP_PP_MICRO - 1), head_dim=FLAGSHIP['d_model'] // FLAGSHIP['heads'])
+    checks = dict(
+        finite=all(math.isfinite(x) for x in run['losses']) and len(run['losses']) == steps,
+        ticks_equal_table=report['matches_schedule'], launches_exact=counts == expected,
+    )
+    out = dict(part='c_interleaved_p1_v3', argv=argv, losses=run['losses'], ppl=run['ppl'],
+               dense_losses_a=dense_losses,
+               rel_to_a=max(abs(a - b) / abs(b) for a, b in zip(run['losses'], dense_losses)),
+               tick_report=report, step_ms=clock.by_kind(steps, 10, 100),
+               peak_memory_bytes=torch.cuda.max_memory_allocated(), launches=counts,
+               expected_launches=expected, checks=checks)
+    del run, model
+    torch.cuda.empty_cache()
+    return out
+
+
+class ExampleInterrupted(Exception):
+    """Raised after epoch 0's checkpoint of (d)'s interrupted run."""
+
+
+def examples_resume() -> dict:
+    """(d): the LM script for two epochs under ``--checkpoint-dir``,
+    interrupted after epoch 0's checkpoint, then the same command with
+    ``--resume``: epoch 1's losses and loss against the uninterrupted
+    run's (within 1e-6; bitwise reported)."""
+    from kfac_tpu_torch.examples import common, train_language_model as lm_script
+
+    argv = EXAMPLES_LM + EXAMPLES_RESUME
+    whole = lm_script.run(lm_script.parse_args(argv))
+    root = tempfile.mkdtemp(prefix='examples_resume_')
+    try:
+        ckpt = ['--checkpoint-dir', os.path.join(root, 'ckpt')]
+        save = common.save_checkpoint
+        timings = {}
+
+        def save_then_stop(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = save(*args, **kwargs)
+            timings['save_s'] = time.perf_counter() - t0
+            raise ExampleInterrupted
+
+        common.save_checkpoint = save_then_stop
+        try:
+            lm_script.run(lm_script.parse_args(argv + ckpt))
+            interrupted = False
+        except ExampleInterrupted:
+            interrupted = True
+        finally:
+            common.save_checkpoint = save
+        t0 = time.perf_counter()
+        resumed = lm_script.run(lm_script.parse_args(argv + ckpt + ['--resume']))
+        resumed_s = time.perf_counter() - t0
+        on_disk = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    tail = whole['losses'][EXAMPLES_RESUME_STEPS:]
+    err = max(abs(a - b) / abs(b) for a, b in zip(resumed['losses'], tail))
+    checks = dict(
+        interrupted_after_epoch_0=interrupted,
+        resumed_one_epoch=len(resumed['losses']) == EXAMPLES_RESUME_STEPS,
+        epoch_1_losses=err <= 1e-6,
+        epoch_1_loss=abs(resumed['epoch_losses'][-1] - whole['epoch_losses'][-1])
+        <= 1e-6 * abs(whole['epoch_losses'][-1]),
+    )
+    for run in (whole, resumed):
+        run.pop('trainer'), run.pop('state')
+    torch.cuda.empty_cache()
+    return dict(part='d_resume', argv=argv, uninterrupted_losses=whole['losses'],
+                resumed_losses=resumed['losses'], epoch_1_loss=resumed['epoch_losses'][-1],
+                uninterrupted_epoch_1_loss=whole['epoch_losses'][-1], loss_rel_err=err,
+                bitwise=resumed['losses'] == tail, loss_tol=1e-6, save_seconds=timings.get('save_s'),
+                resumed_run_seconds=resumed_s, checkpoint_bytes=on_disk, checks=checks)
+
+
+def examples_resnet(part: str, module, argv, wrappers, launches) -> dict:
+    """(e) and (f): a ResNet script for a few steps, counts set to 0 just
+    before and read just after: finite losses, launches exact."""
+    args = module.parse_args(argv)
+    reset_counts(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with StepClock() as clock:
+        run = module.run(args)
+    seconds = time.perf_counter() - t0
+    counts = example_counts(wrappers)
+    add_counts(launches, counts)
+    layers = len(run['trainer'].kfac.registry.layers)
+    steps = args.limit_steps
+    expected = example_expected(layers, len(range(0, steps, 10)), steps, 0)
+    checks = dict(finite=all(math.isfinite(x) for x in run['losses']) and len(run['losses']) == steps,
+                  accuracy_in_range=0.0 <= run['acc'] <= 1.0, launches_exact=counts == expected)
+    out = dict(part=part, argv=argv, losses=run['losses'], acc=run['acc'], kfac_layers=layers,
+               img_per_s=run['img_per_s'], run_seconds=seconds, step_ms=clock.by_kind(steps, 10, 100),
+               peak_memory_bytes=torch.cuda.max_memory_allocated(), launches=counts,
+               expected_launches=expected, checks=checks)
+    del run
+    torch.cuda.empty_cache()
+    return out
+
+
+def examples_char_lm(name: str, wrappers, launches) -> dict:
+    """(g): a ``char_lm`` gate of ``kfac_tpu_torch.bench_accuracy``: both
+    curves, the self-calibrating target, steps and seconds to it; passes
+    when both finals are finite and both runs reach the target."""
+    import contextlib
+
+    from kfac_tpu_torch import bench_accuracy
+
+    reset_counts(wrappers)
+    with contextlib.redirect_stdout(sys.stderr):  # its own JSON lines
+        out = bench_accuracy.run_task('cuda', seed=0, name=name)
+    counts = example_counts(wrappers)
+    add_counts(launches, counts)
+    task = bench_accuracy.TASKS[name]('cuda')
+    head_dim = bench_accuracy.CHAR_LM['small' if name == 'char_lm' else 'deep']['model']
+    head_dim = head_dim['d_model'] // head_dim['num_heads']
+    checks = dict(
+        finite=all(math.isfinite(v) for v in (out['final_sgd'], out['final_kfac'])),
+        both_reach_target=out['sgd_steps_to_target'] is not None and out['kfac_steps_to_target'] is not None,
+        flash_at_head_dim=counts['flash_attention_partials_by_head_dim'].get(str(head_dim), 0) > 0,
+    )
+    return dict(part=f'g_{name}', head_dim=head_dim, **{k: v for k, v in out.items()},
+                sgd_step_ms_median=window_step_ms(out['sgd_curve'], task['eval_every']),
+                kfac_step_ms_median=window_step_ms(out['kfac_curve'], task['eval_every']),
+                launches=counts, checks=checks)
+
+
+def add_counts(launches, counts) -> None:
+    for name, n in counts.items():
+        if isinstance(n, int):
+            launches[name] = launches.get(name, 0) + n
+
+
+def examples_lm_rank(rank: int, world: int, device: torch.device, argv: list) -> dict:
+    """(i) on one rank: the LM script under ``spawn_world`` (its
+    ``distributed_init`` keeps the world), the rows its per-rank loader
+    read, its losses, step ms and launches."""
+    from kfac_tpu_torch import data
+    from kfac_tpu_torch.examples import train_language_model as lm_script
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    wrappers = kaisa_wrappers()
+    args = lm_script.parse_args(argv)
+    reset_counts(wrappers)
+    torch.cuda.reset_peak_memory_stats(device)
+    with StepClock() as clock:
+        run = lm_script.run(args)
+    counts = example_counts(wrappers)
+    blocks, index = run['loader_rows']
+    tokens, _ = data.lm_corpus(None, args.vocab_size)
+    rows = [xb for _, (xb, _) in zip(range(3), data.lm_batches(
+        tokens, args.batch_size, args.seq_len, args.seed, rank=index, world=blocks))]
+    return dict(rank=rank, losses=run['losses'], loader_rows=list(run['loader_rows']), rows=rows,
+                step_ms=clock.by_kind(EXAMPLES_LM_STEPS, 10, 100), launches=counts,
+                peak_memory_bytes=torch.cuda.max_memory_allocated(device),
+                params_digest=param_digest_of(dict(run['trainer'].model.named_parameters())))
+
+
+def examples_world_jobs(launches, dense_losses) -> list[dict]:
+    """(h) and (i) on four cards."""
+    from kfac_tpu_torch import data
+    from kfac_tpu_torch.examples import train_language_model as lm_script
+
+    lines = []
+    if 'h' in EXAMPLES_JOBS:
+        job = EXAMPLES_ILV_JOB
+        dense = {'eigen': ep_pp_dense_reference({})}
+        path = os.path.join(tempfile.mkdtemp(prefix='examples_h_'), 'dense.pt')
+        torch.save(dense, path)
+        t0 = time.perf_counter()
+        try:
+            rows = [r[0] for r in run_world(ep_pp_rank, 4, args=([job], path))]
+        finally:
+            shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+        checks = ep_pp_checks(job, rows, None)
+        add_counts(launches, rows[0]['launches'])
+        b = rows[0]['bubble']
+        lines.append(dict(
+            part=job['name'], world=4, backend='nccl', job={k: v for k, v in job.items() if k != 'name'},
+            steps=EP_PP_STEPS, cadence=[EP_PP_CAPTURE, EP_PP_REFRESH], losses_rank0=rows[0]['losses'],
+            loss_tol=1e-4, pgrad_tol=1e-3,
+            loss_rel_err_by_rank=[r.get('loss_rel_err') for r in rows],
+            pgrad_err_rel_to_max_by_rank=[r.get('pgrad_err_rel_to_max') for r in rows],
+            step_ms_by_rank=[r['step_ms'] for r in rows], syncs_by_rank=[r['syncs'] for r in rows],
+            peak_memory_by_rank=[r['peak_memory_bytes'] for r in rows],
+            comms_by_rank=[r['comms_by_kind'] for r in rows],
+            launches_by_rank=[r['launches'] for r in rows],
+            expected_launches_by_rank=[r['expected_launches'] for r in rows],
+            ticks_table_by_rank=[r['ticks_table'] for r in rows],
+            ticks_executed_step0_by_rank=[r['ticks_by_step'][0] for r in rows],
+            bubble=dict(b, idle_share_of_table_slots=b['idle_slots'] / b['slots'],
+                        rule='idle (rank, tick) slots of the table over its slots: a count, not a '
+                             'measured time'),
+            profile_plain_by_rank=[
+                {k: r['profile_plain'][k] for k in ('wall_ms_profiled', 'device_busy_ms', 'nccl_ms',
+                                                     'idle_share', 'kernel_launches')} for r in rows],
+            seconds=time.perf_counter() - t0, checks=checks, passed=all(checks.values()),
+        ))
+    if 'i' in EXAMPLES_JOBS:
+        argv = EXAMPLES_LM + ['--kfac-strategy', 'hybrid-opt']
+        t0 = time.perf_counter()
+        rows = run_world(examples_lm_rank, 4, args=(argv,))
+        args = lm_script.parse_args(argv)
+        tokens, _ = data.lm_corpus(None, args.vocab_size)
+        glob = [xb for _, (xb, _) in zip(range(3), data.lm_batches(
+            tokens, args.batch_size, args.seq_len, args.seed))]
+        import numpy as np
+
+        rows_ok = all(np.array_equal(np.concatenate([r['rows'][i] for r in rows]), glob[i])
+                      for i in range(3))
+        errs = [max(abs(a - b) / abs(b) for a, b in zip(r['losses'], dense_losses)) for r in rows]
+        checks = dict(
+            finite=all(all(math.isfinite(x) for x in r['losses']) for r in rows),
+            loader_rows_are_the_global_batch=rows_ok
+            and [r['loader_rows'] for r in rows] == [[4, i] for i in range(4)],
+            losses_within_tol_of_a=max(errs) <= 1e-4,
+            params_identical_on_every_rank=len({r['params_digest'] for r in rows}) == 1,
+        )
+        add_counts(launches, rows[0]['launches'])
+        lines.append(dict(
+            part='i_lm_hybrid_opt_per_rank_loader', world=4, argv=argv, losses_rank0=rows[0]['losses'],
+            loss_rel_err_to_a_by_rank=errs, loss_tol=1e-4, step_ms_by_rank=[r['step_ms'] for r in rows],
+            peak_memory_by_rank=[r['peak_memory_bytes'] for r in rows],
+            launches_by_rank=[r['launches'] for r in rows], seconds=time.perf_counter() - t0,
+            checks=checks, passed=all(checks.values()),
+        ))
+    return lines
+
+
+def run_examples(launches) -> bool:
+    """The port's training entry points (see the module's docstring, phase
+    21): on one card (a)-(g), on four also (h) and (i); each part's counts
+    set to 0 just before it and read just after."""
+    from kfac_tpu_torch.examples import train_cifar_resnet, train_imagenet_resnet
+
+    wrappers = main_path_wrappers()
+    lines, seconds = [], {}
+    dense_losses = None
+
+    def part(key, fn, *args):
+        t0 = time.perf_counter()
+        line = fn(*args)
+        line['passed'] = all(line['checks'].values())
+        seconds[key] = time.perf_counter() - t0
+        emit(dict(phase='examples', **line, seconds=seconds[key]))
+        lines.append(line)
+        return line
+
+    if 'a' in EXAMPLES_JOBS or 'c' in EXAMPLES_JOBS or 'i' in EXAMPLES_JOBS:
+        a = part('a', examples_lm, 'a_lm_flagship', EXAMPLES_LM, wrappers, launches)
+        dense_losses = a['losses']
+    if 'b' in EXAMPLES_JOBS:
+        argv = list(EXAMPLES_LM)
+        argv[argv.index('--num-heads') + 1] = '8'
+        part('b', examples_lm, 'b_lm_bf16_head_dim_64', argv + ['--bf16'], wrappers, launches)
+    if 'c' in EXAMPLES_JOBS:
+        part('c', examples_interleaved, wrappers, launches, dense_losses)
+    if 'd' in EXAMPLES_JOBS:
+        part('d', examples_resume)
+    if 'e' in EXAMPLES_JOBS:
+        part('e', examples_resnet, 'e_cifar_resnet32_native_loader', train_cifar_resnet, EXAMPLES_CIFAR,
+             wrappers, launches)
+    if 'f' in EXAMPLES_JOBS:
+        part('f', examples_resnet, 'f_imagenet_resnet50', train_imagenet_resnet, EXAMPLES_IMAGENET,
+             wrappers, launches)
+    if 'g' in EXAMPLES_JOBS:
+        for name in ('char_lm', 'char_lm_deep'):
+            part(f'g_{name}', examples_char_lm, name, wrappers, launches)
+    if torch.cuda.device_count() >= 4:
+        t0 = time.perf_counter()
+        for line in examples_world_jobs(launches, dense_losses):
+            emit(dict(phase='examples', **line))
+            lines.append(line)
+        seconds['world'] = time.perf_counter() - t0
+    ok = all(line['passed'] for line in lines)
+    emit(dict(phase='examples', cards=torch.cuda.device_count(), parts=[l['part'] for l in lines],
+              seconds=seconds, passed=ok))
     return ok
 
 
@@ -6084,7 +6630,7 @@ def main() -> int:
         path: {} for path in (
             'main_path', 'main_path_ns', 'digits_mlp', 'digits_cnn', 'observed', 'resume',
             'async_refresh', 'kaisa', 'kaisa_ops', 'resnet', 'bench_lm_tiny', 'bench_lm_flagship',
-            'engine_knobs', 'moe', 'lora', 'tp_sp', 'amp', 'ep_pp',
+            'engine_knobs', 'moe', 'lora', 'tp_sp', 'amp', 'ep_pp', 'examples',
         )
     }
     bench_records: dict = {}
@@ -6138,6 +6684,7 @@ def main() -> int:
     phase('lora', run_lora, launches['lora'])
     phase('tp_sp', run_tp_sp, launches['tp_sp'], results)
     phase('ep_pp', run_ep_pp, launches['ep_pp'])
+    phase('examples', run_examples, launches['examples'])
     emit(dict(phase='timing', seconds=seconds, total_seconds=time.perf_counter() - start))
     print(smi, flush=True)
     emit(kernels_line(results, launches))

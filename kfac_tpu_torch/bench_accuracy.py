@@ -1,6 +1,6 @@
 """Time to target quality, K-FAC against the same first-order baseline:
-the ``digits_mlp``, ``digits_cnn`` and ``cifar_resnet20`` tasks of
-``tools/bench_accuracy.py``, on the port.
+the ``digits_mlp``, ``digits_cnn``, ``char_lm``, ``char_lm_deep`` and
+``cifar_resnet20`` tasks of ``tools/bench_accuracy.py``, on the port.
 
 Protocol (the JAX tool's): SGD with momentum, and the same optimizer with
 its gradients preconditioned by K-FAC, from the same initial weights, with
@@ -23,7 +23,17 @@ The tasks (the JAX tool's, uncut):
   Trainer's ``model_state``, on 12,800 synthetic CIFAR-10 images (the JAX
   package's class-conditional set; real CIFAR is not in the repository),
   2,000 test images, batch 128, lr 0.02, 400 steps, an evaluation every
-  20, damping 0.1, cadence 5/25.
+  20, damping 0.1, cadence 5/25;
+- ``char_lm``: a byte-level ``TransformerLM`` (vocab 256, d_model 64, 4
+  heads: head dim 16, 2 layers, seq 64) over the repository's own markdown
+  (``README.md``, ``SURVEY.md``, ``docs/*.md``, the first 400,000 bytes:
+  nothing is downloaded), ``lm_head`` left out of K-FAC, batch 16, lr 0.3,
+  400 steps, an evaluation every 20; the metric is the held-out
+  cross-entropy (``val_nll``, lower is better) on the first 64 of the last
+  tenth of the windows; damping 0.003, cadence 5/25;
+- ``char_lm_deep``: the same at d_model 128, 4 heads (head dim 32), 4
+  layers, seq 128, lr 0.1 (at 0.3 plain SGD diverges at this depth), 700
+  steps, an evaluation every 35.
 
 Usage::
 
@@ -31,7 +41,7 @@ Usage::
     python -m kfac_tpu_torch.bench_accuracy --task digits_cnn --device cpu
 
 Prints one JSON line per curve and one with the result, whose keys are the
-JAX tool's. ``char_lm`` is not ported yet.
+JAX tool's.
 
 ``lora_finetune`` is the JAX tool's gate of that name, not a race: the
 frozen-backbone LoRA fine-tune (:mod:`kfac_tpu_torch.examples.finetune_lora`,
@@ -51,8 +61,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
+from pathlib import Path
 from typing import Any
 
 import numpy as np
@@ -62,7 +74,7 @@ import torch.nn.functional as F
 from kfac_tpu_torch import data
 from kfac_tpu_torch.device import resolve_device
 from kfac_tpu_torch.layers.registry import register_model
-from kfac_tpu_torch.models import MLP
+from kfac_tpu_torch.models import MLP, TransformerLM, lm_loss
 from kfac_tpu_torch.models import layers as layers_lib
 from kfac_tpu_torch.models import resnet
 from kfac_tpu_torch.preconditioner import KFACPreconditioner
@@ -178,6 +190,80 @@ def task_cifar_resnet20(device: str | torch.device = 'cuda') -> dict[str, Any]:
     )
 
 
+REPO_ROOT = Path(__file__).resolve().parents[1]
+
+
+def docs_corpus(max_bytes: int = 400_000, root: Path = REPO_ROOT) -> np.ndarray:
+    """Byte tokens (int32) of the repository's own markdown: ``README.md``,
+    ``SURVEY.md`` and ``docs/*.md`` in name order, joined by blank lines,
+    the first ``max_bytes`` (the JAX tool's ``_docs_corpus``)."""
+    paths = [root / 'README.md', root / 'SURVEY.md']
+    docs = root / 'docs'
+    if docs.is_dir():
+        paths += [docs / p for p in sorted(os.listdir(docs)) if p.endswith('.md')]
+    blob = b'\n\n'.join(p.read_bytes() for p in paths if p.exists())[:max_bytes]
+    return np.frombuffer(blob, dtype=np.uint8).astype(np.int32)
+
+
+# the char_lm tasks: model widths, sequence, steps, evaluation cadence, lr
+CHAR_LM = {
+    'small': dict(model=dict(d_model=64, num_heads=4, num_layers=2), seq=64, steps=400,
+                  eval_every=20, lr=0.3),
+    'deep': dict(model=dict(d_model=128, num_heads=4, num_layers=4), seq=128, steps=700,
+                 eval_every=35, lr=0.1),
+}
+
+
+def char_lm_data(seq: int):
+    """``((x_train, y_train), (x_test, y_test))`` int32 windows of
+    :func:`docs_corpus`: next-byte targets, the last tenth (at least 8)
+    held out and its first 64 evaluated."""
+    tokens = docs_corpus()
+    n = (len(tokens) - 1) // seq
+    x = tokens[: n * seq].reshape(n, seq)
+    y = tokens[1: n * seq + 1].reshape(n, seq)
+    n_te = max(8, n // 10)
+    return (x[:-n_te], y[:-n_te]), (x[-n_te:][:64], y[-n_te:][:64])
+
+
+def lm_task_loss(model):
+    """``loss_fn(model_state, (tokens, targets))``: ``lm_loss``'s mean
+    next-token cross-entropy."""
+    lm = lm_loss(model)
+    return lambda ms, batch: (lm(batch), ms)
+
+
+def task_char_lm(device: str | torch.device = 'cuda', depth: str = 'small') -> dict[str, Any]:
+    """``_task_char_lm(depth)``: the byte-level LM over the repository's
+    markdown (:data:`CHAR_LM`), batch 16, ``lm_head`` outside K-FAC, the
+    held-out cross-entropy as the metric."""
+    device = resolve_device(device)
+    cfg = CHAR_LM[depth]
+    (xtr, ytr), (xte, yte) = char_lm_data(cfg['seq'])
+    xte_t = torch.from_numpy(xte).long().to(device)
+    yte_t = torch.from_numpy(yte).long().to(device)
+
+    @torch.no_grad()
+    def evaluate(model, model_state) -> float:
+        return float(lm_loss(model)((xte_t, yte_t)))
+
+    return dict(
+        name='char_lm' if depth == 'small' else 'char_lm_deep', device=device,
+        model=lambda seed: TransformerLM(vocab_size=256, max_len=cfg['seq'], seed=seed,
+                                         device=device, **cfg['model']),
+        model_state=lambda model: None, loss=lm_task_loss, evaluate=evaluate,
+        data=(torch.from_numpy(xtr).long().to(device), torch.from_numpy(ytr).long().to(device)),
+        batch=16, lr=cfg['lr'], higher_better=False, metric='val_nll',
+        max_steps=cfg['steps'], eval_every=cfg['eval_every'],
+        register_kwargs=dict(skip_layers=['lm_head']),
+        kfac_kwargs=dict(damping=0.003, factor_update_steps=5, inv_update_steps=25),
+    )
+
+
+def task_char_lm_deep(device: str | torch.device = 'cuda') -> dict[str, Any]:
+    return task_char_lm(device, 'deep')
+
+
 LORA_WINDOW = 50  # the lora_finetune gate's window: the last sixth of its 300 steps
 
 
@@ -216,6 +302,8 @@ def task_lora_finetune(device: str | torch.device = 'cuda') -> dict[str, Any]:
 TASKS = {
     'digits_mlp': task_digits_mlp,
     'digits_cnn': task_digits_cnn,
+    'char_lm': task_char_lm,
+    'char_lm_deep': task_char_lm_deep,
     'cifar_resnet20': task_cifar_resnet20,
     'lora_finetune': task_lora_finetune,
 }
@@ -229,7 +317,7 @@ def build_trainer(task: dict[str, Any], use_kfac: bool, seed: int = 0, model=Non
         model = task['model'](seed)
     kfac = None
     if use_kfac:
-        reg = register_model(model, device=device)
+        reg = register_model(model, device=device, **task.get('register_kwargs', {}))
         kfac = KFACPreconditioner(reg, lr=task['lr'], device=device, **task['kfac_kwargs'])
     return Trainer(
         model, torch.optim.SGD(model.parameters(), lr=task['lr'], momentum=0.9),

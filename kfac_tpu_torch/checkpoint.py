@@ -77,6 +77,9 @@ def layout_manifest(engine: Any) -> dict[str, Any]:
         man['topology'] = topo()
     if _pipelined(engine):  # the pipeline engine
         man['n_stages'] = int(engine.n_stages)
+        v = getattr(getattr(engine, 'model', None), 'virtual_chunks', None)
+        if v is not None:  # the interleaved pipeline: p * v logical stages
+            man['virtual_chunks'] = int(v)
     if _stacked(engine):
         man['bucket_granularity'] = int(cfg.bucket_granularity)
         man['colocate_factors'] = bool(cfg.colocate_factors)
@@ -121,7 +124,7 @@ def _bucket_entry(sb: Any) -> dict[str, Any]:
 # the health counters are durable).
 _LAYOUT_KEYS = (
     'engine', 'bucket_granularity', 'colocate_factors', 'a_store',
-    'g_store', 'n_stages',
+    'g_store', 'n_stages', 'virtual_chunks',
 )
 
 

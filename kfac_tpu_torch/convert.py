@@ -274,23 +274,52 @@ def local_params(params: Mapping[str, torch.Tensor], module: torch.nn.Module) ->
     return {k: params[k] for k in own}
 
 
+def _stage_slice(params: Mapping[str, Any], index: int) -> dict[str, torch.Tensor]:
+    """Slice ``index`` of every leaf of the stage-stacked ``stages``, as a
+    stage module's ``state_dict``."""
+    sliced: dict[str, Any] = {}
+    for path, value in _flatten(params['stages']):
+        node = sliced
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.asarray(value)[index]
+    return from_flax_params(sliced)
+
+
+def _replicated(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """A pipelined LM's embedding, positions, ``ln_f`` and bias-free head."""
+    out = from_flax_params({k: v for k, v in params.items() if k not in ('stages', 'head')})
+    out['lm_head.weight'] = torch.from_numpy(np.array(np.asarray(params['head']['kernel']).T))
+    return out
+
+
 def from_flax_pipeline_params(params: Mapping[str, Any], stage: int) -> dict[str, torch.Tensor]:
     """A ``PipelinedLM``'s full ``state_dict`` for stage ``stage`` from the
     JAX ``PipelinedLM``'s params (numpy): the embedding, positions,
     ``ln_f`` and the head as they are, and the ``stage``-th slice of every
     leaf of the stage-stacked ``stages`` under ``stage.`` (load it before
     the stage is sharded: ``PipelinedLM(..., params=...)``)."""
-    stages = _flatten(params['stages'])
-    sliced: dict[str, Any] = {}
-    for path, value in stages:
-        node = sliced
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = np.asarray(value)[stage]
-    out = {f'stage.{k}': v for k, v in from_flax_params(sliced).items()}
-    rest = from_flax_params({k: v for k, v in params.items() if k not in ('stages', 'head')})
-    out.update(rest)
-    out['lm_head.weight'] = torch.from_numpy(np.array(np.asarray(params['head']['kernel']).T))
+    out = {f'stage.{k}': v for k, v in _stage_slice(params, stage).items()}
+    out.update(_replicated(params))
+    return out
+
+
+def from_flax_interleaved_params(
+    params: Mapping[str, Any], rank: int, p: int, v: int
+) -> dict[str, torch.Tensor]:
+    """An ``InterleavedPipelinedLM``'s full ``state_dict`` for pipe rank
+    ``rank`` of ``p`` from the JAX ``InterleavedPipelinedLM``'s params
+    (numpy): its chunk ``c`` (logical stage ``c * p + rank``) from the
+    rank-major stack index ``logical_to_stack(p, v, c * p + rank)`` under
+    ``stage.chunk{c}.``, and the replicated parameters as
+    :func:`from_flax_pipeline_params` takes them."""
+    from kfac_tpu_torch.parallel.interleaved_scan import logical_to_stack
+
+    out = {}
+    for c in range(v):
+        index = logical_to_stack(p, v, c * p + rank)
+        out.update({f'stage.chunk{c}.{k}': t for k, t in _stage_slice(params, index).items()})
+    out.update(_replicated(params))
     return out
 
 
@@ -298,14 +327,23 @@ def from_jax_pipeline_state(jax_state: Mapping[str, Any], engine: Any) -> KFACSt
     """A ``PipelineKFAC``'s state for this rank's stage from the JAX
     engine's (numpy; every leaf stage-stacked): the factors and the
     decompositions (EIGEN: ``qa/qg/da/dg``; INVERSE: the inverses in the
-    ``qa/qg`` slots) of ``engine.grid.stage``."""
+    ``qa/qg`` slots) of ``engine.grid.stage``; over an
+    ``InterleavedPipelinedLM``, of each of its chunks (``chunk{c}.``, the
+    JAX stack index ``stage * v + c``; its layers ``chunk{c}/...``)."""
     stage = engine.grid.stage
     cfg = engine.config
     state = cfg.init()
     dev = cfg.device
+    v = getattr(engine.model, 'virtual_chunks', None)
 
     def take(field, name, dtype):
-        return _tensor(np.asarray(jax_state[field][name])[stage], dtype, dev)
+        if v is None:
+            return _tensor(np.asarray(jax_state[field][name])[stage], dtype, dev)
+        # the interleaved model: chunk c's layer `chunk{c}/name` is the JAX
+        # layer `name` at the rank-major stack index stage * v + c
+        chunk, layer = name.split('/', 1)
+        index = stage * v + int(chunk[len('chunk'):])
+        return _tensor(np.asarray(jax_state[field][layer])[index], dtype, dev)
 
     names = list(engine.registry.layers)
     fields = {

@@ -54,6 +54,14 @@
 //   (103 KB, two CTAs an SM), 8 warps and 16-row tiles at D = 256 (202
 //   KB, one CTA an SM; with 128 output floats a thread, ptxas gives it
 //   254 registers and spills 8 bytes).
+//   At D = 16, the char_lm gate's (16, 64, 4, 16) (8.5e6 FLOP against
+//   1.1 MB: launch-bound), 4 warps and one 64-key tile took 0.0066 ms
+//   against 0.0093 for 2 warps (128 CTAs of 32 rows instead of 64 of 64),
+//   0.0098 for 1 and 0.0090 for 2 warps on 32-key tiles; at D = 64 (the
+//   flagship's width at 8 heads, (16, 512, 8, 64): 4.3e9 FLOP as at D =
+//   128, 0.026 ms 3xTF32) 4 warps and 32-key tiles took 0.109 ms against
+//   0.115 on 64-key tiles, 0.184 for 2 warps and 0.144 for 8 (NVIDIA H100
+//   80GB HBM3 at 700 W, `flash_tiles`).
 // The offsets are kernel arguments, so ring steps can reuse the kernel. m
 // and l are written as (B, H, S_q): the TPU's 128-lane broadcast of them
 // was a Mosaic layout constraint.
@@ -90,8 +98,9 @@
 //   rounded to T, packs into the A fragment; V comes from shared memory,
 //   MN-major, through the transpose bit. O is scaled by alpha in registers
 //   and P V accumulates onto it in the tensor cores.
-// - Two CTAs share an SM at D = 32 and 128 (80 KB of shared memory each at
-//   D = 128), so one's loads, softmax and epilogue overlap the other's
+// - Two CTAs share an SM at D = 32, 64 and 128 (80 KB of shared memory
+//   each at D = 128, 41 KB at D = 64, where one 128-byte box holds the
+//   head and P V is wgmma m64n64k16: four k16 steps a 64-key tile), so one's loads, softmax and epilogue overlap the other's
 //   products. At D = 256 one CTA an SM (160 KB) gets 255 registers a
 //   thread for its 128 f32 of O, 32 of S and 16 packed P registers. (Two
 //   consumer warpgroups of 64 rows sharing 128-row K/V tiles, with
@@ -116,10 +125,24 @@ constexpr int kMaxDevices = 64;
 // Warps a CTA (16 query rows each) and K/V tile rows, per head dim.
 template <int D>
 struct Tiles;
+// D = 16 (the char_lm gate's d 64 over 4 heads): 4 warps, one Q tile and
+// one 64-key K/V tile a head at the gate's (16, 64, 4, 16).
+template <>
+struct Tiles<16> {
+  static constexpr int kWarps = 4;
+  static constexpr int kBK = 64;
+};
 template <>
 struct Tiles<32> {
   static constexpr int kWarps = 4;
   static constexpr int kBK = 64;
+};
+// D = 64 (most public decoders' head dim; the flagship's width at 8
+// heads): 4 warps and 32-row K/V tiles (54 KB).
+template <>
+struct Tiles<64> {
+  static constexpr int kWarps = 4;
+  static constexpr int kBK = 32;
 };
 template <>
 struct Tiles<128> {
@@ -746,6 +769,9 @@ int partials16(const void* q, const void* k, const void* v, float* acc,
     case 32:
       return launch16<T, 32>(q, k, v, acc, m, l, b, h, s_q, s_k, q_off, k_off,
                              causal, scale, stream);
+    case 64:
+      return launch16<T, 64>(q, k, v, acc, m, l, b, h, s_q, s_k, q_off, k_off,
+                             causal, scale, stream);
     case 128:
       return launch16<T, 128>(q, k, v, acc, m, l, b, h, s_q, s_k, q_off, k_off,
                               causal, scale, stream);
@@ -761,17 +787,23 @@ int partials16(const void* q, const void* k, const void* v, float* acc,
 
 extern "C" {
 
-// Head dims 32 (the bench's tiny LM), 128 (the flagship) and 256 (the
-// bench's `large` LM) are instantiated; any other returns
-// cudaErrorInvalidValue. q, k, v, acc start on 16-byte boundaries. Returns
+// Head dims 16 (the char_lm gate), 32 (the bench's tiny LM), 64, 128 (the
+// flagship) and 256 (the bench's `large` LM) are instantiated; any other
+// returns cudaErrorInvalidValue. q, k, v, acc start on 16-byte boundaries. Returns
 // cudaGetLastError() after the launch.
 int flash_attn_partials_f32(const float* q, const float* k, const float* v,
                             float* acc, float* m, float* l, int b, int h,
                             int s_q, int s_k, int d, int q_off, int k_off,
                             int causal, float scale, cudaStream_t stream) {
   switch (d) {
+    case 16:
+      return launch<16>(q, k, v, acc, m, l, b, h, s_q, s_k, q_off, k_off,
+                        causal, scale, stream);
     case 32:
       return launch<32>(q, k, v, acc, m, l, b, h, s_q, s_k, q_off, k_off,
+                        causal, scale, stream);
+    case 64:
+      return launch<64>(q, k, v, acc, m, l, b, h, s_q, s_k, q_off, k_off,
                         causal, scale, stream);
     case 128:
       return launch<128>(q, k, v, acc, m, l, b, h, s_q, s_k, q_off, k_off,
@@ -785,7 +817,9 @@ int flash_attn_partials_f32(const float* q, const float* k, const float* v,
 }
 
 // The bf16 form: q, k, v bf16 (B, S, H, D) on 16-byte boundaries; acc, m,
-// l f32. Head dims as flash_attn_partials_f32. Returns cudaGetLastError()
+// l f32. Head dims 32, 64, 128 and 256. 16 is not instantiated: a 16-value
+// row is 32 bytes, under the 64-byte swizzle span of this form's TMA boxes
+// and shared-memory descriptors; the wrapper raises for it. Returns cudaGetLastError()
 // after the launch.
 int flash_attn_partials_bf16(const void* q, const void* k, const void* v,
                              float* acc, float* m, float* l, int b, int h,

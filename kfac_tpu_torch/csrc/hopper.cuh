@@ -197,6 +197,25 @@ __device__ __forceinline__ void bar_sync(int id, int threads) {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d)); \
   }
 
+// D(64 x 64) = A B (+ D where scale_d != 0), A from registers (the
+// m16n8k16 A fragment of each warp's 16 rows), B from shared memory
+// (descriptor db), trans-b 1.
+#define KFAC_WGMMA_RS_N64_T(FN, TY)                                          \
+  __device__ __forceinline__ void FN(float (&d)[32], const uint32_t (&a)[4],      \
+                                     uint64_t db, int scale_d) {                   \
+    asm volatile(                                                              \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                              \
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"            \
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"  \
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"              \
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])                                                         \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d)); \
+  }
+
 // D(64 x 128) = A B (+ D where scale_d != 0), A from registers (the
 // m16n8k16 A fragment of each warp's 16 rows), B from shared memory
 // (descriptor db), trans-b 1.
@@ -265,6 +284,8 @@ KFAC_WGMMA_SS_N64_NN(ss_n64_nn_bf16, "bf16")
 KFAC_WGMMA_SS_N64_NN(ss_n64_nn_f16, "f16")
 KFAC_WGMMA_RS_N32_T(rs_n32_t_bf16, "bf16")
 KFAC_WGMMA_RS_N32_T(rs_n32_t_f16, "f16")
+KFAC_WGMMA_RS_N64_T(rs_n64_t_bf16, "bf16")
+KFAC_WGMMA_RS_N64_T(rs_n64_t_f16, "f16")
 KFAC_WGMMA_RS_N128_T(rs_n128_t_bf16, "bf16")
 KFAC_WGMMA_RS_N128_T(rs_n128_t_f16, "f16")
 KFAC_WGMMA_RS_N256_T(rs_n256_t_bf16, "bf16")
@@ -286,6 +307,10 @@ struct Wgmma<__nv_bfloat16> {
   static __device__ __forceinline__ void rs_t(float (&d)[16], const uint32_t (&a)[4],
                                               uint64_t db, int scale_d) {
     rs_n32_t_bf16(d, a, db, scale_d);
+  }
+  static __device__ __forceinline__ void rs_t(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+    rs_n64_t_bf16(d, a, db, scale_d);
   }
   static __device__ __forceinline__ void rs_t(float (&d)[64], const uint32_t (&a)[4],
                                               uint64_t db, int scale_d) {
@@ -309,6 +334,10 @@ struct Wgmma<__half> {
   static __device__ __forceinline__ void rs_t(float (&d)[16], const uint32_t (&a)[4],
                                               uint64_t db, int scale_d) {
     rs_n32_t_f16(d, a, db, scale_d);
+  }
+  static __device__ __forceinline__ void rs_t(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+    rs_n64_t_f16(d, a, db, scale_d);
   }
   static __device__ __forceinline__ void rs_t(float (&d)[64], const uint32_t (&a)[4],
                                               uint64_t db, int scale_d) {

@@ -9,8 +9,9 @@ rows each) and the rows of a K/V tile (``Tiles<D>``). This builds a copy of
 the source for each candidate below, with ``Tiles<D>`` rewritten (one
 ``nvcc`` each, all at once, into ``build/kernels/tiles/``), checks each
 against the plain version and times it with CUDA events beside
-``scaled_dot_product_attention``, at the attention shapes of the bench's
-tiny LM, flagship and ``large``. Prints the card's name and power limit,
+``scaled_dot_product_attention``, at the attention shapes of the
+``char_lm`` and ``char_lm_deep`` gates, the bench's tiny LM, the flagship
+at 8 heads (head dim 64) and at 4, and ``large``. Prints the card's name and power limit,
 then one JSON line per shape: each candidate's time and its largest error
 relative to the max of acc, m and l.
 """
@@ -30,11 +31,14 @@ from kfac_tpu_torch.ops.flash_attention import attend_partials_einsum
 
 # (warps, K/V rows) per head dim; the first of each list is the one built
 CANDIDATES = {
+    16: [(4, 64), (2, 64), (1, 64), (2, 32)],
     32: [(4, 64), (4, 32), (2, 64), (8, 64)],
+    64: [(4, 32), (4, 64), (2, 64), (8, 32)],
     128: [(4, 32), (4, 64), (8, 32), (8, 64), (4, 16), (2, 32)],
     256: [(8, 16), (4, 32), (4, 16), (8, 8), (4, 8), (2, 32)],
 }
-SHAPES = ((4, 128, 4, 32), (16, 512, 4, 128), (8, 1024, 4, 256))
+SHAPES = ((16, 64, 4, 16), (4, 128, 4, 32), (16, 128, 4, 32), (16, 512, 8, 64), (16, 512, 4, 128),
+          (8, 1024, 4, 256))
 TILES = r'struct Tiles<{d}> {{\n  static constexpr int kWarps = (\d+);\n  static constexpr int kBK = (\d+);'
 
 

@@ -133,9 +133,12 @@ def count(wrapper, dtype) -> None:
 
 
 def reset_counts(wrapper) -> None:
-    """Set ``wrapper``'s launch counts, of every form, to 0."""
+    """Set ``wrapper``'s launch counts, of every form (and of every head
+    dim, where it counts them), to 0."""
     wrapper.launches = 0
     wrapper.launches_by_dtype = {}
+    if hasattr(wrapper, 'launches_by_head_dim'):
+        wrapper.launches_by_head_dim = {}
 
 
 def check(name: str, code: int) -> None:

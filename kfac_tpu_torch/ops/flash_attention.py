@@ -28,8 +28,11 @@ import torch
 from kfac_tpu_torch.ops import build
 
 NEG_INF = -1e30
-# the head dims the kernel is built for: the tiny LM, the flagship, `large`
-HEAD_DIMS = (32, 128, 256)
+# the head dims the kernel is built for: the char_lm gate, the tiny LM, most
+# public decoders (the flagship's width at 8 heads), the flagship, `large`
+HEAD_DIMS = (16, 32, 64, 128, 256)
+# the 16-bit forms' head dims: a 16-value row is under their TMA swizzle span
+HEAD_DIMS_16 = (32, 64, 128, 256)
 
 
 def attend_partials_einsum(q, k, v, q_offset, k_offset, causal):
@@ -84,7 +87,7 @@ def exact_inputs(b, s, h, d, dtype, gen: torch.Generator):
     (the rest 0); key 0 is all ones, so every row's maximum logit is in
     the first key tile; every other key is all ones but one 0, so every p
     is 1 or ``exp(-D^-0.5)``, which lies at least 0.01 of a bf16 and an
-    f16 step from a rounding boundary at D = 32, 128, 256; v holds the
+    f16 step from a rounding boundary at D = 32, 64, 128, 256; v holds the
     integers -2..2, so P V's sums of at most 1024 in steps of 2^-11 are
     exact in f32 in any order. Rounding p, or not, then moves acc, and
     rounding ``q * scale`` to 16 bits moves m."""
@@ -121,13 +124,20 @@ def _flash_partials_kernel(q, k, v, q_offset: int, k_offset: int, causal: bool):
     """Launch the CUDA kernel: the forward of :func:`flash_attention_partials`
     on the card. Contiguous (B, S, H, D) inputs of one dtype of ``ENTRY``
     on 16-byte boundaries (the f32 kernel stages them by 16-byte copies,
-    the 16-bit ones by TMA), D in ``HEAD_DIMS``; acc, m and l are f32."""
+    the 16-bit ones by TMA), D in ``HEAD_DIMS`` (``HEAD_DIMS_16`` in bf16
+    and f16); acc, m and l are f32."""
     b, s_q, h, d = q.shape
     s_k = k.shape[1]
     if k.shape != (b, s_k, h, d) or v.shape != k.shape:
         raise ValueError(f'q, k, v shapes disagree: {q.shape}, {k.shape}, {v.shape}')
     if d not in HEAD_DIMS:
         raise ValueError(f'the flash attention kernel takes head dims {HEAD_DIMS}, not {d}')
+    if q.dtype != torch.float32 and d not in HEAD_DIMS_16:
+        raise ValueError(
+            f'the flash attention kernel\'s bf16 and f16 forms take head dims {HEAD_DIMS_16}, '
+            f'not {d} (a {d}-value row is under their 64-byte TMA swizzle span; head dim 16 '
+            'runs in float32 only)'
+        )
     for t in (q, k, v):
         if t.device.type != 'cuda':
             raise ValueError(f'flash attention runs on cuda or cpu, not {t.device}')
@@ -151,6 +161,8 @@ def _flash_partials_kernel(q, k, v, q_offset: int, k_offset: int, causal: bool):
         )
     build.check('flash_attn', code)
     build.count(flash_attention_partials, q.dtype)
+    by_d = flash_attention_partials.launches_by_head_dim
+    by_d[d] = by_d.get(d, 0) + 1
     return acc, m, l
 
 
@@ -180,10 +192,11 @@ def flash_attention_partials(q, k, v, q_offset=0, k_offset=0, causal=True):
     q: (B, S_q, H, D); k, v: (B, S_k, H, D); offsets are the chunks' global
     positions. Returns ``(acc, m, l)``: (B, S_q, H, D) f32 and (B, H, S_q)
     twice, mergeable by ``models.attention._merge``. Differentiable. Each
-    kernel launch adds one to ``flash_attention_partials.launches`` and to
-    ``launches_by_dtype[q.dtype]``.
+    kernel launch adds one to ``flash_attention_partials.launches``, to
+    ``launches_by_dtype[q.dtype]`` and to ``launches_by_head_dim[D]``.
     """
     return _FlashPartials.apply(q, k, v, int(q_offset), int(k_offset), bool(causal))
 
 
+flash_attention_partials.launches_by_head_dim = {}
 build.reset_counts(flash_attention_partials)

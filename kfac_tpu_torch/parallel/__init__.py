@@ -2,12 +2,14 @@
 ``torch.distributed`` process groups, its collectives, the KAISA engine,
 the training grid's model, seq and expert axes with the tensor-parallel
 layers and the expert-parallel FFN, the pipeline grid with the pipelined
-LM and its K-FAC engine, the cross-process helpers and a launcher for
+LM (GPipe, 1F1B and the interleaved schedule) and its K-FAC engine, the cross-process helpers and a launcher for
 local worlds."""
 
 from kfac_tpu_torch.parallel import (
     collectives,
     expert_parallel,
+    interleaved,
+    interleaved_scan,
     launch,
     mesh,
     multihost,
@@ -25,6 +27,7 @@ from kfac_tpu_torch.parallel.kaisa import (
     build_buckets,
     build_stores,
 )
+from kfac_tpu_torch.parallel.interleaved_scan import InterleavedPipelinedLM, logical_to_stack
 from kfac_tpu_torch.parallel.launch import spawn_world
 from kfac_tpu_torch.parallel.mesh import (
     KaisaGrid,
@@ -41,6 +44,7 @@ __all__ = [
     'DistributedKFAC',
     'EPSwitchFFN',
     'ExpertParallelKFAC',
+    'InterleavedPipelinedLM',
     'KaisaGrid',
     'PipelineGrid',
     'PipelineKFAC',
@@ -49,6 +53,9 @@ __all__ = [
     'TrainGrid',
     'combined_value_stats_and_grad',
     'expert_parallel',
+    'interleaved',
+    'interleaved_scan',
+    'logical_to_stack',
     'pipeline',
     'pipeline_mesh',
     'build_buckets',

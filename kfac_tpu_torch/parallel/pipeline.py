@@ -126,7 +126,9 @@ class PipelinedLM(nn.Module):
 
     ``n_microbatches`` must divide the batch, and the data axis each
     microbatch. ``schedule`` is ``'gpipe'`` or ``'1f1b'`` (``'interleaved'``
-    raises); ``remat`` checkpoints each GPipe stage application.
+    raises: it is :class:`~kfac_tpu_torch.parallel.interleaved_scan.
+    InterleavedPipelinedLM`'s); ``remat`` checkpoints each GPipe stage
+    application.
     ``skip_layers`` and ``routed_layers`` go to the stage's
     ``register_model`` (a routed layer inside a stage raises
     ``NotImplementedError``, as in the JAX package). On a grid with a
@@ -165,14 +167,17 @@ class PipelinedLM(nn.Module):
         )
         if schedule not in SCHEDULES:
             raise ValueError(f"unknown schedule {schedule!r}: 'gpipe', '1f1b', or 'interleaved'")
-        if schedule == 'interleaved':
+        if schedule == 'interleaved' and not self._executes_interleaved():
             raise ValueError(
                 "the 'interleaved' schedule requires InterleavedPipelinedLM "
-                '(parallel/interleaved_scan.py), which is not ported to kfac_tpu_torch yet'
+                '(parallel/interleaved_scan.py)'
             )
         self.grid = grid
         self.schedule = schedule
-        self.n_stages = grid.n_stages
+        # logical stages: pipe ranks x chunks a rank (1 here; the interleaved
+        # subclass's virtual_chunks), so the stage modules and the registry
+        # are built once
+        self.n_stages = grid.n_stages * self._chunks_per_rank()
         self.n_microbatches = n_microbatches
         self.d_model = d_model
         self.dtype = dtype
@@ -192,14 +197,16 @@ class PipelinedLM(nn.Module):
         with torch.no_grad():
             self.embed.weight.normal_(0.0, 1.0, generator=gen)
             self.pos_embed.normal_(0.0, 0.02, generator=gen)
-        for s in range(self.n_stages):  # every stage's draws, this rank's stage kept
+        mine = []
+        for s in range(self.n_stages):  # every stage's draws, this rank's kept
             stage = stage_module()
             _draw(stage, gen)
-            if s == grid.stage:
-                self.stage = stage
+            if s % grid.n_stages == grid.stage:  # logical stage s = c * p + rank
+                mine.append(stage)
+        self.stage = self._stage_of(mine)
         x = torch.zeros((1, 8, d_model), dtype=dtype)
         with torch.no_grad():
-            out_shape = tuple(self.stage(x).shape)
+            out_shape = tuple(mine[0](x).shape)
         if out_shape != tuple(x.shape):
             raise ValueError(
                 f'stage module must map (B, S, {d_model}) to itself (pipeline stages '
@@ -225,8 +232,22 @@ class PipelinedLM(nn.Module):
             self._shard(tp_overrides)
         # the first point-to-point call of a group must involve all its
         # ranks under NCCL: one collective over the pipe group first
-        if self.n_stages > 1:
+        if grid.n_stages > 1:
             dist.all_reduce(torch.zeros(1, device=device), group=grid.pipe_group)
+
+    def _chunks_per_rank(self) -> int:
+        """Model chunks a pipeline rank holds (1 here; the interleaved
+        subclass returns ``virtual_chunks``)."""
+        return 1
+
+    def _executes_interleaved(self) -> bool:
+        """Whether this class runs the single-slot interleaved schedule."""
+        return False
+
+    def _stage_of(self, mine: list[nn.Module]) -> nn.Module:
+        """This rank's ``stage`` module from its logical stages' modules
+        (one here)."""
+        return mine[0]
 
     def _register(self) -> registry_lib.Registry:
         return registry_lib.register_model(
@@ -348,10 +369,15 @@ class PipelinedLM(nn.Module):
         self.zero_grad(set_to_none=True)
         total = float(targets.numel() * self.grid.dp)
         taps = capture_lib.Taps(self.stage_registry) if capture else None
-        run = self._gpipe if self.schedule == 'gpipe' else self._one_f_one_b
+        run = self._schedule_fn()
         with taps if capture else contextlib.nullcontext():
             loss = run(tokens, targets, total, taps or _Off())
         return self._reduce(loss, taps)
+
+    def _schedule_fn(self) -> Callable:
+        """The schedule's body: ``run(tokens, targets, total, taps) ->
+        loss``."""
+        return self._gpipe if self.schedule == 'gpipe' else self._one_f_one_b
 
     def _feed(self, tokens: torch.Tensor):
         """Stage 0's embedded microbatches and a leaf view of them (the
@@ -573,7 +599,7 @@ class PipelineKFAC:
     def _vg_reduce(self, terms: torch.Tensor, vg_sum: torch.Tensor) -> torch.Tensor:
         """Every stage's kl-clip sum: this stage's, all-reduced over the
         pipe group on the device."""
-        if self.n_stages == 1:
+        if self.grid.n_stages == 1:
             return vg_sum
         return collectives.all_reduce_sum([vg_sum.reshape(1)], self.grid.pipe_group)[0][0]
 
@@ -606,8 +632,9 @@ class PipelineKFAC:
     def describe(self) -> str:
         """Registration and placement."""
         return '\n'.join([
-            f'PipelineKFAC: {len(self.registry.layers)} layers per stage x {self.n_stages} '
-            f'stages (pipe {self.n_stages} x data {self.grid.dp} x model {self.grid.model}), '
+            f'PipelineKFAC: {len(self.registry.layers)} layers per rank x {self.grid.n_stages} '
+            f'ranks ({self.n_stages} logical stages; pipe {self.grid.n_stages} x data '
+            f'{self.grid.dp} x model {self.grid.model}), '
             'placement=MEM-OPT among pipe peers (stage-local state), decomposition '
             f'round-robin over dp={self.grid.dp}, method={self.config.compute_method.name}',
             self.config.describe(),
@@ -627,4 +654,5 @@ class PipelineKFAC:
         return {
             'engine': 'PipelineKFAC', 'n_stages': self.n_stages, 'dp': self.grid.dp,
             'model': self.grid.model, 'stage': self.grid.stage,
+            'virtual_chunks': self.model._chunks_per_rank(),
         }

@@ -124,6 +124,11 @@ class Trainer:
             None.
         device: where the model lies, ``'cuda'`` unless the caller passes
             another.
+        local_batches: with a distributed engine, each step's batch is
+            already this rank's row block (a per-rank loader,
+            ``kfac_tpu_torch.data.lm_batches(..., rank, world)``): no row
+            block is cut from it (a grid with a ``seq`` axis still takes its
+            sequence positions).
     """
 
     model: nn.Module
@@ -135,6 +140,7 @@ class Trainer:
     fleet: Any = None
     run_id: str | None = None
     device: str | torch.device = 'cuda'
+    local_batches: bool = False
 
     def __post_init__(self) -> None:
         self.device = resolve_device(self.device)
@@ -181,8 +187,16 @@ class Trainer:
     def _local(self, batch):
         """This rank's part of a global batch: its row block, and its
         sequence shard on a grid with a ``seq`` axis (the batch itself
-        without a distributed engine)."""
-        return self.kfac.mesh.local_tokens(batch) if self._distributed() else batch
+        without a distributed engine); with ``local_batches`` the batch is
+        the row block already."""
+        if not self._distributed():
+            return batch
+        grid = self.kfac.mesh
+        if not self.local_batches:
+            return grid.local_tokens(batch)
+        if getattr(grid, 'seq', 1) == 1 and not getattr(grid, 'zigzag', False):
+            return batch
+        return pytree.tree_map_only(torch.Tensor, grid.take_seq, batch)
 
     def _reduce(self, grads, loss):
         """The mean grads and loss over the ranks, each shard's over the

@@ -64,7 +64,9 @@ def test_port_file_imports_no_jax_and_no_kfac_tpu(path):
     'parallel/tensor_parallel.py', 'models/attention.py', 'models/transformer.py',
     'ops/losses.py', 'layers/capture.py', 'amp.py', 'examples/train_amp.py', 'models/mlp.py',
     'ops/sym_cov.py', 'ops/flash_attention.py', 'ops/factors.py', 'preconditioner.py',
-    'parallel/expert_parallel.py', 'parallel/pipeline.py',
+    'parallel/expert_parallel.py', 'parallel/pipeline.py', 'parallel/interleaved.py',
+    'parallel/interleaved_scan.py', 'examples/common.py', 'examples/train_language_model.py',
+    'examples/train_cifar_resnet.py', 'examples/train_imagenet_resnet.py', 'utils/native_loader.py',
 ])
 def test_checkpoint_and_resilience_modules_are_covered(rel):
     path = ROOT / 'kfac_tpu_torch' / rel
@@ -155,3 +157,16 @@ def test_amp_entry_points_default_to_cuda_and_raise_without_gpu(no_gpu):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     assert amp.init(device='cpu').scale.device.type == 'cpu'
+
+
+def test_example_trainers_default_to_cuda_and_raise_without_gpu(no_gpu):
+    from kfac_tpu_torch.examples import train_cifar_resnet, train_imagenet_resnet, train_language_model
+
+    for module in (train_language_model, train_cifar_resnet, train_imagenet_resnet):
+        assert module.parse_args([]).device == 'cuda'
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            module.main(['--limit-steps', '1'])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        from kfac_tpu_torch import bench_accuracy
+
+        bench_accuracy.task_char_lm()

@@ -130,8 +130,16 @@ def test_sym_cov_ema_kernel_matches_plain_on_card(cuda_device, shape):
 
 def test_flash_kernel_raises_for_a_head_dim_it_was_not_built_for():
     # checked before the device, so this runs without a card
-    q = torch.zeros(1, 4, 1, 64, device='meta')
+    q = torch.zeros(1, 4, 1, 48, device='meta')
     with pytest.raises(ValueError, match='head dims'):
+        flash_attention._flash_partials_kernel(q, q, q, 0, 0, True)
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16], ids=['bf16', 'f16'])
+def test_flash_16_bit_forms_raise_at_head_dim_16(dtype):
+    # head dim 16 runs in f32 only; checked before the device
+    q = torch.zeros(1, 4, 1, 16, device='meta', dtype=dtype)
+    with pytest.raises(ValueError, match='float32 only'):
         flash_attention._flash_partials_kernel(q, q, q, 0, 0, True)
 
 
@@ -231,7 +239,8 @@ def test_klclip_scale_many_is_bitwise_plain_on_card(cuda_device, case):
     'q_off,k_off,s,d',
     [(0, 0, 512, 128), (64, 0, 100, 128), (0, 256, 128, 128), (16, 0, 192, 128),
      (0, 0, 128, 32), (16, 0, 100, 32), (0, 0, 256, 256), (48, 0, 100, 256),
-     (0, 128, 96, 256)],
+     (0, 128, 96, 256), (0, 0, 64, 16), (16, 0, 100, 16), (0, 64, 128, 16),
+     (0, 0, 512, 64), (64, 0, 100, 64), (0, 256, 128, 64)],
 )
 def test_flash_kernel_matches_plain_on_card(cuda_device, q_off, k_off, s, d):
     g = torch.Generator(cuda_device).manual_seed(2)
@@ -599,7 +608,8 @@ def close_partials(got, want, dtype, exact):
     'q_off,k_off,s,d',
     [(0, 0, 512, 128), (64, 0, 100, 128), (0, 256, 128, 128), (16, 0, 192, 128),
      (0, 0, 128, 32), (16, 0, 100, 32), (0, 0, 256, 256), (48, 0, 100, 256),
-     (0, 128, 96, 256), (256, 0, 256, 128), (448, 0, 64, 128)],
+     (0, 128, 96, 256), (256, 0, 256, 128), (448, 0, 64, 128), (0, 0, 512, 64),
+     (64, 0, 100, 64), (0, 256, 128, 64)],
 )
 def test_flash_16_bit_kernel_at_ring_offsets_on_card(cuda_device, dtype, inputs, q_off, k_off, s, d):
     # the f32 test's offsets and the ring and zigzag steps of the flagship
@@ -617,7 +627,7 @@ def test_flash_16_bit_kernel_at_ring_offsets_on_card(cuda_device, dtype, inputs,
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16], ids=['bf16', 'f16'])
 @pytest.mark.parametrize('inputs', ['exact', 'normal'])
-@pytest.mark.parametrize('d', [32, 128, 256])
+@pytest.mark.parametrize('d', [32, 64, 128, 256])
 def test_flash_16_bit_kernel_matches_plain_on_card(cuda_device, dtype, inputs, d):
     gen = torch.Generator().manual_seed(8)
     if inputs == 'exact':
